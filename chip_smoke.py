@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Chip smoke for paddle_tpu_torch, the PyTorch/CUDA port: the quickest
-proof that the port builds, agrees with itself and serves on a GPU.
+proof that the port builds, agrees with itself, serves and trains on a
+GPU.
 
     python3 chip_smoke.py          # from the repo root, one NVIDIA GPU
 
 Phases, in order; any failure exits non-zero:
   1. build   — nvcc builds every CUDA kernel from paddle_tpu_torch/ops/
-               csrc into paddle_tpu_torch/build/; prints the build time
-               and the card's name and power limit (nvidia-smi).
+               csrc into paddle_tpu_torch/build/ (one nvcc per source, all
+               at once); prints the build time and the card's name and
+               power limit (nvidia-smi).
   2. kernels — each kernel against its plain PyTorch version on the card
-               at the decode path's shapes; times kernel, plain version
-               and the PyTorch library yardstick with CUDA events.
+               at its path's shapes (K3 at the decode shapes; K1 and the
+               two K2 kernels at the training slice's shape, a non-causal
+               and a ragged shape); times kernel, plain version and the
+               PyTorch library yardstick with CUDA events, beside the
+               kernel's bound.
   3. slice   — the decode-serving path at the full width of the repo's
                transformer (vocab 32000, d_model 512, 8 heads, 6 layers,
                max_seq_len 512; random weights from seed 7): a
@@ -22,6 +27,18 @@ Phases, in order; any failure exits non-zero:
                live splits a step's time by kernel.
   4. gpu/cpu — one 64-token prompt, prefill + 8 steps on the card and on
                the CPU: KV caches agree, tokens are identical.
+  5. train   — the training path at the transformer's full width
+               (`models.transformer.get_model()` defaults: batch 8 x seq
+               512, vocab 32000, d_model 512, 8 heads, 6 layers, d_ff
+               2048, Adam lr 1e-3; startup seed 7): fluid.Executor on
+               CUDAPlace(0) runs the startup program, then 10 Adam steps
+               on one seeded batch; the loss must be finite and fall, and
+               K1, K2-dq and K2-dkv must launch 6 times each per step.
+               Prints tokens/s, step ms, peak memory and a torch.profiler
+               breakdown of one step.
+  6. train gpu/cpu — a small transformer (2 layers, d_model 128, 2 heads
+               of 64, seq 96, dropout 0) from one startup scope carried
+               across: 2 steps on the card and on the CPU, losses agree.
 Prints a {"kernels": [...]} line and, last, the device line
 {"ok": true, "device": {...}}.  Without CUDA, or without the repo around
 it, it exits non-zero and prints no result.
@@ -155,6 +172,172 @@ def phase_kernels(torch, pk):
     return entry
 
 
+def flash_bound(kind, B, S, H, D, causal):
+    """Least time for one K1 / K2-dq / K2-dkv call: every byte it must move
+    once (its [B, S, H, D] operands and [B, H, S] row statistics) over HBM
+    bandwidth, or its flops over the fp32 peak, whichever is larger.  The
+    flops are 2 D per live (query, key) pair for each D-long product the
+    function needs: 2 for the forward (q.k, p.v), 3 for dq (q.k, do.v,
+    ds.k), 4 for dk/dv (q.k, do.v, p.do, ds.q)."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    heads, elems = B * H, B * S * H * D
+    products, tensors, rowstats = {"fwd": (2, 4, 1), "dq": (3, 5, 2),
+                                   "dkv": (4, 6, 2)}[kind]
+    flops = 2 * D * pairs * heads * products
+    nbytes = 4 * (tensors * elems + rowstats * heads * S)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def phase_flash_kernels(torch, pk):
+    """K1 and both K2 kernels against their plain versions at the training
+    slice's shape (q/k/v as column slices of one fused qkv tensor, as the
+    program hands them over), a non-causal and a ragged shape; then
+    device times at the slice's shape."""
+    import torch.nn.functional as F
+    cases = [("slice", 8, 512, 8, 64, True),
+             ("non-causal", 4, 256, 4, 64, False),
+             ("ragged", 2, 200, 2, 128, True)]
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    entries = {}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for name, B, S, H, D, causal in cases:
+        qkv = torch.randn(B, S, 3 * H * D, device="cuda", generator=g)
+        q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, S, H, D)
+                   for i in range(3))
+        o, lse = pk.flash_attention_fwd(q, k, v, causal)
+        ro, rlse = pk.flash_attention_fwd_reference(q, k, v, causal)
+        do = torch.randn(B, S, H, D, device="cuda", generator=g)
+        di = pk._flash_di(ro, do)
+        dq = pk.flash_attention_bwd_dq(q, k, v, do, rlse, di, causal)
+        dk, dv = pk.flash_attention_bwd_dkv(q, k, v, do, rlse, di, causal)
+        rdq = pk.flash_attention_bwd_dq_reference(q, k, v, do, rlse, di,
+                                                  causal)
+        rdk, rdv = pk.flash_attention_bwd_dkv_reference(q, k, v, do, rlse,
+                                                        di, causal)
+        torch.cuda.synchronize()
+        for what, got, want in (("o", o, ro), ("lse", lse, rlse)):
+            err = float((got - want).abs().max())
+            check(bool(((got - want).abs()
+                        <= 1e-5 + 1e-5 * want.abs()).all()),
+                  "flash %s %s disagrees with the plain version (max abs "
+                  "err %.3g, rtol 1e-5 atol 1e-5)" % (name, what, err))
+            errs["fwd"] = max(errs["fwd"], err)
+        # the gradients sum over S in another order: atol scaled by size
+        for kind, what, got, want in (("dq", "dq", dq, rdq),
+                                      ("dkv", "dk", dk, rdk),
+                                      ("dkv", "dv", dv, rdv)):
+            err = float((got - want).abs().max())
+            atol = 1e-4 * float(want.abs().max())
+            check(bool(((got - want).abs()
+                        <= atol + 1e-4 * want.abs()).all()),
+                  "flash %s %s disagrees with the plain version (max abs "
+                  "err %.3g, atol %.3g = 1e-4 max|%s|, rtol 1e-4)"
+                  % (name, what, err, atol, what))
+            errs[kind] = max(errs[kind], err)
+        # end to end: autograd through K1 + K2 against autograd through
+        # the plain forward, on the same cotangent
+        kin = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        rin = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        kgrads = torch.autograd.grad(
+            pk.flash_attention(*kin, causal=causal), kin, do)
+        rgrads = torch.autograd.grad(
+            pk.flash_attention_reference(*rin, causal=causal), rin, do)
+        auto_err = 0.0
+        for what, got, want in zip(("dq", "dk", "dv"), kgrads, rgrads):
+            err = float((got - want).abs().max())
+            atol = 1e-4 * float(want.abs().max())
+            check(bool(((got - want).abs()
+                        <= atol + 1e-4 * want.abs()).all()),
+                  "flash %s autograd %s disagrees with the plain version's "
+                  "autograd (max abs err %.3g, atol %.3g, rtol 1e-4)"
+                  % (name, what, err, atol))
+            auto_err = max(auto_err, err)
+        log("kernel flash_attention [%s] B=%d S=%d H=%d D=%d causal=%s: "
+            "max abs err o %.3g lse %.3g dq %.3g dk %.3g dv %.3g; "
+            "autograd K1+K2 vs plain autograd %.3g"
+            % (name, B, S, H, D, causal, float((o - ro).abs().max()),
+               float((lse - rlse).abs().max()),
+               float((dq - rdq).abs().max()), float((dk - rdk).abs().max()),
+               float((dv - rdv).abs().max()), auto_err))
+        if name != "slice":
+            continue
+        # timings at the slice's shape; the yardstick is SDPA in fp32
+        # (timed here only; the port never calls it)
+        ms = {"fwd": median_ms(torch, lambda: pk.flash_attention_fwd(
+                  q, k, v, causal), flush),
+              "dq": median_ms(torch, lambda: pk.flash_attention_bwd_dq(
+                  q, k, v, do, rlse, di, causal), flush),
+              "dkv": median_ms(torch, lambda: pk.flash_attention_bwd_dkv(
+                  q, k, v, do, rlse, di, causal), flush)}
+        plain = {"fwd": median_ms(torch, lambda: pk.
+                                  flash_attention_fwd_reference(
+                                      q, k, v, causal), flush),
+                 "dq": median_ms(torch, lambda: pk.
+                                 flash_attention_bwd_dq_reference(
+                                     q, k, v, do, rlse, di, causal), flush),
+                 "dkv": median_ms(torch, lambda: pk.
+                                  flash_attention_bwd_dkv_reference(
+                                      q, k, v, do, rlse, di, causal),
+                                  flush)}
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        sdpa_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal), flush)
+        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        sdo = do.transpose(1, 2)
+        sdpa_bwd = median_ms(torch, lambda: torch.autograd.grad(
+            so, (qs, ks, vs), sdo, retain_graph=True), flush)
+        sdpa_err = float((so.detach().transpose(1, 2) - ro).abs().max())
+        log("kernel flash_attention [slice]: SDPA fp32 forward %.4f ms, "
+            "backward %.4f ms (dq, dk, dv in one call), forward+backward "
+            "%.4f ms; SDPA vs plain o max abs err %.3g"
+            % (sdpa_fwd, sdpa_bwd, sdpa_fwd + sdpa_bwd, sdpa_err))
+        names = {"fwd": ("flash_attention_fwd",
+                         "paddle_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+                         "paddle_tpu/ops/pallas_kernels.py:243", sdpa_fwd),
+                 "dq": ("flash_attention_bwd_dq",
+                        "paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                        "paddle_tpu/ops/pallas_kernels.py:362", sdpa_bwd),
+                 "dkv": ("flash_attention_bwd_dkv",
+                         "paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                         "paddle_tpu/ops/pallas_kernels.py:414", sdpa_bwd)}
+        for kind, (kname, src, rep, lib_ms) in names.items():
+            bound_ms, bound_by, nbytes, flops = flash_bound(
+                kind, B, S, H, D, causal)
+            log("kernel %s [slice] B=%d S=%d H=%d D=%d causal: kernel "
+                "%.4f ms, plain %.4f ms, SDPA %.4f ms, bound %.4f ms (%s; "
+                "%d bytes, %d flops) -> %.1f%% of bound, %.1f TFLOP/s"
+                % (kname, B, S, H, D, ms[kind], plain[kind], lib_ms,
+                   bound_ms, bound_by, nbytes, flops,
+                   100.0 * bound_ms / ms[kind], flops / ms[kind] / 1e9))
+            entries[kind] = {"name": kname, "route": "cuda", "source": src,
+                             "replaces": rep, "ms": ms[kind],
+                             "plain_ms": plain[kind], "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": lib_ms}
+    del flush
+    for kind, e in entries.items():
+        e["max_abs_err"] = errs[kind]
+    return [entries["fwd"], entries["dq"], entries["dkv"]]
+
+
+def profile_rows(torch, prof, steps):
+    """(device ms per step, [(us per step, launches per step, name)]) from
+    a torch.profiler window of `steps` steps, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / steps, e.count / steps, e.key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows) / 1e3, rows
+
+
 def phase_slice(torch, pk, decode, batcher, art):
     t0 = time.time()
     pred = decode.load_decode_predictor(art)
@@ -247,14 +430,7 @@ def phase_profile(torch, pred, steps=20):
         for _ in range(steps):
             sess.decode()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((us / steps, e.count // steps, e.key))
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows) / 1e3
+    device_ms, rows = profile_rows(torch, prof, steps)
     if not rows:
         log("profile: torch.profiler saw no device time; device busy "
             "share not measured (host %.3f ms/step)" % step_ms)
@@ -264,7 +440,7 @@ def phase_profile(torch, pred, steps=20):
         % (steps, step_ms, device_ms, 100 * device_ms / step_ms,
            100 - 100 * device_ms / step_ms))
     for us, count, key in rows[:10]:
-        log("profile:   %9.2f us/step  %3d launches/step  %s"
+        log("profile:   %9.2f us/step  %5.1f launches/step  %s"
             % (us, count, key[:110]))
     log(json.dumps({"profile": {
         "steps": steps, "host_step_ms": step_ms,
@@ -313,6 +489,172 @@ def phase_gpu_vs_cpu(torch, decode, art, gpu_pred):
     log("gpu/cpu: tokens gpu %s cpu %s" % (gt, ct))
 
 
+TRAIN_STEPS = 10
+TRAIN_SEED = 7
+
+
+def _batch(rng, batch, seq, vocab):
+    """One seeded next-token batch: labels are the tokens shifted by one."""
+    tokens = rng.randint(0, vocab, size=(batch, seq + 1)).astype(np.int64)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def _kernel_group(key):
+    """Which part of the step a device kernel belongs to, by its name."""
+    if "paddle_flash" in key:
+        return "K1/K2 flash attention"
+    for tag in ("gemm", "gemv", "splitKreduce"):
+        if tag in key:
+            return "matmul (cuBLAS/CUTLASS, fp32)"
+    for tag, group in (("SoftMax", "log_softmax"),
+                       ("reduce_kernel", "reductions"),
+                       ("index", "gather/scatter"),
+                       ("embedding", "gather/scatter"),
+                       ("elementwise", "elementwise"),
+                       ("Memset", "memset/copy"), ("Memcpy", "memset/copy"),
+                       ("copy", "memset/copy")):
+        if tag in key:
+            return group
+    return "other"
+
+
+def phase_train(torch, pk, fluid, transformer):
+    """The training path at full width: startup, then TRAIN_STEPS Adam
+    steps on one repeated seeded batch (the loss has to fall).  Launch
+    counts are zeroed just before the steps and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+    main, startup, _, avg_loss, _, _ = transformer.get_model()
+    startup.random_seed = TRAIN_SEED
+    B, S = 8, 512
+    n_layers = 6
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    check(exe.device.type == "cuda", "executor not on the card")
+    scope = fluid.Scope()
+    feed = _batch(np.random.RandomState(TRAIN_SEED), B, S, 32000)
+    with fluid.scope_guard(scope):
+        t0 = time.time()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        n_params = sum(int(np.prod(p.shape))
+                       for p in main.all_parameters())
+        log("train: startup on %s in %.2f s (%d parameters, %d persistable "
+            "tensors)" % (exe.device, time.time() - t0, n_params,
+                          len(list(scope.keys()))))
+        torch.cuda.reset_peak_memory_stats()
+        pk.reset_launch_counts()
+        losses, step_s = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, = exe.run(main, feed=feed, fetch_list=[avg_loss])
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        counts = dict(pk.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        log("train: losses %s" % ["%.5f" % x for x in losses])
+        check(all(np.isfinite(losses)), "non-finite training loss")
+        check(losses[-1] < losses[0] - 0.1 and min(losses[-3:]) < losses[0],
+              "the loss did not fall over %d steps on one batch: %s"
+              % (TRAIN_STEPS, losses))
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            check(counts[name] == n_layers * TRAIN_STEPS,
+                  "%s launched %d times in %d steps x %d layers"
+                  % (name, counts[name], TRAIN_STEPS, n_layers))
+        check(counts["decode_attention"] == 0,
+              "decode_attention launched on the training path")
+        steady = sorted(step_s[1:])
+        step_ms = float(np.median(steady)) * 1e3
+        stats = {"batch": B, "seq": S, "steps": TRAIN_STEPS,
+                 "losses": losses, "step_ms": [x * 1e3 for x in step_s],
+                 "median_step_ms": step_ms,
+                 "tokens_per_s": B * S / (step_ms / 1e3),
+                 "first_step_ms": step_s[0] * 1e3,
+                 "launches": counts, "peak_mem_bytes": peak}
+        log("train: %d steps of %d tokens: median step %.3f ms (first "
+            "%.1f ms) -> %.1f tokens/s; launches per step: K1 %g, K2-dq "
+            "%g, K2-dkv %g; peak memory %.1f MiB"
+            % (TRAIN_STEPS, B * S, step_ms, step_s[0] * 1e3,
+               stats["tokens_per_s"],
+               counts["flash_attention_fwd"] / TRAIN_STEPS,
+               counts["flash_attention_bwd_dq"] / TRAIN_STEPS,
+               counts["flash_attention_bwd_dkv"] / TRAIN_STEPS,
+               peak / 2 ** 20))
+        log(json.dumps({"train": stats}))
+
+        # where one step's time goes
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[avg_loss])
+            prof_step_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, rows = profile_rows(torch, prof, 1)
+    if not rows:
+        log("train profile: torch.profiler saw no device time; device "
+            "busy share not measured")
+        return counts
+    n_launches = sum(r[1] for r in rows)
+    n_ops = len(main.global_block().ops)
+    log("train profile: one step, host %.3f ms under the profiler (%.3f "
+        "ms without): %d program ops, %d kernel launches, device busy "
+        "%.3f ms = %.1f%% of the unprofiled step (idle %.1f%%)"
+        % (prof_step_ms, step_ms, n_ops, n_launches, device_ms,
+           100 * device_ms / step_ms, 100 - 100 * device_ms / step_ms))
+    groups = {}
+    for us, count, key in rows:
+        g = groups.setdefault(_kernel_group(key), [0.0, 0])
+        g[0] += us
+        g[1] += count
+    for name, (us, count) in sorted(groups.items(), key=lambda x: -x[1][0]):
+        log("train profile:   %10.2f us  %5d launches  [%s]"
+            % (us, count, name))
+    for us, count, key in rows[:15]:
+        log("train profile:   %10.2f us  %5d launches  %s"
+            % (us, count, key[:110]))
+    log(json.dumps({"train_profile": {
+        "host_step_ms": step_ms, "device_busy_ms": device_ms,
+        "program_ops": n_ops, "launches": n_launches,
+        "groups": {k: {"us": v[0], "launches": v[1]}
+                   for k, v in groups.items()},
+        "top": [{"kernel": k[:160], "us": us, "launches": c}
+                for us, c, k in rows[:15]]}}))
+    return counts
+
+
+def phase_train_gpu_vs_cpu(torch, fluid, transformer):
+    """A small transformer from one startup scope, carried across: two
+    Adam steps on the card and on the CPU give the same losses."""
+    kw = dict(batch_size=2, seq_len=96, vocab_size=256, d_model=128,
+              n_heads=2, n_layers=2, d_ff=256)
+    main, startup, _, avg_loss, _, _ = transformer.get_model(**kw)
+    for op in main.global_block().ops:
+        if op.type == "dropout":
+            op.attrs["dropout_prob"] = 0.0
+    startup.random_seed = TRAIN_SEED
+    cpu = fluid.CPUPlace()
+    cpu_scope = fluid.Scope()
+    with fluid.scope_guard(cpu_scope):
+        fluid.Executor(cpu).run(startup)
+    init = fluid.scope_to_jax(cpu_scope)
+    gpu_scope = fluid.scope_from_jax(init, fluid.Scope(),
+                                     fluid.CUDAPlace(0))
+    feed = _batch(np.random.RandomState(3), 2, 96, 256)
+    losses = {}
+    for name, place, scope in (("gpu", fluid.CUDAPlace(0), gpu_scope),
+                               ("cpu", cpu, cpu_scope)):
+        exe = fluid.Executor(place)
+        with fluid.scope_guard(scope):
+            losses[name] = [float(exe.run(main, feed=feed,
+                                          fetch_list=[avg_loss])[0])
+                            for _ in range(2)]
+    # matmuls and attention sum in other orders on the two devices
+    err = max(abs(a - c) / abs(c) for a, c in zip(losses["gpu"],
+                                                   losses["cpu"]))
+    check(err <= 1e-4, "train gpu/cpu losses disagree: gpu %s cpu %s "
+          "(max rel err %.3g > 1e-4)" % (losses["gpu"], losses["cpu"], err))
+    log("train gpu/cpu: losses gpu %s cpu %s, max rel err %.3g (tolerance "
+        "1e-4)" % (losses["gpu"], losses["cpu"], err))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -320,7 +662,9 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.inference import decode
+    from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import pallas_kernels as pk
     from paddle_tpu_torch.serving import batcher
@@ -342,6 +686,7 @@ def main():
     log(smi)
     # 2. kernels against their plain versions
     entry = phase_kernels(torch, pk)
+    flash_entries = phase_flash_kernels(torch, pk)
     # 3. the decode-serving slice at full width
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "lm")
@@ -354,8 +699,15 @@ def main():
         phase_profile(torch, pred)
         # 4. the port on the card against the port on the CPU
         phase_gpu_vs_cpu(torch, decode, art, pred)
+    del pred
+    torch.cuda.empty_cache()
+    # 5. the training slice at full width, 6. and on the card vs the CPU
+    counts = phase_train(torch, pk, fluid, transformer)
+    for e in flash_entries:
+        e["launches"] = counts[e["name"]]
+    phase_train_gpu_vs_cpu(torch, fluid, transformer)
     log(smi)
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": [entry] + flash_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,33 @@
+"""paddle_tpu_torch.fluid — the port's Fluid core, after paddle_tpu.fluid:
+`fluid.layers` build a Program, `append_backward` differentiates it with
+generic `<type>_grad` ops, an optimizer appends its update ops, and the
+Executor runs the program eagerly, op by op, on a torch device.
+
+    import paddle_tpu_torch.fluid as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ...layers..., fluid.optimizer.Adam(1e-3).minimize(loss)
+    exe = fluid.Executor(fluid.CUDAPlace(0))     # or fluid.CPUPlace()
+    exe.run(startup)
+    exe.run(main, feed={...}, fetch_list=[loss])
+"""
+
+from . import (backward, core, executor, framework, initializer, io,
+               layers, optimizer, unique_name)
+from .backward import append_backward
+from .core import CPUPlace, CUDAPlace
+from .executor import Executor, Scope, as_numpy, global_scope, scope_guard
+from .framework import (Operator, Parameter, Program, Variable,
+                        default_main_program, default_startup_program,
+                        program_guard)
+from .io import scope_from_jax, scope_to_jax
+from .param_attr import ParamAttr
+
+__all__ = [
+    "backward", "core", "executor", "framework", "initializer", "io",
+    "layers", "optimizer", "unique_name", "append_backward", "CPUPlace",
+    "CUDAPlace", "Executor", "Scope", "as_numpy", "global_scope",
+    "scope_guard", "Operator", "Parameter", "Program", "Variable",
+    "default_main_program", "default_startup_program", "program_guard",
+    "scope_from_jax", "scope_to_jax", "ParamAttr",
+]

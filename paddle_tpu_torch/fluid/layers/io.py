@@ -1,0 +1,21 @@
+"""Data-input layers, after paddle_tpu/fluid/layers/io.py: `data` declares
+a feed variable (the reader pipeline is not ported)."""
+
+from ..layer_helper import LayerHelper
+
+__all__ = ["data"]
+
+
+def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
+         stop_gradient=True):
+    if lod_level:
+        raise NotImplementedError(
+            "data(lod_level=%d): LoD (ragged) feeds are not ported to "
+            "paddle_tpu_torch yet" % lod_level)
+    helper = LayerHelper("data", name=name)
+    shape = list(shape)
+    if append_batch_size:
+        shape = [-1] + shape
+    return helper.create_global_variable(
+        name=name, shape=shape, dtype=dtype, lod_level=lod_level,
+        stop_gradient=stop_gradient, is_data=True)

@@ -4,8 +4,9 @@ Every `csrc/*.cu` compiles with nvcc into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), and
 loads through ctypes.  One nvcc process per source, all started
 together.  Libraries land in `paddle_tpu_torch/build/` under a name
-carrying the hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads as it is.
+carrying the hash of the source, the shared `csrc/*.cuh` headers and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+as it is.
 """
 
 import ctypes
@@ -54,8 +55,9 @@ def _sources():
 
 def _lib_path(src):
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(src))[0]
     return stem, os.path.join(BUILD_DIR, "lib%s_%s.so"

@@ -1,0 +1,93 @@
+"""Math / elementwise / reduction / activation op lowerings, after
+paddle_tpu/ops/math_ops.py: gelu, elementwise_add with fluid's `axis`
+broadcasting, mul (fc's matmul), sum, scale, mean and cumsum.  The
+matmuls are plain torch.matmul in fp32 (TF32 off), as the JAX package
+leaves them to XLA."""
+
+import numpy as np
+import torch
+
+from .registry import register_op
+
+
+@register_op("gelu")
+def _gelu(ctx):
+    """Exact erf GELU unless the `approximate` attr asks for the tanh
+    form."""
+    approx = "tanh" if ctx.attr("approximate", False) else "none"
+    return {"Out": torch.nn.functional.gelu(ctx.input("X"),
+                                            approximate=approx)}
+
+
+def _broadcast_y(x, y, axis):
+    """Fluid semantics: Y's shape matches a contiguous run of X's shape
+    starting at `axis` (axis == -1 aligns trailing dims)."""
+    if x.dim() == y.dim():
+        return y
+    if axis is None or axis == -1:
+        axis = x.dim() - y.dim()
+    # strip trailing size-1 dims the reference tolerates (e.g. [N,1] bias)
+    yshape = list(y.shape)
+    while len(yshape) > 1 and yshape[-1] == 1 and \
+            axis + len(yshape) > x.dim():
+        yshape = yshape[:-1]
+    return torch.reshape(y, [1] * axis + yshape
+                         + [1] * (x.dim() - axis - len(yshape)))
+
+
+@register_op("elementwise_add")
+def _elementwise_add(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    return {"Out": x + _broadcast_y(x, y, ctx.attr("axis", -1))}
+
+
+def _flatten2d(x, num_col_dims):
+    lead = int(np.prod(x.shape[:num_col_dims])) if num_col_dims > 0 else 1
+    return torch.reshape(x, (lead, -1))
+
+
+@register_op("mul")
+def _mul(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    xd = ctx.attr("x_num_col_dims", 1)
+    yd = ctx.attr("y_num_col_dims", 1)
+    out = torch.matmul(_flatten2d(x, xd), _flatten2d(y, yd))
+    return {"Out": torch.reshape(out, tuple(x.shape[:xd])
+                                 + tuple(y.shape[yd:]))}
+
+
+@register_op("sum")
+def _sum(ctx):
+    xs = ctx.inputs("X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": out}
+
+
+@register_op("scale")
+def _scale(ctx):
+    x = ctx.input("X")
+    s, b = ctx.attr("scale", 1.0), ctx.attr("bias", 0.0)
+    if ctx.attr("bias_after_scale", True):
+        return {"Out": x * s + b}
+    return {"Out": (x + b) * s}
+
+
+@register_op("mean")
+def _mean(ctx):
+    return {"Out": torch.mean(ctx.input("X"))}
+
+
+@register_op("cumsum")
+def _cumsum(ctx):
+    x = ctx.input("X")
+    axis = ctx.attr("axis", -1)
+    reverse = ctx.attr("reverse", False)
+    y = torch.flip(x, (axis,)) if reverse else x
+    out = torch.cumsum(y, dim=axis, dtype=x.dtype)
+    if ctx.attr("exclusive", False):
+        out = out - y  # exclusive prefix = inclusive - self
+    if reverse:
+        out = torch.flip(out, (axis,))
+    return {"Out": out}

@@ -8,9 +8,13 @@ on the card (never falling back from one to the other), and a count of
 the kernel's launches in `launch_counts`.
 
 Ported so far: K3, `decode_attention` with fp32 caches
-(csrc/decode_attention.cu).  The int8-cache branch, the head-slice entry
-and the other Pallas kernels (flash attention fwd/bwd, dequant matmul,
-fused bottleneck) are not ported yet.
+(csrc/decode_attention.cu); K1, the flash-attention forward
+(csrc/flash_attention_fwd.cu); K2, its backward dq and dk/dv kernels
+(csrc/flash_attention_bwd.cu), joined to K1 by a torch.autograd.Function.
+The `flash_attention` op, through which fluid programs reach K1 and K2,
+is registered here too.  The int8-cache branch, the head-slice entry and
+the other Pallas kernels (dequant matmul, fused bottleneck) are not
+ported yet.
 """
 
 import ctypes
@@ -21,7 +25,12 @@ import torch
 from . import _build
 
 __all__ = ["decode_attention", "decode_attention_reference",
-           "launch_counts", "reset_launch_counts"]
+           "flash_attention", "flash_attention_reference",
+           "flash_attention_fwd", "flash_attention_fwd_reference",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
+           "flash_attention_bwd_reference", "launch_counts",
+           "reset_launch_counts"]
 
 # Finite mask value (not -inf), as in the TPU kernels: exp(_NEG_INF -
 # finite) underflows to an exact 0 and a fully masked row stays finite.
@@ -33,7 +42,8 @@ _KERNEL_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 
 # kernel name -> launches of its CUDA kernel in this process (a call that
 # runs the plain version never counts)
-launch_counts = {"decode_attention": 0}
+launch_counts = {"decode_attention": 0, "flash_attention_fwd": 0,
+                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 _fns = {}
 
@@ -142,3 +152,368 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None):
                            "(cudaError %d)" % err)
     launch_counts["decode_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# flash attention: K1 (forward) and K2 (backward dq, dk/dv), the training
+# path's kernels.  q, k, v are [B, S, H, D] (the JAX package's public
+# layout); the kernels read any strides over B, S and H with D contiguous,
+# so the q/k/v column slices of a fused qkv projection go in without a
+# copy.  The row statistics lse and di are [B, H, S] fp32.
+# ---------------------------------------------------------------------------
+
+# head dims the CUDA kernels take: each thread owns D / 16 columns as
+# float4 groups 64 columns apart
+_FLASH_HEAD_DIMS = (64, 128)
+
+
+class _T4(ctypes.Structure):
+    """PaddleT4 of csrc/flash_attention_common.cuh: one [B, S, H, D] view."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("sb", ctypes.c_longlong),
+                ("ss", ctypes.c_longlong), ("sh", ctypes.c_longlong)]
+
+
+_DIMS = [("B", ctypes.c_int), ("S", ctypes.c_int), ("H", ctypes.c_int),
+         ("D", ctypes.c_int), ("scale", ctypes.c_float),
+         ("causal", ctypes.c_int)]
+
+
+class _FlashFwdArgs(ctypes.Structure):
+    _fields_ = [(n, _T4) for n in ("q", "k", "v", "o")] + [
+        ("lse", ctypes.c_void_p)] + _DIMS
+
+
+class _FlashBwdArgs(ctypes.Structure):
+    _fields_ = [(n, _T4) for n in ("q", "k", "v", "dout", "dq", "dk",
+                                   "dv")] + [
+        ("lse", ctypes.c_void_p), ("di", ctypes.c_void_p)] + _DIMS
+
+
+def _flash_fn(stem, symbol):
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load(stem), symbol)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn
+
+
+def _scale_of(q, scale):
+    return float(scale if scale is not None else 1.0 / np.sqrt(q.shape[-1]))
+
+
+def _scores(q, k, scale, causal):
+    """s [B, H, Sq, Sk] = (q . k) * scale in fp32; with `causal`, keys
+    after the query score the finite -1e30."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        mask = torch.arange(Sk, device=q.device)[None, :] \
+            > torch.arange(Sq, device=q.device)[:, None]
+        s = s.masked_fill(mask, _NEG_INF)
+    return s
+
+
+def _flash_di(o, do, dlse=None):
+    """di [B, H, S] = rowsum(do * o) - dlse, as `_fa_bwd` forms it."""
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        di = di - dlse.float()
+    return di.contiguous()
+
+
+def flash_attention_fwd_reference(q, k, v, causal=False, scale=None):
+    """Plain PyTorch version of K1 with the TPU kernel's semantics: q, k, v
+    [B, S, H, D] -> (o [B, S, H, D] in q's dtype, lse [B, H, S] fp32).
+    Masked scores are the finite -1e30, the normaliser is floored at
+    1e-20 and lse = m + log(l).  Differentiable by autograd (the row max
+    is a constant of the softmax, so it is detached)."""
+    scale = _scale_of(q, scale)
+    s = _scores(q, k, scale, causal)
+    m = s.amax(dim=-1, keepdim=True).detach()
+    p = torch.exp(s - m)
+    l = torch.clamp_min(p.sum(dim=-1, keepdim=True), _TINY)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) \
+        / l.permute(0, 2, 1, 3)
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, di, causal=False,
+                                     scale=None):
+    """Plain PyTorch version of K2's dq kernel: with p = exp(s - lse) and
+    ds = p * (do . v - di) * scale, dq = ds . k  ([B, S, H, D])."""
+    scale = _scale_of(q, scale)
+    p = torch.exp(_scores(q, k, scale, causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - di[..., None]) * scale
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, causal=False,
+                                      scale=None):
+    """Plain PyTorch version of K2's dk/dv kernel: dk = ds^T . q and
+    dv = p^T . do  (each [B, S, H, D])."""
+    scale = _scale_of(q, scale)
+    p = torch.exp(_scores(q, k, scale, causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - di[..., None]) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=False,
+                                  scale=None, dlse=None):
+    """(dq, dk, dv) of the attention from the forward's o and lse [B, H,
+    S] and the cotangents do (and dlse [B, H, S]), without autograd: the
+    plain versions of both K2 kernels."""
+    di = _flash_di(o, do, dlse)
+    dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, di, causal,
+                                          scale)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, do, lse, di,
+                                               causal, scale)
+    return dq, dk, dv
+
+
+def flash_attention_reference(q, k, v, causal=False, scale=None,
+                              return_lse=False):
+    """Attention with the kernels' mask and floor conventions, in plain
+    PyTorch and differentiated by autograd: [B, S, H, D] -> [B, S, H, D]
+    (or (o, lse [B, S, H]) with return_lse)."""
+    o, lse = flash_attention_fwd_reference(q, k, v, causal, scale)
+    return (o, lse.transpose(1, 2)) if return_lse else o
+
+
+def _plain_device(t):
+    """True where a wrapper runs the plain version: a CPU tensor, or a
+    meta tensor (shape inference, no data)."""
+    if t.device.type in ("cpu", "meta"):
+        return True
+    if t.device.type != "cuda":
+        raise ValueError("flash_attention: unsupported device %s" % t.device)
+    return False
+
+
+def _flash_check(q, named):
+    """Raise on anything the CUDA kernels do not take."""
+    if q.dim() != 4:
+        raise ValueError("flash_attention: q must be [B, S, H, D], got %s"
+                         % (tuple(q.shape),))
+    B, S, H, D = q.shape
+    if D not in _FLASH_HEAD_DIMS:
+        raise ValueError("flash_attention: head dim %d not in %s"
+                         % (D, _FLASH_HEAD_DIMS))
+    for name, t, shape in named:
+        if not isinstance(t, torch.Tensor) or t.device != q.device:
+            raise ValueError("flash_attention: %s must be a tensor on %s"
+                             % (name, q.device))
+        if t.dtype != torch.float32:
+            raise TypeError("flash_attention: %s must be float32, got %s"
+                            % (name, t.dtype))
+        if tuple(t.shape) != shape:
+            raise ValueError("flash_attention: %s has shape %s, expected %s"
+                             % (name, tuple(t.shape), shape))
+        if len(shape) == 4:
+            if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:3]) \
+                    or t.data_ptr() % 16:
+                raise ValueError(
+                    "flash_attention: %s must have D contiguous, strides "
+                    "that are multiples of 4 and a 16-byte aligned start"
+                    % name)
+        elif not t.is_contiguous():
+            raise ValueError("flash_attention: %s must be contiguous" % name)
+    return B, S, H, D
+
+
+def _t4(t):
+    return _T4(t.data_ptr(), t.stride(0), t.stride(1), t.stride(2))
+
+
+def _flash_launch(symbol, stem, args, device, count):
+    fn = _flash_fn(stem, symbol)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(ctypes.addressof(args), stream)
+    if err:
+        raise RuntimeError("%s: CUDA kernel launch failed (cudaError %d)"
+                           % (count, err))
+    launch_counts[count] += 1
+
+
+def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, scale: float
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    shape = tuple(q.shape)
+    B, S, H, D = _flash_check(q, [("q", q, shape), ("k", k, shape),
+                                  ("v", v, shape)])
+    o = torch.empty(shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if B * H == 0 or S == 0:
+        return o, lse
+    args = _FlashFwdArgs(_t4(q), _t4(k), _t4(v), _t4(o), lse.data_ptr(),
+                         B, S, H, D, scale, int(causal))
+    _flash_launch("paddle_flash_fwd_f32", "flash_attention_fwd", args,
+                  q.device, "flash_attention_fwd")
+    return o, lse
+
+
+def _flash_bwd(symbol, count, q, k, v, do, lse, di, causal, scale, outs):
+    shape = tuple(q.shape)
+    rows = (shape[0], shape[2], shape[1])
+    B, S, H, D = _flash_check(q, [
+        ("q", q, shape), ("k", k, shape), ("v", v, shape),
+        ("do", do, shape), ("lse", lse, rows), ("di", di, rows)])
+    grads = [torch.empty(shape, dtype=torch.float32, device=q.device)
+             for _ in outs]
+    if B * H == 0 or S == 0:
+        return grads
+    named = dict(zip(outs, grads))
+    empty = _T4(0, 0, 0, 0)
+    args = _FlashBwdArgs(
+        _t4(q), _t4(k), _t4(v), _t4(do),
+        *[_t4(named[n]) if n in named else empty
+          for n in ("dq", "dk", "dv")],
+        lse.data_ptr(), di.data_ptr(), B, S, H, D, scale, int(causal))
+    _flash_launch(symbol, "flash_attention_bwd", args, q.device, count)
+    return grads
+
+
+def _flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       di: torch.Tensor, causal: bool, scale: float
+                       ) -> torch.Tensor:
+    return _flash_bwd("paddle_flash_bwd_dq_f32", "flash_attention_bwd_dq",
+                      q, k, v, do, lse, di, causal, scale, ("dq",))[0]
+
+
+def _flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor,
+                        di: torch.Tensor, causal: bool, scale: float
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    dk, dv = _flash_bwd("paddle_flash_bwd_dkv_f32",
+                        "flash_attention_bwd_dkv", q, k, v, do, lse, di,
+                        causal, scale, ("dk", "dv"))
+    return dk, dv
+
+
+# The launches are torch.library custom ops, so torch.func transforms
+# (which hand the backward wrapped tensors) reach the kernels with plain
+# CUDA tensors, below their wrappers.
+_flash_fwd_op = torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_fwd", _flash_fwd_cuda,
+    mutates_args=(), device_types="cuda")
+_flash_bwd_dq_op = torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_bwd_dq", _flash_bwd_dq_cuda,
+    mutates_args=(), device_types="cuda")
+_flash_bwd_dkv_op = torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_bwd_dkv", _flash_bwd_dkv_cuda,
+    mutates_args=(), device_types="cuda")
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None):
+    """K1: q, k, v [B, S, H, D] -> (o [B, S, H, D], lse [B, H, S]).
+
+    A CPU (or meta) tensor runs `flash_attention_fwd_reference`.  A CUDA
+    tensor launches csrc/flash_attention_fwd.cu on the current stream
+    after checking device, dtype, shape, layout and alignment; it raises
+    on anything the kernel does not take, and on a failed launch."""
+    scale = _scale_of(q, scale)
+    if _plain_device(q):
+        return flash_attention_fwd_reference(q, k, v, causal, scale)
+    return _flash_fwd_op(q, k, v, bool(causal), scale)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, di, causal=False, scale=None):
+    """K2, dq kernel: q, k, v, do [B, S, H, D], lse and di [B, H, S] ->
+    dq [B, S, H, D].  CPU (or meta) tensors run the plain version; a CUDA
+    tensor launches csrc/flash_attention_bwd.cu's dq kernel or raises."""
+    scale = _scale_of(q, scale)
+    if _plain_device(q):
+        return flash_attention_bwd_dq_reference(q, k, v, do, lse, di,
+                                                causal, scale)
+    return _flash_bwd_dq_op(q, k, v, do, lse, di, bool(causal), scale)
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, di, causal=False,
+                            scale=None):
+    """K2, dk/dv kernel: same inputs as the dq kernel -> (dk, dv), each
+    [B, S, H, D].  CPU (or meta) tensors run the plain version; a CUDA
+    tensor launches csrc/flash_attention_bwd.cu's dkv kernel or raises."""
+    scale = _scale_of(q, scale)
+    if _plain_device(q):
+        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, di,
+                                                 causal, scale)
+    return _flash_bwd_dkv_op(q, k, v, do, lse, di, bool(causal), scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 backward: the port's `jax.custom_vjp` of
+    `flash_attention`.  The setup_context form keeps it usable under
+    torch.autograd.grad and torch.func alike."""
+
+    @staticmethod
+    def forward(q, k, v, causal, scale):
+        return flash_attention_fwd(q, k, v, causal, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, scale = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.scale = scale
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        di = _flash_di(o, do, dlse)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, di, ctx.causal,
+                                    ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
+    """Fused attention, q, k, v [B, S, H, D] -> [B, S, H, D] (or (out, lse
+    [B, S, H] fp32) with return_lse), differentiable.
+
+    On the card it runs K1 forward and K2 backward (`_FlashAttention`);
+    a CPU (or meta) tensor runs `flash_attention_reference`, which
+    autograd differentiates.  The kernels pick their own 64-row tiles and
+    mask the ragged tail, so any S works (the JAX op falls back to plain
+    attention when no block divides S)."""
+    scale = _scale_of(q, scale)
+    if _plain_device(q):
+        return flash_attention_reference(q, k, v, causal, scale, return_lse)
+    o, lse = _FlashAttention.apply(q, k, v, bool(causal), scale)
+    return (o, lse.transpose(1, 2)) if return_lse else o
+
+
+# ---------------------------------------------------------------------------
+# framework op: fluid programs reach K1/K2 through this op type
+# ---------------------------------------------------------------------------
+
+from .registry import register_op  # noqa: E402
+
+
+@register_op("flash_attention")
+def _flash_attention_op(ctx):
+    """q, k, v [B, S, H, D], or [B, S, H * D] with the `num_heads` attr."""
+    q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
+    reshaped = q.dim() == 3
+    if reshaped:
+        H = int(ctx.attr("num_heads", 1))
+        B, S, Dm = q.shape
+        if Dm % H:
+            raise ValueError(
+                "flash_attention: hidden size %d not divisible by "
+                "num_heads %d" % (Dm, H))
+        q, k, v = (t.reshape(B, S, H, Dm // H) for t in (q, k, v))
+    out = flash_attention(q, k, v, causal=bool(ctx.attr("causal", False)))
+    if reshaped:
+        out = out.reshape(B, S, Dm)
+    return {"Out": out}

@@ -1,0 +1,307 @@
+"""Op registry — the port's kernel layer, after paddle_tpu/ops/registry.py.
+
+Each op registers ONE lowering `lower(ctx) -> {out_slot: value}` on torch
+tensors.  The Executor (fluid/executor.py) interprets a Block eagerly, op
+by op, calling these lowerings on the Executor's device.
+
+Autodiff: every op gets a generic grad op `<type>_grad` (fluid/backward.py).
+A forward op whose grad is needed runs under `torch.enable_grad()` with
+its float inputs as fresh leaves (`make_forward_and_vjp`); the closure it
+returns calls `torch.autograd.grad` over that op's own graph, and the
+matching grad op consumes it.  No per-op gradient code, and each op's
+graph lives only until its grad op has run.
+
+Shape inference: `infer_shape(op, block)` runs the lowering on
+`device="meta"` tensors (shapes and dtypes, no data), substituting a dummy
+extent for the batch placeholder -1 and restoring it on the outputs.
+"""
+
+import torch
+
+__all__ = ["OpDef", "ExecContext", "OpError", "register_op", "get_op_def",
+           "has_op", "registered_ops", "infer_shape",
+           "make_forward_and_vjp", "call_lower"]
+
+_REGISTRY = {}
+
+# dummy extents substituted for -1 during shape inference; recognised in
+# output shapes and mapped back to -1, so one must not collide with any
+# real static dim of the op
+_DUMMY_CANDIDATES = (97, 811, 1327, 2957)
+
+_MASK64 = (1 << 64) - 1
+
+
+class OpDef:
+    def __init__(self, type, lower):
+        self.type = type
+        self.lower = lower
+
+
+def _mix_seed(*vals):
+    """splitmix64 over the values: a 63-bit torch.Generator seed that
+    changes with every one of them."""
+    h = 0
+    for v in vals:
+        h = ((h ^ (int(v) & _MASK64)) + 0x9E3779B97F4A7C15) & _MASK64
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
+        h ^= h >> 31
+    return h >> 1
+
+
+class ExecContext:
+    """What a lowering sees: attrs, resolved input tensors, the step, the
+    program's random seed and the device it computes on."""
+
+    __slots__ = ("op", "attrs", "_inputs", "step", "seed", "device")
+
+    def __init__(self, op, inputs, step=0, seed=0, device=None):
+        self.op = op
+        self.attrs = op.attrs
+        self._inputs = inputs  # slot -> [values]
+        self.step = step
+        self.seed = seed
+        self.device = torch.device("cpu") if device is None \
+            else torch.device(device)
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+    def input(self, slot):
+        """Single input value for slot (None if absent)."""
+        vs = self._inputs.get(slot)
+        if not vs:
+            return None
+        return vs[0]
+
+    def inputs(self, slot):
+        return self._inputs.get(slot, [])
+
+    def has_input(self, slot):
+        return bool(self._inputs.get(slot))
+
+    def generator(self):
+        """A torch.Generator on the context's device, seeded from the
+        op's `seed` attr, the program's random seed, the op's uid and the
+        step: two identically built programs draw the same values, and
+        every step draws anew.  None on the meta device (no data)."""
+        if self.device.type == "meta":
+            return None
+        g = torch.Generator(device=self.device)
+        g.manual_seed(_mix_seed(self.attr("seed", 0) or 0, self.seed or 0,
+                                self.op.uid, self.step))
+        return g
+
+
+def register_op(type):
+    """Register an op's lowering: @register_op("relu")."""
+    def deco(fn):
+        _REGISTRY[type] = OpDef(type, fn)
+        return fn
+    return deco
+
+
+def get_op_def(type):
+    od = _REGISTRY.get(type)
+    if od is None:
+        raise NotImplementedError(
+            "op '%s' is not registered in paddle_tpu_torch's op registry"
+            % type)
+    return od
+
+
+def has_op(type):
+    return type in _REGISTRY
+
+
+def registered_ops():
+    return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# shape inference on meta tensors
+# ---------------------------------------------------------------------------
+
+def _pick_dummy(op, block):
+    """A dummy batch extent that appears in no input's static dims."""
+    static = set()
+    for names in op.inputs.values():
+        for n in names:
+            v = block._find_var_recursive(n)
+            if v is not None and v.shape is not None:
+                static.update(int(d) for d in v.shape
+                              if d is not None and d >= 0)
+    for c in _DUMMY_CANDIDATES:
+        if c not in static:
+            return c
+    return max(static) + 101
+
+
+def _subst_dummy(shape, dummy):
+    return tuple(dummy if d is None or d < 0 else int(d) for d in shape)
+
+
+def _restore_dummy(shape, had_dynamic, dummy):
+    if not had_dynamic:
+        return tuple(int(d) for d in shape)
+    return tuple(-1 if d == dummy else int(d) for d in shape)
+
+
+def infer_shape(op, block):
+    """Fill in shape/dtype of op's output Variables by running the
+    lowering on meta tensors.  Best-effort: an op whose inputs are not
+    shaped, or whose lowering cannot run on meta tensors, is skipped (the
+    Executor still produces the right runtime shapes)."""
+    od = _REGISTRY.get(op.type)
+    if od is None:
+        return
+    from ..fluid import core as fcore
+
+    dummy = _pick_dummy(op, block)
+    ins = {}
+    had_dynamic = False
+    for slot, names in op.inputs.items():
+        vals = []
+        for n in names:
+            v = block._find_var_recursive(n)
+            if v is None or v.shape is None:
+                return
+            if any(d is None or d < 0 for d in v.shape):
+                had_dynamic = True
+            vals.append(torch.empty(_subst_dummy(v.shape, dummy),
+                                    dtype=fcore.convert_dtype_to_torch(
+                                        v.dtype),
+                                    device="meta"))
+        ins[slot] = vals
+    try:
+        with torch.no_grad():
+            out = od.lower(ExecContext(op, ins, step=0, seed=0,
+                                       device="meta"))
+    except (RuntimeError, NotImplementedError, TypeError, ValueError,
+            IndexError):
+        return
+    if out is None:
+        return
+    for slot, vals in out.items():
+        names = op.outputs.get(slot, [])
+        if not isinstance(vals, (list, tuple)):
+            vals = [vals]
+        for n, s in zip(names, vals):
+            v = block._find_var_recursive(n)
+            if v is None or not isinstance(s, torch.Tensor):
+                continue
+            v.shape = _restore_dummy(tuple(s.shape), had_dynamic, dummy)
+            v.dtype = fcore.convert_torch_dtype_to_dtype_(s.dtype)
+
+
+# ---------------------------------------------------------------------------
+# generic autograd-based gradients
+# ---------------------------------------------------------------------------
+
+def _is_float(x):
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
+
+
+def _normalize(outs):
+    return {s: list(v) if isinstance(v, (list, tuple)) else [v]
+            for s, v in outs.items()}
+
+
+def make_forward_and_vjp(op, od, ctx):
+    """Run the forward with its float inputs as fresh autograd leaves.
+
+    Returns (outputs, vjp_fn): outputs as {slot: [tensors]} detached from
+    the graph, and vjp_fn mapping output cotangents {slot: [tensor or
+    None]} to input grads in the same dict-of-lists layout — None for
+    non-float inputs, zeros for float inputs the outputs do not depend
+    on.  A None cotangent (or one for a non-float output) is a zero
+    cotangent.  vjp_fn runs once: it frees the op's graph."""
+    in_layout = [(slot, len(vals)) for slot, vals in ctx._inputs.items()]
+    flat_in = [v for _, vals in ctx._inputs.items() for v in vals]
+    diff_idx = [i for i, v in enumerate(flat_in) if _is_float(v)]
+
+    with torch.enable_grad():
+        leaves = [flat_in[i].detach().requires_grad_(True)
+                  for i in diff_idx]
+        flat = list(flat_in)
+        for i, leaf in zip(diff_idx, leaves):
+            flat[i] = leaf
+        d, k = {}, 0
+        for slot, n in in_layout:
+            d[slot] = flat[k:k + n]
+            k += n
+        outs = _normalize(call_lower(od, ExecContext(
+            op, d, step=ctx.step, seed=ctx.seed, device=ctx.device)))
+
+    def vjp_to_slots(cotangents):
+        ys, gs = [], []
+        for slot, vals in outs.items():
+            cs = cotangents.get(slot, [])
+            for i, y in enumerate(vals):
+                c = cs[i] if i < len(cs) else None
+                if c is None or not isinstance(y, torch.Tensor) \
+                        or not y.requires_grad:
+                    continue
+                ys.append(y)
+                gs.append(c)
+        grads = [None] * len(leaves)
+        if ys and leaves:
+            grads = torch.autograd.grad(ys, leaves, gs, allow_unused=True)
+        flat_grads = [None] * len(flat_in)
+        for i, leaf, g in zip(diff_idx, leaves, grads):
+            flat_grads[i] = torch.zeros_like(leaf) if g is None else g
+        res, k = {}, 0
+        for slot, n in in_layout:
+            res[slot] = flat_grads[k:k + n]
+            k += n
+        return res
+
+    detached = {s: [v.detach() if isinstance(v, torch.Tensor) else v
+                    for v in vals] for s, vals in outs.items()}
+    return detached, vjp_to_slots
+
+
+class OpError(RuntimeError):
+    """An op lowering failed; the message carries the op's identity and
+    its inputs' shapes/dtypes."""
+
+
+def _describe_inputs(op, inputs):
+    lines = []
+    for slot, names in op.inputs.items():
+        vals = inputs.get(slot, [])
+        for i, n in enumerate(names):
+            v = vals[i] if i < len(vals) else None
+            if v is None:
+                desc = "<missing>"
+            elif isinstance(v, torch.Tensor):
+                desc = "shape=%s dtype=%s device=%s" % (
+                    tuple(v.shape), v.dtype, v.device)
+            else:
+                desc = type(v).__name__
+            lines.append("    %s[%d] '%s': %s" % (slot, i, n, desc))
+    return lines
+
+
+def call_lower(od, ctx):
+    """All lowering calls go through here so a failure re-raises with the
+    op's type, input names/shapes/dtypes and attrs."""
+    try:
+        return od.lower(ctx)
+    except (OpError, NotImplementedError):
+        raise
+    except Exception as e:
+        lines = ["%s: %s" % (type(e).__name__, e),
+                 "  [operator context] op '%s' failed during lowering"
+                 % od.type]
+        lines += _describe_inputs(ctx.op, ctx._inputs)
+        attrs = {}
+        for k, v in ctx.attrs.items():
+            if k.startswith("fwd_"):
+                continue
+            r = repr(v)
+            attrs[k] = r if len(r) <= 200 else r[:200] + "...<truncated>"
+        if attrs:
+            lines.append("    attrs: %s" % attrs)
+        raise OpError("\n".join(lines)) from e

@@ -1,0 +1,79 @@
+"""Tensor creation / manipulation / RNG op lowerings, after
+paddle_tpu/ops/tensor_ops.py: fill_constant, assign, remat_tag,
+uniform_random, reshape2 and slice."""
+
+import numpy as np
+import torch
+
+from .registry import register_op
+
+
+def _torch_dtype(attr_dtype, default=torch.float32):
+    from ..fluid import core as fcore
+    if attr_dtype is None:
+        return default
+    return fcore.convert_dtype_to_torch(attr_dtype)
+
+
+@register_op("fill_constant")
+def _fill_constant(ctx):
+    shape = tuple(int(d) for d in ctx.attr("shape", [1]))
+    return {"Out": torch.full(shape, ctx.attr("value", 0.0),
+                              dtype=_torch_dtype(ctx.attr("dtype")),
+                              device=ctx.device)}
+
+
+@register_op("assign")
+def _assign(ctx):
+    return {"Out": ctx.input("X")}
+
+
+@register_op("remat_tag")
+def _remat_tag(ctx):
+    """The identity: the tag names a value for the JAX package's remat
+    policies, a memory trade that the eager Executor does not make."""
+    return {"Out": ctx.input("X")}
+
+
+@register_op("uniform_random")
+def _uniform_random(ctx):
+    """U[min, max) from the op's torch.Generator (ExecContext.generator):
+    deterministic per (seed attr, program seed, op uid, step), but not
+    the JAX package's threefry values."""
+    shape = tuple(int(d) for d in ctx.attr("shape"))
+    out = torch.empty(shape, dtype=_torch_dtype(ctx.attr("dtype")),
+                      device=ctx.device)
+    return {"Out": out.uniform_(ctx.attr("min", -1.0), ctx.attr("max", 1.0),
+                                generator=ctx.generator())}
+
+
+def _target_shape(x, shape):
+    shape = list(shape)
+    neg = [i for i, d in enumerate(shape) if d == -1]
+    for i, d in enumerate(shape):
+        if d == 0:
+            shape[i] = x.shape[i]
+    if neg:
+        known = int(np.prod([d for d in shape if d > 0])) or 1
+        shape[neg[0]] = int(np.prod(x.shape)) // known
+    return tuple(shape)
+
+
+@register_op("reshape2")
+def _reshape2(ctx):
+    x = ctx.input("X")
+    out = torch.reshape(x, _target_shape(x, ctx.attr("shape")))
+    return {"Out": out, "XShape": x.new_zeros((0,) + tuple(x.shape))}
+
+
+@register_op("slice")
+def _slice(ctx):
+    x = ctx.input("Input")
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(ctx.attr("axes"), ctx.attr("starts"),
+                       ctx.attr("ends")):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    return {"Out": x[tuple(idx)]}

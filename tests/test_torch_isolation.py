@@ -53,8 +53,28 @@ def test_forbidden_matches_exactly():
 
 def test_importing_every_module_loads_no_jax_or_paddle_tpu():
     mods = _package_modules()
-    assert "paddle_tpu_torch.inference.decode" in mods
-    assert "paddle_tpu_torch.serving.batcher" in mods
+    assert {"paddle_tpu_torch.inference.decode",
+            "paddle_tpu_torch.serving.batcher",
+            "paddle_tpu_torch.fluid.core",
+            "paddle_tpu_torch.fluid.unique_name",
+            "paddle_tpu_torch.fluid.param_attr",
+            "paddle_tpu_torch.fluid.framework",
+            "paddle_tpu_torch.fluid.layer_helper",
+            "paddle_tpu_torch.fluid.initializer",
+            "paddle_tpu_torch.fluid.layers.io",
+            "paddle_tpu_torch.fluid.layers.tensor",
+            "paddle_tpu_torch.fluid.layers.nn",
+            "paddle_tpu_torch.fluid.backward",
+            "paddle_tpu_torch.fluid.optimizer",
+            "paddle_tpu_torch.fluid.executor",
+            "paddle_tpu_torch.fluid.io",
+            "paddle_tpu_torch.ops.registry",
+            "paddle_tpu_torch.ops.tensor_ops",
+            "paddle_tpu_torch.ops.math_ops",
+            "paddle_tpu_torch.ops.nn_ops",
+            "paddle_tpu_torch.ops.optimizer_ops",
+            "paddle_tpu_torch.ops.pallas_kernels",
+            "paddle_tpu_torch.models.transformer"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.path.insert(0, %r)\n"
@@ -132,6 +152,20 @@ def test_build_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-G"])
     assert _build._lib_path(src)[1] != path
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_is_keyed_by_the_shared_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, str(csrc))
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    src = str(csrc / "flash_attention_fwd.cu")
+    before = _build._lib_path(src)[1]
+    with open(str(csrc / "flash_attention_common.cuh"), "a") as f:
+        f.write("// edited\n")
+    assert _build._lib_path(src)[1] != before
+    assert {"flash_attention_fwd", "flash_attention_bwd",
+            "decode_attention"} <= {os.path.basename(p)[:-3]
+                                    for p in _build._sources()}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -1,0 +1,241 @@
+"""Every op lowering of paddle_tpu_torch/ops held against its JAX lowering
+in paddle_tpu/ops on a seeded input: the forward outputs, and the input
+gradients through each package's generic vjp (registry.
+make_forward_and_vjp) for seeded cotangents on every float output."""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import paddle_tpu.ops  # noqa: F401  (registers the JAX lowerings)
+from paddle_tpu.ops import registry as jreg
+from paddle_tpu_torch.fluid import core as tcore
+from paddle_tpu_torch.ops import registry as treg
+
+# fp32 on both sides, summed in other orders (matmuls, reductions)
+RTOL, ATOL = 1e-5, 1e-5
+
+FP32 = tcore.VarDesc.VarType.FP32
+INT64 = tcore.VarDesc.VarType.INT64
+
+
+def _f(*shape):
+    return ("f", shape)
+
+
+def _i(high, *shape):
+    return ("i", high, shape)
+
+
+# (case id, op type, {slot: [input spec]}, attrs)
+_CASES = [
+    ("fill_constant", "fill_constant", {},
+     {"shape": [2, 3], "dtype": FP32, "value": 1.5}),
+    ("fill_constant_int64", "fill_constant", {},
+     {"shape": [1, 5], "dtype": INT64, "value": 1.0}),
+    ("assign", "assign", {"X": [_f(3, 4)]}, {}),
+    ("remat_tag", "remat_tag", {"X": [_f(3, 4)]}, {"tag": "block_out"}),
+    ("reshape2", "reshape2", {"X": [_f(2, 3, 4)]}, {"shape": [-1, 4]}),
+    ("reshape2_zero", "reshape2", {"X": [_f(2, 3, 4)]}, {"shape": [0, 12]}),
+    ("slice", "slice", {"Input": [_f(2, 5, 6)]},
+     {"axes": [2], "starts": [1], "ends": [4]}),
+    ("slice_negative", "slice", {"Input": [_f(2, 5, 6)]},
+     {"axes": [1, 2], "starts": [-3, 0], "ends": [10, -2]}),
+    ("gelu", "gelu", {"X": [_f(4, 6)]}, {}),
+    ("gelu_tanh", "gelu", {"X": [_f(4, 6)]}, {"approximate": True}),
+    ("elementwise_add", "elementwise_add", {"X": [_f(2, 3, 4)],
+                                            "Y": [_f(2, 3, 4)]},
+     {"axis": -1}),
+    ("elementwise_add_trailing", "elementwise_add",
+     {"X": [_f(2, 3, 4)], "Y": [_f(4)]}, {"axis": -1}),
+    ("elementwise_add_axis", "elementwise_add",
+     {"X": [_f(2, 3, 4)], "Y": [_f(3)]}, {"axis": 1}),
+    ("elementwise_add_broadcast", "elementwise_add",
+     {"X": [_f(2, 3, 4)], "Y": [_f(1, 3, 4)]}, {"axis": -1}),
+    ("mul", "mul", {"X": [_f(2, 3, 4)], "Y": [_f(4, 5)]},
+     {"x_num_col_dims": 2, "y_num_col_dims": 1}),
+    ("sum", "sum", {"X": [_f(3, 4), _f(3, 4), _f(3, 4)]}, {}),
+    ("scale", "scale", {"X": [_f(3, 4)]},
+     {"scale": 0.5, "bias": 0.1, "bias_after_scale": True}),
+    ("scale_bias_first", "scale", {"X": [_f(3, 4)]},
+     {"scale": 0.5, "bias": 0.1, "bias_after_scale": False}),
+    ("mean", "mean", {"X": [_f(3, 4, 2)]}, {}),
+    ("cumsum_exclusive", "cumsum", {"X": [_f(2, 5)]},
+     {"axis": 1, "exclusive": True}),
+    ("cumsum_reverse", "cumsum", {"X": [_f(2, 5)]},
+     {"axis": 0, "reverse": True}),
+    ("cumsum_int64", "cumsum", {"X": [_i(3, 1, 6)]},
+     {"axis": 1, "exclusive": True}),
+    ("layer_norm", "layer_norm",
+     {"X": [_f(2, 3, 8)], "Scale": [_f(8)], "Bias": [_f(8)]},
+     {"begin_norm_axis": 2, "epsilon": 1e-5}),
+    ("layer_norm_axis1", "layer_norm",
+     {"X": [_f(2, 3, 8)], "Scale": [_f(24)], "Bias": [_f(24)]},
+     {"begin_norm_axis": 1, "epsilon": 1e-5}),
+    ("dropout_p0", "dropout", {"X": [_f(3, 4)]},
+     {"dropout_prob": 0.0, "is_test": False, "seed": 0,
+      "dropout_implementation": "downgrade_in_infer"}),
+    ("dropout_is_test", "dropout", {"X": [_f(3, 4)]},
+     {"dropout_prob": 0.25, "is_test": True, "seed": 0,
+      "dropout_implementation": "downgrade_in_infer"}),
+    ("lookup_table", "lookup_table",
+     {"W": [_f(10, 4)], "Ids": [_i(10, 2, 3)]}, {"padding_idx": -1}),
+    ("lookup_table_padding", "lookup_table",
+     {"W": [_f(10, 4)], "Ids": [_i(10, 2, 3, 1)]}, {"padding_idx": 2}),
+    ("softmax_with_cross_entropy", "softmax_with_cross_entropy",
+     {"Logits": [_f(6, 10)], "Label": [_i(10, 6, 1)]},
+     {"soft_label": False, "ignore_index": -100}),
+    ("softmax_with_cross_entropy_ignore", "softmax_with_cross_entropy",
+     {"Logits": [_f(6, 10)], "Label": [_i(4, 6, 1)]},
+     {"soft_label": False, "ignore_index": 3}),
+    ("adam", "adam",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)], "Moment1": [_f(4, 3)],
+      "Moment2": [("pos", (4, 3))], "LearningRate": [("lr", (1,))],
+      "Beta1Pow": [("b1p", (1,))], "Beta2Pow": [("b2p", (1,))]},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+    ("flash_attention", "flash_attention",
+     {"Q": [_f(2, 16, 32)], "K": [_f(2, 16, 32)], "V": [_f(2, 16, 32)]},
+     {"num_heads": 2, "causal": True}),
+]
+
+
+def _make(spec, rng):
+    kind = spec[0]
+    if kind == "f":
+        return rng.randn(*spec[1]).astype(np.float32)
+    if kind == "i":
+        return rng.randint(0, spec[1], size=spec[2]).astype(np.int64)
+    if kind == "pos":
+        return rng.rand(*spec[1]).astype(np.float32) + 0.1
+    return np.full(spec[1], {"lr": 1e-2, "b1p": 0.9 ** 3,
+                             "b2p": 0.999 ** 3}[kind], np.float32)
+
+
+def _op(op_type, attrs, inputs):
+    return types.SimpleNamespace(
+        type=op_type, attrs=dict(attrs), uid=1,
+        inputs={s: ["%s%d" % (s, i) for i in range(len(v))]
+                for s, v in inputs.items()}, outputs={})
+
+
+def _jax_cotangent(value, ct):
+    if ct is not None:
+        return jnp.asarray(ct)
+    return np.zeros(np.shape(value), dtype=jax.dtypes.float0)
+
+
+@pytest.mark.parametrize("case", _CASES, ids=[c[0] for c in _CASES])
+def test_lowering_matches_jax_forward_and_vjp(case):
+    name, op_type, specs, attrs = case
+    rng = np.random.RandomState(sum(map(ord, name)))
+    inputs = {s: [_make(sp, rng) for sp in v] for s, v in specs.items()}
+    op = _op(op_type, attrs, inputs)
+
+    jctx = jreg.ExecContext(op, {s: [jnp.asarray(a) for a in v]
+                                 for s, v in inputs.items()})
+    jouts, jvjp = jreg.make_forward_and_vjp(op, jreg.get_op_def(op_type),
+                                           jctx)
+    tctx = treg.ExecContext(op, {s: [torch.from_numpy(a) for a in v]
+                                 for s, v in inputs.items()}, device="cpu")
+    touts, tvjp = treg.make_forward_and_vjp(op, treg.get_op_def(op_type),
+                                           tctx)
+    assert sorted(jouts) == sorted(touts)
+    cts = {}
+    for slot in jouts:
+        cts[slot] = []
+        for jv, tv in zip(jouts[slot], touts[slot]):
+            jv = np.asarray(jv)
+            assert tuple(tv.shape) == jv.shape, slot
+            # the JAX package runs with x64 off: int64 comes back int32
+            np.testing.assert_allclose(tv.numpy().astype(jv.dtype), jv,
+                                       rtol=RTOL, atol=ATOL, err_msg=slot)
+            cts[slot].append(np.asarray(rng.randn(*jv.shape), np.float32)
+                             if tv.is_floating_point() else None)
+
+    jgrads = jvjp({s: [_jax_cotangent(v, c) for v, c in zip(jouts[s], cs)]
+                   for s, cs in cts.items()})
+    tgrads = tvjp({s: [None if c is None else torch.from_numpy(c)
+                       for c in cs] for s, cs in cts.items()})
+    for slot, vals in inputs.items():
+        for i, a in enumerate(vals):
+            jg, tg = jgrads[slot][i], tgrads[slot][i]
+            if a.dtype.kind != "f":
+                assert tg is None, slot
+                continue
+            np.testing.assert_allclose(tg.numpy(), np.asarray(jg),
+                                       rtol=RTOL, atol=ATOL,
+                                       err_msg="grad " + slot)
+
+
+def test_every_registered_op_has_a_parity_case():
+    assert sorted(treg.registered_ops()) == sorted(
+        {c[1] for c in _CASES} | {"uniform_random"})
+
+
+def _rng_op(op_type, attrs, inputs, seed=0, step=0, uid=3):
+    op = _op(op_type, attrs, inputs)
+    op.uid = uid
+    ctx = treg.ExecContext(op, {s: [torch.from_numpy(a) for a in v]
+                                for s, v in inputs.items()},
+                           step=step, seed=seed, device="cpu")
+    return treg.get_op_def(op_type).lower(ctx)
+
+
+def test_uniform_random_matches_jax_shape_dtype_and_range():
+    """The RNG streams differ (threefry vs torch's Philox/MT): the same
+    shape, dtype and bounds, a uniform histogram, and determinism per
+    (seed attr, program seed, op uid, step)."""
+    attrs = {"shape": [64, 128], "dtype": FP32, "min": -0.5, "max": 0.25,
+             "seed": 0}
+    op = _op("uniform_random", attrs, {})
+    jout = np.asarray(jreg.get_op_def("uniform_random").lower(
+        jreg.ExecContext(op, {}))["Out"])
+    out = _rng_op("uniform_random", attrs, {})["Out"]
+    assert tuple(out.shape) == jout.shape and out.dtype == torch.float32
+    assert float(out.min()) >= -0.5 and float(out.max()) < 0.25
+    hist = np.histogram(out.numpy(), bins=8, range=(-0.5, 0.25))[0]
+    assert hist.min() > 0.8 * hist.mean()
+    again = _rng_op("uniform_random", attrs, {})["Out"]
+    assert torch.equal(out, again)
+    for kw in ({"seed": 1}, {"step": 1}, {"uid": 4}):
+        assert not torch.equal(out, _rng_op("uniform_random", attrs, {},
+                                            **kw)["Out"])
+    assert not torch.equal(out, _rng_op("uniform_random",
+                                        dict(attrs, seed=5), {})["Out"])
+
+
+@pytest.mark.parametrize("imp", ["downgrade_in_infer", "upscale_in_train"])
+def test_dropout_mask_statistics_and_output(imp):
+    x = np.random.RandomState(0).randn(200, 100).astype(np.float32)
+    attrs = {"dropout_prob": 0.3, "is_test": False, "seed": 0,
+             "dropout_implementation": imp}
+    outs = _rng_op("dropout", attrs, {"X": [x]})
+    mask, out = outs["Mask"].numpy(), outs["Out"].numpy()
+    assert set(np.unique(mask)) <= {0.0, 1.0}
+    assert abs(mask.mean() - 0.7) < 0.01
+    want = x * mask / (0.7 if imp == "upscale_in_train" else 1.0)
+    np.testing.assert_allclose(out, want, rtol=1e-6)
+    other = _rng_op("dropout", attrs, {"X": [x]}, step=1)["Mask"].numpy()
+    assert not np.array_equal(mask, other)
+
+
+def test_lookup_table_rejects_out_of_range_ids():
+    w = np.zeros((5, 2), np.float32)
+    with pytest.raises(ValueError, match="outside"):
+        _rng_op("lookup_table", {"padding_idx": -1},
+                {"W": [w], "Ids": [np.array([[1, 5]], np.int64)]})
+
+
+def test_meta_shape_inference_runs_the_lowerings():
+    op = _op("mul", {"x_num_col_dims": 2, "y_num_col_dims": 1},
+             {"X": [0], "Y": [0]})
+    ctx = treg.ExecContext(op, {"X": [torch.empty(97, 3, 4, device="meta")],
+                                "Y": [torch.empty(4, 5, device="meta")]},
+                           device="meta")
+    out = treg.get_op_def("mul").lower(ctx)["Out"]
+    assert out.device.type == "meta" and tuple(out.shape) == (97, 3, 5)
