@@ -39,6 +39,24 @@ Phases, in order; any failure exits non-zero:
   6. train gpu/cpu — a small transformer (2 layers, d_model 128, 2 heads
                of 64, seq 96, dropout 0) from one startup scope carried
                across: 2 steps on the card and on the CPU, losses agree.
+  7. resnet  — ResNet-50 inference through the user's entry points
+               (models.resnet.get_model(is_train=False, layout="NHWC"),
+               224 x 224, 1000 classes; startup seed 7, seeded batch-norm
+               statistics): Executor.run(startup) on the card,
+               save_inference_model, then create_paddle_predictor at
+               batches 1, 8 and 64 — fp32 with
+               FLAGS.fuse_bottleneck_max_width = 128 (7 K6 launches per
+               run) and unfused (gate 0, no K6), which must agree; then
+               quantize_inference_model with 4 seeded calibration batches
+               and the int8 Predictor (1 K5 launch per run).  Prints
+               images/s, ms per run, launches, device busy share and
+               profiler groups per lane and batch.
+  8. resnet gpu/cpu — a ResNet-50 artifact at 32 x 32 input: the fused
+               Predictor on the card and on the CPU agree.
+Phase 2 also holds K5 (dequant_matmul) and K6 (fused_bottleneck) against
+their plain versions: K5 at the int8 lane's fc shape and three others, K6
+at ResNet-50's four stage geometries (batch 32), two odd shapes and the
+fused path's four geometries at batch 64.
 Prints a {"kernels": [...]} line and, last, the device line
 {"ok": true, "device": {...}}.  Without CUDA, or without the repo around
 it, it exits non-zero and prints no result.
@@ -323,6 +341,200 @@ def phase_flash_kernels(torch, pk):
     for kind, e in entries.items():
         e["max_abs_err"] = errs[kind]
     return [entries["fwd"], entries["dq"], entries["dkv"]]
+
+
+# ResNet-50's bottleneck geometries (stage: input H = W, C, F, C4, stride
+# of the first block); each stage runs one projection block, then
+# identity blocks at the output size
+RESNET_STAGES = [(1, 56, 64, 64, 256, 1), (2, 56, 256, 128, 512, 2),
+                 (3, 28, 512, 256, 1024, 2), (4, 14, 1024, 512, 2048, 2)]
+# a fused ResNet-50 run at gate 128: the stage-1 and stage-2 blocks, with
+# how many times each geometry runs: (H, C, F, C4, stride, branch, count)
+FUSED_PATH_BLOCKS = [(56, 64, 64, 256, 1, True, 1),
+                     (56, 256, 64, 256, 1, False, 2),
+                     (56, 256, 128, 512, 2, True, 1),
+                     (28, 512, 128, 512, 1, False, 3)]
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+
+
+def _bound(flops, nbytes, flop_rate=FP32_FLOP_PER_S):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def bottleneck_bound(N, H, W, C, F, C4, s, branch):
+    """Least time for one K6 call: 2 C F flops per input pixel (conv0 runs
+    before the stride; at stride 2 the 3x3 taps read every input row and
+    column) and 2 (9 F^2 + F C4 [+ C C4]) per output pixel, over the fp32
+    peak, against x, the filters, the biases and out moved once over HBM
+    bandwidth."""
+    Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
+    out_macs = 9 * F * F + F * C4 + (C * C4 if branch else 0)
+    macs = C * F + out_macs
+    flops = 2 * N * (C * F * H * W + out_macs * Ho * Wo)
+    weights = macs + 2 * F + C4 + (C4 if branch else 0)
+    nbytes = 4 * (N * H * W * C + weights + N * Ho * Wo * C4)
+    return _bound(flops, nbytes) + (flops, nbytes)
+
+
+def _bottleneck_inputs(torch, g, N, H, W, C, F, C4, branch):
+    """x and He-scaled OIHW filters, small biases, on the card."""
+    def t(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=g) * scale
+    p = {"x": t(N, H, W, C), "w0": t(F, C, 1, 1, scale=(2.0 / C) ** 0.5),
+         "b0": t(F, scale=0.1), "w1": t(F, F, 3, 3, scale=(2.0 / (9 * F))
+                                        ** 0.5),
+         "b1": t(F, scale=0.1), "w2": t(C4, F, 1, 1, scale=(1.0 / F) ** 0.5),
+         "b2": t(C4, scale=0.1), "ws": None, "bs": None}
+    if branch:
+        p["ws"] = t(C4, C, 1, 1, scale=(1.0 / C) ** 0.5)
+        p["bs"] = t(C4, scale=0.1)
+    return p
+
+
+def phase_bottleneck_kernel(torch, pk):
+    """K6 against its plain version (cuDNN convolutions, which are also
+    the library yardstick): ResNet-50's four stage geometries at batch
+    32, projection (stride 2 where the stage has it) and identity, one
+    odd-size shape, and the fused path's four geometries at batch 64,
+    whose times summed with their multiplicities are K6's device time
+    per fused run."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    cases = []
+    for stage, H, C, F, C4, s in RESNET_STAGES:
+        Ho = (H - 1) // s + 1
+        cases.append(("stage%d proj" % stage, 32, H, H, C, F, C4, s, True,
+                      1))
+        cases.append(("stage%d identity" % stage, 32, Ho, Ho, C4, F, C4, 1,
+                      False, 1))
+    cases.append(("odd", 3, 9, 7, 48, 24, 96, 2, True, 1))
+    cases.append(("odd identity", 2, 7, 5, 40, 16, 40, 1, False, 1))
+    for H, C, F, C4, s, branch, count in FUSED_PATH_BLOCKS:
+        cases.append(("path b64 H%d C%d F%d s%d" % (H, C, F, s), 64, H, H,
+                      C, F, C4, s, branch, count))
+    max_err = 0.0
+    run = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0,
+           "bytes": 0}
+    for name, N, H, W, C, F, C4, s, branch, count in cases:
+        p = _bottleneck_inputs(torch, g, N, H, W, C, F, C4, branch)
+        args = (p["x"], p["w0"], p["b0"], p["w1"], p["b1"], p["w2"],
+                p["b2"], p["ws"], p["bs"], s)
+        out = pk.fused_bottleneck(*args)
+        ref = pk.bottleneck_reference(*args)
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == tuple(ref.shape),
+              "fused_bottleneck %s: shape %s vs %s" % (name, out.shape,
+                                                       ref.shape))
+        check(bool(torch.isfinite(out).all()),
+              "fused_bottleneck %s: non-finite" % name)
+        err = float((out - ref).abs().max())
+        check(bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()),
+              "fused_bottleneck %s disagrees with the plain version (max "
+              "abs err %.3g, rtol 1e-4 atol 1e-4)" % (name, err))
+        max_err = max(max_err, err)
+        ms = median_ms(torch, lambda: pk.fused_bottleneck(*args), flush,
+                       reps=30)
+        plain_ms = median_ms(torch, lambda: pk.bottleneck_reference(*args),
+                             flush, reps=30)
+        bound_ms, bound_by, flops, nbytes = bottleneck_bound(
+            N, H, W, C, F, C4, s, branch)
+        log("kernel fused_bottleneck [%s] N=%d H=%d W=%d C=%d F=%d C4=%d "
+            "s=%d %s: max abs err %.3g (max |ref| %.3g); kernel %.4f ms, "
+            "plain (cuDNN) %.4f ms, bound %.4f ms (%s; %d flops, %d bytes)"
+            " -> %.1f%% of bound, %.2f TFLOP/s"
+            % (name, N, H, W, C, F, C4, s,
+               "projection" if branch else "identity", err,
+               float(ref.abs().max()), ms, plain_ms, bound_ms, bound_by,
+               flops, nbytes, 100.0 * bound_ms / ms, flops / ms / 1e9))
+        if name.startswith("path"):
+            run["ms"] += count * ms
+            run["plain_ms"] += count * plain_ms
+            run["bound_ms"] += count * bound_ms
+            run["flops"] += count * flops
+            run["bytes"] += count * nbytes
+        del p, args, out, ref
+    del flush
+    _, run_by = _bound(run["flops"], run["bytes"])
+    log("kernel fused_bottleneck [one fused run at batch 64, 7 launches]: "
+        "kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s) -> %.1f%% of "
+        "bound" % (run["ms"], run["plain_ms"], run["bound_ms"], run_by,
+                   100.0 * run["bound_ms"] / run["ms"]))
+    return {"name": "fused_bottleneck", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/fused_bottleneck.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels.py:1010",
+            "ms": run["ms"], "plain_ms": run["plain_ms"],
+            "bound_ms": run["bound_ms"], "bound_by": run_by,
+            "library_ms": run["plain_ms"], "max_abs_err": max_err}
+
+
+def phase_dequant_kernel(torch, pk):
+    """K5 against its plain version at the int8 lane's fc shape (M = 64
+    bucketed images, K = 2048, N = 1000, bf16 x), a transformer fc shape
+    (fp32 x), a ragged shape and a bf16-output shape; the library
+    yardstick is torch.matmul on the bf16-rounded x and the dequantized
+    weight, times the scale."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    cases = [("path", 64, 2048, 1000, torch.bfloat16, torch.float32),
+             ("transformer fc", 4096, 512, 2048, torch.float32,
+              torch.float32),
+             ("ragged", 37, 300, 77, torch.bfloat16, torch.float32),
+             ("bf16 out", 50, 129, 250, torch.bfloat16, torch.bfloat16)]
+    entry, max_err = None, 0.0
+    for name, M, K, N, xdt, odt in cases:
+        x = torch.randn(M, K, device="cuda", generator=g).to(xdt)
+        w = torch.randint(-127, 128, (K, N), device="cuda", generator=g,
+                          dtype=torch.int8)
+        scale = torch.rand(N, device="cuda", generator=g) * 0.01 + 1e-3
+        out = pk.dequant_matmul(x, w, scale, out_dtype=odt)
+        ref = pk.dequant_matmul_reference(x, w, scale, out_dtype=odt)
+        torch.cuda.synchronize()
+        check(out.dtype == odt and tuple(out.shape) == (M, N),
+              "dequant_matmul %s: got %s %s" % (name, out.dtype,
+                                                tuple(out.shape)))
+        err = float((out.float() - ref.float()).abs().max())
+        # fp32 sums in another order; a bf16 output may then round one
+        # ulp (2^-8 relative) apart
+        rtol = 2.0 ** -7 if odt == torch.bfloat16 else 1e-5
+        atol = 1e-5 * float(ref.float().abs().max())
+        check(bool(((out.float() - ref.float()).abs()
+                    <= atol + rtol * ref.float().abs()).all()),
+              "dequant_matmul %s disagrees with the plain version (max abs "
+              "err %.3g, atol %.3g, rtol %.3g)" % (name, err, atol, rtol))
+        max_err = max(max_err, err)
+        ms = median_ms(torch, lambda: pk.dequant_matmul(
+            x, w, scale, out_dtype=odt), flush)
+        plain_ms = median_ms(torch, lambda: pk.dequant_matmul_reference(
+            x, w, scale, out_dtype=odt), flush)
+        xf, wf = x.float(), w.float()
+        lib_ms = median_ms(torch, lambda: torch.matmul(xf, wf) * scale,
+                           flush)
+        flops = 2 * M * N * K
+        nbytes = x.element_size() * M * K + K * N + 4 * N \
+            + out.element_size() * M * N
+        rate = BF16_FLOP_PER_S if xdt == torch.bfloat16 else FP32_FLOP_PER_S
+        bound_ms, bound_by = _bound(flops, nbytes, rate)
+        log("kernel dequant_matmul [%s] M=%d K=%d N=%d x %s -> %s: max abs "
+            "err %.3g; kernel %.4f ms, plain %.4f ms, torch.matmul %.4f ms, "
+            "bound %.4f ms (%s; %d flops at %.0f TFLOP/s, %d bytes) -> "
+            "%.1f%% of bound" % (name, M, K, N, str(xdt)[6:], str(odt)[6:],
+                                 err, ms, plain_ms, lib_ms, bound_ms,
+                                 bound_by, flops, rate / 1e12, nbytes,
+                                 100.0 * bound_ms / ms))
+        if name == "path":
+            entry = {"name": "dequant_matmul", "route": "cuda",
+                     "source": "paddle_tpu_torch/ops/csrc/dequant_matmul.cu",
+                     "replaces": "paddle_tpu/ops/pallas_kernels.py:732",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+    del flush
+    entry["max_abs_err"] = max_err
+    return entry
 
 
 def profile_rows(torch, prof, steps):
@@ -655,6 +867,350 @@ def phase_train_gpu_vs_cpu(torch, fluid, transformer):
         "1e-4)" % (losses["gpu"], losses["cpu"], err))
 
 
+RESNET_SEED = 7
+RESNET_BATCHES = (1, 8, 64)
+RESNET_RUNS = {1: 200, 8: 100, 64: 20}
+# pairs of fused and unfused runs, alternated, where the host decides
+RESNET_AB_RUNS = {1: 300, 8: 200}
+FUSE_GATE = 128
+
+
+def _bn_statistics(torch, fluid, program, scope, rng):
+    """Seeded, non-trivial batch-norm parameters and moving statistics (the
+    startup program's are gamma 1, beta 0, mean 0, var 1): scales in [0.5,
+    1), variances in [1, 3), shifts and means N(0, 0.1) — so each block
+    damps its branch and the softmax is not saturated."""
+    for v in program.global_block().vars.values():
+        kind = v.name.split(".")[-1]
+        if not v.persistable or not v.name.startswith("batch_norm"):
+            continue
+        shape = tuple(v.shape)
+        if kind.startswith("w_"):
+            a = 0.5 + 0.5 * rng.rand(*shape)
+        elif kind.startswith("var"):
+            a = 1.0 + 2.0 * rng.rand(*shape)
+        else:
+            a = 0.1 * rng.randn(*shape)
+        scope.set(v.name, torch.from_numpy(a.astype(np.float32)).to(
+            scope.get(v.name).device))
+
+
+def build_resnet_artifact(torch, fluid, resnet, dirname, place, hw=None):
+    """ResNet-50 (NHWC) from the startup program on `place`, with seeded
+    batch-norm statistics, saved with save_inference_model.  `hw`
+    replaces the 224 x 224 input by a smaller one (same widths)."""
+    if hw is None:
+        main, startup, _, _, _, predict = resnet.get_model(
+            batch_size=64, depth=50, dataset="imagenet", is_train=False,
+            layout="NHWC")
+    else:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            img = fluid.layers.data(name="data", shape=[hw, hw, 3],
+                                    dtype="float32")
+            predict = resnet.resnet_imagenet(img, class_dim=1000, depth=50,
+                                             is_train=False, layout="NHWC")
+    startup.random_seed = RESNET_SEED
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        _bn_statistics(torch, fluid, main, scope,
+                       np.random.RandomState(RESNET_SEED))
+        fluid.save_inference_model(dirname, ["data"], [predict], exe,
+                                   main_program=main)
+    return main
+
+
+def _images(batch, seed, hw=224):
+    return np.random.RandomState(seed).randn(batch, hw, hw, 3).astype(
+        np.float32)
+
+
+def _profile_run(torch, pred, images):
+    """Device busy ms and kernel launches of one Predictor.run, from
+    torch.profiler; (None, None) when it sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pred.run([images])
+        torch.cuda.synchronize()
+    device_ms, rows = profile_rows(torch, prof, 1)
+    if not rows:
+        return None, None, []
+    return device_ms, sum(r[1] for r in rows), rows
+
+
+def _resnet_group(key):
+    if "paddle_bottleneck" in key:
+        return "K6 fused_bottleneck"
+    if "paddle_dequant" in key:
+        return "K5 dequant_matmul"
+    for tag, group in (("conv", "convolution (cuDNN)"),
+                       ("implicit", "convolution (cuDNN)"),
+                       ("xmma", "convolution (cuDNN)"),
+                       ("gemm", "matmul"), ("gemv", "matmul"),
+                       ("pool", "pooling"), ("reduce", "reduction"),
+                       ("elementwise", "elementwise"),
+                       ("Memcpy", "memcpy"), ("Memset", "memset"),
+                       ("copy", "copy")):
+        if tag in key:
+            return group
+    return "other"
+
+
+def serve_resnet(torch, pk, pred, lane, kernel, per_run):
+    """Predictor.run at each batch of RESNET_BATCHES: the first run of a
+    batch warms it, then RESNET_RUNS[batch] runs with the launch counts
+    zeroed just before and read just after; `kernel` must launch exactly
+    `per_run` times per run.  Returns {batch: stats}, the outputs of one
+    seeded batch per size."""
+    out = {}
+    for b in RESNET_BATCHES:
+        images = _images(b, 100 + b)
+        pred.run([images])
+        torch.cuda.synchronize()
+        runs = RESNET_RUNS[b]
+        torch.cuda.reset_peak_memory_stats()
+        pk.reset_launch_counts()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            probs, = pred.run([images])   # returns host arrays: synced
+            times.append(time.perf_counter() - t0)
+        counts = dict(pk.launch_counts)
+        # the median run: the host is shared, and a mean takes its stalls
+        wall = float(np.median(times))
+        p10, p90 = np.percentile(times, [10, 90]) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        check(probs.shape == (b, 1000) and bool(np.isfinite(probs).all()),
+              "%s b=%d: predictions of shape %s, finite %s"
+              % (lane, b, probs.shape, np.isfinite(probs).all()))
+        check(bool(np.allclose(probs.sum(1), 1.0, atol=1e-4)),
+              "%s b=%d: softmax rows do not sum to 1" % (lane, b))
+        if kernel is not None:
+            check(counts[kernel] == per_run * runs,
+                  "%s b=%d: %s launched %d times in %d runs (want %d per "
+                  "run)" % (lane, b, kernel, counts[kernel], runs, per_run))
+        others = {k: v for k, v in counts.items() if k != kernel and v}
+        check(not others, "%s b=%d: other kernels launched: %s"
+              % (lane, b, others))
+        device_ms, launches, rows = _profile_run(torch, pred, images)
+        stats = {"batch": b, "runs": runs, "ms_per_run": wall * 1e3,
+                 "ms_p10": float(p10), "ms_p90": float(p90),
+                 "ms_mean": float(np.mean(times)) * 1e3,
+                 "images_per_s": b / wall,
+                 "kernel_launches_per_run": (counts[kernel] / runs
+                                             if kernel else 0),
+                 "device_busy_ms": device_ms,
+                 "device_busy_share": (device_ms / (wall * 1e3)
+                                       if device_ms else None),
+                 "launches_per_run": launches, "peak_mem_bytes": peak}
+        groups = {}
+        for us, count, key in rows:
+            gr = groups.setdefault(_resnet_group(key), [0.0, 0])
+            gr[0] += us
+            gr[1] += count
+        stats["groups"] = {k: {"us": v[0], "launches": v[1]}
+                           for k, v in groups.items()}
+        busy = ("device busy %.3f ms (%.1f%% of the run), %d kernel "
+                "launches/run" % (device_ms, 100 * device_ms / (wall * 1e3),
+                                  launches) if device_ms else
+                "device busy not measured (the profiler saw no device time)")
+        log("%s b=%d: median %.3f ms/run (p10 %.3f, p90 %.3f, mean %.3f over "
+            "%d runs) -> %.1f images/s; %s %g launches/run; %s; peak memory "
+            "%.1f MiB"
+            % (lane, b, wall * 1e3, p10, p90, stats["ms_mean"], runs,
+               b / wall, kernel or "no hand kernel",
+               stats["kernel_launches_per_run"], busy, peak / 2 ** 20))
+        for name, (us, count) in sorted(groups.items(),
+                                        key=lambda x: -x[1][0]):
+            log("%s b=%d profile:   %10.2f us  %5d launches  [%s]"
+                % (lane, b, us, count, name))
+        out[b] = (stats, probs)
+    return out
+
+
+def interleaved_ab(preds):
+    """The fused and unfused Predictors alternated run by run (the order
+    flips every pair) on one image batch at each batch of RESNET_AB_RUNS,
+    so both see the same host: median ms of each and the median of the
+    per-pair ratio fused / unfused."""
+    out = {}
+    for b, pairs in RESNET_AB_RUNS.items():
+        images = _images(b, 100 + b)
+        times = {"fused": [], "unfused": []}
+        for i in range(pairs):
+            for name in (("fused", "unfused") if i % 2 == 0
+                         else ("unfused", "fused")):
+                t0 = time.perf_counter()
+                preds[name].run([images])
+                times[name].append(time.perf_counter() - t0)
+        fused, unfused = (np.array(times[k]) for k in ("fused", "unfused"))
+        out[b] = {"pairs": pairs, "fused_ms": float(np.median(fused)) * 1e3,
+                  "unfused_ms": float(np.median(unfused)) * 1e3,
+                  "ratio": float(np.median(fused / unfused)),
+                  "ratio_p10_p90": [float(r) for r in
+                                    np.percentile(fused / unfused, [10, 90])]}
+        log("resnet fp32 A/B b=%d, %d alternated pairs: fused median %.3f ms,"
+            " unfused median %.3f ms, fused/unfused per pair median %.3f "
+            "(p10 %.3f, p90 %.3f)" % (b, pairs, out[b]["fused_ms"],
+                                      out[b]["unfused_ms"], out[b]["ratio"],
+                                      *out[b]["ratio_p10_p90"]))
+    return out
+
+
+def _agreement(ref, got):
+    d = np.abs(ref.astype(np.float64) - got.astype(np.float64))
+    return {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+            "top1_agreement": float((ref.argmax(1) == got.argmax(1)).mean())}
+
+
+def phase_resnet(torch, pk, fluid, resnet, inference, tmp):
+    """ResNet-50 through the user's entry points on the card: startup and
+    save_inference_model, then the fp32 Predictor at FUSE_GATE (7 K6
+    launches per run) and unfused (gate 0, the default; no K6), the two
+    alternated at batches 1 and 8, then the PTQ artifact's int8 Predictor
+    (1 K5 launch per run)."""
+    from paddle_tpu_torch.flags import FLAGS
+    art = os.path.join(tmp, "resnet50")
+    t0 = time.time()
+    main = build_resnet_artifact(torch, fluid, resnet, art,
+                                 fluid.CUDAPlace(0))
+    n_bytes = sum(os.path.getsize(os.path.join(art, f))
+                  for f in os.listdir(art))
+    log("resnet: built and saved ResNet-50 (224x224, 1000 classes, NHWC) "
+        "in %.2f s: %d program ops, %d artifact bytes"
+        % (time.time() - t0, len(main.global_block().ops), n_bytes))
+    lanes, preds = {}, {}
+    for name, gate, kernel, per_run in (("fused", FUSE_GATE,
+                                         "fused_bottleneck", 7),
+                                        ("unfused", 0, None, 0)):
+        FLAGS.fuse_bottleneck_max_width = gate
+        try:
+            t0 = time.time()
+            pred = inference.create_paddle_predictor(
+                inference.AnalysisConfig(model_dir=art))
+        finally:
+            FLAGS.fuse_bottleneck_max_width = 0
+        ops = [op.type for op in pred.program.global_block().ops]
+        check(pred.device.type == "cuda", "predictor not on the card")
+        check(ops.count("fused_bottleneck") == per_run,
+              "%s: %d fused_bottleneck ops, want %d"
+              % (name, ops.count("fused_bottleneck"), per_run))
+        log("resnet fp32 %s (gate %d): predictor in %.2f s, %d program ops"
+            % (name, gate, time.time() - t0, len(ops)))
+        lanes[name] = serve_resnet(torch, pk, pred, "resnet fp32 " + name,
+                                   kernel, per_run)
+        lanes[name + "_ops"] = len(ops)
+        del pred
+        torch.cuda.empty_cache()
+    # both fp32 Predictors at once (after the lanes, so that each lane's
+    # peak memory is its own), alternated run by run
+    for name, gate in (("fused", FUSE_GATE), ("unfused", 0)):
+        FLAGS.fuse_bottleneck_max_width = gate
+        try:
+            preds[name] = inference.create_paddle_predictor(
+                inference.AnalysisConfig(model_dir=art))
+        finally:
+            FLAGS.fuse_bottleneck_max_width = 0
+    ab = interleaved_ab(preds)
+    del preds
+    torch.cuda.empty_cache()
+    for b in RESNET_BATCHES:
+        ref, got = lanes["unfused"][b][1], lanes["fused"][b][1]
+        agree = _agreement(ref, got)
+        # K6 and cuDNN sum in other orders: probabilities agree to a
+        # tolerance scaled by the largest
+        atol = 1e-4 * float(np.abs(ref).max())
+        check(bool((np.abs(ref - got) <= atol + 1e-4 * np.abs(ref)).all()),
+              "resnet b=%d: fused and unfused predictions disagree (%s, "
+              "atol %.3g, rtol 1e-4)" % (b, agree, atol))
+        check(agree["top1_agreement"] == 1.0,
+              "resnet b=%d: fused and unfused top-1 differ" % b)
+        log("resnet fp32 b=%d: fused vs unfused max |d| %.3g, mean |d| "
+            "%.3g, top-1 identical; max prob %.3g"
+            % (b, agree["max_abs"], agree["mean_abs"], float(ref.max())))
+
+    # the int8 lane: PTQ of the same artifact, 4 seeded calibration batches
+    dst = art + "_int8"
+    calib = [{"data": _images(8, 200 + i)} for i in range(4)]
+    t0 = time.time()
+    summary = inference.quantize_inference_model(art, dst,
+                                                 calib_feeds=calib)
+    log("resnet int8: PTQ in %.2f s: %d weights quantized, bytes ratio %s, "
+        "calibration %s" % (time.time() - t0, summary["n_quantized"],
+                            summary["bytes"]["ratio"],
+                            summary["calibration"]))
+    pred = inference.create_paddle_predictor(
+        inference.AnalysisConfig(model_dir=dst))
+    check(pred.precision == "int8", "the PTQ artifact serves %s"
+          % pred.precision)
+    ops = [op.type for op in pred.program.global_block().ops]
+    check(ops.count("dequant_mul") == 1 and "fused_bottleneck" not in ops,
+          "int8 program: %d dequant_mul, %d fused_bottleneck"
+          % (ops.count("dequant_mul"), ops.count("fused_bottleneck")))
+    lanes["int8"] = serve_resnet(torch, pk, pred, "resnet int8",
+                                 "dequant_matmul", 1)
+    lanes["int8_ops"] = len(ops)
+    del pred
+    torch.cuda.empty_cache()
+    deltas = {}
+    for b in RESNET_BATCHES:
+        deltas[b] = _agreement(lanes["unfused"][b][1], lanes["int8"][b][1])
+        log("resnet int8 b=%d vs fp32: max |d| %.3g, mean |d| %.3g, top-1 "
+            "agreement %.3f" % (b, deltas[b]["max_abs"],
+                                deltas[b]["mean_abs"],
+                                deltas[b]["top1_agreement"]))
+    log(json.dumps({"resnet": {
+        "fp32_fused": {b: lanes["fused"][b][0] for b in RESNET_BATCHES},
+        "fp32_unfused": {b: lanes["unfused"][b][0] for b in RESNET_BATCHES},
+        "fp32_ab": ab,
+        "int8": {b: lanes["int8"][b][0] for b in RESNET_BATCHES},
+        "program_ops": {"fused": lanes["fused_ops"],
+                        "unfused": lanes["unfused_ops"],
+                        "int8": lanes["int8_ops"]},
+        "int8_vs_fp32": deltas, "bytes_ratio": summary["bytes"]["ratio"],
+        "calibration": summary["calibration"]}}))
+    # launches over every counted run of the lane, all batches
+    return tuple(int(sum(lanes[lane][b][0]["kernel_launches_per_run"]
+                         * lanes[lane][b][0]["runs"]
+                         for b in RESNET_BATCHES))
+                 for lane in ("fused", "int8"))
+
+
+def phase_resnet_gpu_vs_cpu(torch, fluid, resnet, inference, tmp):
+    """One small ResNet-50 artifact (32 x 32 input, full widths), the
+    fused Predictor on the card and on the CPU: predictions agree."""
+    from paddle_tpu_torch.flags import FLAGS
+    art = os.path.join(tmp, "resnet50_32")
+    build_resnet_artifact(torch, fluid, resnet, art, fluid.CPUPlace(),
+                          hw=32)
+    images = _images(4, 300, hw=32)
+    FLAGS.fuse_bottleneck_max_width = FUSE_GATE
+    try:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            pred = inference.create_paddle_predictor(
+                inference.AnalysisConfig(model_dir=art, device=dev))
+            check(sum(op.type == "fused_bottleneck"
+                      for op in pred.program.global_block().ops) == 7,
+                  "gpu/cpu: the small artifact did not fuse 7 blocks")
+            outs[dev], = pred.run([images])
+    finally:
+        FLAGS.fuse_bottleneck_max_width = 0
+    ref, got = outs["cpu"], outs["cuda"]
+    atol = 1e-4 * float(np.abs(ref).max())
+    agree = _agreement(ref, got)
+    check(bool((np.abs(ref - got) <= atol + 1e-4 * np.abs(ref)).all()),
+          "resnet gpu/cpu predictions disagree (%s, atol %.3g, rtol 1e-4)"
+          % (agree, atol))
+    log("resnet gpu/cpu (fused, 32x32, batch 4): max |d| %.3g, mean |d| "
+        "%.3g, top-1 agreement %.3f (atol %.3g, rtol 1e-4)"
+        % (agree["max_abs"], agree["mean_abs"], agree["top1_agreement"],
+           atol))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -663,8 +1219,9 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import inference
     from paddle_tpu_torch.inference import decode
-    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.models import resnet, transformer
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import pallas_kernels as pk
     from paddle_tpu_torch.serving import batcher
@@ -687,6 +1244,9 @@ def main():
     # 2. kernels against their plain versions
     entry = phase_kernels(torch, pk)
     flash_entries = phase_flash_kernels(torch, pk)
+    k5_entry = phase_dequant_kernel(torch, pk)
+    k6_entry = phase_bottleneck_kernel(torch, pk)
+    torch.cuda.empty_cache()
     # 3. the decode-serving slice at full width
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "lm")
@@ -706,8 +1266,15 @@ def main():
     for e in flash_entries:
         e["launches"] = counts[e["name"]]
     phase_train_gpu_vs_cpu(torch, fluid, transformer)
+    torch.cuda.empty_cache()
+    # 7. ResNet-50 inference: fp32 fused / unfused and int8, 8. gpu vs cpu
+    with tempfile.TemporaryDirectory() as tmp:
+        k6_entry["launches"], k5_entry["launches"] = phase_resnet(
+            torch, pk, fluid, resnet, inference, tmp)
+        phase_resnet_gpu_vs_cpu(torch, fluid, resnet, inference, tmp)
     log(smi)
-    log(json.dumps({"kernels": [entry] + flash_entries}))
+    log(json.dumps({"kernels": [entry] + flash_entries + [k5_entry,
+                                                          k6_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

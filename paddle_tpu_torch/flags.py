@@ -23,4 +23,12 @@ FLAGS = types.SimpleNamespace(
     serving_decode_fuse_steps=1,
     # default KV-cache numerics ('' = float32; 'int8' is not ported yet)
     serving_kv_cache_dtype="",
+    # FuseBottleneckPass fuses only bottlenecks whose width F (the 3x3
+    # conv's channel count) is <= this; 0 disables the pass (opt-in, as
+    # in the JAX package)
+    fuse_bottleneck_max_width=0,
+    # PTQ size floor: a weight with fewer elements stays fp32
+    quantize_min_weight_elems=1024,
+    # calibration batches the PTQ pass consumes at most
+    quantize_calib_batches=4,
 )

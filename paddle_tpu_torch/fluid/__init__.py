@@ -2,6 +2,8 @@
 `fluid.layers` build a Program, `append_backward` differentiates it with
 generic `<type>_grad` ops, an optimizer appends its update ops, and the
 Executor runs the program eagerly, op by op, on a torch device.
+`save_inference_model` writes an inference artifact that
+`inference.create_paddle_predictor` serves.
 
     import paddle_tpu_torch.fluid as fluid
     main, startup = fluid.Program(), fluid.Program()
@@ -13,21 +15,28 @@ Executor runs the program eagerly, op by op, on a torch device.
 """
 
 from . import (backward, core, executor, framework, initializer, io,
-               layers, optimizer, unique_name)
+               ir_passes, layers, optimizer, transpiler, unique_name)
 from .backward import append_backward
 from .core import CPUPlace, CUDAPlace
 from .executor import Executor, Scope, as_numpy, global_scope, scope_guard
 from .framework import (Operator, Parameter, Program, Variable,
                         default_main_program, default_startup_program,
                         program_guard)
-from .io import scope_from_jax, scope_to_jax
+from .io import (load_inference_model, load_params, load_persistables,
+                 load_vars, save_inference_model, save_params,
+                 save_persistables, save_vars, scope_from_jax, scope_to_jax)
 from .param_attr import ParamAttr
+from .transpiler import InferenceTranspiler
 
 __all__ = [
     "backward", "core", "executor", "framework", "initializer", "io",
-    "layers", "optimizer", "unique_name", "append_backward", "CPUPlace",
+    "ir_passes", "layers", "optimizer", "transpiler", "unique_name",
+    "append_backward", "CPUPlace",
     "CUDAPlace", "Executor", "Scope", "as_numpy", "global_scope",
     "scope_guard", "Operator", "Parameter", "Program", "Variable",
     "default_main_program", "default_startup_program", "program_guard",
-    "scope_from_jax", "scope_to_jax", "ParamAttr",
+    "scope_from_jax", "scope_to_jax", "ParamAttr", "save_vars",
+    "save_params", "save_persistables", "load_vars", "load_params",
+    "load_persistables", "save_inference_model", "load_inference_model",
+    "InferenceTranspiler",
 ]

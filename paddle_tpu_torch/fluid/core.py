@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 __all__ = ["CPUPlace", "CUDAPlace", "VarDesc", "convert_np_dtype_to_dtype_",
-           "convert_dtype_to_torch", "convert_torch_dtype_to_dtype_"]
+           "convert_dtype_to_np", "convert_dtype_to_torch",
+           "convert_torch_dtype_to_dtype_"]
 
 
 class Place:
@@ -101,6 +102,15 @@ def convert_np_dtype_to_dtype_(np_dtype):
         if np.dtype(nd) == dtype:
             return enum
     raise ValueError("Not supported numpy dtype %s" % dtype)
+
+
+def convert_dtype_to_np(dtype):
+    """VarType enum / string -> numpy dtype (bf16 has none in numpy)."""
+    enum = convert_np_dtype_to_dtype_(dtype)
+    if enum == _T.BF16:
+        raise ValueError("bfloat16 has no numpy dtype here; use "
+                         "convert_dtype_to_torch")
+    return np.dtype(_DTYPE_TO_NP[enum])
 
 
 def convert_dtype_to_torch(dtype):

@@ -2,14 +2,21 @@
 paddle_tpu/fluid/framework.py.
 
 One in-memory graph object per program: the IR's job is program
-construction and autodiff; the Executor (executor.py) interprets a block
-op by op.  Shape and dtype inference is delegated to
+construction, autodiff and serialization; the Executor (executor.py)
+interprets a block op by op.  Shape and dtype inference is delegated to
 the op registry, which runs the op's torch lowering on meta tensors
 (ops/registry.py) — never JAX.
+
+`serialize_to_string` writes the JAX package's JSON, key for key, and
+`parse_from_string` reads it: a program (and so an inference artifact's
+`__model__`) saved by either package loads in the other.
 """
 
 import collections
 import contextlib
+import json
+
+import numpy as np
 
 from . import core, unique_name
 from .core import VarDesc, convert_np_dtype_to_dtype_
@@ -59,12 +66,28 @@ class Variable:
     def torch_dtype(self):
         return core.convert_dtype_to_torch(self.dtype)
 
+    @property
+    def np_dtype(self):
+        return core.convert_dtype_to_np(self.dtype)
+
     def __repr__(self):
         return "Variable(name=%s, shape=%s, dtype=%s, lod_level=%d%s)" % (
             self.name, self.shape, self.torch_dtype, self.lod_level,
             ", persistable" if self.persistable else "")
 
     __str__ = __repr__
+
+    def _serialize(self):
+        return {
+            "name": self.name, "type": self.type,
+            "shape": list(self.shape) if self.shape is not None else None,
+            "dtype": self.dtype, "lod_level": self.lod_level,
+            "persistable": self.persistable,
+            "stop_gradient": self.stop_gradient,
+            "is_data": self.is_data,
+            "is_parameter": isinstance(self, Parameter),
+            "trainable": getattr(self, "trainable", None),
+        }
 
 
 class Parameter(Variable):
@@ -132,6 +155,29 @@ class Operator:
 
     __str__ = __repr__
 
+    @staticmethod
+    def _encode_attr(v):
+        """JSON form of one attr value (recursive, as a Block or an
+        ndarray may sit inside a container attr)."""
+        if isinstance(v, Block):
+            return {"__block__": v.idx}
+        if isinstance(v, np.ndarray):
+            return {"__ndarray__": v.tolist(), "dtype": str(v.dtype)}
+        if isinstance(v, np.integer):
+            return int(v)
+        if isinstance(v, np.floating):
+            return float(v)
+        if isinstance(v, dict):
+            return {k: Operator._encode_attr(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [Operator._encode_attr(x) for x in v]
+        return v
+
+    def _serialize(self):
+        attrs = {k: self._encode_attr(v) for k, v in self.attrs.items()}
+        return {"type": self.type, "inputs": self.inputs,
+                "outputs": self.outputs, "attrs": attrs, "uid": self.uid}
+
 
 class Block:
     """An ordered op list + var map."""
@@ -142,6 +188,7 @@ class Block:
         self.parent_idx = parent_idx
         self.vars = collections.OrderedDict()  # name -> Variable
         self.ops = []
+        self.forward_block_idx = -1
 
     @property
     def parent_block(self):
@@ -206,6 +253,14 @@ class Block:
             registry.infer_shape(op, self)
         return op
 
+    def _serialize(self):
+        return {
+            "idx": self.idx, "parent_idx": self.parent_idx,
+            "forward_block_idx": self.forward_block_idx,
+            "vars": [v._serialize() for v in self.vars.values()],
+            "ops": [op._serialize() for op in self.ops],
+        }
+
 
 class Program:
     """Whole-model IR: a list of Blocks.  The Executor consumes it
@@ -238,6 +293,88 @@ class Program:
     def all_parameters(self):
         return self.global_block().all_parameters()
 
+    def clone(self, for_test=False):
+        """A copy through the serialized form; `for_test` sets is_test on
+        dropout and batch_norm."""
+        p = Program.parse_from_string(self.serialize_to_string())
+        if for_test:
+            for blk in p.blocks:
+                for op in blk.ops:
+                    if op.type in _TEST_MODE_OPS:
+                        op.attrs["is_test"] = True
+        return p
+
+    def _prune(self, feeds, fetches):
+        """A clone holding only the ops that compute `fetches` from
+        `feeds`, and the vars they touch (save_inference_model)."""
+        p = self.clone()
+        blk = p.global_block()
+        feed_names = set(feeds)
+        needed = set(fetches)
+        keep = []
+        for op in reversed(blk.ops):
+            if set(op.output_arg_names) & needed:
+                keep.append(op)
+                needed.update(n for n in op.input_arg_names
+                              if n not in feed_names)
+        keep.reverse()
+        blk.ops = keep
+        used = set(feed_names) | set(fetches)
+        for op in blk.ops:
+            used.update(op.input_arg_names)
+            used.update(op.output_arg_names)
+        blk.vars = collections.OrderedDict(
+            (k, v) for k, v in blk.vars.items() if k in used)
+        return p
+
+    def serialize_to_string(self):
+        return json.dumps({
+            "version": 1,
+            "seed": self._seed,
+            "blocks": [b._serialize() for b in self.blocks],
+        })
+
+    @staticmethod
+    def parse_from_string(s):
+        data = json.loads(s)
+        p = Program()
+        p._seed = data.get("seed", 0)
+        p.blocks = []
+        for bdata in data["blocks"]:
+            blk = Block(p, bdata["idx"], bdata["parent_idx"])
+            blk.forward_block_idx = bdata.get("forward_block_idx", -1)
+            p.blocks.append(blk)
+
+        def decode_attr(av):
+            if isinstance(av, dict):
+                if "__block__" in av:
+                    return p.blocks[av["__block__"]]
+                if "__ndarray__" in av:
+                    return np.array(av["__ndarray__"], dtype=av["dtype"])
+                return {k: decode_attr(x) for k, x in av.items()}
+            if isinstance(av, list):
+                return [decode_attr(x) for x in av]
+            return av
+
+        for blk, bdata in zip(p.blocks, data["blocks"]):
+            for vd in bdata["vars"]:
+                vd = dict(vd)
+                cls = Parameter if vd.pop("is_parameter", False) else Variable
+                trainable = vd.pop("trainable", None)
+                v = cls(blk, **vd)
+                if trainable is not None:
+                    v.trainable = trainable
+                blk.vars[v.name] = v
+            for od in bdata["ops"]:
+                attrs = {k: decode_attr(av) for k, av in od["attrs"].items()}
+                op = Operator(blk, od["type"], od["inputs"], od["outputs"],
+                              attrs)
+                if "uid" in od:
+                    op.uid = od["uid"]
+                    p._op_uid = max(p._op_uid, op.uid)
+                blk.ops.append(op)
+        return p
+
     def to_string(self, throw_on_error=True, with_details=False):
         lines = []
         for blk in self.blocks:
@@ -251,6 +388,9 @@ class Program:
 
     __str__ = to_string
 
+
+# ops whose is_test attr clone(for_test=True) sets
+_TEST_MODE_OPS = ("dropout", "batch_norm")
 
 # ---- default programs & guards ----
 

@@ -1,6 +1,7 @@
 """Initializers emitted as startup-program ops, after
 paddle_tpu/fluid/initializer.py: Constant (fill_constant), Uniform
-(uniform_random) and the Xavier default that `fc` and `embedding` reach.
+(uniform_random), Normal (gaussian_random, conv2d's default) and the
+Xavier default that `fc` and `embedding` reach.
 The random ops draw from a torch.Generator seeded per op and step (see
 ops/registry.py ExecContext.generator), so their values are not the JAX
 package's: carry a startup scope across (fluid/io.py) for equal
@@ -8,8 +9,8 @@ weights."""
 
 import numpy as np
 
-__all__ = ["Constant", "Uniform", "Xavier", "ConstantInitializer",
-           "UniformInitializer", "XavierInitializer"]
+__all__ = ["Constant", "Uniform", "Normal", "Xavier", "ConstantInitializer",
+           "UniformInitializer", "NormalInitializer", "XavierInitializer"]
 
 
 class Initializer:
@@ -41,6 +42,18 @@ class UniformInitializer(Initializer):
             infer_shape=False)
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self._mean, self._std, self._seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="gaussian_random", outputs={"Out": var},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self._mean, "std": self._std, "seed": self._seed},
+            infer_shape=False)
+
+
 def _fan_in_out(var):
     shape = var.shape
     if not shape:
@@ -66,4 +79,5 @@ class XavierInitializer(Initializer):
 # fluid aliases
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer

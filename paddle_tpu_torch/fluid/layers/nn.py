@@ -1,16 +1,19 @@
 """NN layer functions building ops into the current program, after
 paddle_tpu/fluid/layers/nn.py: the same signatures, parameter names, op
-types and attrs for the layers the transformer calls."""
+types and attrs for the layers the transformer and ResNet call."""
 
 import numpy as np
 
-from ..initializer import Constant
+from .. import core, unique_name
+from ..initializer import Constant, NormalInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "dropout", "softmax_with_cross_entropy",
-    "elementwise_add", "mean", "scale", "reshape", "slice", "cumsum",
-    "remat_checkpoint", "flash_attention",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    "dropout", "softmax", "relu", "cross_entropy",
+    "softmax_with_cross_entropy", "accuracy", "topk", "elementwise_add",
+    "mean", "scale", "reshape", "slice", "cumsum", "remat_checkpoint",
+    "flash_attention",
 ]
 
 
@@ -72,6 +75,110 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return tmp
 
 
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """data_format NCHW or NHWC; the filter is OIHW in either, with the
+    JAX package's default init N(0, sqrt(2 / (kh * kw * C)))."""
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1] if data_format == "NCHW" \
+        else input.shape[-1]
+    groups = groups or 1
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, std, 0))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": input, "Filter": w},
+        outputs={"Output": pre_bias},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups, "use_cudnn": use_cudnn,
+               "data_format": data_format})
+    c_dim = 1 if data_format == "NCHW" else 3
+    pre_act = helper.append_bias_op(pre_bias, dim_start=c_dim,
+                                    dim_end=c_dim + 1)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None, data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    if isinstance(pool_stride, int):
+        pool_stride = [pool_stride, pool_stride]
+    if isinstance(pool_padding, int):
+        pool_padding = [pool_padding, pool_padding]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": input}, outputs={"Out": out},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "strides": pool_stride, "paddings": pool_padding,
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive, "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=
+               False, fuse_with_relu=False, use_global_stats=False):
+    """Scale and Bias are parameters; the moving Mean and Variance are
+    persistable vars filled by the startup program (0 and 1) and written
+    back by the op's MeanOut / VarianceOut."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    param_shape = [channels]
+    scale = helper.create_parameter(attr=helper.param_attr, shape=param_shape,
+                                    dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=param_shape,
+                                   dtype=dtype, is_bias=True)
+    mean_name = moving_mean_name or unique_name.generate(helper.name
+                                                         + ".mean")
+    var_name = moving_variance_name or unique_name.generate(helper.name
+                                                            + ".var")
+    gb = helper.main_program.global_block()
+    mean = gb.create_var(name=mean_name, shape=param_shape, dtype=dtype,
+                         persistable=True, stop_gradient=True)
+    variance = gb.create_var(name=var_name, shape=param_shape, dtype=dtype,
+                             persistable=True, stop_gradient=True)
+    helper.set_variable_initializer(mean, Constant(0.0))
+    helper.set_variable_initializer(variance, Constant(1.0))
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": variance},
+        outputs={"Y": out, "MeanOut": mean, "VarianceOut": variance,
+                 "SavedMean": saved_mean, "SavedVariance": saved_var},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "use_global_stats": use_global_stats,
+               "data_layout": data_layout})
+    return helper.append_activation(out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -115,6 +222,26 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
     return out
 
 
+def softmax(input, use_cudnn=True, name=None, axis=-1):
+    return _single_op_layer(LayerHelper("softmax", name=name), "softmax",
+                            input, {"axis": axis})
+
+
+def relu(x, name=None):
+    return _single_op_layer(LayerHelper("relu", name=name), "relu", x)
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": input, "Label": label},
+                     outputs={"Y": out},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, return_softmax=False):
     helper = LayerHelper("softmax_with_cross_entropy")
@@ -128,6 +255,41 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """top_k, then the accuracy op over its indices."""
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_variable_for_type_inference(input.dtype)
+    topk_indices = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64, stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": input},
+                     outputs={"Out": topk_out, "Indices": topk_indices},
+                     attrs={"k": k})
+    acc_out = helper.create_variable_for_type_inference("float32",
+                                                        stop_gradient=True)
+    if correct is None:
+        correct = helper.create_variable_for_type_inference(
+            core.VarDesc.VarType.INT32, stop_gradient=True)
+    if total is None:
+        total = helper.create_variable_for_type_inference(
+            core.VarDesc.VarType.INT32, stop_gradient=True)
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": topk_out, "Indices": topk_indices, "Label": label},
+        outputs={"Accuracy": acc_out, "Correct": correct, "Total": total})
+    return acc_out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64, stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": input},
+                     outputs={"Out": values, "Indices": indices},
+                     attrs={"k": k})
+    return values, indices
 
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):

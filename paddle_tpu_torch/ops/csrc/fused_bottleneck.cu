@@ -1,0 +1,413 @@
+// Fused ResNet bottleneck for inference (BN folded), fp32, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel `fused_bottleneck` of
+// paddle_tpu/ops/pallas_kernels.py (`_bottleneck_kernel`, one pallas_call
+// per block): the whole residual block in one launch, so the two
+// intermediate activations never leave the chip.
+//
+//   x  [N, H, W, C] NHWC f32
+//   w0 [F, C, 1, 1]  b0 [F]     1x1 reduce              + relu
+//   w1 [F, F, 3, 3]  b1 [F]     3x3, stride s, pad 1    + relu
+//   w2 [C4, F, 1, 1] b2 [C4]    1x1 expand
+//   ws [C4, C, 1, 1] bs [C4]    1x1 / s projection shortcut (or identity:
+//                                ws == nullptr, s == 1, C == C4)
+//   -> out [N, Ho, Wo, C4] = relu(conv2 + b2 + shortcut),
+//   Ho = (H - 1) / s + 1, Wo = (W - 1) / s + 1.
+// The filters are read in the program's OIHW layout: no transposes per
+// run.  Any H and W (odd sizes too), stride 1 or 2.
+//
+// Design.  One thread block owns one image and R consecutive output rows
+// o0 .. o0 + R - 1 (R picked per shape, below).  It
+//   1. computes conv0 + b0 + relu for the E = s (R - 1) + 3 input rows
+//      s o0 - 1 .. s (o0 + R - 1) + 1 that the 3x3 taps read, into a
+//      shared-memory window [E, W, F]; rows outside the image are exact
+//      zeros, as the 3x3's zero padding acts on conv0's OUTPUT (the TPU
+//      kernel masks those rows the same way);
+//   2. computes the 3x3 conv + b1 + relu from that window (the tap's
+//      column outside the image reads 0) into a shared row block
+//      h [R Wo, F];
+//   3. accumulates conv2 (from h) and the projection shortcut (from x in
+//      device memory, at (s o, s wo)) into one register tile, adds the
+//      biases (or the identity x row), applies relu and writes out.
+// Each stage is a small GEMM, out[m][n] = sum_k A(m, k) B[n][k], with B a
+// filter read row by row from device memory (OIHW keeps each output
+// channel's K = C, 9 F or F inputs contiguous; for the 3x3, k runs over
+// (input channel, tap) in OIHW order and A is the window read as
+// im2col).  The block computes 64 x 64 output tiles, 256 threads each
+// owning a 4 x 4 register tile, over K in chunks of 16 staged in shared
+// memory.  Window and h rows are padded to F + 1 floats so the im2col
+// reads of one chunk spread over the banks.
+//
+// What bounds it: per output pixel the block does C F + 9 F^2 + F C4 (+
+// C C4) multiply-adds on one read of x and one write of out, hundreds of
+// flops per byte — above the card's fp32 ridge (67 TFLOP/s over
+// 3.35 TB/s, ~20 flops per byte), so it is bound by the fp32 FMA rate.  The
+// design spends no device-memory traffic on the intermediates; it pays
+// for that by recomputing conv0 on the (E - s R) halo rows that
+// neighbouring blocks share (R = 1, s = 1: 3x; R = 2: 2x), by SIMT FMAs
+// rather than tensor cores, and by re-reading the filters from L2 in
+// every block.  Tensor-core (wgmma / TF32) tiles, TMA staging and
+// splitting F across blocks are later work.
+//
+// Sums run in a fixed order fixed by the shape: no atomics, so the
+// result is deterministic.
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace paddle_bottleneck {
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 64;       // BM = BN: output tile edge
+constexpr int kChunk = 16;      // K staged per step
+constexpr int kLdt = kTile + 4; // staged tile row stride (float4 aligned)
+// aim each block at ~2 output tiles of rows, but keep >= 2 blocks per SM
+constexpr int kTargetRows = 128;
+constexpr long long kMinBlocks = 264;
+
+struct Args {
+  const float* x;
+  const float* w0;
+  const float* b0;
+  const float* w1;
+  const float* b1;
+  const float* w2;
+  const float* b2;
+  const float* ws;
+  const float* bs;
+  float* out;
+  int N, H, W, C, F, C4, stride;
+};
+
+struct Geom {
+  int Ho, Wo, R, E, ldw, ldh;
+};
+
+// A block-wide 64 x 64 tile of out[m][n] = sum_k A(m, k) * B[n * ldb + k]:
+// thread (ty, tx) owns rows m0 + 4 ty + i and columns n0 + 4 tx + j.
+// The A operand is a loader with three parts, so the index arithmetic
+// is paid once per row per tile and once per column per chunk, not per
+// element: `row(m)` (0 content outside the operand), `col(k)` and
+// `at(row, col)`.  B rows n >= N read 0.  The next chunk is fetched into
+// registers while the current one is multiplied out of shared memory
+// (two staging buffers, one barrier per chunk).
+template <class ALoad>
+__device__ __forceinline__ void tile_gemm(const ALoad& a,
+                                          const float* __restrict__ B,
+                                          int ldb, int N, int K, int m0,
+                                          int n0, float (&acc)[4][4],
+                                          float* As, float* Bs) {
+  const int t = threadIdx.x;
+  const int tx = t % 16, ty = t / 16;
+  const int lk = t % kChunk;   // the chunk column this thread stages
+  const int lr = t / kChunk;   // its first row (then +16, +32, +48)
+  typename ALoad::Row rows[kTile / 16];
+  const float* brow[kTile / 16];
+#pragma unroll
+  for (int i = 0; i < kTile / 16; ++i) {
+    rows[i] = a.row(m0 + lr + 16 * i);
+    const int n = n0 + lr + 16 * i;
+    brow[i] = n < N ? B + (size_t)n * ldb : nullptr;
+  }
+  float ra[kTile / 16], rb[kTile / 16];
+  auto fetch = [&](int k) {
+    const bool live = k < K;
+    const typename ALoad::Col c = a.col(live ? k : 0);
+#pragma unroll
+    for (int i = 0; i < kTile / 16; ++i) {
+      ra[i] = live ? a.at(rows[i], c) : 0.f;
+      rb[i] = (live && brow[i]) ? __ldg(brow[i] + k) : 0.f;
+    }
+  };
+  fetch(lk);
+  int buf = 0;
+  for (int k0 = 0; k0 < K; k0 += kChunk) {
+    float* as = As + buf * kChunk * kLdt;
+    float* bs = Bs + buf * kChunk * kLdt;
+#pragma unroll
+    for (int i = 0; i < kTile / 16; ++i) {
+      as[lk * kLdt + lr + 16 * i] = ra[i];
+      bs[lk * kLdt + lr + 16 * i] = rb[i];
+    }
+    __syncthreads();
+    if (k0 + kChunk < K) fetch(k0 + kChunk + lk);
+#pragma unroll
+    for (int kk = 0; kk < kChunk; ++kk) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(as + kk * kLdt + 4 * ty);
+      const float4 bv =
+          *reinterpret_cast<const float4*>(bs + kk * kLdt + 4 * tx);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    buf ^= 1;
+  }
+  // the caller's next tile stages into these buffers again
+  __syncthreads();
+}
+
+__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// A row of an operand whose k runs along contiguous memory: a pointer to
+// its first element, or null for a row outside the operand.
+struct PtrRows {
+  typedef const float* Row;
+  typedef int Col;
+  __device__ int col(int k) const { return k; }
+  __device__ float at(Row r, int k) const { return r ? r[k] : 0.f; }
+};
+
+// conv0's A: x at window row e (input row row0 + e), column w.
+struct XWindow : PtrRows {
+  const float* x;  // this image
+  int H, W, C, row0, M;
+  __device__ XWindow(const float* x_, int H_, int W_, int C_, int row0_,
+                     int M_)
+      : x(x_), H(H_), W(W_), C(C_), row0(row0_), M(M_) {}
+  __device__ Row row(int m) const {
+    if (m >= M) return nullptr;
+    const int e = m / W, w = m - e * W;
+    const int h = row0 + e;
+    if (h < 0 || h >= H) return nullptr;
+    return x + ((size_t)h * W + w) * C;
+  }
+  __device__ float at(Row r, int k) const { return r ? __ldg(r + k) : 0.f; }
+};
+
+// the 3x3's A: im2col of the shared window, k = fi * 9 + dy * 3 + dx in
+// OIHW order.
+struct Im2col {
+  struct Row {
+    int base;  // offset of window pixel (s r, s wo - 1)
+    int col0;  // s wo - 1; kOutside for a row outside the operand
+  };
+  static constexpr int kOutside = -(1 << 30);
+  struct Col {
+    int off;   // fi + (dy W + dx) ldw
+    int dx;
+  };
+  const float* win;
+  int W, Wo, s, ldw, M;
+  __device__ Im2col(const float* win_, int W_, int Wo_, int s_, int ldw_,
+                    int M_)
+      : win(win_), W(W_), Wo(Wo_), s(s_), ldw(ldw_), M(M_) {}
+  __device__ Row row(int m) const {
+    if (m >= M) return Row{0, kOutside};
+    const int r = m / Wo, wo = m - r * Wo;
+    return Row{(s * r * W + s * wo - 1) * ldw, s * wo - 1};
+  }
+  __device__ Col col(int k) const {
+    const int fi = k / 9, tap = k - fi * 9;
+    const int dy = tap / 3, dx = tap - dy * 3;
+    return Col{fi + (dy * W + dx) * ldw, dx};
+  }
+  __device__ float at(const Row& r, const Col& c) const {
+    const int col = r.col0 + c.dx;
+    if (col < 0 || col >= W) return 0.f;
+    return win[r.base + c.off];
+  }
+};
+
+// conv2's A: the shared row block h.
+struct HRows : PtrRows {
+  const float* h;
+  int ldh, M;
+  __device__ HRows(const float* h_, int ldh_, int M_)
+      : h(h_), ldh(ldh_), M(M_) {}
+  __device__ Row row(int m) const { return m < M ? h + m * ldh : nullptr; }
+};
+
+// the projection shortcut's A: x at (s o, s wo).
+struct XStrided : PtrRows {
+  const float* x;  // this image
+  int W, C, Wo, Ho, s, o0, M;
+  __device__ XStrided(const float* x_, int W_, int C_, int Wo_, int Ho_,
+                      int s_, int o0_, int M_)
+      : x(x_), W(W_), C(C_), Wo(Wo_), Ho(Ho_), s(s_), o0(o0_), M(M_) {}
+  __device__ Row row(int m) const {
+    if (m >= M) return nullptr;
+    const int r = m / Wo, wo = m - r * Wo;
+    const int o = o0 + r;
+    if (o >= Ho) return nullptr;
+    return x + ((size_t)(s * o) * W + s * wo) * C;
+  }
+  __device__ float at(Row r, int k) const { return r ? __ldg(r + k) : 0.f; }
+};
+
+__global__ void __launch_bounds__(kThreads)
+bottleneck_kernel(const Args a, const Geom g) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* As = smem;                       // 2 staging buffers each
+  float* Bs = As + 2 * kChunk * kLdt;
+  float* win = Bs + 2 * kChunk * kLdt;    // [E * W][ldw]
+  float* hbuf = win + g.E * a.W * g.ldw;  // [R * Wo][ldh]
+
+  const int img = blockIdx.y;
+  const int o0 = blockIdx.x * g.R;
+  const int s = a.stride;
+  const float* x = a.x + (size_t)img * a.H * a.W * a.C;
+  const int t = threadIdx.x;
+  const int tx = t % 16, ty = t / 16;
+  float acc[4][4];
+
+  // 1. conv0 + b0 + relu over the window rows, zero outside the image
+  const XWindow xa(x, a.H, a.W, a.C, s * o0 - 1, g.E * a.W);
+  for (int m0 = 0; m0 < xa.M; m0 += kTile) {
+    for (int n0 = 0; n0 < a.F; n0 += kTile) {
+      zero(acc);
+      tile_gemm(xa, a.w0, a.C, a.F, a.C, m0, n0, acc, As, Bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + 4 * ty + i;
+        if (m >= xa.M) continue;
+        const int h = xa.row0 + m / a.W;
+        const bool inside = h >= 0 && h < a.H;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 4 * tx + j;
+          if (n < a.F)
+            win[m * g.ldw + n] =
+                inside ? fmaxf(acc[i][j] + __ldg(a.b0 + n), 0.f) : 0.f;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. the 3x3 (stride s) + b1 + relu into h
+  const Im2col ca(win, a.W, g.Wo, s, g.ldw, g.R * g.Wo);
+  const int K1 = 9 * a.F;
+  for (int m0 = 0; m0 < ca.M; m0 += kTile) {
+    for (int n0 = 0; n0 < a.F; n0 += kTile) {
+      zero(acc);
+      tile_gemm(ca, a.w1, K1, a.F, K1, m0, n0, acc, As, Bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + 4 * ty + i;
+        if (m >= ca.M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 4 * tx + j;
+          if (n < a.F)
+            hbuf[m * g.ldh + n] = fmaxf(acc[i][j] + __ldg(a.b1 + n), 0.f);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. conv2 (+ projection) + biases (+ identity) + relu, to out
+  const HRows ha(hbuf, g.ldh, g.R * g.Wo);
+  const XStrided sa(x, a.W, a.C, g.Wo, g.Ho, s, o0, g.R * g.Wo);
+  const bool proj = a.ws != nullptr;
+  for (int m0 = 0; m0 < ha.M; m0 += kTile) {
+    for (int n0 = 0; n0 < a.C4; n0 += kTile) {
+      zero(acc);
+      tile_gemm(ha, a.w2, a.F, a.C4, a.F, m0, n0, acc, As, Bs);
+      if (proj) tile_gemm(sa, a.ws, a.C, a.C4, a.C, m0, n0, acc, As, Bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + 4 * ty + i;
+        if (m >= ha.M) continue;
+        const int r = m / g.Wo, wo = m - r * g.Wo;
+        const int o = o0 + r;
+        if (o >= g.Ho) continue;
+        const size_t pix = ((size_t)img * g.Ho + o) * g.Wo + wo;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 4 * tx + j;
+          if (n >= a.C4) continue;
+          float y = acc[i][j] + __ldg(a.b2 + n);
+          // identity: s == 1 and C == C4, so x's pixel (o, wo) is the
+          // output pixel's own
+          y += proj ? __ldg(a.bs + n)
+                    : __ldg(x + ((size_t)o * a.W + wo) * a.C + n);
+          a.out[pix * a.C4 + n] = fmaxf(y, 0.f);
+        }
+      }
+    }
+  }
+}
+
+size_t smem_bytes(const Args& a, int Wo, int R) {
+  const int E = a.stride * (R - 1) + 3;
+  const size_t ld = (size_t)a.F + 1;
+  return sizeof(float) * (4 * (size_t)kChunk * kLdt +
+                          (size_t)E * a.W * ld + (size_t)R * Wo * ld);
+}
+
+}  // namespace
+}  // namespace paddle_bottleneck
+
+// The C interface the port's ctypes wrapper calls
+// (paddle_tpu_torch/ops/pallas_kernels.py fused_bottleneck_oihw).  The
+// wrapper has checked shapes, dtypes and contiguity; pointers are device
+// pointers.  Returns a cudaError_t (0 on a launched kernel).
+struct PaddleBottleneckArgs {
+  const float* x;
+  const float* w0;
+  const float* b0;
+  const float* w1;
+  const float* b1;
+  const float* w2;
+  const float* b2;
+  const float* ws;
+  const float* bs;
+  float* out;
+  int N, H, W, C, F, C4, stride;
+};
+
+extern "C" int paddle_fused_bottleneck_f32(const PaddleBottleneckArgs* p,
+                                           cudaStream_t st) {
+  using namespace paddle_bottleneck;
+  const Args a{p->x, p->w0, p->b0, p->w1, p->b1, p->w2, p->b2, p->ws,
+               p->bs, p->out, p->N, p->H, p->W, p->C, p->F, p->C4,
+               p->stride};
+  if (a.N <= 0 || a.H <= 0 || a.W <= 0 || a.C <= 0 || a.F <= 0 ||
+      a.C4 <= 0 || (a.stride != 1 && a.stride != 2) || a.N > 65535)
+    return cudaErrorInvalidValue;
+  if (a.ws == nullptr && (a.stride != 1 || a.C != a.C4))
+    return cudaErrorInvalidValue;
+  Geom g;
+  g.Ho = (a.H - 1) / a.stride + 1;
+  g.Wo = (a.W - 1) / a.stride + 1;
+  g.ldw = g.ldh = a.F + 1;
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(
+      &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  // rows per block: ~kTargetRows GEMM rows, fewer while the window does
+  // not fit or the grid would leave SMs idle
+  int R = kTargetRows / g.Wo;
+  if (R < 1) R = 1;
+  if (R > g.Ho) R = g.Ho;
+  while (R > 1 &&
+         (smem_bytes(a, g.Wo, R) > (size_t)max_smem ||
+          (long long)a.N * ((g.Ho + R - 1) / R) < kMinBlocks))
+    --R;
+  const size_t smem = smem_bytes(a, g.Wo, R);
+  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
+  g.R = R;
+  g.E = a.stride * (R - 1) + 3;
+  err = cudaFuncSetAttribute(bottleneck_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.Ho + R - 1) / R, a.N);
+  bottleneck_kernel<<<grid, kThreads, smem, st>>>(a, g);
+  return cudaGetLastError();
+}

@@ -1,8 +1,8 @@
 """Math / elementwise / reduction / activation op lowerings, after
 paddle_tpu/ops/math_ops.py: gelu, elementwise_add with fluid's `axis`
-broadcasting, mul (fc's matmul), sum, scale, mean and cumsum.  The
-matmuls are plain torch.matmul in fp32 (TF32 off), as the JAX package
-leaves them to XLA."""
+broadcasting, mul (fc's matmul), sum, scale, mean, cumsum, relu, softmax
+and top_k.  The matmuls are plain torch.matmul in fp32 (TF32 off), as
+the JAX package leaves them to XLA."""
 
 import numpy as np
 import torch
@@ -91,3 +91,20 @@ def _cumsum(ctx):
     if reverse:
         out = torch.flip(out, (axis,))
     return {"Out": out}
+
+
+@register_op("relu")
+def _relu(ctx):
+    return {"Out": torch.relu(ctx.input("X"))}
+
+
+@register_op("softmax")
+def _softmax(ctx):
+    """Over the last axis, as the JAX lowering (which ignores `axis`)."""
+    return {"Out": torch.softmax(ctx.input("X"), dim=-1)}
+
+
+@register_op("top_k")
+def _top_k(ctx):
+    vals, idx = torch.topk(ctx.input("X"), int(ctx.attr("k", 1)), dim=-1)
+    return {"Out": vals, "Indices": idx.to(torch.int64)}

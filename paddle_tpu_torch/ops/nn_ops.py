@@ -1,11 +1,153 @@
-"""NN op lowerings, after paddle_tpu/ops/nn_ops.py: layer_norm, dropout,
-lookup_table (embedding) and softmax_with_cross_entropy."""
+"""NN op lowerings, after paddle_tpu/ops/nn_ops.py: conv2d, pool2d,
+batch_norm, layer_norm, dropout, lookup_table (embedding),
+softmax_with_cross_entropy, cross_entropy and accuracy.
+
+Image ops take NCHW or NHWC activations (the `data_format` /
+`data_layout` attr) with OIHW filters in either layout, as the JAX
+package.  torch's convolutions and pools are NCHW: an NHWC tensor goes
+in as its permuted view (on the card a channels-last NCHW tensor, which
+cuDNN reads in place) and comes back permuted to NHWC.
+"""
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .registry import register_op
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+def _img_layout(ctx):
+    return ctx.attr("data_format", None) or ctx.attr("data_layout", None) \
+        or "NCHW"
+
+
+def _to_nchw(x, layout):
+    return x.permute(0, 3, 1, 2) if layout == "NHWC" else x
+
+
+def _from_nchw(x, layout):
+    return x.permute(0, 2, 3, 1) if layout == "NHWC" else x
+
+
+def conv2d_nchw(x, w, strides, pads, dilations, groups):
+    """The convolution of the conv2d lowering on an NCHW (view of the)
+    input with an OIHW filter; symmetric padding."""
+    return F.conv2d(x, w.to(x.dtype), None, strides, pads, dilations,
+                    groups)
+
+
+@register_op("conv2d")
+def _conv2d(ctx):
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    layout = _img_layout(ctx)
+    out = _from_nchw(conv2d_nchw(
+        _to_nchw(x, layout), w, _pair(ctx.attr("strides", [1, 1])),
+        _pair(ctx.attr("paddings", [0, 0])),
+        _pair(ctx.attr("dilations", [1, 1])),
+        int(ctx.attr("groups", 1) or 1)), layout)
+    if ctx.has_input("Bias"):
+        bshape = (1, 1, 1, -1) if layout == "NHWC" else (1, -1, 1, 1)
+        out = out + ctx.input("Bias").reshape(bshape)
+    return {"Output": out}
+
+
+def _ceil_extra_pad(extent, k, s, p):
+    """Extra high-side padding that gives the reference's ceil_mode output
+    size with floor-mode windows (the JAX lowering's ceil_extra_pad)."""
+    out_ceil = (extent + 2 * p - k + s - 1) // s + 1
+    return max((out_ceil - 1) * s + k - (extent + 2 * p), 0)
+
+
+def _window_sum(x, ksize, strides):
+    """Sums over every (kh, kw) window of an NCHW tensor, no padding."""
+    return x.unfold(2, ksize[0], strides[0]).unfold(
+        3, ksize[1], strides[1]).sum(dim=(-2, -1))
+
+
+@register_op("pool2d")
+def _pool2d(ctx):
+    """Max or average pooling with the JAX lowering's window arithmetic:
+    symmetric padding plus the ceil_mode extra on the high side; a
+    padded average window divides by its count of real elements when
+    `exclusive` (the default), else by kh * kw."""
+    x = ctx.input("X")
+    layout = _img_layout(ctx)
+    xc = _to_nchw(x, layout)
+    ptype = ctx.attr("pooling_type", "max")
+    ksize = _pair(ctx.attr("ksize", [2, 2]))
+    strides = _pair(ctx.attr("strides", [1, 1]))
+    pads = _pair(ctx.attr("paddings", [0, 0]))
+    ceil_mode = bool(ctx.attr("ceil_mode", False))
+    if ctx.attr("global_pooling", False) or (
+            ctx.attr("adaptive", False) and tuple(ksize) == (1, 1)):
+        ksize = (xc.shape[2], xc.shape[3])
+        strides, pads, ceil_mode = ksize, (0, 0), False
+    extras = [_ceil_extra_pad(xc.shape[2 + i], ksize[i], strides[i],
+                              pads[i]) if ceil_mode else 0
+              for i in range(2)]
+    spec = (pads[1], pads[1] + extras[1], pads[0], pads[0] + extras[0])
+    if ptype == "max":
+        if not any(extras) and all(p <= k // 2
+                                   for p, k in zip(pads, ksize)):
+            out = F.max_pool2d(xc, ksize, strides, pads)
+        else:
+            low = float("-inf") if xc.is_floating_point() \
+                else torch.iinfo(xc.dtype).min
+            out = F.max_pool2d(F.pad(xc, spec, value=low), ksize, strides)
+        return {"Out": _from_nchw(out, layout)}
+    padded = any(pads) or any(extras)
+    summed = _window_sum(F.pad(xc, spec) if padded else xc, ksize, strides)
+    if ctx.attr("exclusive", True) and padded:
+        ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=xc.dtype,
+                          device=xc.device)
+        out = summed / _window_sum(F.pad(ones, spec), ksize, strides)
+    else:
+        out = summed / (ksize[0] * ksize[1])
+    return {"Out": _from_nchw(out, layout)}
+
+
+@register_op("batch_norm")
+def _batch_norm(ctx):
+    """With is_test (or use_global_stats) the moving statistics
+    normalise; otherwise the batch's, in one sum / sum-of-squares pass,
+    and MeanOut / VarianceOut carry the momentum update back to the
+    persistable Mean / Variance vars."""
+    x = ctx.input("X")
+    scale, bias = ctx.input("Scale"), ctx.input("Bias")
+    mean, var = ctx.input("Mean"), ctx.input("Variance")
+    eps = ctx.attr("epsilon", 1e-5)
+    momentum = ctx.attr("momentum", 0.9)
+    c_axis = x.dim() - 1 if _img_layout(ctx) == "NHWC" else 1
+    axes = tuple(i for i in range(x.dim()) if i != c_axis)
+    bshape = tuple(-1 if i == c_axis else 1 for i in range(x.dim()))
+    if ctx.attr("is_test", False) or ctx.attr("use_global_stats", False):
+        use_mean, use_var = mean, var
+        saved_mean = mean
+        saved_inv_std = 1.0 / torch.sqrt(var + eps)
+        mean_out, var_out = mean, var
+    else:
+        xf = x.float()
+        n = float(math.prod(x.shape[i] for i in axes))
+        use_mean = xf.sum(dim=axes) / n
+        use_var = torch.clamp_min(
+            torch.square(xf).sum(dim=axes) / n - torch.square(use_mean), 0.0)
+        mean_out = mean * momentum + use_mean * (1.0 - momentum)
+        var_out = var * momentum + use_var * (1.0 - momentum)
+        saved_mean = use_mean
+        saved_inv_std = 1.0 / torch.sqrt(use_var + eps)
+    xhat = (x - use_mean.reshape(bshape).to(x.dtype)) * \
+        saved_inv_std.reshape(bshape).to(x.dtype)
+    y = xhat * scale.reshape(bshape).to(x.dtype) + \
+        bias.reshape(bshape).to(x.dtype)
+    return {"Y": y, "MeanOut": mean_out, "VarianceOut": var_out,
+            "SavedMean": saved_mean, "SavedVariance": saved_inv_std}
 
 
 @register_op("layer_norm")
@@ -83,3 +225,36 @@ def _softmax_with_ce(ctx):
             loss = torch.where(lab[..., None] == ignore,
                                torch.zeros_like(loss), loss)
     return {"Softmax": torch.exp(logp), "Loss": loss}
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ctx):
+    """-log of the picked probability (hard labels) or -sum(label *
+    log p) (soft labels), the probabilities floored at 1e-8."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    eps = 1e-8
+    if ctx.attr("soft_label", False):
+        loss = -torch.sum(label * torch.log(torch.clamp_min(x, eps)),
+                          dim=-1, keepdim=True)
+    else:
+        if label.dim() == x.dim():
+            label = label.reshape(label.shape[:-1])
+        picked = torch.gather(x, -1, label.long()[..., None])
+        loss = -torch.log(torch.clamp_min(picked, eps))
+    return {"Y": loss}
+
+
+@register_op("accuracy")
+def _accuracy(ctx):
+    """Share of rows whose label is among the top-k Indices."""
+    pred_idx = ctx.input("Indices")
+    label = ctx.input("Label")
+    if label.dim() == 2 and label.shape[-1] == 1:
+        label = label.reshape(-1)
+    correct = (pred_idx == label[:, None].to(pred_idx.dtype)).any(dim=1)
+    num_correct = correct.to(torch.float32).sum()
+    total = pred_idx.shape[0]
+    return {"Accuracy": (num_correct / float(total)).reshape((1,)),
+            "Correct": num_correct.to(torch.int32).reshape((1,)),
+            "Total": torch.full((1,), total, dtype=torch.int32,
+                                device=pred_idx.device)}

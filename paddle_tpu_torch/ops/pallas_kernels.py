@@ -10,11 +10,14 @@ the kernel's launches in `launch_counts`.
 Ported so far: K3, `decode_attention` with fp32 caches
 (csrc/decode_attention.cu); K1, the flash-attention forward
 (csrc/flash_attention_fwd.cu); K2, its backward dq and dk/dv kernels
-(csrc/flash_attention_bwd.cu), joined to K1 by a torch.autograd.Function.
-The `flash_attention` op, through which fluid programs reach K1 and K2,
-is registered here too.  The int8-cache branch, the head-slice entry and
-the other Pallas kernels (dequant matmul, fused bottleneck) are not
-ported yet.
+(csrc/flash_attention_bwd.cu), joined to K1 by a torch.autograd.Function;
+K5, `dequant_matmul` (csrc/dequant_matmul.cu), the int8-weight matmul of
+the quantized inference lane; K6, `fused_bottleneck`
+(csrc/fused_bottleneck.cu), a whole BN-folded ResNet bottleneck block in
+fp32.  The `flash_attention` and `fused_bottleneck` ops, through which
+fluid programs reach K1/K2 and K6, are registered here too.  The
+int8-cache branch of decode attention (K4), its head-slice entry and
+K6's bf16 variant are not ported yet.
 """
 
 import ctypes
@@ -29,8 +32,9 @@ __all__ = ["decode_attention", "decode_attention_reference",
            "flash_attention_fwd", "flash_attention_fwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
-           "flash_attention_bwd_reference", "launch_counts",
-           "reset_launch_counts"]
+           "flash_attention_bwd_reference", "dequant_matmul",
+           "dequant_matmul_reference", "fused_bottleneck",
+           "bottleneck_reference", "launch_counts", "reset_launch_counts"]
 
 # Finite mask value (not -inf), as in the TPU kernels: exp(_NEG_INF -
 # finite) underflows to an exact 0 and a fully masked row stays finite.
@@ -43,7 +47,8 @@ _KERNEL_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 # kernel name -> launches of its CUDA kernel in this process (a call that
 # runs the plain version never counts)
 launch_counts = {"decode_attention": 0, "flash_attention_fwd": 0,
-                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                 "dequant_matmul": 0, "fused_bottleneck": 0}
 
 _fns = {}
 
@@ -517,3 +522,232 @@ def _flash_attention_op(ctx):
     if reshaped:
         out = out.reshape(B, S, Dm)
     return {"Out": out}
+
+
+# ---------------------------------------------------------------------------
+# K5: the fused dequant-matmul of the quantized inference lane.  x [M, K]
+# (fp32 or bf16 activations) times int8 weights [K, N] dequantized
+# in-register, fp32 accumulation, the per-output-channel scale applied
+# once to the fp32 accumulator.
+# ---------------------------------------------------------------------------
+
+def dequant_matmul_reference(x, w_q, scale, out_dtype=None):
+    """Plain PyTorch version of K5 with the JAX reference's numerics:
+    x [M, K] float, w_q [K, N] int8, scale [N] fp32 -> [M, N] in
+    `out_dtype` (x's dtype by default).  The weight dequantizes through
+    x's dtype (an int8 value is exact in bf16 and fp32), products and
+    sums are fp32, and the scale multiplies the fp32 accumulator."""
+    acc = torch.matmul(x.float(), w_q.to(x.dtype).float())
+    return (acc * scale.float()).to(out_dtype or x.dtype)
+
+
+_DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
+# K5 splits K over blocks while its 64 x 64 output tiles number fewer than
+# this (two blocks per SM of the H100), keeping >= 256 of K per slice
+_DEQUANT_MIN_BLOCKS = 264
+
+
+def _dequant_k_slices(M, N, K):
+    """How many K slices K5 runs (1 = no split): enough blocks to fill
+    the card, at most 16 slices, none shorter than 256."""
+    tiles = -(-M // 64) * -(-N // 64)
+    return max(1, min(_DEQUANT_MIN_BLOCKS // tiles, K // 256, 16))
+
+
+def _dequant_matmul_fn():
+    fn = _fns.get("dequant_matmul")
+    if fn is None:
+        fn = _build.load("dequant_matmul").paddle_dequant_matmul
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["dequant_matmul"] = fn
+    return fn
+
+
+def dequant_matmul(x, w_q, scale, out_dtype=None):
+    """K5: x [M, K] fp32/bf16, w_q [K, N] int8, scale [N] fp32 -> [M, N]
+    in `out_dtype` (fp32 or bf16; x's dtype by default), at any M, K, N.
+
+    A CPU (or meta) tensor runs `dequant_matmul_reference`.  A CUDA
+    tensor launches csrc/dequant_matmul.cu on the current stream after
+    checking device, dtypes, shapes and contiguity; it raises on anything
+    the kernel does not take, and on a failed launch."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type in ("cpu", "meta"):
+        return dequant_matmul_reference(x, w_q, scale, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError("dequant_matmul: unsupported device %s" % x.device)
+    for name, t in (("w_q", w_q), ("scale", scale)):
+        if not isinstance(t, torch.Tensor) or t.device != x.device:
+            raise ValueError("dequant_matmul: %s must be a tensor on %s"
+                             % (name, x.device))
+    if x.dtype not in _DEQUANT_DTYPES or out_dtype not in _DEQUANT_DTYPES:
+        raise TypeError("dequant_matmul: x and out must be float32 or "
+                        "bfloat16, got %s -> %s" % (x.dtype, out_dtype))
+    if w_q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError("dequant_matmul: w_q must be int8 and scale "
+                        "float32, got %s, %s" % (w_q.dtype, scale.dtype))
+    if x.dim() != 2 or w_q.dim() != 2 or w_q.shape[0] != x.shape[1] \
+            or tuple(scale.shape) != (w_q.shape[1],):
+        raise ValueError("dequant_matmul: shapes x %s, w_q %s, scale %s do "
+                         "not agree" % (tuple(x.shape), tuple(w_q.shape),
+                                        tuple(scale.shape)))
+    if not (x.is_contiguous() and w_q.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("dequant_matmul: inputs must be contiguous")
+    M, K = x.shape
+    N = w_q.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    slices = _dequant_k_slices(M, N, K)
+    work = torch.empty((slices, M, N), dtype=torch.float32,
+                       device=x.device) if slices > 1 else None
+    fn = _dequant_matmul_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                 w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                 int(out_dtype == torch.bfloat16), M, N, K, slices,
+                 0 if work is None else work.data_ptr(), stream)
+    if err:
+        raise RuntimeError("dequant_matmul: CUDA kernel launch failed "
+                           "(cudaError %d)" % err)
+    launch_counts["dequant_matmul"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: the fused ResNet bottleneck (inference, BN folded).  One NHWC block
+# — 1x1 + bias + relu, 3x3 (stride s, pad 1) + bias + relu, 1x1 + bias,
+# plus the identity or the 1x1/s projection shortcut, relu — in one
+# launch, the two intermediate activations kept in shared memory.  The
+# kernel reads the filters in the program's OIHW layout.
+# ---------------------------------------------------------------------------
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def bottleneck_reference(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
+                         stride=1):
+    """Plain PyTorch version of K6: x [N, H, W, C] NHWC, filters OIHW —
+    w0 [F, C, 1, 1], w1 [F, F, 3, 3], w2 [C4, F, 1, 1], ws [C4, C, 1, 1]
+    (None: identity shortcut) — biases [F], [F], [C4], [C4] -> [N, Ho, Wo,
+    C4] with Ho = (H - 1) // stride + 1, as three (four) convolutions."""
+    import torch.nn.functional as F
+    s = int(stride)
+    xc = _nchw(x)
+    a = torch.relu(F.conv2d(xc, w0) + b0.reshape(1, -1, 1, 1))
+    h = torch.relu(F.conv2d(a, w1, stride=s, padding=1)
+                   + b1.reshape(1, -1, 1, 1))
+    y = F.conv2d(h, w2) + b2.reshape(1, -1, 1, 1)
+    if ws is not None:
+        short = F.conv2d(xc, ws, stride=s) + bs.reshape(1, -1, 1, 1)
+    else:
+        short = xc
+    return torch.relu(y + short).permute(0, 2, 3, 1)
+
+
+class _BottleneckArgs(ctypes.Structure):
+    """PaddleBottleneckArgs of csrc/fused_bottleneck.cu."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x", "w0", "b0", "w1", "b1", "w2", "b2", "ws", "bs", "out")] + [
+        (n, ctypes.c_int) for n in ("N", "H", "W", "C", "F", "C4",
+                                    "stride")]
+
+
+def _fused_bottleneck_fn():
+    fn = _fns.get("fused_bottleneck")
+    if fn is None:
+        fn = _build.load("fused_bottleneck").paddle_fused_bottleneck_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["fused_bottleneck"] = fn
+    return fn
+
+
+def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
+                     stride=1):
+    """K6 on the program's layouts: x [N, H, W, C] NHWC fp32, OIHW filters
+    and biases as `bottleneck_reference` takes them; stride 1 or 2,
+    any H and W.  A CPU (or meta) tensor runs the plain version.  A CUDA
+    tensor launches csrc/fused_bottleneck.cu on the current stream after
+    checking device, dtypes, shapes and contiguity; it raises on anything
+    the kernel does not take, and on a failed launch."""
+    s = int(stride)
+    if x.device.type in ("cpu", "meta"):
+        return bottleneck_reference(x, w0, b0, w1, b1, w2, b2, ws, bs, s)
+    if x.device.type != "cuda":
+        raise ValueError("fused_bottleneck: unsupported device %s"
+                         % x.device)
+    if x.dim() != 4:
+        raise ValueError("fused_bottleneck: x must be [N, H, W, C], got %s"
+                         % (tuple(x.shape),))
+    N, H, W, C = x.shape
+    F = w0.shape[0]
+    C4 = w2.shape[0]
+    branch = ws is not None
+    if s not in (1, 2):
+        raise ValueError("fused_bottleneck: stride must be 1 or 2, got %d"
+                         % s)
+    if not branch and (s != 1 or C != C4):
+        raise ValueError("fused_bottleneck: the identity shortcut needs "
+                         "stride 1 and C == C4")
+    named = [("x", x, (N, H, W, C)), ("w0", w0, (F, C, 1, 1)),
+             ("b0", b0, (F,)), ("w1", w1, (F, F, 3, 3)), ("b1", b1, (F,)),
+             ("w2", w2, (C4, F, 1, 1)), ("b2", b2, (C4,))]
+    if branch:
+        named += [("ws", ws, (C4, C, 1, 1)), ("bs", bs, (C4,))]
+    for name, t, shape in named:
+        if not isinstance(t, torch.Tensor) or t.device != x.device:
+            raise ValueError("fused_bottleneck: %s must be a tensor on %s"
+                             % (name, x.device))
+        if t.dtype != torch.float32:
+            raise TypeError("fused_bottleneck: %s must be float32, got %s"
+                            % (name, t.dtype))
+        if tuple(t.shape) != shape:
+            raise ValueError("fused_bottleneck: %s has shape %s, expected "
+                             "%s" % (name, tuple(t.shape), shape))
+        if not t.is_contiguous():
+            raise ValueError("fused_bottleneck: %s must be contiguous"
+                             % name)
+    Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
+    out = torch.empty((N, Ho, Wo, C4), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    args = _BottleneckArgs(
+        x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        ws.data_ptr() if branch else 0, bs.data_ptr() if branch else 0,
+        out.data_ptr(), N, H, W, C, F, C4, s)
+    fn = _fused_bottleneck_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(ctypes.addressof(args), stream)
+    if err:
+        raise RuntimeError("fused_bottleneck: CUDA kernel launch failed "
+                           "(cudaError %d)" % err)
+    launch_counts["fused_bottleneck"] += 1
+    return out
+
+
+@register_op("fused_bottleneck")
+def _fused_bottleneck_op(ctx):
+    """The op FuseBottleneckPass emits: the filters arrive in OIHW, as the
+    program holds them, and go to the kernel without a transpose."""
+    x = ctx.input("X")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    branch = ctx.has_input("Ws")
+    return {"Out": fused_bottleneck(
+        x, ctx.input("W0"), ctx.input("B0"), ctx.input("W1"),
+        ctx.input("B1"), ctx.input("W2"), ctx.input("B2"),
+        ws=ctx.input("Ws") if branch else None,
+        bs=ctx.input("Bs") if branch else None,
+        stride=int(ctx.attr("stride", 1)))}

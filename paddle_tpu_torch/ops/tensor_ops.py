@@ -1,6 +1,6 @@
 """Tensor creation / manipulation / RNG op lowerings, after
 paddle_tpu/ops/tensor_ops.py: fill_constant, assign, remat_tag,
-uniform_random, reshape2 and slice."""
+uniform_random, gaussian_random, reshape2 and slice."""
 
 import numpy as np
 import torch
@@ -77,3 +77,14 @@ def _slice(ctx):
         e = max(e + dim, 0) if e < 0 else min(e, dim)
         idx[a] = slice(s, e)
     return {"Out": x[tuple(idx)]}
+
+
+@register_op("gaussian_random")
+def _gaussian_random(ctx):
+    """N(mean, std) from the op's torch.Generator: the JAX package's
+    distribution, not its threefry values."""
+    shape = tuple(int(d) for d in ctx.attr("shape"))
+    out = torch.empty(shape, dtype=_torch_dtype(ctx.attr("dtype")),
+                      device=ctx.device)
+    out.normal_(generator=ctx.generator())
+    return {"Out": out * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0)}

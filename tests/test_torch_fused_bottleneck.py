@@ -1,0 +1,225 @@
+"""K6 and FuseBottleneckPass: paddle_tpu_torch against paddle_tpu on the CPU.
+
+The port's plain version of the fused bottleneck is held against the JAX
+kernel run in interpret mode at the JAX package's own five test shapes
+(atol/rtol 1e-4, as that package's test holds its kernel against its
+reference); the port's inference rewrites (BN fold + FuseBottleneckPass)
+produce the JAX package's program op for op at gates 0, 4 and 8, with the
+same folded weights and the same outputs; the CUDA kernel is held
+against the plain version on the card (marked `cuda`)."""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu.fluid as jfluid
+import paddle_tpu_torch.fluid as tfluid
+from paddle_tpu.flags import get_flags, set_flags
+from paddle_tpu.models import resnet as jresnet
+from paddle_tpu.ops import pallas_kernels as jkernels
+from paddle_tpu_torch.flags import FLAGS as TFLAGS
+from paddle_tpu_torch.models import resnet as tresnet
+from paddle_tpu_torch.ops import pallas_kernels as tkernels
+
+SHAPES = [(2, 8, 8, 32, 16, 1, False),      # identity shortcut
+          (2, 8, 8, 32, 16, 1, True),       # projection, stride 1
+          (2, 8, 8, 32, 16, 2, True),       # projection, stride 2
+          (1, 14, 14, 64, 32, 2, True),     # odd output rows (Ho=7)
+          (1, 7, 7, 128, 32, 1, False)]     # odd everything
+
+
+def _params(rng, C, F, C4, branch):
+    t = lambda *s: rng.randn(*s).astype(np.float32) * 0.1
+    p = dict(w0=t(C, F), b0=t(F), w1=t(3, 3, F, F), b1=t(F),
+             w2=t(F, C4), b2=t(C4))
+    p["ws"], p["bs"] = (t(C, C4), t(C4)) if branch else (None, None)
+    return p
+
+
+_ORDER = ("w0", "b0", "w1", "b1", "w2", "b2", "ws", "bs")
+
+
+def _as_torch(p):
+    """The JAX layouts (w0 [C, F], w1 [3, 3, F, F] HWIO, w2 [F, C4], ws
+    [C, C4]) as the port's OIHW filters, in _ORDER."""
+    oihw = {"w1": lambda w: w.transpose(3, 2, 0, 1)}
+    mat = lambda w: w.T[:, :, None, None]
+    out = []
+    for k in _ORDER:
+        if p[k] is None:
+            out.append(None)
+            continue
+        w = p[k] if k.startswith("b") else oihw.get(k, mat)(p[k])
+        out.append(torch.from_numpy(np.ascontiguousarray(w)))
+    return out
+
+
+@pytest.mark.parametrize("N,H,W,C,F,stride,branch", SHAPES)
+def test_reference_matches_jax_kernel(N, H, W, C, F, stride, branch):
+    rng = np.random.RandomState(0)
+    C4 = F * 4 if branch else C
+    p = _params(rng, C, F, C4, branch)
+    x = rng.randn(N, H, W, C).astype(np.float32)
+    want = np.asarray(jkernels.fused_bottleneck(
+        x, *(p[k] for k in _ORDER[:6]), p["ws"], p["bs"], stride=stride,
+        interpret=True))
+    got = tkernels.bottleneck_reference(torch.from_numpy(x), *_as_torch(p),
+                                        stride).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    # the wrapper on a CPU tensor is the plain version
+    entry = tkernels.fused_bottleneck(torch.from_numpy(x), *_as_torch(p),
+                                      stride=stride).numpy()
+    np.testing.assert_array_equal(entry, got)
+
+
+def test_wrapper_counts_no_launch_on_cpu():
+    rng = np.random.RandomState(1)
+    p = _params(rng, 16, 8, 32, True)
+    x = torch.from_numpy(rng.randn(1, 6, 6, 16).astype(np.float32))
+    tkernels.reset_launch_counts()
+    tkernels.fused_bottleneck(x, *_as_torch(p), stride=2)
+    assert tkernels.launch_counts["fused_bottleneck"] == 0
+
+
+def _tail(pkg, models, layout):
+    """data -> bottleneck(stride 2, projection) -> bottleneck(identity),
+    the JAX package's _build_resnet_tail."""
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 7
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        shape = [8, 8, 16] if layout == "NHWC" else [16, 8, 8]
+        img = pkg.layers.data(name="img", shape=shape, dtype="float32")
+        out = models.bottleneck_block(img, 8, 2, is_train=False,
+                                      layout=layout)
+        out = models.bottleneck_block(out, 8, 1, is_train=False,
+                                      layout=layout)
+    return main, startup, out
+
+
+def _randomize_bn(program, jscope, rng):
+    """Non-trivial batch-norm statistics, the same in both packages."""
+    import jax.numpy as jnp
+    for v in program.global_block().vars.values():
+        if not v.persistable or not v.name.startswith("batch_norm"):
+            continue
+        kind = v.name.split(".")[-1]
+        shape = np.asarray(jscope.get(v.name)).shape
+        if kind.startswith("var"):
+            a = 0.5 + rng.rand(*shape)
+        elif kind.startswith("w_"):
+            a = 0.5 + rng.rand(*shape)
+        else:
+            a = 0.3 * rng.randn(*shape)
+        jscope.set(v.name, jnp.asarray(a.astype(np.float32)))
+
+
+@pytest.fixture
+def gate():
+    old = get_flags("fuse_bottleneck_max_width")
+    old_t = TFLAGS.fuse_bottleneck_max_width
+
+    def set_gate(width):
+        set_flags({"fuse_bottleneck_max_width": width})
+        TFLAGS.fuse_bottleneck_max_width = width
+    yield set_gate
+    set_flags(old)
+    TFLAGS.fuse_bottleneck_max_width = old_t
+
+
+@pytest.mark.parametrize("layout,width,n_fused", [
+    ("NHWC", 0, 0), ("NHWC", 4, 0), ("NHWC", 8, 2), ("NCHW", 8, 0)])
+def test_pass_rewrites_what_the_jax_pass_rewrites(layout, width, n_fused,
+                                                  gate):
+    jm, js, jout = _tail(jfluid, jresnet, layout)
+    tm, _, tout = _tail(tfluid, tresnet, layout)
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    rng = np.random.RandomState(3)
+    with jfluid.scope_guard(jscope):
+        jexe.run(js)
+    _randomize_bn(jm, jscope, rng)
+    init = {n: np.asarray(jscope.get(n)) for n in jscope.keys()}
+    tscope = tfluid.scope_from_jax(init, tfluid.Scope(), tfluid.CPUPlace())
+    gate(width)
+    jinfer, tinfer = jm.clone(for_test=True), tm.clone(for_test=True)
+    jfluid.transpiler.InferenceTranspiler().transpile(jinfer, scope=jscope)
+    tfluid.InferenceTranspiler().transpile(tinfer, scope=tscope)
+    jops = [(o.type, o.inputs, o.outputs, o.attrs)
+            for o in jinfer.global_block().ops]
+    tops = [(o.type, o.inputs, o.outputs, o.attrs)
+            for o in tinfer.global_block().ops]
+    assert tops == jops
+    assert [o[0] for o in tops].count("fused_bottleneck") == n_fused
+    assert list(tinfer.global_block().vars) == \
+        list(jinfer.global_block().vars)
+    # the BN fold rewrote the same filters and biases in both scopes
+    for name in tscope.keys():
+        if name.endswith("@bn_folded_bias") or ".w_" in name:
+            np.testing.assert_allclose(
+                tscope.get(name).numpy(), np.asarray(jscope.get(name)),
+                rtol=1e-6, atol=1e-7, err_msg=name)
+    shape = (4, 8, 8, 16) if layout == "NHWC" else (4, 16, 8, 8)
+    x = rng.randn(*shape).astype(np.float32)
+    with jfluid.scope_guard(jscope):
+        want, = jexe.run(jinfer, feed={"img": x}, fetch_list=[jout.name])
+    with tfluid.scope_guard(tscope):
+        got, = tfluid.Executor(tfluid.CPUPlace()).run(
+            tinfer, feed={"img": x}, fetch_list=[tout.name])
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(want).max()))
+
+
+def test_pass_declines_an_inline_conv_bias(gate):
+    """The fused op has no slot for a conv's own Bias: in a BN-folded
+    program where one conv carries one, that block stays unfused and the
+    clean block fuses, in both packages alike."""
+    jm, js, _ = _tail(jfluid, jresnet, "NHWC")
+    tm, _, _ = _tail(tfluid, tresnet, "NHWC")
+    jscope = jfluid.Scope()
+    with jfluid.scope_guard(jscope):
+        jfluid.Executor(jfluid.CPUPlace()).run(js)
+    init = {n: np.asarray(jscope.get(n)) for n in jscope.keys()}
+    tscope = tfluid.scope_from_jax(init, tfluid.Scope(), tfluid.CPUPlace())
+    gate(8)
+    progs = []
+    for pkg, main, scope in ((jfluid, jm, jscope), (tfluid, tm, tscope)):
+        infer = main.clone(for_test=True)
+        it = pkg.transpiler.InferenceTranspiler()
+        it._remove_dropout(infer)
+        it._fuse_batch_norm(infer, scope)
+        blk = infer.global_block()
+        conv = next(op for op in blk.ops if op.type == "conv2d")
+        blk.create_var(name="inline_bias", shape=(8,), dtype="float32",
+                       persistable=True)
+        conv.inputs["Bias"] = ["inline_bias"]
+        pkg.ir_passes.apply_passes(infer, ["fuse_bottleneck_pass"])
+        progs.append([(o.type, o.inputs, o.outputs) for o in blk.ops])
+    assert progs[1] == progs[0]
+    types = [o[0] for o in progs[1]]
+    assert types.count("fused_bottleneck") == 1 and "conv2d" in types
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,F,stride,branch",
+                         SHAPES + [(4, 56, 56, 64, 64, 1, True),
+                                   (2, 28, 28, 512, 128, 1, False),
+                                   (2, 56, 56, 256, 128, 2, True)])
+def test_cuda_kernel_matches_plain_version(N, H, W, C, F, stride, branch):
+    _need_cuda()
+    rng = np.random.RandomState(2)
+    C4 = F * 4 if branch else C
+    p = _params(rng, C, F, C4, branch)
+    x = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32)).cuda()
+    args = [None if t is None else t.cuda() for t in _as_torch(p)]
+    tkernels.reset_launch_counts()
+    out = tkernels.fused_bottleneck(x, *args, stride=stride)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts["fused_bottleneck"] == 1
+    ref = tkernels.bottleneck_reference(x, *args, stride)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)

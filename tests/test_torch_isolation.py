@@ -68,13 +68,20 @@ def test_importing_every_module_loads_no_jax_or_paddle_tpu():
             "paddle_tpu_torch.fluid.optimizer",
             "paddle_tpu_torch.fluid.executor",
             "paddle_tpu_torch.fluid.io",
+            "paddle_tpu_torch.fluid.ir_passes",
+            "paddle_tpu_torch.fluid.transpiler",
+            "paddle_tpu_torch.fluid.transpiler.inference_transpiler",
+            "paddle_tpu_torch.inference.predictor",
+            "paddle_tpu_torch.inference.quantize",
             "paddle_tpu_torch.ops.registry",
             "paddle_tpu_torch.ops.tensor_ops",
             "paddle_tpu_torch.ops.math_ops",
             "paddle_tpu_torch.ops.nn_ops",
             "paddle_tpu_torch.ops.optimizer_ops",
+            "paddle_tpu_torch.ops.quant_ops",
             "paddle_tpu_torch.ops.pallas_kernels",
-            "paddle_tpu_torch.models.transformer"} <= set(mods)
+            "paddle_tpu_torch.models.transformer",
+            "paddle_tpu_torch.models.resnet"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.path.insert(0, %r)\n"
@@ -164,7 +171,8 @@ def test_build_is_keyed_by_the_shared_headers(tmp_path, monkeypatch):
         f.write("// edited\n")
     assert _build._lib_path(src)[1] != before
     assert {"flash_attention_fwd", "flash_attention_bwd",
-            "decode_attention"} <= {os.path.basename(p)[:-3]
+            "decode_attention", "dequant_matmul",
+            "fused_bottleneck"} <= {os.path.basename(p)[:-3]
                                     for p in _build._sources()}
 
 

@@ -101,7 +101,62 @@ _CASES = [
     ("flash_attention", "flash_attention",
      {"Q": [_f(2, 16, 32)], "K": [_f(2, 16, 32)], "V": [_f(2, 16, 32)]},
      {"num_heads": 2, "causal": True}),
+    ("relu", "relu", {"X": [_f(3, 4)]}, {}),
+    ("softmax", "softmax", {"X": [_f(3, 5)]}, {}),
+    ("top_k", "top_k", {"X": [_f(4, 7)]}, {"k": 3}),
+    ("conv2d_nchw", "conv2d",
+     {"Input": [_f(2, 3, 7, 7)], "Filter": [_f(4, 3, 3, 3)]},
+     {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+      "groups": 1, "data_format": "NCHW"}),
+    ("conv2d_nhwc_groups_dilation", "conv2d",
+     {"Input": [_f(2, 6, 6, 4)], "Filter": [_f(6, 2, 3, 3)]},
+     {"strides": [1, 1], "paddings": [2, 2], "dilations": [2, 2],
+      "groups": 2, "data_format": "NHWC"}),
+    ("conv2d_nhwc_bias", "conv2d",
+     {"Input": [_f(2, 5, 5, 3)], "Filter": [_f(4, 3, 1, 1)],
+      "Bias": [_f(4)]},
+     {"strides": [2, 2], "paddings": [0, 0], "data_format": "NHWC"}),
+    ("pool2d_max_ceil_nhwc", "pool2d", {"X": [_f(2, 7, 7, 3)]},
+     {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+      "paddings": [1, 1], "ceil_mode": True, "data_format": "NHWC"}),
+    ("pool2d_max_wide_pad", "pool2d", {"X": [_f(2, 3, 6, 6)]},
+     {"pooling_type": "max", "ksize": [2, 2], "strides": [2, 2],
+      "paddings": [2, 2]}),
+    ("pool2d_avg_exclusive_ceil", "pool2d", {"X": [_f(2, 3, 7, 7)]},
+     {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+      "paddings": [1, 1], "ceil_mode": True, "exclusive": True}),
+    ("pool2d_avg_inclusive", "pool2d", {"X": [_f(2, 3, 7, 7)]},
+     {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+      "paddings": [1, 1], "exclusive": False}),
+    ("pool2d_global_avg_nhwc", "pool2d", {"X": [_f(2, 5, 5, 4)]},
+     {"pooling_type": "avg", "ksize": [1, 1], "global_pooling": True,
+      "data_format": "NHWC"}),
+    ("batch_norm_is_test_nhwc", "batch_norm",
+     {"X": [_f(2, 4, 4, 3)], "Scale": [_f(3)], "Bias": [_f(3)],
+      "Mean": [_f(3)], "Variance": [("pos", (3,))]},
+     {"is_test": True, "epsilon": 1e-5, "data_layout": "NHWC"}),
+    ("batch_norm_train", "batch_norm",
+     {"X": [_f(3, 4, 5, 5)], "Scale": [_f(4)], "Bias": [_f(4)],
+      "Mean": [_f(4)], "Variance": [("pos", (4,))]},
+     {"is_test": False, "epsilon": 1e-5, "momentum": 0.9}),
+    ("cross_entropy", "cross_entropy",
+     {"X": [("pos", (5, 6))], "Label": [_i(6, 5, 1)]},
+     {"soft_label": False}),
+    ("cross_entropy_soft", "cross_entropy",
+     {"X": [("pos", (5, 6))], "Label": [("pos", (5, 6))]},
+     {"soft_label": True}),
+    ("accuracy", "accuracy",
+     {"Out": [_f(6, 3)], "Indices": [_i(5, 6, 3)], "Label": [_i(5, 6, 1)]},
+     {}),
 ]
+
+# registered ops whose parity with the JAX package runs outside _CASES:
+# the random ops (test_*_random below), and the inference-only ops, which
+# read their output dtype from a program block and run in whole programs
+# (test_torch_fused_bottleneck, test_torch_resnet_inference,
+# test_torch_dequant_matmul)
+_ELSEWHERE = {"uniform_random", "gaussian_random", "fused_bottleneck",
+              "dequant_mul", "dequant_conv2d", "dequant_lookup_table"}
 
 
 def _make(spec, rng):
@@ -174,7 +229,7 @@ def test_lowering_matches_jax_forward_and_vjp(case):
 
 def test_every_registered_op_has_a_parity_case():
     assert sorted(treg.registered_ops()) == sorted(
-        {c[1] for c in _CASES} | {"uniform_random"})
+        {c[1] for c in _CASES} | _ELSEWHERE)
 
 
 def _rng_op(op_type, attrs, inputs, seed=0, step=0, uid=3):
@@ -207,6 +262,24 @@ def test_uniform_random_matches_jax_shape_dtype_and_range():
                                             **kw)["Out"])
     assert not torch.equal(out, _rng_op("uniform_random",
                                         dict(attrs, seed=5), {})["Out"])
+
+
+def test_gaussian_random_matches_jax_shape_dtype_and_moments():
+    """conv2d's default filter init: the same shape, dtype, mean and std
+    as the JAX lowering (other values), deterministic per seed and step."""
+    attrs = {"shape": [64, 3, 8, 8], "dtype": FP32, "mean": 0.5, "std": 0.2,
+             "seed": 0}
+    op = _op("gaussian_random", attrs, {})
+    jout = np.asarray(jreg.get_op_def("gaussian_random").lower(
+        jreg.ExecContext(op, {}))["Out"])
+    out = _rng_op("gaussian_random", attrs, {})["Out"]
+    assert tuple(out.shape) == jout.shape and out.dtype == torch.float32
+    for a in (out.numpy(), jout):
+        assert abs(float(a.mean()) - 0.5) < 0.01
+        assert abs(float(a.std()) - 0.2) < 0.01
+    assert torch.equal(out, _rng_op("gaussian_random", attrs, {})["Out"])
+    assert not torch.equal(out, _rng_op("gaussian_random", attrs, {},
+                                        step=1)["Out"])
 
 
 @pytest.mark.parametrize("imp", ["downgrade_in_infer", "upscale_in_train"])
