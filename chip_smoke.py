@@ -11,9 +11,12 @@ Phases, in order; any failure exits non-zero:
                at once); prints the build time and the card's name and
                power limit (nvidia-smi).
   2. kernels — each kernel against its plain PyTorch version on the card
-               at its path's shapes (K3 at the decode shapes; K1 and the
-               two K2 kernels at the training slice's shape, a non-causal
-               and a ragged shape); times kernel, plain version and the
+               at its path's shapes (K3 at the decode shapes and as the
+               verify step's 5 pseudo-slots per slot; K4 at the decode
+               shapes, and its head-slice entry at 1, 2 and 4 local heads,
+               also bit for bit against the full-table K4; K1 and the two
+               K2 kernels at the training slice's shape, a non-causal and
+               a ragged shape); times kernel, plain version and the
                PyTorch library yardstick with CUDA events, beside the
                kernel's bound.
   3. slice   — the decode-serving path at the full width of the repo's
@@ -25,8 +28,24 @@ Phases, in order; any failure exits non-zero:
                steps x layers, and freed slots must be zero; then a
                torch.profiler window over decode steps with all 8 slots
                live splits a step's time by kernel.
+     int8    — the same 16 requests with `kv_cache_dtype="int8"`: streams
+               bit-exact against int8 single-request decode, K4 launches =
+               steps x layers and no K3, freed slots int8 zeros, measured
+               cache bytes = the closed form, first tokens = the fp32
+               lane's; tokens/s, step ms, fp32-vs-int8 agreement, profile.
+     spec    — the same 16 requests, fp32 target with its int8 twin as
+               draft (k = 4): committed streams bit-exact against fp32
+               greedy decode, K3 launches = layers x (verify + plain
+               rounds), K4 = layers x draft steps; whether a batched
+               verify would round like the step (it does not: the port
+               verifies per chunk position); then 4 requests with an fp32
+               twin draft (accept rate exactly 1.0) and with a mismatched
+               draft (2 layers, seed 101: rolls back on most rounds,
+               streams still exact).
   4. gpu/cpu — one 64-token prompt, prefill + 8 steps on the card and on
-               the CPU: KV caches agree, tokens are identical.
+               the CPU: KV caches agree, tokens are identical; for the
+               int8 predictor the scales are equal and at most 1e-3 of
+               the live int8 cache elements are one count apart.
   5. train   — the training path at the transformer's full width
                (`models.transformer.get_model()` defaults: batch 8 x seq
                512, vocab 32000, d_model 512, 8 heads, 6 layers, d_ff
@@ -78,6 +97,7 @@ FULL_WIDTH = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
                   max_seq_len=512, eos_id=-1, seed=7)
 N_SLOTS = 8
 N_REQUESTS = 16
+SPEC_K = 4
 # ~1 ms at the H100's ~1.98 GHz boost clock: longer than the host takes
 # to enqueue any timed function here
 SPIN_CYCLES = 2_000_000
@@ -115,16 +135,24 @@ def median_ms(torch, fn, flush, reps=60, warmup=5):
     return float(np.median([s.elapsed_time(e) for s, e in times]))
 
 
-def decode_attention_bound(lengths, S, H, D):
+def decode_attention_bound(lengths, S, H, D, elem=4, q_per_slot=1,
+                           scale_heads=0):
     """Least time for the function on these inputs: every byte it must
-    move once (q, the live K/V rows — all S V rows for a length-0 slot —
-    lengths, out) over HBM bandwidth, or its flops over the fp32 peak,
-    whichever is larger."""
-    nbytes = 2 * len(lengths) * H * D * 4 + 4 * len(lengths)
+    move once (q, the live K/V rows at `elem` bytes an element — all S V
+    rows for a length-0 row — lengths, out, and the `scale_heads` heads'
+    int8 scales) over HBM bandwidth, or its flops over the fp32 peak,
+    whichever is larger.  With `q_per_slot` > 1 the rows of one cache
+    slot's pseudo-slots are counted once, at the longest of them."""
+    P = len(lengths)
+    nbytes = 2 * P * H * D * 4 + 4 * P + 2 * scale_heads * 4
     flops = 0
-    for n in lengths:
-        live = min(max(int(n), 0), S)
-        nbytes += (2 * live if live else S) * H * D * 4
+    lives = [min(max(int(n), 0), S) for n in lengths]
+    for p in range(0, P, q_per_slot):
+        group = lives[p:p + q_per_slot]
+        k_rows = max(group)
+        v_rows = S if 0 in group else k_rows
+        nbytes += (k_rows + v_rows) * H * D * elem
+    for live in lives:
         flops += 4 * (live or S) * H * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -185,9 +213,181 @@ def phase_kernels(torch, pk):
                      "replaces": "paddle_tpu/ops/pallas_kernels.py:570",
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms}
+    # the speculative verify step: C = SPEC_K + 1 chunk positions of each
+    # slot attend as pseudo-slots over that slot's cache, read in place
+    C = SPEC_K + 1
+    base = [0, 1, S - C, 250] + list(rng.randint(2, S - C, size=N - 4))
+    lens = [b + j + 1 for b in base for j in range(C)]
+    q = torch.randn(N * C, H, D, device="cuda")
+    k = torch.randn(N, S, H, D, device="cuda")
+    v = torch.randn(N, S, H, D, device="cuda")
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = 1.0 / np.sqrt(D)
+    out = pk.decode_attention(q, k, v, lengths, scale=scale, q_per_slot=C)
+    ref = pk.decode_attention_reference(q, k, v, lengths, scale=scale,
+                                        q_per_slot=C)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(bool(((out - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()),
+          "decode_attention q_per_slot=%d disagrees with the plain version "
+          "(max abs err %.3g, rtol 1e-5 atol 1e-5)" % (C, err))
+    max_err = max(max_err, err)
+    ms = median_ms(torch, lambda: pk.decode_attention(
+        q, k, v, lengths, scale=scale, q_per_slot=C), flush)
+    plain_ms = median_ms(torch, lambda: pk.decode_attention_reference(
+        q, k, v, lengths, scale=scale, q_per_slot=C), flush)
+    bound_ms, bound_by, nbytes = decode_attention_bound(lens, S, H, D,
+                                                        q_per_slot=C)
+    log("kernel decode_attention [verify, q_per_slot=%d] N=%d S=%d H=%d "
+        "D=%d (%d pseudo-slots): max abs err %.3g; kernel %.4f ms, plain "
+        "%.4f ms, bound %.4f ms (%s, %d bytes) -> %.1f%% of bound"
+        % (C, N, S, H, D, N * C, err, ms, plain_ms, bound_ms, bound_by,
+           nbytes, 100.0 * bound_ms / ms))
     del flush
     entry["max_abs_err"] = max_err
     return entry
+
+
+def _int8_caches(torch, g, n, s, h, d):
+    """Int8 K/V caches from seeded fp32 ones, with their per-head scales
+    [2, H] taken as the predictor calibrates them (amax x 1.25 / 127)."""
+    kf, vf = (torch.randn(n, s, h, d, device="cuda", generator=g)
+              for _ in range(2))
+    sc = torch.stack([x.abs().amax((0, 1, 3)) * 1.25 / 127.0
+                      for x in (kf, vf)]).contiguous()
+    k8, v8 = (torch.clamp(torch.round(x / c[:, None]), -127, 127).to(
+        torch.int8) for x, c in ((kf, sc[0]), (vf, sc[1])))
+    return k8, v8, sc
+
+
+def phase_int8_kernels(torch, pk):
+    """K4 against its plain version at the decode shapes, and K4's
+    head-slice entry at 1, 2 and 4 local heads against its plain version
+    and, bit for bit, against the full-table K4 (head blocks at every
+    offset, concatenated).  The library yardstick is SDPA over an fp32
+    cache holding the same dequantized values (no PyTorch call computes
+    attention over an int8 cache)."""
+    import torch.nn.functional as F
+    rng = np.random.RandomState(1)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    N, S, H, D = N_SLOTS, 512, 8, 64
+    cases = [
+        ("main mixed", N, S, H, D,
+         [0, 1, 511, 512] + list(rng.randint(2, 511, size=N - 4))),
+        ("main full", N, S, H, D, [S] * N),
+        ("ragged", 3, 80, 2, 64, [0, 80, 41]),
+    ]
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    errs = {"k4": 0.0, "hs": 0.0}
+    entries = {}
+    for name, n, s, h, d, lens in cases:
+        q = torch.randn(n, h, d, device="cuda", generator=g)
+        k8, v8, sc = _int8_caches(torch, g, n, s, h, d)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        scale = 1.0 / np.sqrt(d)
+        out = pk.decode_attention(q, k8, v8, lengths, scale=scale,
+                                  kv_scales=sc)
+        ref = pk.decode_attention_reference(q, k8, v8, lengths, scale=scale,
+                                            kv_scales=sc)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "K4 %s: non-finite" % name)
+        err = float((out - ref).abs().max())
+        atol = 1e-5 * float(ref.abs().max())
+        check(bool(((out - ref).abs() <= atol + 1e-5 * ref.abs()).all()),
+              "decode_attention int8 %s disagrees with the plain version "
+              "(max abs err %.3g, rtol 1e-5, atol 1e-5 max|ref| = %.3g)"
+              % (name, err, atol))
+        errs["k4"] = max(errs["k4"], err)
+        exact = {}
+        for n_local in (1, 2, 4):
+            if n_local > h:
+                continue
+            blocks = []
+            for off in range(0, h, n_local):
+                hb = slice(off, off + n_local)
+                ql = q[:, hb].contiguous()
+                kl, vl = k8[:, :, hb].contiguous(), v8[:, :, hb].contiguous()
+                hs = pk.decode_attention_head_slice(
+                    ql, kl, vl, lengths, off, n_local, scale=scale,
+                    kv_scales=sc)
+                hs_ref = pk.decode_attention_reference(
+                    ql, kl, vl, lengths, scale=scale, kv_scales=sc[:, hb])
+                torch.cuda.synchronize()
+                e = float((hs - hs_ref).abs().max())
+                check(bool(((hs - hs_ref).abs()
+                            <= atol + 1e-5 * hs_ref.abs()).all()),
+                      "head slice %s Hl=%d offset %d disagrees with the "
+                      "plain version (max abs err %.3g)"
+                      % (name, n_local, off, e))
+                errs["hs"] = max(errs["hs"], e)
+                blocks.append(hs)
+            exact[n_local] = bool(torch.equal(torch.cat(blocks, dim=1),
+                                              out))
+            check(exact[n_local], "head slice %s Hl=%d: the head blocks "
+                  "concatenated differ from the full-table K4" % (name,
+                                                                  n_local))
+        ms = median_ms(torch, lambda: pk.decode_attention(
+            q, k8, v8, lengths, scale=scale, kv_scales=sc), flush)
+        plain_ms = median_ms(torch, lambda: pk.decode_attention_reference(
+            q, k8, v8, lengths, scale=scale, kv_scales=sc), flush)
+        kd = k8.float() * sc[0][:, None]
+        vd = v8.float() * sc[1][:, None]
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=mask, scale=scale), flush)
+        bound_ms, bound_by, nbytes = decode_attention_bound(
+            lens, s, h, d, elem=1, scale_heads=h)
+        log("kernel decode_attention int8 [%s] N=%d S=%d H=%d D=%d: max "
+            "abs err %.3g; kernel %.4f ms, plain %.4f ms, SDPA over the "
+            "dequantized fp32 cache %.4f ms, bound %.4f ms (%s, %d bytes) "
+            "-> %.1f%% of bound; head slice bit-exact vs full table at "
+            "Hl %s" % (name, n, s, h, d, err, ms, plain_ms, lib_ms,
+                       bound_ms, bound_by, nbytes, 100.0 * bound_ms / ms,
+                       exact))
+        if name != "main full":
+            continue
+        entries["k4"] = {
+            "name": "decode_attention_int8", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/decode_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels.py:570",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+        # the head-slice entry at one TP member's shape: 4 of 8 heads at
+        # offset 4, the whole [2, 8] scale table passed in
+        n_local, off = 4, 4
+        hb = slice(off, off + n_local)
+        ql = q[:, hb].contiguous()
+        kl, vl = k8[:, :, hb].contiguous(), v8[:, :, hb].contiguous()
+        ms = median_ms(torch, lambda: pk.decode_attention_head_slice(
+            ql, kl, vl, lengths, off, n_local, scale=scale, kv_scales=sc),
+            flush)
+        plain_ms = median_ms(torch, lambda: pk.decode_attention_reference(
+            ql, kl, vl, lengths, scale=scale, kv_scales=sc[:, hb]), flush)
+        kdl, vdl = kd[:, :, hb], vd[:, :, hb]
+        lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            ql[:, :, None], kdl.transpose(1, 2), vdl.transpose(1, 2),
+            attn_mask=mask, scale=scale), flush)
+        bound_ms, bound_by, nbytes = decode_attention_bound(
+            lens, s, n_local, d, elem=1, scale_heads=n_local)
+        log("kernel decode_attention_head_slice [main full, Hl=%d at "
+            "offset %d of %d] N=%d S=%d D=%d: kernel %.4f ms, plain %.4f "
+            "ms, SDPA over the dequantized block %.4f ms, bound %.4f ms "
+            "(%s, %d bytes) -> %.1f%% of bound"
+            % (n_local, off, h, n, s, d, ms, plain_ms, lib_ms, bound_ms,
+               bound_by, nbytes, 100.0 * bound_ms / ms))
+        entries["hs"] = {
+            "name": "decode_attention_head_slice", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/decode_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels.py:673",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+    del flush
+    entries["k4"]["max_abs_err"] = errs["k4"]
+    entries["hs"]["max_abs_err"] = errs["hs"]
+    return entries["k4"], entries["hs"]
 
 
 def flash_bound(kind, B, S, H, D, causal):
@@ -578,7 +778,8 @@ def phase_slice(torch, pk, decode, batcher, art):
     outs = [s.result(timeout=600)[0].tolist() for s in streams]
     wall = time.perf_counter() - t0
     b.close()
-    launches = pk.launch_counts["decode_attention"]
+    counts = dict(pk.launch_counts)
+    launches = counts["decode_attention"]
     lane = b.lane_stats()
     steps, step_s = lane["steps"], lane["step_s"]
     peak = torch.cuda.max_memory_allocated()
@@ -616,49 +817,305 @@ def phase_slice(torch, pk, decode, batcher, art):
         "decode" % (N_REQUESTS, tokens, wall, stats["tokens_per_s"],
                     steps, stats["step_ms"], launches, peak / 2 ** 20))
     log(json.dumps({"slice": stats}))
-    return pred, launches
+    return pred, counts, {"prompts": prompts, "budgets": budgets,
+                          "outs": outs, "stats": stats}
 
 
-def phase_profile(torch, pred, steps=20):
+def phase_profile(torch, pred, steps=20, label="profile", draft=None):
     """Where a decode step's time goes with all 8 slots live (128-token
     prompts): host wall per step without the profiler, then the device
-    time per step by kernel under torch.profiler over the same steps."""
+    time per step by kernel under torch.profiler over the same steps.
+    With a `draft` the steps are speculative rounds of a
+    SpeculativeDecodeSession (SPEC_K drafts, one verify)."""
     from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference.decode import SpeculativeDecodeSession
     rng = np.random.RandomState(7)
-    sess = pred.new_session(N_SLOTS)
+    sess = pred.new_session(N_SLOTS) if draft is None else \
+        SpeculativeDecodeSession(pred, draft, N_SLOTS, SPEC_K)
+    step = sess.decode if draft is None else sess.step
     for s in range(N_SLOTS):
         sess.prefill(s, [int(t) for t in rng.randint(
             0, pred.vocab_size, size=128)])
     for _ in range(3):
-        sess.decode()
+        step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        sess.decode()
+        step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            sess.decode()
+            step()
         torch.cuda.synchronize()
     device_ms, rows = profile_rows(torch, prof, steps)
+    unit = "step" if draft is None else "round"
     if not rows:
-        log("profile: torch.profiler saw no device time; device busy "
-            "share not measured (host %.3f ms/step)" % step_ms)
-        return
-    log("profile: %d decode steps at 8 live slots: host %.3f ms/step, "
-        "device busy %.3f ms/step (%.1f%% of the step; idle %.1f%%)"
-        % (steps, step_ms, device_ms, 100 * device_ms / step_ms,
+        log("%s: torch.profiler saw no device time; device busy share not "
+            "measured (host %.3f ms/%s)" % (label, step_ms, unit))
+        return {"host_ms": step_ms, "device_busy_ms": None}
+    log("%s: %d decode %ss at 8 live slots: host %.3f ms/%s, device busy "
+        "%.3f ms/%s (%.1f%% of the %s; idle %.1f%%)"
+        % (label, steps, unit, step_ms, unit, device_ms, unit,
+           100 * device_ms / step_ms, unit,
            100 - 100 * device_ms / step_ms))
     for us, count, key in rows[:10]:
-        log("profile:   %9.2f us/step  %5.1f launches/step  %s"
-            % (us, count, key[:110]))
-    log(json.dumps({"profile": {
-        "steps": steps, "host_step_ms": step_ms,
-        "device_busy_ms_per_step": device_ms,
-        "top": [{"kernel": k[:160], "us_per_step": us,
-                 "launches_per_step": c} for us, c, k in rows[:10]]}}))
+        log("%s:   %9.2f us/%s  %5.1f launches/%s  %s"
+            % (label, us, unit, count, unit, key[:110]))
+    out = {"steps": steps, "unit": unit, "host_ms": step_ms,
+           "device_busy_ms": device_ms,
+           "device_busy_share": device_ms / step_ms,
+           "top": [{"kernel": k[:160], "us": us, "launches": c}
+                   for us, c, k in rows[:10]]}
+    log(json.dumps({label: out}))
+    return out
+
+
+def _serve(torch, pk, batcher, pred, prompts, budgets, **kw):
+    """One DecodeBatcher with N_SLOTS slots answers the requests, launch
+    counts zeroed just before and read just after; returns (streams,
+    lane stats, launch counts, wall s, peak bytes, the batcher)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_counts()
+    b = batcher.DecodeBatcher(pred, n_slots=N_SLOTS, **kw)
+    t0 = time.perf_counter()
+    streams = [b.submit(p, max_new_tokens=m)
+               for p, m in zip(prompts, budgets)]
+    outs = [st.result(timeout=600)[0].tolist() for st in streams]
+    wall = time.perf_counter() - t0
+    b.close()
+    counts = dict(pk.launch_counts)
+    return (outs, b.lane_stats(), counts, wall,
+            torch.cuda.max_memory_allocated(), b)
+
+
+def _first_divergence(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def phase_int8_lane(torch, pk, decode, batcher, art, plain):
+    """The int8 KV cache at full width: the same 16 requests as the fp32
+    lane through a DecodeBatcher over `kv_cache_dtype="int8"`; every
+    stream equals int8 single-request decode, K4 launches once per layer
+    per step and K3 never, freed slots are int8 zeros, the measured cache
+    bytes equal the closed form, and each first token equals the fp32
+    lane's (prefill is fp32 in both)."""
+    prompts, budgets = plain["prompts"], plain["budgets"]
+    t0 = time.time()
+    pred = decode.load_decode_predictor(art, kv_cache_dtype="int8")
+    check(pred.device.type == "cuda" and pred.kv_cache_dtype == "int8",
+          "int8 predictor on %s with %s caches" % (pred.device,
+                                                   pred.kv_cache_dtype))
+    L, H, Dh = (FULL_WIDTH["n_layers"], FULL_WIDTH["n_heads"],
+                FULL_WIDTH["d_model"] // FULL_WIDTH["n_heads"])
+    want = 2 * L * N_SLOTS * FULL_WIDTH["max_seq_len"] * H * Dh \
+        + 2 * L * H * 4
+    log("int8: opened (scales calibrated on the CPU) in %.2f s; KV cache "
+        "%d bytes at %d slots (fp32: %d)"
+        % (time.time() - t0, pred.kv_cache_bytes(N_SLOTS), N_SLOTS,
+           4 * (want - 2 * L * H * 4)))
+    check(pred.kv_cache_bytes(N_SLOTS) == want,
+          "int8 kv_cache_bytes %d, want %d" % (pred.kv_cache_bytes(N_SLOTS),
+                                               want))
+    for n in sorted({pred.prompt_bucket(len(p)) for p in prompts}):
+        decode.greedy_decode(pred, [1] * n, 2, n_slots=N_SLOTS)
+    outs, lane, counts, wall, peak, b = _serve(torch, pk, batcher, pred,
+                                               prompts, budgets)
+    steps = lane["steps"]
+    n_layers = FULL_WIDTH["n_layers"]
+    check(steps > 0 and counts["decode_attention_int8"] == steps * n_layers,
+          "decode_attention_int8 launched %d times for %d steps x %d layers"
+          % (counts["decode_attention_int8"], steps, n_layers))
+    check(counts["decode_attention"] == 0,
+          "K3 launched %d times on the int8 lane" % counts["decode_attention"])
+    sess = b.session
+    check(sess._kc.dtype == torch.int8 and all(
+        sess.slot_is_zero(s) for s in range(N_SLOTS)),
+          "a freed int8 slot still holds K/V")
+    check(sess.cache_bytes() == want and b.kv_cache_info() == ("int8", want),
+          "measured int8 cache bytes %d, want %d" % (sess.cache_bytes(),
+                                                     want))
+    check(all(len(o) == m for o, m in zip(outs, budgets)),
+          "an int8 stream ended before its budget")
+    for i, (p, m, o) in enumerate(zip(prompts, budgets, outs)):
+        ref, _ = decode.greedy_decode(pred, p, m, n_slots=N_SLOTS)
+        check(o == ref, "int8 request %d: batched stream diverged from "
+              "single-request int8 decode at token %d"
+              % (i, _first_divergence(o, ref)))
+        check(o[0] == plain["outs"][i][0], "int8 request %d: first token "
+              "%d differs from the fp32 lane's %d" % (i, o[0],
+                                                      plain["outs"][i][0]))
+    agree = sum(_first_divergence(o, f) for o, f in zip(outs, plain["outs"]))
+    total = sum(len(o) for o in outs)
+    tokens = total
+    stats = {"requests": len(prompts), "slots": N_SLOTS,
+             "generated_tokens": tokens, "wall_s": wall,
+             "tokens_per_s": tokens / wall, "decode_steps": steps,
+             "step_ms": lane["step_s"] / steps * 1e3,
+             "decode_attention_int8_launches":
+                 counts["decode_attention_int8"],
+             "peak_mem_bytes": peak, "kv_cache_bytes": want,
+             "fp32_prefix_agreement": agree / total}
+    log("int8: %d requests, %d tokens in %.3f s: %.1f tokens/s (fp32 lane "
+        "%.1f), %d decode steps at %.3f ms/step (fp32 %.3f), %d K4 "
+        "launches, 0 K3, peak memory %.1f MiB; streams bit-exact vs "
+        "single-request int8 decode; fp32-vs-int8 agreement %.4f of tokens "
+        "(stream prefixes up to the first difference)"
+        % (len(prompts), tokens, wall, stats["tokens_per_s"],
+           plain["stats"]["tokens_per_s"], steps, stats["step_ms"],
+           plain["stats"]["step_ms"], counts["decode_attention_int8"],
+           peak / 2 ** 20, stats["fp32_prefix_agreement"]))
+    stats["profile"] = phase_profile(torch, pred, label="int8 profile")
+    log(json.dumps({"int8": stats}))
+    return pred, counts
+
+
+def phase_verify_form(torch, pred):
+    """Would one batched [N * C, D] pass round like the step's [N, D]
+    pass?  The verify step's dense parts on the full-width model's
+    weights, batched against per chunk position (the form the port
+    runs): bit-identical or not, per operation."""
+    m = pred.model
+    layer = m.layers[0]
+    g = torch.Generator(device=pred.device).manual_seed(17)
+    C = SPEC_K + 1
+    x = torch.randn(N_SLOTS, C, m.d_model, device=pred.device, generator=g)
+    h = torch.randn(N_SLOTS, C, 4 * m.d_model, device=pred.device,
+                    generator=g)
+    ops = {"ln1": (x, layer.ln1), "wq": (x, lambda t: t @ layer.wq),
+           "w1": (x, lambda t: t @ layer.w1),
+           "w2": (h, lambda t: t @ layer.w2),
+           "lm_head": (x, lambda t: t @ m.lm_head)}
+    out = {}
+    for name, (inp, fn) in ops.items():
+        batched = fn(inp.reshape(N_SLOTS * C, -1)).reshape(N_SLOTS, C, -1)
+        per = torch.stack([fn(inp[:, j].contiguous()) for j in range(C)],
+                          dim=1)
+        out[name] = {"bit_identical": bool(torch.equal(batched, per)),
+                     "max_abs_diff": float((batched - per).abs().max())}
+    log("verify form: batched [%d, D] against per-position [%d, D] "
+        "products on the card: %s; the port verifies per position"
+        % (N_SLOTS * C, N_SLOTS, {k: v["bit_identical"]
+                                  for k, v in out.items()}))
+    return out
+
+
+def phase_spec_lane(torch, pk, decode, batcher, art, pred, pred8, plain):
+    """Speculative decoding at full width: the fp32 target with its int8
+    twin as draft, SPEC_K = 4, the same 16 requests; every committed
+    stream equals fp32 greedy decode at 8 slots, K3 launches once per
+    layer per verify or plain round and K4 once per layer per draft
+    step.  Then 4 requests each with an fp32 twin draft (accepted
+    whole) and a mismatched draft (2 layers, seed 101: rolled back on
+    nearly every round, streams still exact)."""
+    prompts, budgets, refs = plain["prompts"], plain["budgets"], plain["outs"]
+    form = phase_verify_form(torch, pred)
+    outs, lane, counts, wall, peak, b = _serve(
+        torch, pk, batcher, pred, prompts, budgets, draft=pred8,
+        spec_k=SPEC_K)
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        check(o == r, "spec request %d: committed stream diverged from fp32 "
+              "greedy decode at token %d" % (i, _first_divergence(o, r)))
+    n_layers = FULL_WIDTH["n_layers"]
+    rounds, plain_rounds = lane["rounds"], lane["plain_steps"]
+    draft_steps = b.session.draft_session.steps
+    check(rounds > 0 and not lane["degraded"],
+          "spec lane: %d verify rounds, degraded %s" % (rounds,
+                                                        lane["degraded"]))
+    check(counts["decode_attention"] == n_layers * (rounds + plain_rounds),
+          "K3 launched %d times for %d verify + %d plain rounds x %d layers"
+          % (counts["decode_attention"], rounds, plain_rounds, n_layers))
+    check(counts["decode_attention_int8"] == n_layers * draft_steps,
+          "K4 launched %d times for %d draft steps x %d layers"
+          % (counts["decode_attention_int8"], draft_steps, n_layers))
+    tokens = sum(len(o) for o in outs)
+    decoded = tokens - len(outs)      # the first tokens come from prefill
+    accept = lane["accepted"] / lane["proposed"]
+    stats = {"requests": len(prompts), "slots": N_SLOTS, "spec_k": SPEC_K,
+             "generated_tokens": tokens, "wall_s": wall,
+             "tokens_per_s": tokens / wall,
+             "plain_fp32_tokens_per_s": plain["stats"]["tokens_per_s"],
+             "rounds": rounds, "plain_rounds": plain_rounds,
+             "draft_steps": draft_steps, "proposed": lane["proposed"],
+             "accepted": lane["accepted"], "accept_rate": accept,
+             "decode_tokens_per_round": decoded / (rounds + plain_rounds),
+             "round_ms": lane["step_s"] / lane["steps"] * 1e3,
+             "launches": {k: counts[k] for k in ("decode_attention",
+                                                 "decode_attention_int8")},
+             "peak_mem_bytes": peak, "verify_form": form}
+    log("spec: %d requests, %d tokens in %.3f s: %.1f tokens/s against "
+        "%.1f on the plain fp32 lane; %d verify + %d plain rounds at %.3f "
+        "ms/round, %.3f decode tokens per round (8 slots), accept rate "
+        "%.4f (%d of %d int8-twin drafts), %d draft steps; K3 %d, K4 %d "
+        "launches; peak memory %.1f MiB; streams bit-exact vs fp32 greedy "
+        "decode" % (len(prompts), tokens, wall, stats["tokens_per_s"],
+                    stats["plain_fp32_tokens_per_s"], rounds, plain_rounds,
+                    stats["round_ms"], stats["decode_tokens_per_round"],
+                    accept, lane["accepted"], lane["proposed"], draft_steps,
+                    counts["decode_attention"],
+                    counts["decode_attention_int8"], peak / 2 ** 20))
+    stats["profile"] = phase_profile(torch, pred, steps=10,
+                                     label="spec profile", draft=pred8)
+    # an fp32 twin draft proposes the target's own tokens: accepted whole
+    twin = decode.load_decode_predictor(art)
+    outs, lane, twin_counts, wall, _, _ = _serve(
+        torch, pk, batcher, pred, prompts[:4], budgets[:4], draft=twin,
+        spec_k=SPEC_K)
+    check(outs == refs[:4], "fp32 twin draft: a committed stream diverged")
+    check(lane["proposed"] > 0 and lane["accepted"] == lane["proposed"],
+          "fp32 twin draft accepted %d of %d" % (lane["accepted"],
+                                                  lane["proposed"]))
+    stats["fp32_twin"] = {"accept_rate": lane["accepted"] / lane["proposed"],
+                          "rounds": lane["rounds"],
+                          "tokens_per_s": sum(map(len, outs)) / wall}
+    log("spec fp32 twin: 4 requests, accept rate exactly %.1f (%d drafts), "
+        "%d rounds, %.1f tokens/s; streams bit-exact"
+        % (stats["fp32_twin"]["accept_rate"], lane["proposed"],
+           lane["rounds"], stats["fp32_twin"]["tokens_per_s"]))
+    del twin
+    # a draft with other weights: almost every round rolls back
+    other = art + "_mismatched"
+    decode.build_tiny_decode_model(other, **dict(FULL_WIDTH, n_layers=2,
+                                                 seed=101))
+    short = [min(m, 24) for m in budgets[:4]]
+    draft = decode.load_decode_predictor(other)
+    rollbacks = []
+    real = draft.new_session
+
+    def counting_session(n_slots):
+        ds = real(n_slots)
+        roll = ds.rollback
+
+        def rollback(*a, **kw):
+            rollbacks.append(1)
+            return roll(*a, **kw)
+        ds.rollback = rollback
+        return ds
+    draft.new_session = counting_session
+    outs, lane, mis_counts, wall, _, _ = _serve(
+        torch, pk, batcher, pred, prompts[:4], short, draft=draft,
+        spec_k=SPEC_K)
+    check(outs == [r[:m] for r, m in zip(refs[:4], short)],
+          "mismatched draft: a committed stream diverged")
+    slot_rounds = lane["proposed"] // SPEC_K
+    share = len(rollbacks) / slot_rounds
+    check(share >= 0.5, "mismatched draft rolled back in only %d of %d "
+          "slot-rounds" % (len(rollbacks), slot_rounds))
+    stats["mismatched"] = {"accept_rate": lane["accepted"] / lane["proposed"],
+                           "rollback_share": share, "rounds": lane["rounds"],
+                           "tokens_per_s": sum(map(len, outs)) / wall}
+    log("spec mismatched draft (2 layers, seed 101): 4 requests, accept "
+        "rate %.4f, rolled back in %d of %d slot-rounds (%.3f), %.1f "
+        "tokens/s; streams bit-exact"
+        % (stats["mismatched"]["accept_rate"], len(rollbacks), slot_rounds,
+           share, stats["mismatched"]["tokens_per_s"]))
+    log(json.dumps({"spec": stats}))
+    hs = sum(c["decode_attention_head_slice"]
+             for c in (counts, twin_counts, mis_counts))
+    return counts["decode_attention"], counts["decode_attention_int8"], hs
 
 
 def phase_gpu_vs_cpu(torch, decode, art, gpu_pred):
@@ -699,6 +1156,39 @@ def phase_gpu_vs_cpu(torch, decode, art, gpu_pred):
         log("gpu/cpu: %s cache max abs err %.3g over %d positions"
             % (name, err, live))
     log("gpu/cpu: tokens gpu %s cpu %s" % (gt, ct))
+
+
+def phase_int8_gpu_vs_cpu(torch, decode, art, gpu_pred):
+    """The int8 predictor on the card and on the CPU: equal scales (both
+    calibrate on the CPU), identical tokens over prefill + 8 steps, and
+    int8 caches equal but where a rounding boundary flips one count: at
+    most 1e-3 of the live elements, never more than +-1."""
+    prompt = [int(t) for t in np.random.RandomState(99).randint(
+        0, gpu_pred.vocab_size, size=64)]
+    cpu_pred = decode.GenerativePredictor(art, device="cpu",
+                                          kv_cache_dtype="int8")
+    check(np.array_equal(gpu_pred.kv_scales(), cpu_pred.kv_scales()),
+          "int8 gpu/cpu: the calibrated scales differ")
+    runs = {}
+    for name, pred in (("gpu", gpu_pred), ("cpu", cpu_pred)):
+        sess = pred.new_session(1)
+        toks = [sess.prefill(0, prompt)]
+        for _ in range(8):
+            toks.append(int(sess.decode()[0]))
+        runs[name] = (toks, sess._kc.cpu(), sess._vc.cpu())
+    (gt, gk, gv), (ct, ck, cv) = runs["gpu"], runs["cpu"]
+    check(gt == ct, "int8 gpu/cpu tokens differ: gpu %s cpu %s" % (gt, ct))
+    live = len(prompt) + len(gt) - 1
+    flips = {}
+    for name, a, c in (("K", gk, ck), ("V", gv, cv)):
+        d = (a[:, :, :live].int() - c[:, :, :live].int()).abs()
+        flips[name] = int((d != 0).sum())
+        check(int(d.max()) <= 1 and flips[name] <= 1e-3 * d.numel(),
+              "int8 gpu/cpu %s caches: %d of %d live elements differ, max "
+              "%d" % (name, flips[name], d.numel(), int(d.max())))
+    log("int8 gpu/cpu: scales equal, tokens identical %s; cache elements "
+        "one count apart over %d positions: K %d, V %d of %d each"
+        % (gt, live, flips["K"], flips["V"], gk[:, :, :live].numel()))
 
 
 TRAIN_STEPS = 10
@@ -1243,6 +1733,7 @@ def main():
     log(smi)
     # 2. kernels against their plain versions
     entry = phase_kernels(torch, pk)
+    k4_entry, k4hs_entry = phase_int8_kernels(torch, pk)
     flash_entries = phase_flash_kernels(torch, pk)
     k5_entry = phase_dequant_kernel(torch, pk)
     k6_entry = phase_bottleneck_kernel(torch, pk)
@@ -1254,12 +1745,34 @@ def main():
         decode.build_tiny_decode_model(art, **FULL_WIDTH)
         log("slice: built the full-width artifact in %.2f s"
             % (time.time() - t0))
-        pred, launches = phase_slice(torch, pk, decode, batcher, art)
-        entry["launches"] = launches
+        pred, plain_counts, plain = phase_slice(torch, pk, decode, batcher,
+                                                art)
         phase_profile(torch, pred)
+        # 3b. the int8 KV cache, 3c. speculative decoding with its twin
+        pred8, int8_counts = phase_int8_lane(torch, pk, decode, batcher,
+                                             art, plain)
+        k3_spec, k4_spec, hs_spec = phase_spec_lane(
+            torch, pk, decode, batcher, art, pred, pred8, plain)
+        launches = plain_counts["decode_attention"]
+        k4_launches = int8_counts["decode_attention_int8"]
+        entry["launches"] = launches + k3_spec
+        k4_entry["launches"] = k4_launches + k4_spec
+        # no one-card path runs the head-slice entry (its caller is the
+        # tensor-parallel lane): the serving runs above must count none
+        k4hs_entry["launches"] = (
+            plain_counts["decode_attention_head_slice"]
+            + int8_counts["decode_attention_head_slice"] + hs_spec)
+        check(k4hs_entry["launches"] == 0,
+              "the head-slice entry launched %d times on a one-card path"
+              % k4hs_entry["launches"])
+        log("launches on the main paths: K3 %d (fp32 lane %d, spec verify "
+            "%d), K4 %d (int8 lane %d, spec drafts %d), K4 head slice %d"
+            % (entry["launches"], launches, k3_spec, k4_entry["launches"],
+               k4_launches, k4_spec, k4hs_entry["launches"]))
         # 4. the port on the card against the port on the CPU
         phase_gpu_vs_cpu(torch, decode, art, pred)
-    del pred
+        phase_int8_gpu_vs_cpu(torch, decode, art, pred8)
+    del pred, pred8
     torch.cuda.empty_cache()
     # 5. the training slice at full width, 6. and on the card vs the CPU
     counts = phase_train(torch, pk, fluid, transformer)
@@ -1273,8 +1786,8 @@ def main():
             torch, pk, fluid, resnet, inference, tmp)
         phase_resnet_gpu_vs_cpu(torch, fluid, resnet, inference, tmp)
     log(smi)
-    log(json.dumps({"kernels": [entry] + flash_entries + [k5_entry,
-                                                          k6_entry]}))
+    log(json.dumps({"kernels": [entry] + flash_entries + [
+        k5_entry, k6_entry, k4_entry, k4hs_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,8 +21,12 @@ FLAGS = types.SimpleNamespace(
     # decode steps per lane dispatch; the port runs 1 (one step per
     # dispatch) and rejects larger windows until fused decode is ported
     serving_decode_fuse_steps=1,
-    # default KV-cache numerics ('' = float32; 'int8' is not ported yet)
+    # default KV-cache numerics ('' = float32, or 'int8')
     serving_kv_cache_dtype="",
+    # speculative-decoding draft depth: with a draft predictor each round
+    # the draft proposes this many tokens and the target verifies all
+    # k + 1 positions in one step; < 1 disables speculation
+    serving_spec_k=4,
     # FuseBottleneckPass fuses only bottlenecks whose width F (the 3x3
     # conv's channel count) is <= this; 0 disables the pass (opt-in, as
     # in the JAX package)

@@ -1,7 +1,8 @@
 """Autoregressive generation on the port: decode artifacts, the prefill /
-decode phase split, and the slot-table KV cache the serving layer
-batches over.  The counterpart of paddle_tpu/inference/decode.py (its
-fp32, single-device path), held against it by tests/test_torch_*.py.
+decode phase split, the slot-table KV cache the serving layer batches
+over (fp32 or int8), and speculative decoding.  The counterpart of
+paddle_tpu/inference/decode.py (its single-device path), held against it
+by tests/test_torch_*.py.
 
 * A **decode artifact** is a directory with `decode_meta.bin` and
   `decode_state.bin` in the typed wire format.  `save_decode_model` and
@@ -12,8 +13,10 @@ fp32, single-device path), held against it by tests/test_torch_*.py.
   MLP) and runs the two phases: `prefill` pushes one padded prompt
   through causal attention and returns its K/V and first greedy token;
   `step` advances every slot of the table by one token through the
-  hand-written decode-attention kernel (ops/pallas_kernels.py).
-  `state_from_jax` carries the JAX package's parameter dict across.
+  hand-written decode-attention kernel (ops/pallas_kernels.py: K3 for
+  fp32 caches, K4 for int8); `verify` scores a speculative chunk.
+  `state_from_jax` carries the JAX package's parameter dict across,
+  `kv_scales_from_jax` its int8 KV scales.
 * **`DecodeSession`** is one slot table: K and V caches of shape
   [layers, n_slots, max_seq_len, heads, head_dim] on the predictor's
   device, updated IN PLACE by prefill, step, free and rollback.  A
@@ -21,7 +24,17 @@ fp32, single-device path), held against it by tests/test_torch_*.py.
   and a step writes only active slots, so a dead slot stays exactly zero.
   Per-slot math is independent (row-wise matmuls, a per-slot kernel with
   no atomics), so at equal n_slots a batched stream is bit-exact against
-  a single-request one.
+  a single-request one.  With `kv_cache_dtype="int8"` the table is int8:
+  per-(layer, head) scales calibrated on the CPU from the weights, every
+  write quantized, attention dequantizing in registers.
+* **`SpeculativeDecodeSession`** pairs the target with a draft predictor
+  (its int8 twin, say): k draft steps propose, one target verify scores
+  all k + 1 positions, and the longest agreeing prefix commits — a
+  stream bit-identical to target-only greedy decode.
+
+Not ported yet: fused N-step decode (and the fused speculative round),
+tensor-parallel lanes (`_TPContext`, the caller of K4's head-slice
+entry), mesh replicas, the compile cache and the AOT export.
 
 Sampling is greedy argmax (the first maximum, as in JAX).  Tokens and
 lengths stay int32, as in the JAX package (x64 off).
@@ -38,17 +51,42 @@ from torch import nn
 from .. import resolve_device
 from ..flags import FLAGS
 from ..native import wire
-from ..ops.pallas_kernels import decode_attention
+from ..ops.pallas_kernels import KernelError, decode_attention
 
-__all__ = ["GenerativePredictor", "DecodeSession", "CausalLM",
-           "save_decode_model", "build_tiny_decode_model",
-           "load_decode_predictor", "greedy_decode", "normalize_kv_dtype",
-           "state_from_jax", "state_to_jax", "DECODE_META"]
+__all__ = ["GenerativePredictor", "DecodeSession", "SpeculativeDecodeSession",
+           "CausalLM", "save_decode_model", "build_tiny_decode_model",
+           "load_decode_predictor", "greedy_decode", "set_draft_poison",
+           "normalize_kv_dtype", "state_from_jax", "state_to_jax",
+           "kv_scales_from_jax", "DECODE_META"]
 
 DECODE_META = "decode_meta.bin"
 _DECODE_STATE = "decode_state.bin"
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2")
+
+# chaos hook: once armed, the draft side of every SpeculativeDecodeSession
+# raises after the given number of further draft steps — the in-process
+# stand-in for a dead draft predictor.  The session must degrade to
+# target-only decode within the same round, bit-exact.
+_DRAFT_POISON = {"after": None, "steps": 0}
+
+
+def set_draft_poison(after_steps=0):
+    """Arm (int: the poison fires once `after_steps` more draft steps
+    have run) or disarm (None) the draft-failure injection."""
+    _DRAFT_POISON["after"] = None if after_steps is None \
+        else int(after_steps)
+    _DRAFT_POISON["steps"] = 0
+
+
+def _check_draft_poison():
+    after = _DRAFT_POISON["after"]
+    if after is None:
+        return
+    _DRAFT_POISON["steps"] += 1
+    if _DRAFT_POISON["steps"] > after:
+        raise RuntimeError("chaos: draft predictor poisoned "
+                           "(set_draft_poison)")
 
 
 def normalize_kv_dtype(value):
@@ -163,6 +201,14 @@ def _causal_attention(q, k, v, scale):
         / torch.clamp_min(p.sum(dim=-1), 1e-20).transpose(1, 2)[..., None]
 
 
+def _quantize_kv(x, scale):
+    """Symmetric int8 quantization of fresh K/V rows against the
+    calibrated per-head scale: clamp(round(x / scale), -127, 127) as
+    exact integer values in fp32 (torch.round rounds half to even, as
+    jnp.round does); the caller casts to int8."""
+    return torch.clamp(torch.round(x / scale), -127.0, 127.0)
+
+
 def _frozen(arr, device):
     return nn.Parameter(torch.tensor(np.asarray(arr), device=device),
                         requires_grad=False)
@@ -200,7 +246,9 @@ class _Block(nn.Module):
 class CausalLM(nn.Module):
     """The decode artifact's model: embed, pos, layers[i], lnf, lm_head.
     Frozen fp32 parameters on one device; `prefill` and `step` are the
-    two phases of generation."""
+    two phases of generation, `verify` the speculative decoder's scoring
+    step.  With `kv_scales` set, every cache write is quantized to int8
+    and attention runs K4."""
 
     def __init__(self, state, meta, device):
         super().__init__()
@@ -215,6 +263,10 @@ class CausalLM(nn.Module):
             for i in range(self.n_layers))
         self.lnf = _LayerNorm(state["lnf_g"], state["lnf_b"], device)
         self.lm_head = _frozen(state["lm_head"], device)
+        self.attn_scale = 1.0 / np.sqrt(self.head_dim)
+        # per-(layer, head) dequant scales [L, 2, H] of an int8 slot
+        # table (K row 0, V row 1); None for a float32 cache
+        self.kv_scales = None
 
     @torch.no_grad()
     def forward(self, tokens):
@@ -237,54 +289,160 @@ class CausalLM(nn.Module):
             vs.append(v)
         return x, ks, vs
 
+    # -- the int8 KV cache ----------------------------------------------
+
+    def _to_cache(self, rows, layer, which):
+        """Fresh K (which=0) or V (1) rows [..., H, Dh] in the cache's
+        numerics: as they are for a float32 cache, quantized against the
+        layer's per-head scales for an int8 one."""
+        if self.kv_scales is None:
+            return rows
+        return _quantize_kv(rows, self.kv_scales[layer, which][:, None]) \
+            .to(torch.int8)
+
+    def _attention_scales(self, layer):
+        """The layer's [2, H] dequant scales for K4; None for float32."""
+        return None if self.kv_scales is None else self.kv_scales[layer]
+
+    # -- the phases -----------------------------------------------------
+
     @torch.no_grad()
     def prefill(self, tokens, true_len):
         """tokens [1, B] int64 (a prompt padded to its bucket), true_len
-        int -> (first token [] int32, k/v [L, 1, B, H, Dh] fp32 with the
-        pad positions zeroed)."""
+        int -> (first token [] int32, k/v [L, 1, B, H, Dh] with the pad
+        positions zeroed: fp32, or quantized to int8 under `kv_scales`)."""
         B = tokens.shape[1]
         x, ks, vs = self(tokens)
         # only the last live position's logits pick the first token
         logits = self.lnf(x[0, true_len - 1]) @ self.lm_head
         first = torch.argmax(logits, dim=-1).to(torch.int32)
-        # the slot cache holds exact zeros past the live length
+        # the slot cache holds exact zeros past the live length (zeros
+        # quantize to exact int8 zeros)
         live = (torch.arange(B, device=x.device) < true_len)[
             None, None, :, None, None]
         kc = torch.where(live, torch.stack(ks), 0.0)
         vc = torch.where(live, torch.stack(vs), 0.0)
+        if self.kv_scales is not None:
+            sc = self.kv_scales[:, :, None, None, :, None]  # [L,2,1,1,H,1]
+            kc = _quantize_kv(kc, sc[:, 0]).to(torch.int8)
+            vc = _quantize_kv(vc, sc[:, 1]).to(torch.int8)
         return first, kc, vc
+
+    def _qkv(self, layer, x):
+        """One layer's projections of x [N, D] -> q, k, v [N, H, Dh]."""
+        N = x.shape[0]
+        h = layer.ln1(x)
+        return tuple((h @ w).reshape(N, self.n_heads, self.head_dim)
+                     for w in (layer.wq, layer.wk, layer.wv))
+
+    def _after_attention(self, layer, x, att):
+        """x [N, D] + the attention output [N, D] through wo, then the
+        MLP residual."""
+        x = x + att @ layer.wo
+        return layer.mlp_residual(x)
+
+    def _greedy(self, x):
+        return torch.argmax(self.lnf(x) @ self.lm_head, dim=-1).to(
+            torch.int32)
 
     @torch.no_grad()
     def step(self, kc, vc, lengths, last_tokens, write_slots):
         """One decode step over the whole slot table.  kc/vc [L, N, S, H,
-        Dh] fp32 caches, UPDATED IN PLACE; lengths [N] int64 (live cached
-        positions), last_tokens [N] int64, write_slots [A] int64 (the
-        active slots with cache room) -> new tokens [N] int32.
+        Dh] caches (fp32, or int8 under `kv_scales`), UPDATED IN PLACE;
+        lengths [N] int64 (live cached positions), last_tokens [N] int64,
+        write_slots [A] int64 (the active slots with cache room) -> new
+        tokens [N] int32.
 
         Each writing slot's new K/V row lands at position lengths[n]
         before attention, which then covers lengths + 1 positions (write
-        before attend).  Only writing slots are written, so a dead slot's
-        cache stays exactly zero."""
-        H, Dh, D = self.n_heads, self.head_dim, self.d_model
+        before attend); under int8 the row is quantized first.  Only
+        writing slots are written, so a dead slot's cache stays exactly
+        zero."""
         N, S = kc.shape[1], kc.shape[2]
-        scale = 1.0 / np.sqrt(Dh)
         x = self.embed[last_tokens] \
             + self.pos[torch.clamp(lengths, max=S - 1)]
         write_pos = lengths[write_slots]
         att_lengths = (lengths + 1).to(torch.int32)
         for i, layer in enumerate(self.layers):
-            h = layer.ln1(x)
-            q = (h @ layer.wq).reshape(N, H, Dh)
-            k_new = (h @ layer.wk).reshape(N, H, Dh)
-            v_new = (h @ layer.wv).reshape(N, H, Dh)
-            kc[i, write_slots, write_pos] = k_new[write_slots]
-            vc[i, write_slots, write_pos] = v_new[write_slots]
+            q, k_new, v_new = self._qkv(layer, x)
+            kc[i, write_slots, write_pos] = self._to_cache(
+                k_new[write_slots], i, 0)
+            vc[i, write_slots, write_pos] = self._to_cache(
+                v_new[write_slots], i, 1)
             att = decode_attention(q, kc[i], vc[i], att_lengths,
-                                   scale=scale)
-            x = x + att.reshape(N, D) @ layer.wo
-            x = layer.mlp_residual(x)
-        logits = self.lnf(x) @ self.lm_head
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+                                   scale=self.attn_scale,
+                                   kv_scales=self._attention_scales(i))
+            x = self._after_attention(layer, x, att.reshape(N, self.d_model))
+        return self._greedy(x)
+
+    @torch.no_grad()
+    def verify(self, kc, vc, lengths, tokens, write_slots):
+        """One speculative verify step over the whole slot table (the
+        counterpart of paddle_tpu's `_verify_math`): tokens [N, C] int64 =
+        [pending token, drafts d1..dk] (C = k + 1), lengths [N] int64,
+        write_slots [A] int64 (the active slots, each with >= C rows of
+        room) -> (g [N, C] int32, the target's greedy token after each
+        chunk position; m [N] int32, the accepted draft count 0..k).
+        The caches are updated in place.
+
+        Chunk position j of slot n rounds exactly like the plain step
+        that would consume token j there: its embedding, projections,
+        MLP and logits run at the step's own [N, D] shapes (C passes per
+        layer — a batched [N * C, D] product may sum in another order on
+        the card), its K/V row is written before attention (quantized
+        under int8, the step's bytes), and it attends as a pseudo-slot
+        of length lengths + j + 1 through the same kernel — one K3/K4
+        launch per layer over the N * C pseudo-slots, reading the slot's
+        cache in place (q_per_slot = C).  So a draft that proposes the
+        target's own tokens is accepted whole, and every committed token
+        equals target-only greedy decode.
+
+        Acceptance is computed here: m is the longest prefix with d_i ==
+        g_{i-1}.  Rows this step wrote past lengths + m + 1 (the rejected
+        suffix) are zeroed before returning, so stale draft K/V never
+        survives into the committed cache."""
+        N, C = tokens.shape
+        S = kc.shape[2]
+        dev = tokens.device
+        steps = torch.arange(C, device=dev)
+        pos = torch.clamp(lengths[:, None] + steps[None], max=S - 1)
+        xs = [self.embed[tokens[:, j]] + self.pos[pos[:, j]]
+              for j in range(C)]
+        write_pos = lengths[write_slots]
+        q_lengths = (lengths[:, None] + steps[None] + 1).reshape(N * C).to(
+            torch.int32)
+        for i, layer in enumerate(self.layers):
+            qs = []
+            for j, x in enumerate(xs):
+                q, k_new, v_new = self._qkv(layer, x)
+                kc[i, write_slots, write_pos + j] = self._to_cache(
+                    k_new[write_slots], i, 0)
+                vc[i, write_slots, write_pos + j] = self._to_cache(
+                    v_new[write_slots], i, 1)
+                qs.append(q)
+            q = torch.stack(qs, dim=1).reshape(N * C, self.n_heads,
+                                               self.head_dim)
+            att = decode_attention(q, kc[i], vc[i], q_lengths,
+                                   scale=self.attn_scale,
+                                   kv_scales=self._attention_scales(i),
+                                   q_per_slot=C).reshape(N, C, self.d_model)
+            xs = [self._after_attention(layer, x, att[:, j].contiguous())
+                  for j, x in enumerate(xs)]
+        g = torch.stack([self._greedy(x) for x in xs], dim=1)
+        match = (tokens[:, 1:] == g[:, :C - 1]).to(torch.int32)
+        m = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+        if C > 1 and write_slots.numel():
+            # the rejected suffix: chunk rows j > m of the written slots
+            A = write_slots.numel()
+            rows = write_slots[:, None].expand(A, C - 1)
+            at = write_pos[:, None] + steps[None, 1:]
+            stale = (steps[None, 1:] > m[write_slots][:, None])[
+                None, :, :, None, None]
+            for cache in (kc, vc):
+                cache[:, rows, at] = torch.where(
+                    stale, torch.zeros((), dtype=cache.dtype, device=dev),
+                    cache[:, rows, at])
+        return g, m
 
 
 def state_from_jax(state_np, meta, device):
@@ -293,6 +451,19 @@ def state_from_jax(state_np, meta, device):
     or a decoded `decode_state.bin` holds it) as a `CausalLM` on
     `device`."""
     return CausalLM(state_np, meta, resolve_device(device))
+
+
+def kv_scales_from_jax(predictor, scales):
+    """Install the JAX package's int8 KV scales (its predictor's
+    `kv_scales()`, [2, L, H]) into an int8 port `predictor`, beside the
+    weights `state_from_jax` carries: the two packages calibrate through
+    differently rounded prefills, and equal scales make their int8
+    caches comparable byte for byte."""
+    if predictor.kv_cache_dtype != "int8":
+        raise ValueError("kv_scales_from_jax: the predictor's cache is %s, "
+                         "not int8" % predictor.kv_cache_dtype)
+    predictor._set_kv_scales(scales)
+    return predictor
 
 
 def state_to_jax(model):
@@ -321,7 +492,11 @@ class GenerativePredictor:
 
     `kv_cache_dtype` picks the cache numerics per open (explicit arg >
     the artifact's decode_meta pin > FLAGS.serving_kv_cache_dtype >
-    float32); only float32 is ported, int8 raises NotImplementedError."""
+    float32).  'int8' calibrates per-(layer, head) scales once, on the
+    CPU from the artifact's weights, so they are a function of the
+    artifact alone (equal on the card and the CPU, and for every
+    reopen); every session this predictor vends then quantizes its cache
+    writes and attends through K4."""
 
     def __init__(self, dirname, device=None, kv_cache_dtype=None):
         self._device = resolve_device(device)
@@ -333,14 +508,13 @@ class GenerativePredictor:
             kv = normalize_kv_dtype(self.meta["kv_cache_dtype"])
         else:
             kv = normalize_kv_dtype(FLAGS.serving_kv_cache_dtype)
-        if kv == "int8":
-            raise NotImplementedError(
-                "kv_cache_dtype='int8' is not ported yet (the int8 "
-                "decode-attention kernel comes with the next slice)")
         self._kv_dtype = kv
         with open(os.path.join(dirname, _DECODE_STATE), "rb") as f:
             state = wire.decode(f.read())
         self.model = state_from_jax(state, self.meta, self._device)
+        self._kv_scales = None
+        if kv == "int8":
+            self._set_kv_scales(self._calibrate_kv_scales(state))
         self._lock = threading.Lock()
         # prompt lengths past every bucket that have already warned
         self._overflow_warned = set()
@@ -416,9 +590,45 @@ class GenerativePredictor:
 
     def kv_cache_bytes(self, n_slots):
         """Closed-form slot-table footprint: K and V, [L, n_slots, S, H,
-        Dh] fp32 each."""
+        Dh] each at the cache dtype's width (4 B fp32, 1 B int8), plus
+        the int8 cache's per-(layer, head) fp32 scale table."""
         L, H, Dh, _ = self._dims()
-        return 2 * L * int(n_slots) * self.max_seq_len * H * Dh * 4
+        quant = self._kv_dtype == "int8"
+        return (2 * L * int(n_slots) * self.max_seq_len * H * Dh
+                * (1 if quant else 4) + (2 * L * H * 4 if quant else 0))
+
+    # -- the int8 KV cache ----------------------------------------------
+
+    def _calibrate_kv_scales(self, state):
+        """Per-(layer, head) symmetric scales for the int8 KV cache: amax
+        of |K| / |V| over a deterministic vocab-cycling probe prompt run
+        through the fp32 prefill on the CPU from the artifact's weights,
+        x1.25 headroom for decode-time rows the probe never saw, /127.
+        Returns [2, L, H] float32 (K row 0, V row 1)."""
+        T = int(min(self.max_seq_len - 1, 64))
+        vocab = max(self.vocab_size, 1)
+        tokens = (np.arange(T, dtype=np.int64) * 7 + 1) % vocab
+        host = CausalLM(state, self.meta, torch.device("cpu"))
+        _, kc, vc = host.prefill(torch.from_numpy(tokens).reshape(1, T), T)
+
+        def sc(x):
+            amax = np.abs(x.numpy()).max(axis=(1, 2, 4))   # [L, H]
+            return (np.maximum(amax, 1e-6) * 1.25
+                    / 127.0).astype(np.float32)
+
+        return np.stack([sc(kc), sc(vc)])
+
+    def _set_kv_scales(self, scales):
+        L, H, _, _ = self._dims()
+        scales = np.asarray(scales, np.float32).reshape(2, L, H)
+        self._kv_scales = scales
+        self.model.kv_scales = torch.from_numpy(
+            np.ascontiguousarray(scales.transpose(1, 0, 2))).to(self._device)
+
+    def kv_scales(self):
+        """The calibrated per-(layer, head) fp32 dequant scales [2, L, H]
+        (K row 0, V row 1); None for a float32 cache."""
+        return None if self._kv_scales is None else self._kv_scales.copy()
 
     def param_bytes(self):
         """Static weight footprint."""
@@ -429,7 +639,7 @@ class GenerativePredictor:
 
     def prefill(self, padded, true_len):
         """padded [1, B] int32 host tokens, true_len int -> (first token
-        int, k/v [L, 1, B, H, Dh] on the device)."""
+        int, k/v [L, 1, B, H, Dh] on the device, in the cache dtype)."""
         tokens = torch.from_numpy(
             np.asarray(padded, np.int64)).to(self._device)
         first, kc, vc = self.model.prefill(tokens, int(true_len))
@@ -449,10 +659,11 @@ class DecodeSession:
         self.n_slots = int(n_slots)
         L, H, Dh, _ = predictor._dims()
         shape = (L, self.n_slots, predictor.max_seq_len, H, Dh)
-        self._kc = torch.zeros(shape, dtype=torch.float32,
-                               device=predictor.device)
-        self._vc = torch.zeros(shape, dtype=torch.float32,
-                               device=predictor.device)
+        # an int8 slot table holds exact int8 zeros when free
+        dtype = torch.int8 if predictor.kv_cache_dtype == "int8" \
+            else torch.float32
+        self._kc = torch.zeros(shape, dtype=dtype, device=predictor.device)
+        self._vc = torch.zeros(shape, dtype=dtype, device=predictor.device)
         self.lengths = np.zeros(self.n_slots, np.int32)
         self.last_tokens = np.zeros(self.n_slots, np.int32)
         self.active = np.zeros(self.n_slots, bool)
@@ -467,9 +678,12 @@ class DecodeSession:
         return int(self.active.sum())
 
     def cache_bytes(self):
-        """Measured slot-table footprint: the K + V tensors' bytes."""
+        """Measured slot-table footprint: the K + V tensors' bytes, plus
+        the int8 cache's fp32 scale table."""
+        scales = self.predictor._kv_scales
         return sum(t.numel() * t.element_size()
-                   for t in (self._kc, self._vc))
+                   for t in (self._kc, self._vc)) \
+            + (0 if scales is None else int(scales.nbytes))
 
     def room(self, slot):
         """Generated tokens this slot can still hold."""
@@ -521,6 +735,26 @@ class DecodeSession:
         self.steps += 1
         return toks
 
+    def verify(self, chunk):
+        """One speculative verify step (`CausalLM.verify`) over the slot
+        table: chunk [n_slots, C] int32 host tokens (the pending token,
+        then the drafts); every active slot needs >= C rows of room.
+        Returns (g [n_slots, C], m [n_slots]) np.int32 — meaningful for
+        the active slots — and leaves the lengths and last tokens to the
+        caller, with the caches holding the pending token's and the m
+        accepted drafts' rows."""
+        N = self.n_slots
+        chunk = np.asarray(chunk, np.int32).reshape(N, -1)
+        write_slots = np.nonzero(self.active)[0]
+        ints = torch.from_numpy(np.concatenate(
+            [self.lengths, chunk.reshape(-1), write_slots]).astype(
+                np.int64)).to(self.predictor.device)
+        g, m = self.predictor.model.verify(
+            self._kc, self._vc, ints[:N], ints[N:N + chunk.size].reshape(
+                chunk.shape), ints[N + chunk.size:])
+        gm = torch.cat([g, m[:, None]], dim=1).cpu().numpy()
+        return gm[:, :-1], gm[:, -1]
+
     def free(self, slot):
         """Release a slot: its K/V lines are ZEROED (in place) before it
         can be reused, so a later occupant never sees a previous
@@ -555,6 +789,217 @@ class DecodeSession:
         """True when the slot's K and V cache lines are exact zeros."""
         return not bool(self._kc[:, slot].any()) \
             and not bool(self._vc[:, slot].any())
+
+
+class SpeculativeDecodeSession:
+    """Draft-and-verify generation over one slot table: pairs the fp32
+    *target* predictor with a cheap *draft* predictor (the int8 twin of
+    the same artifact, or any decode artifact sharing its vocab and eos)
+    and advances every occupied slot 1..k+1 committed tokens per round:
+
+      1. DRAFT: k batched draft decode steps propose d1..dk per slot
+         (the draft keeps its own slot table, mirroring the committed
+         stream);
+      2. VERIFY: the target scores all k+1 positions in one verify step
+         (`DecodeSession.verify`), acceptance and stale-row zeroing
+         included;
+      3. COMMIT: the longest greedily-agreeing prefix plus the target's
+         correction (or bonus) token commits to the target cache; the
+         draft rolls its rejected rows back (`DecodeSession.rollback`),
+         or runs one catch-up step after a fully accepted round, so both
+         tables mirror the committed stream again.
+
+    Every committed token is a target argmax, so the stream is
+    bit-identical to target-only plain decode; the draft only changes
+    how many steps that stream costs.  A draft failure
+    (`set_draft_poison`, a raising draft) degrades the session to
+    target-only plain rounds within the same round — `degraded` latches
+    and `degrade_error` says why; the stream never stalls or corrupts.
+    A kernel that fails to build or launch (`KernelError`) is no draft
+    failure: it raises, on the draft side as on the target's.
+
+    Duck-types the DecodeSession surface the DecodeBatcher drives
+    (prefill/free/room/free_slots/occupancy/slot_is_zero/cache_bytes),
+    with `step()`, the variable-accept round returning (tokens [N, k+1],
+    counts [N]), in place of `decode()`.  The rounds are driven from the
+    host; the fused one-dispatch round is not ported.  NOT thread-safe,
+    the same single-owner contract as DecodeSession."""
+
+    def __init__(self, target, draft, n_slots, spec_k):
+        if int(spec_k) < 1:
+            raise ValueError("spec_k must be >= 1, got %r" % (spec_k,))
+        if draft.vocab_size != target.vocab_size:
+            raise ValueError(
+                "draft vocab %d != target vocab %d — not a compatible "
+                "draft artifact" % (draft.vocab_size, target.vocab_size))
+        if draft.eos_id != target.eos_id:
+            raise ValueError("draft eos_id %d != target eos_id %d"
+                             % (draft.eos_id, target.eos_id))
+        if draft.max_seq_len < target.max_seq_len:
+            raise ValueError(
+                "draft max_seq_len %d < target max_seq_len %d — the draft "
+                "cache cannot mirror the committed stream"
+                % (draft.max_seq_len, target.max_seq_len))
+        self.predictor = target
+        self.draft_predictor = draft
+        self.spec_k = int(spec_k)
+        self.n_slots = int(n_slots)
+        self.session = target.new_session(n_slots)
+        self.draft_session = draft.new_session(n_slots)
+        self._degraded = False
+        self.degrade_error = None
+        self.rounds = 0          # verify steps
+        self.plain_steps = 0     # fallback / degraded plain rounds
+        self.proposed = 0        # draft tokens offered to verify
+        self.accepted = 0        # draft tokens accepted
+
+    # -- DecodeSession surface (the batcher's contract) -----------------
+
+    @property
+    def steps(self):
+        return self.session.steps
+
+    @property
+    def degraded(self):
+        return self._degraded
+
+    def free_slots(self):
+        return self.session.free_slots()
+
+    def occupancy(self):
+        return self.session.occupancy()
+
+    def room(self, slot):
+        return self.session.room(slot)
+
+    def slot_is_zero(self, slot):
+        return self.session.slot_is_zero(slot)
+
+    def cache_bytes(self):
+        """The target table's bytes: the one the committed stream lives
+        in."""
+        return self.session.cache_bytes()
+
+    def _degrade(self, exc):
+        self._degraded = True
+        if self.degrade_error is None:
+            self.degrade_error = "%s: %s" % (type(exc).__name__, exc)
+
+    def prefill(self, slot, tokens):
+        """Prefill both tables; the draft's own first token is discarded
+        and its pending token pinned to the target's (the committed
+        stream is always the target's)."""
+        first = self.session.prefill(slot, tokens)
+        if not self._degraded:
+            try:
+                _check_draft_poison()
+                self.draft_session.prefill(slot, tokens)
+                self.draft_session.last_tokens[slot] = np.int32(first)
+            except KernelError:
+                raise
+            except Exception as e:
+                self._degrade(e)
+        return first
+
+    def free(self, slot):
+        self.session.free(slot)
+        if self.draft_session.active[slot]:
+            self.draft_session.free(slot)
+
+    # -- the speculative round ------------------------------------------
+
+    def _draft_catchup(self, mask, pins):
+        """Advance the draft one step for the `mask` slots (consuming
+        their pending token, landing its K/V row) and re-pin their
+        pending tokens to the committed stream's (`pins` [N])."""
+        ds = self.draft_session
+        saved = ds.active
+        try:
+            _check_draft_poison()
+            ds.active = mask
+            ds.decode()
+        except KernelError:
+            raise
+        except Exception as e:
+            self._degrade(e)
+            return
+        finally:
+            ds.active = saved
+        for s in np.nonzero(mask)[0]:
+            ds.last_tokens[s] = np.int32(pins[s])
+
+    def step(self, fused=False):
+        """One round over the slot table.  Returns (tokens [N, k+1]
+        int32, counts [N] int32): slot s committed `counts[s]` tokens
+        this round, `tokens[s, :counts[s]]` in stream order (0 for
+        inactive slots, 1 in a plain round, 1..k+1 in a speculative one).
+
+        A round runs speculatively unless the session is degraded or
+        some occupied slot lacks the k+1 cache rows a verify writes: those rounds run ONE plain target step for
+        every slot (a nearly full slot never blocks progress), with a
+        draft catch-up step keeping the tables mirrored."""
+        if fused:
+            raise NotImplementedError(
+                "fused speculative rounds (one dispatch per round) are not "
+                "ported yet; they come with fused N-step decode")
+        ts = self.session
+        k = self.spec_k
+        C = k + 1
+        N = self.n_slots
+        active = ts.active.copy()
+        occupied = np.nonzero(active)[0]
+        spec_ok = (not self._degraded and occupied.size > 0
+                   and all(ts.room(int(s)) >= C for s in occupied))
+        drafts = []
+        if spec_ok:
+            try:
+                for _ in range(k):
+                    _check_draft_poison()
+                    drafts.append(self.draft_session.decode())
+            except KernelError:
+                raise
+            except Exception as e:
+                # the draft died mid-round: drop its proposals and keep
+                # the stream moving with a plain target step this round
+                self._degrade(e)
+                spec_ok = False
+        if spec_ok:
+            chunk = np.zeros((N, C), np.int32)
+            chunk[:, 0] = ts.last_tokens
+            for j, d in enumerate(drafts):
+                chunk[:, j + 1] = d
+            g, m = ts.verify(chunk)
+            m = np.where(active, m, 0).astype(np.int32)
+            counts = np.where(active, m + 1, 0).astype(np.int32)
+            ts.lengths = (ts.lengths + counts).astype(np.int32)
+            ts.last_tokens = np.where(
+                active, g[np.arange(N), np.minimum(m, k)],
+                ts.last_tokens).astype(np.int32)
+            ts.steps += 1
+            # draft sync: rejected rows roll back; fully accepted slots
+            # owe the draft one catch-up row (it proposed d_k without
+            # consuming it)
+            for s in occupied:
+                s = int(s)
+                if m[s] < k:
+                    self.draft_session.rollback(
+                        s, k - 1 - int(m[s]), last_token=int(g[s, m[s]]))
+            full = active & (m == k)
+            if full.any():
+                self._draft_catchup(full, g[:, k])
+            self.rounds += 1
+            self.proposed += k * occupied.size
+            self.accepted += int(m[occupied].sum())
+            return g, counts
+        # the plain round: one target step, every occupied slot advances
+        # exactly one token (the degraded session lives here)
+        toks = ts.decode()
+        self.plain_steps += 1
+        if not self._degraded and active.any():
+            self._draft_catchup(active, toks)
+        out = np.zeros((N, C), np.int32)
+        out[:, 0] = toks
+        return out, active.astype(np.int32)
 
 
 def load_decode_predictor(dirname, kv_cache_dtype=None, device=None):

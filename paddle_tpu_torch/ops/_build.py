@@ -17,8 +17,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
-           "build_logs"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "KernelError",
+           "build_all", "load", "build_logs"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -35,6 +35,10 @@ _libs = {}
 build_logs = {}
 
 
+class KernelError(RuntimeError):
+    """A CUDA kernel could not be built, loaded or launched."""
+
+
 def _nvcc():
     found = shutil.which("nvcc")
     if found:
@@ -43,7 +47,7 @@ def _nvcc():
     cand = os.path.join(cuda_home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand
-    raise RuntimeError(
+    raise KernelError(
         "paddle_tpu_torch: nvcc not found (PATH, $CUDA_HOME/bin, "
         "/usr/local/cuda/bin) — the CUDA kernels build on a host with "
         "the CUDA toolkit")
@@ -102,7 +106,7 @@ def build_all():
                 if os.path.exists(tmp):
                     os.remove(tmp)
         if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+            raise KernelError("nvcc failed for " + "\n".join(failed))
         return libs
 
 
@@ -114,10 +118,13 @@ def load(stem):
         return lib
     libs = build_all()
     if stem not in libs:
-        raise KeyError("no CUDA source csrc/%s.cu" % stem)
+        raise KernelError("no CUDA source csrc/%s.cu" % stem)
     with _lock:
         lib = _libs.get(stem)
         if lib is None:
-            lib = ctypes.CDLL(libs[stem])
+            try:
+                lib = ctypes.CDLL(libs[stem])
+            except OSError as e:
+                raise KernelError("cannot load %s: %s" % (libs[stem], e))
             _libs[stem] = lib
     return lib

@@ -1,49 +1,75 @@
-// Slot-cache decode attention, fp32 caches, for Hopper (sm_90a).
+// Slot-cache decode attention for Hopper (sm_90a): K3 (fp32 caches) and K4
+// (int8 caches with per-head dequant scales, and its head-slice entry).
 //
-// Replaces the TPU kernel `decode_attention` (fp32 branch) of
-// paddle_tpu/ops/pallas_kernels.py, an instance of its tiled-contraction
-// core: grid (N, S / block_kv), all heads of one slot resident, K/V
-// blocks streamed through the shared online-softmax epilogue.
+// Replaces the TPU kernel `decode_attention` of
+// paddle_tpu/ops/pallas_kernels.py — its fp32 branch and its int8 branch
+// (`kv_scales`) — and `decode_attention_head_slice`, instances of its
+// tiled-contraction core: grid (N, S / block_kv), all heads of one slot
+// resident, K/V blocks streamed through the shared online-softmax
+// epilogue, int8 tiles dequantized in-register.
 //
-//   q [N, H, D] f32, k/v cache [N, S, H, D] f32, lengths [N] i32
-//   -> out [N, H, D] f32
-//   out[n, h] = sum_s softmax_s(q[n, h] . k[n, s, h] * scale) v[n, s, h]
-//   over the live positions s < lengths[n].
+//   q [P, H, D] f32, k/v cache [P / qps, S, H, D] f32 or int8,
+//   lengths [P] i32 -> out [P, H, D] f32
+//   out[p, h] = sum_s softmax_s(q[p, h] . k[n, s, h] * scale * ks[h])
+//               v[n, s, h] * vs[h]
+//   over the live positions s < lengths[p], with n = p / qps and, for
+//   int8 caches, ks = kv_scales[0, head_offset + h], vs = kv_scales[1,
+//   head_offset + h] (kv_scales [2, h_total] f32; fp32 caches: ks = vs =
+//   1, no multiply).
+//
+// `qps` (q rows per cache slot) lets the speculative verify step attend
+// C = qps chunk positions of one slot — each a pseudo-slot with its own
+// length — over that slot's cache without copying it C times; the
+// plain decode step runs qps = 1.  `head_offset` and `h_total` are the
+// head-slice entry: q and the caches hold a block of H local heads, the
+// scale table is the whole per-layer [2, h_total] one, read at the
+// block's offset in place.
 //
 // Masking follows the TPU kernel and its plain reference exactly: masked
 // scores are the finite -1e30 (so a masked position's weight is an exact
 // 0 once one position is live) and the normaliser is floored at 1e-20.
 // A slot with length 0 has every score masked, every weight exp(0) = 1,
 // and its output is the mean of all S value rows — well defined, and
-// computed here the same way.
+// computed here the same way.  The int8 algebra is the reference's
+// order: the K scale multiplies the scaled score once, (dot * scale) *
+// ks; the V scale multiplies the output once, after the normalising
+// divide.
 //
 // What bounds it: one query row per (slot, head) makes the work ~2 flops
-// per cached float, far below the card's ridge point, so the kernel is
-// bound by the K/V bytes it reads (2 * sum_n length_n * H * D * 4 bytes
-// per call; at N=8, S=512, H=8, D=64 that is 16.8 MB, ~5 us at
-// 3.35 TB/s).  The design therefore aims at reading each live K/V row
-// exactly once, with wide coalesced loads, and at touching nothing past
-// a slot's live length:
-//   * one thread block per (slot, head) — N * H blocks instead of the
-//     TPU grid's N, so more SMs stream at once;
+// per cached element, far below the card's ridge point, so the kernel is
+// bound by the K/V bytes it reads (2 * sum_n length_n * H * D * elem
+// bytes per call; at N=8, S=512, H=8, D=64 that is 16.8 MB fp32, ~5 us
+// at 3.35 TB/s, and 4.2 MB int8, ~1.3 us).  The design therefore aims at
+// reading each live K/V row once, with coalesced loads, and at touching
+// nothing past a slot's live length:
+//   * one thread block per (pseudo-slot, head) — N * H blocks instead of
+//     the TPU grid's N, so more SMs stream at once;
 //   * inside a block, groups of D / 4 lanes each own one cached position
-//     at a time and read its K and V rows as 16-byte float4 loads
-//     (a group reads one contiguous row; the warp's two groups read two);
+//     at a time; a lane reads 4 elements of its K and V rows (a float4,
+//     or a char4 converted to fp32 in registers), so a group reads one
+//     contiguous row;
 //   * the D-long dot product is a butterfly of warp shuffles inside the
 //     group, and each group keeps its own online softmax (running max,
 //     normaliser, float4 accumulator) in registers over positions
 //     g, g + G, g + 2G, ...;
 //   * the groups' partial softmax states merge once, through shared
 //     memory, at the end.
-// Each (slot, head) result depends only on that slot's inputs, and the
-// reduction order is fixed by the shape: no atomics, so the kernel is
-// deterministic and a slot's output does not depend on N or on other
-// slots.  Splitting S across blocks (flash-decoding) and cp.async / TMA
-// pipelining are left for later work.
+// Each (pseudo-slot, head) result depends only on that row's inputs and
+// the reduction order is fixed by the live length: no atomics, so the
+// kernel is deterministic, a slot's output does not depend on N, on
+// other slots, on qps or on the head block it was launched in — which
+// is what keeps batched decode bit-exact against single-request decode,
+// the verify step's pseudo-slots bit-exact against the plain step, and
+// the head-slice entry bit-exact against the full table.  Splitting S
+// across blocks (flash-decoding), 16-byte int8 loads and TMA pipelining
+// are left for later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -51,33 +77,52 @@ constexpr float kNegInf = -1e30f;  // _NEG_INF of the TPU kernel
 constexpr float kTiny = 1e-20f;    // _TINY of the TPU kernel
 constexpr int kThreads = 256;
 
-// LPR: lanes per cached row = D / 4 (each lane owns one float4 of D).
-template <int LPR>
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// four int8 cache elements, dequantized to (unscaled) fp32 in registers
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+}
+
+// T: the cache element type (float or int8_t).  LPR: lanes per cached
+// row = D / 4 (each lane owns four elements of D).
+template <typename T, int LPR>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const int* __restrict__ lengths,
-                            float* __restrict__ out, int S, int H,
-                            float scale) {
+decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const int* __restrict__ lengths,
+                        const float* __restrict__ kv_scales,
+                        float* __restrict__ out, int S, int H, int qps,
+                        int h_total, int head_offset, float scale) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   constexpr int D = LPR * 4;
   constexpr int G = kThreads / LPR;  // position groups per block
-  const int n = blockIdx.x / H;
-  const int h = blockIdx.x - n * H;
+  const int p = blockIdx.x / H;      // pseudo-slot: its q row and length
+  const int h = blockIdx.x - p * H;
+  const int n = p / qps;             // the cache slot it reads
   const int g = threadIdx.x / LPR;
   const int lane = threadIdx.x - g * LPR;
 
-  const int len = lengths[n];
+  const int len = lengths[p];
   const int live = min(max(len, 0), S);
   const bool all_masked = live == 0;
   // a length-0 slot reads every row (its output is the mean of V)
   const int n_pos = all_masked ? S : live;
 
-  const size_t qoff = ((size_t)n * H + h) * D;
+  float k_scale = 1.f, v_scale = 1.f;
+  if constexpr (kInt8) {
+    k_scale = kv_scales[head_offset + h];
+    v_scale = kv_scales[h_total + head_offset + h];
+  }
+
+  const size_t qoff = ((size_t)p * H + h) * D;
   const float4 qv = reinterpret_cast<const float4*>(q + qoff)[lane];
-  const size_t row = (size_t)H * D;  // floats between cached positions
-  const float* kb = k + (size_t)n * S * row + (size_t)h * D + lane * 4;
-  const float* vb = v + (size_t)n * S * row + (size_t)h * D + lane * 4;
+  const size_t row = (size_t)H * D;  // elements between cached positions
+  const T* kb = k + (size_t)n * S * row + (size_t)h * D + lane * 4;
+  const T* vb = v + (size_t)n * S * row + (size_t)h * D + lane * 4;
 
   float m = -INFINITY;
   float l = 0.f;
@@ -85,20 +130,22 @@ decode_attention_f32_kernel(const float* __restrict__ q,
   // every group runs the same trip count, so the shuffles below always
   // see their whole warp; a group past the end contributes nothing
   for (int p0 = 0; p0 < n_pos; p0 += G) {
-    const int p = p0 + g;
-    const bool valid = p < n_pos;
+    const int pos = p0 + g;
+    const bool valid = pos < n_pos;
     float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
     float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
     if (valid) {
-      kv = *reinterpret_cast<const float4*>(kb + (size_t)p * row);
-      vv = *reinterpret_cast<const float4*>(vb + (size_t)p * row);
+      kv = load4(kb + (size_t)pos * row);
+      vv = load4(vb + (size_t)pos * row);
     }
     float dot = qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
 #pragma unroll
     for (int off = LPR / 2; off > 0; off >>= 1)
       dot += __shfl_xor_sync(0xffffffffu, dot, off);
     if (valid) {
-      const float s = all_masked ? kNegInf : dot * scale;
+      float s = dot * scale;
+      if constexpr (kInt8) s = s * k_scale;
+      if (all_masked) s = kNegInf;
       const float m_new = fmaxf(m, s);
       const float alpha = expf(m - m_new);
       const float wt = expf(s - m_new);
@@ -138,39 +185,68 @@ decode_attention_f32_kernel(const float* __restrict__ q,
       o.w += a.w * w;
     }
     tot = fmaxf(tot, kTiny);
-    reinterpret_cast<float4*>(out + qoff)[d4] =
-        make_float4(o.x / tot, o.y / tot, o.z / tot, o.w / tot);
+    o = make_float4(o.x / tot, o.y / tot, o.z / tot, o.w / tot);
+    if constexpr (kInt8)
+      o = make_float4(o.x * v_scale, o.y * v_scale, o.z * v_scale,
+                      o.w * v_scale);
+    reinterpret_cast<float4*>(out + qoff)[d4] = o;
   }
 }
 
-template <int LPR>
-void launch(const float* q, const float* k, const float* v,
-            const int* lengths, float* out, int N, int S, int H,
-            float scale, cudaStream_t stream) {
-  decode_attention_f32_kernel<LPR><<<N * H, kThreads, 0, stream>>>(
-      q, k, v, lengths, out, S, H, scale);
+template <typename T>
+cudaError_t launch(const float* q, const T* k, const T* v,
+                   const int* lengths, const float* kv_scales, float* out,
+                   int P, int S, int H, int D, int qps, int h_total,
+                   int head_offset, float scale, cudaStream_t st) {
+  if (P <= 0 || S <= 0 || H <= 0 || qps <= 0 || P % qps)
+    return cudaErrorInvalidValue;
+  if ((long long)P * H > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(P * H);
+#define PADDLE_DECODE_CASE(DIM, LPR)                                      \
+  case DIM:                                                               \
+    decode_attention_kernel<T, LPR><<<grid, kThreads, 0, st>>>(           \
+        q, k, v, lengths, kv_scales, out, S, H, qps, h_total, head_offset, \
+        scale);                                                           \
+    break;
+  switch (D) {
+    PADDLE_DECODE_CASE(4, 1)
+    PADDLE_DECODE_CASE(8, 2)
+    PADDLE_DECODE_CASE(16, 4)
+    PADDLE_DECODE_CASE(32, 8)
+    PADDLE_DECODE_CASE(64, 16)
+    PADDLE_DECODE_CASE(128, 32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PADDLE_DECODE_CASE
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Pointers are device pointers; q, k, v and out 16-byte aligned and
-// contiguous in the layouts above.  D must be 4, 8, 16, 32, 64 or 128.
-// Launches on `stream`, does not synchronise, and returns the launch's
+// Pointers are device pointers in the layouts above, contiguous; q and
+// out 16-byte aligned, fp32 caches 16-byte and int8 caches 4-byte
+// aligned.  D must be 4, 8, 16, 32, 64 or 128; P a multiple of qps >= 1.
+// Each launches on `st`, does not synchronise, and returns the launch's
 // cudaError_t (cudaSuccess = 0).
+
+// K3: fp32 caches.
 extern "C" cudaError_t paddle_decode_attention_f32(
     const float* q, const float* k, const float* v, const int* lengths,
-    float* out, int N, int S, int H, int D, float scale,
+    float* out, int P, int S, int H, int D, int qps, float scale,
     cudaStream_t st) {
-  if (N <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
-  if ((long long)N * H > 0x7fffffffLL) return cudaErrorInvalidValue;
-  switch (D) {
-    case 4: launch<1>(q, k, v, lengths, out, N, S, H, scale, st); break;
-    case 8: launch<2>(q, k, v, lengths, out, N, S, H, scale, st); break;
-    case 16: launch<4>(q, k, v, lengths, out, N, S, H, scale, st); break;
-    case 32: launch<8>(q, k, v, lengths, out, N, S, H, scale, st); break;
-    case 64: launch<16>(q, k, v, lengths, out, N, S, H, scale, st); break;
-    case 128: launch<32>(q, k, v, lengths, out, N, S, H, scale, st); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  return launch<float>(q, k, v, lengths, nullptr, out, P, S, H, D, qps, H,
+                       0, scale, st);
+}
+
+// K4: int8 caches; kv_scales [2, h_total] f32, this block's heads at
+// [head_offset, head_offset + H).
+extern "C" cudaError_t paddle_decode_attention_i8(
+    const float* q, const int8_t* k, const int8_t* v, const int* lengths,
+    const float* kv_scales, float* out, int P, int S, int H, int D, int qps,
+    int h_total, int head_offset, float scale, cudaStream_t st) {
+  if (head_offset < 0 || head_offset + H > h_total)
+    return cudaErrorInvalidValue;
+  return launch<int8_t>(q, k, v, lengths, kv_scales, out, P, S, H, D, qps,
+                        h_total, head_offset, scale, st);
 }

@@ -7,17 +7,17 @@ version for a tensor on the CPU and launches the CUDA kernel for a tensor
 on the card (never falling back from one to the other), and a count of
 the kernel's launches in `launch_counts`.
 
-Ported so far: K3, `decode_attention` with fp32 caches
-(csrc/decode_attention.cu); K1, the flash-attention forward
-(csrc/flash_attention_fwd.cu); K2, its backward dq and dk/dv kernels
-(csrc/flash_attention_bwd.cu), joined to K1 by a torch.autograd.Function;
-K5, `dequant_matmul` (csrc/dequant_matmul.cu), the int8-weight matmul of
-the quantized inference lane; K6, `fused_bottleneck`
-(csrc/fused_bottleneck.cu), a whole BN-folded ResNet bottleneck block in
-fp32.  The `flash_attention` and `fused_bottleneck` ops, through which
-fluid programs reach K1/K2 and K6, are registered here too.  The
-int8-cache branch of decode attention (K4), its head-slice entry and
-K6's bf16 variant are not ported yet.
+Ported so far: K3 and K4, `decode_attention` with fp32 caches and with
+int8 caches and per-head dequant scales, and K4's head-slice entry
+`decode_attention_head_slice` (csrc/decode_attention.cu); K1, the
+flash-attention forward (csrc/flash_attention_fwd.cu); K2, its backward
+dq and dk/dv kernels (csrc/flash_attention_bwd.cu), joined to K1 by a
+torch.autograd.Function; K5, `dequant_matmul` (csrc/dequant_matmul.cu),
+the int8-weight matmul of the quantized inference lane; K6,
+`fused_bottleneck` (csrc/fused_bottleneck.cu), a whole BN-folded ResNet
+bottleneck block in fp32.  The `flash_attention` and `fused_bottleneck`
+ops, through which fluid programs reach K1/K2 and K6, are registered here
+too.  K6's bf16 variant is not ported yet.
 """
 
 import ctypes
@@ -26,15 +26,18 @@ import numpy as np
 import torch
 
 from . import _build
+from ._build import KernelError
 
 __all__ = ["decode_attention", "decode_attention_reference",
+           "decode_attention_head_slice",
            "flash_attention", "flash_attention_reference",
            "flash_attention_fwd", "flash_attention_fwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
            "flash_attention_bwd_reference", "dequant_matmul",
            "dequant_matmul_reference", "fused_bottleneck",
-           "bottleneck_reference", "launch_counts", "reset_launch_counts"]
+           "bottleneck_reference", "KernelError", "launch_counts",
+           "reset_launch_counts"]
 
 # Finite mask value (not -inf), as in the TPU kernels: exp(_NEG_INF -
 # finite) underflows to an exact 0 and a fully masked row stays finite.
@@ -46,7 +49,8 @@ _KERNEL_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 
 # kernel name -> launches of its CUDA kernel in this process (a call that
 # runs the plain version never counts)
-launch_counts = {"decode_attention": 0, "flash_attention_fwd": 0,
+launch_counts = {"decode_attention": 0, "decode_attention_int8": 0,
+                 "decode_attention_head_slice": 0, "flash_attention_fwd": 0,
                  "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                  "dequant_matmul": 0, "fused_bottleneck": 0}
 
@@ -58,28 +62,50 @@ def reset_launch_counts():
         launch_counts[name] = 0
 
 
-def _decode_attention_fn():
-    fn = _fns.get("decode_attention")
+_DECODE_ARGTYPES = {
+    # q, k, v, lengths, out; P, S, H, D, qps; scale; stream
+    "paddle_decode_attention_f32": [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, lengths, kv_scales, out; P, S, H, D, qps, h_total,
+    # head_offset; scale; stream
+    "paddle_decode_attention_i8": [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def _decode_attention_fn(symbol):
+    fn = _fns.get(symbol)
     if fn is None:
-        fn = _build.load("decode_attention").paddle_decode_attention_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn = getattr(_build.load("decode_attention"), symbol)
+        fn.argtypes = _DECODE_ARGTYPES[symbol]
         fn.restype = ctypes.c_int
-        _fns["decode_attention"] = fn
+        _fns[symbol] = fn
     return fn
 
 
-def decode_attention_reference(q, k_cache, v_cache, lengths, scale=None):
+def decode_attention_reference(q, k_cache, v_cache, lengths, scale=None,
+                               kv_scales=None, q_per_slot=1):
     """Plain PyTorch version of the TPU kernel's semantics (paddle_tpu's
-    `decode_attention_reference`, fp32 caches): q [N, H, D] one new token
-    per slot, k/v caches [N, S, H, D], lengths [N] live cached positions
-    per slot -> [N, H, D] in q's dtype.  Positions >= length score the
-    finite -1e30; the normaliser is floored at 1e-20, so a length-0 slot
-    yields the mean of its S value rows."""
+    `decode_attention_reference`): q [P, H, D] one new token per
+    (pseudo-)slot, k/v caches [P / q_per_slot, S, H, D] (fp32, or int8
+    with `kv_scales`), lengths [P] live cached positions per row -> [P,
+    H, D] in q's dtype.  Row p reads cache slot p // q_per_slot.
+    Positions >= length score the finite -1e30; the normaliser is floored
+    at 1e-20, so a length-0 row yields the mean of its S value rows.
+    `kv_scales` [2, H] f32 applies the per-head dequant algebra: the K
+    scale on the scaled scores, the V scale after the normalising
+    divide."""
     S = k_cache.shape[1]
-    D = q.shape[-1]
+    H, D = q.shape[1], q.shape[-1]
     scale = float(scale if scale is not None else 1.0 / np.sqrt(D))
+    if q_per_slot != 1:
+        k_cache = k_cache.repeat_interleave(q_per_slot, dim=0)
+        v_cache = v_cache.repeat_interleave(q_per_slot, dim=0)
     s = torch.einsum("nhd,nshd->nhs", q.float(), k_cache.float()) * scale
+    if kv_scales is not None:
+        sc = torch.as_tensor(kv_scales, dtype=torch.float32,
+                             device=q.device).reshape(2, H)
+        s = s * sc[0][None, :, None]
     lengths = torch.as_tensor(lengths, device=q.device).to(torch.int32)
     mask = torch.arange(S, device=q.device)[None, None, :] \
         >= lengths[:, None, None]
@@ -88,75 +114,173 @@ def decode_attention_reference(q, k_cache, v_cache, lengths, scale=None):
     p = torch.exp(s - m[..., None])
     l = torch.clamp_min(p.sum(dim=-1), _TINY)
     o = torch.einsum("nhs,nshd->nhd", p, v_cache.float()) / l[..., None]
+    if kv_scales is not None:
+        o = o * sc[1][None, :, None]
     return o.to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, lengths, scale=None):
-    """Slot-cache decode attention (K3): q [N, H, D], k_cache/v_cache
-    [N, S, H, D] float32, lengths [N] int32 -> [N, H, D] float32.
+def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, kv_scales,
+                           q_per_slot, head_offset, count):
+    """Check what K3 / K4 take, launch on the current stream, count."""
+    quant = kv_scales is not None
+    named = [("k_cache", k_cache), ("v_cache", v_cache),
+             ("lengths", lengths)] + ([("kv_scales", kv_scales)]
+                                      if quant else [])
+    for name, t in named:
+        if not isinstance(t, torch.Tensor) or t.device != q.device:
+            raise ValueError("decode_attention: %s must be a tensor on %s"
+                             % (name, q.device))
+    cache_dtype = torch.int8 if quant else torch.float32
+    for name, t, dt in (("q", q, torch.float32),
+                        ("k_cache", k_cache, cache_dtype),
+                        ("v_cache", v_cache, cache_dtype),
+                        ("lengths", lengths, torch.int32)) + (
+            (("kv_scales", kv_scales, torch.float32),) if quant else ()):
+        if t.dtype != dt:
+            raise TypeError("decode_attention: %s must be %s, got %s"
+                            % (name, dt, t.dtype))
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError("decode_attention: q must be [P, H, D] and the "
+                         "caches [N, S, H, D]")
+    P, H, D = q.shape
+    S = k_cache.shape[1]
+    qps = int(q_per_slot)
+    if qps < 1 or P % qps:
+        raise ValueError("decode_attention: %d q rows are not a multiple "
+                         "of q_per_slot %d" % (P, qps))
+    N = P // qps
+    if tuple(k_cache.shape) != (N, S, H, D) \
+            or tuple(v_cache.shape) != (N, S, H, D) \
+            or tuple(lengths.shape) != (P,):
+        raise ValueError(
+            "decode_attention: shapes q %s, k %s, v %s, lengths %s do not "
+            "agree (q_per_slot %d)" % (tuple(q.shape), tuple(k_cache.shape),
+                                       tuple(v_cache.shape),
+                                       tuple(lengths.shape), qps))
+    h_total = H
+    if quant:
+        if kv_scales.dim() != 2 or kv_scales.shape[0] != 2:
+            raise ValueError("decode_attention: kv_scales must be [2, H], "
+                             "got %s" % (tuple(kv_scales.shape),))
+        h_total = kv_scales.shape[1]
+        if not 0 <= head_offset <= h_total - H:
+            raise ValueError("decode_attention: heads [%d, %d) outside the "
+                             "%d-head scale table" % (head_offset,
+                                                      head_offset + H,
+                                                      h_total))
+    if D not in _KERNEL_HEAD_DIMS:
+        raise ValueError("decode_attention: head dim %d not in %s"
+                         % (D, _KERNEL_HEAD_DIMS))
+    if not all(t.is_contiguous() for _, t in named + [("q", q)]):
+        raise ValueError("decode_attention: inputs must be contiguous")
+    out = torch.empty_like(q)
+    cache_align = 4 if quant else 16
+    if q.data_ptr() % 16 or out.data_ptr() % 16 \
+            or k_cache.data_ptr() % cache_align \
+            or v_cache.data_ptr() % cache_align:
+        raise ValueError("decode_attention: q must be 16-byte and the "
+                         "caches %d-byte aligned" % cache_align)
+    if P == 0 or H == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if quant:
+            err = _decode_attention_fn("paddle_decode_attention_i8")(
+                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                lengths.data_ptr(), kv_scales.data_ptr(), out.data_ptr(),
+                P, S, H, D, qps, h_total, head_offset, scale, stream)
+        else:
+            err = _decode_attention_fn("paddle_decode_attention_f32")(
+                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), P, S, H, D, qps, scale,
+                stream)
+    if err:
+        raise KernelError("%s: CUDA kernel launch failed (cudaError %d)"
+                           % (count, err))
+    launch_counts[count] += 1
+    return out
 
-    A CPU tensor runs `decode_attention_reference`.  A CUDA tensor
-    launches csrc/decode_attention.cu on the current stream, after
-    checking device, dtype, shape, contiguity and alignment — it raises on
-    anything the kernel does not take, and on a failed launch."""
-    if k_cache.dtype == torch.int8 or v_cache.dtype == torch.int8:
-        raise NotImplementedError(
-            "decode_attention: int8 KV caches (kv_scales) are not ported "
-            "yet")
+
+def decode_attention(q, k_cache, v_cache, lengths, scale=None,
+                     kv_scales=None, q_per_slot=1):
+    """Slot-cache decode attention: q [P, H, D] f32, k_cache/v_cache [P /
+    q_per_slot, S, H, D], lengths [P] int32 -> [P, H, D] float32.  Row p
+    attends cache slot p // q_per_slot over its own length (the
+    speculative verify step's pseudo-slots; 1 for the plain step).
+
+    float32 caches run K3.  int8 caches run K4 and need `kv_scales` [2,
+    H] f32 (K scales row 0, V scales row 1: the per-head dequant scales
+    of the quantized slot table, one layer's slice); float32 caches take
+    none.  A CPU tensor runs `decode_attention_reference`.  A CUDA tensor
+    launches csrc/decode_attention.cu on the current stream after
+    checking device, dtype, shape, contiguity and alignment — it raises
+    on anything the kernel does not take, and on a failed launch."""
+    quant = k_cache.dtype == torch.int8 or v_cache.dtype == torch.int8
+    if quant and kv_scales is None:
+        raise ValueError(
+            "decode_attention: int8 KV caches need kv_scales [2, H] "
+            "(per-head fp32 dequant scales)")
+    if not quant and kv_scales is not None:
+        raise ValueError("decode_attention: kv_scales apply to int8 KV "
+                         "caches only, got %s caches" % k_cache.dtype)
+    if quant:
+        kv_scales = torch.as_tensor(kv_scales, device=q.device).reshape(
+            2, q.shape[1])
     D = q.shape[-1]
     scale = float(scale if scale is not None else 1.0 / np.sqrt(D))
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, lengths,
-                                          scale=scale)
+                                          scale=scale, kv_scales=kv_scales,
+                                          q_per_slot=q_per_slot)
     if q.device.type != "cuda":
         raise ValueError("decode_attention: unsupported device %s"
                          % q.device)
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lengths", lengths)):
-        if not isinstance(t, torch.Tensor) or t.device != q.device:
-            raise ValueError("decode_attention: %s must be a tensor on %s"
-                             % (name, q.device))
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.float32:
-            raise TypeError("decode_attention: %s must be float32, got %s"
-                            % (name, t.dtype))
-    if lengths.dtype != torch.int32:
-        raise TypeError("decode_attention: lengths must be int32, got %s"
-                        % lengths.dtype)
-    if q.dim() != 3 or k_cache.dim() != 4:
-        raise ValueError("decode_attention: q must be [N, H, D] and the "
-                         "caches [N, S, H, D]")
-    N, H, _ = q.shape
-    S = k_cache.shape[1]
-    if tuple(k_cache.shape) != (N, S, H, D) \
-            or tuple(v_cache.shape) != (N, S, H, D) \
-            or tuple(lengths.shape) != (N,):
-        raise ValueError(
-            "decode_attention: shapes q %s, k %s, v %s, lengths %s do not "
-            "agree" % (tuple(q.shape), tuple(k_cache.shape),
-                       tuple(v_cache.shape), tuple(lengths.shape)))
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError("decode_attention: head dim %d not in %s"
-                         % (D, _KERNEL_HEAD_DIMS))
-    if not (q.is_contiguous() and k_cache.is_contiguous()
-            and v_cache.is_contiguous() and lengths.is_contiguous()):
-        raise ValueError("decode_attention: inputs must be contiguous")
-    out = torch.empty_like(q)
-    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache, out)):
-        raise ValueError("decode_attention: q/k/v must be 16-byte aligned")
-    if N == 0 or H == 0:
-        return out
-    fn = _decode_attention_fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), N, S, H, D, scale,
-                 stream)
-    if err:
-        raise RuntimeError("decode_attention: CUDA kernel launch failed "
-                           "(cudaError %d)" % err)
-    launch_counts["decode_attention"] += 1
-    return out
+    return _decode_attention_cuda(
+        q, k_cache, v_cache, lengths, scale, kv_scales, q_per_slot, 0,
+        "decode_attention_int8" if quant else "decode_attention")
+
+
+def decode_attention_head_slice(q, k_cache, v_cache, lengths, head_offset,
+                                n_local_heads, scale=None, kv_scales=None):
+    """The tensor-parallel entry: decode attention over one member's
+    resident head block.  q/k_cache/v_cache are the LOCAL head shards
+    ([N, Hl, D] / [N, S, Hl, D], Hl = n_local_heads); `kv_scales`, for
+    int8 caches, is the FULL per-layer table [2, H_total] (or [2,
+    H_total, 1]), and the block's window starts at `head_offset`.  Heads
+    are independent, so each head's result equals `decode_attention` on
+    the full table.
+
+    A CPU tensor runs the plain version on the block's [2, Hl] window.
+    On the card int8 caches launch K4 with the table's pointer and the
+    offset (the table is not sliced or copied); float32 caches take no
+    scales and run K3 on the block."""
+    Hl = int(n_local_heads)
+    if q.dim() != 3 or q.shape[1] != Hl:
+        raise ValueError("decode_attention_head_slice: q %s does not hold "
+                         "%d local heads" % (tuple(q.shape), Hl))
+    if kv_scales is None:
+        return decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+        raise ValueError("decode_attention_head_slice: kv_scales apply to "
+                         "int8 KV caches only, got %s caches"
+                         % k_cache.dtype)
+    full = torch.as_tensor(kv_scales, device=q.device)
+    full = full.reshape(2, full.numel() // 2)
+    off = int(head_offset)
+    if not 0 <= off <= full.shape[1] - Hl:
+        raise ValueError("decode_attention_head_slice: heads [%d, %d) "
+                         "outside the %d-head scale table"
+                         % (off, off + Hl, full.shape[1]))
+    scale = float(scale if scale is not None else 1.0 / np.sqrt(q.shape[-1]))
+    if q.device.type == "cpu":
+        return decode_attention_reference(
+            q, k_cache, v_cache, lengths, scale=scale,
+            kv_scales=full[:, off:off + Hl])
+    if q.device.type != "cuda":
+        raise ValueError("decode_attention_head_slice: unsupported device "
+                         "%s" % q.device)
+    return _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, full,
+                                  1, off, "decode_attention_head_slice")
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +465,7 @@ def _flash_launch(symbol, stem, args, device, count):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(ctypes.addressof(args), stream)
     if err:
-        raise RuntimeError("%s: CUDA kernel launch failed (cudaError %d)"
+        raise KernelError("%s: CUDA kernel launch failed (cudaError %d)"
                            % (count, err))
     launch_counts[count] += 1
 
@@ -616,7 +740,7 @@ def dequant_matmul(x, w_q, scale, out_dtype=None):
                  int(out_dtype == torch.bfloat16), M, N, K, slices,
                  0 if work is None else work.data_ptr(), stream)
     if err:
-        raise RuntimeError("dequant_matmul: CUDA kernel launch failed "
+        raise KernelError("dequant_matmul: CUDA kernel launch failed "
                            "(cudaError %d)" % err)
     launch_counts["dequant_matmul"] += 1
     return out
@@ -731,7 +855,7 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(ctypes.addressof(args), stream)
     if err:
-        raise RuntimeError("fused_bottleneck: CUDA kernel launch failed "
+        raise KernelError("fused_bottleneck: CUDA kernel launch failed "
                            "(cudaError %d)" % err)
     launch_counts["fused_bottleneck"] += 1
     return out

@@ -1,6 +1,6 @@
 """Continuous batching for autoregressive decode — the port of
-paddle_tpu/serving/batcher.py's `DecodeBatcher` (its plain one-step-per-
-dispatch path).
+paddle_tpu/serving/batcher.py's `DecodeBatcher` (its one-lane path, plain
+or speculative, one dispatch per step or round).
 
 Each request is many tiny steps over growing state, so the utilization
 lever is slot occupancy over time.  The DecodeBatcher keeps one
@@ -10,13 +10,20 @@ decode batch the step after any slot frees (EOS / max-new-tokens /
 deadline / cancel) — no coalesce window, no waiting for the batch to
 drain.
 
+With a draft predictor and `spec_k` >= 1 the lane runs a
+SpeculativeDecodeSession: each round the draft proposes k tokens, one
+target verify step scores all k + 1 positions, and slots advance 1..k+1
+committed tokens, consumed in stream order with per-token EOS and
+max-new cuts, so every stream is bit-identical to the plain path.
+
 Admission control: a bounded queue (`max_queue`); past it, an arriving
 request evicts the lowest strictly-lower-priority queued request or is
 shed itself with `ServerOverloaded` (shed, never hang).
 
-Not ported yet: replica lanes, speculative lanes, fused multi-step
-windows, mesh / tensor-parallel lanes, the static-batching baseline,
-serving metrics, trace ids and the obs spans and events.
+Not ported yet: replica lanes, fused multi-step windows (and fused
+speculative rounds), mesh / tensor-parallel lanes, the static-batching
+baseline, serving metrics, trace ids and the obs spans and events (among
+them `spec_degraded`: a lane reports degradation in `lane_stats()`).
 """
 
 import collections
@@ -150,13 +157,21 @@ class _DecodeRequest:
 
 class _DecodeLane:
     """The decode lane: its slot-table session plus the slot -> request
-    assignment the continuous loop walks, and its counters."""
+    assignment the continuous loop walks, and its counters.  With a
+    draft and spec_k >= 1 the session is a SpeculativeDecodeSession and
+    the lane advances slots 1..k+1 tokens per round."""
 
-    __slots__ = ("session", "assigned", "steps", "tokens", "step_s",
-                 "dead")
+    __slots__ = ("session", "spec", "assigned", "steps", "tokens",
+                 "step_s", "dead")
 
-    def __init__(self, predictor, n_slots):
-        self.session = predictor.new_session(n_slots)
+    def __init__(self, predictor, n_slots, draft=None, spec_k=0):
+        self.spec = draft is not None and int(spec_k) >= 1
+        if self.spec:
+            from ..inference.decode import SpeculativeDecodeSession
+            self.session = SpeculativeDecodeSession(predictor, draft,
+                                                    n_slots, spec_k)
+        else:
+            self.session = predictor.new_session(n_slots)
         self.assigned = {}   # slot -> _DecodeRequest
         self.steps = 0       # decode steps run
         self.tokens = 0      # tokens emitted (prefill first tokens too)
@@ -170,10 +185,17 @@ class DecodeBatcher:
     first shed, shed-not-hang.  Past admission the lifecycle is
     streaming: prefill into a free slot, then ride the running decode
     loop until EOS / max-new-tokens / deadline / cancel frees the slot
-    for the next waiting request."""
+    for the next waiting request.
+
+    `draft` (a GenerativePredictor sharing the target's vocab and eos)
+    with `spec_k` (default FLAGS.serving_spec_k; < 1 disables it) makes
+    the lane speculative.  A draft failure degrades the lane to
+    target-only rounds within one round, never wedging a stream; a
+    kernel that fails to build or launch ends the lane instead, as on a
+    plain lane."""
 
     def __init__(self, predictor, n_slots=None, max_queue=None,
-                 max_new_tokens=None):
+                 max_new_tokens=None, draft=None, spec_k=None):
         if int(FLAGS.serving_decode_fuse_steps) != 1:
             raise NotImplementedError(
                 "fused multi-step decode (serving_decode_fuse_steps=%s) "
@@ -187,9 +209,14 @@ class DecodeBatcher:
         self.max_new_cap = max(int(FLAGS.serving_max_new_tokens
                                    if max_new_tokens is None
                                    else max_new_tokens), 1)
+        self.spec_k = int(FLAGS.serving_spec_k if spec_k is None
+                          else spec_k)
+        if draft is None or self.spec_k < 1:
+            self.spec_k = 0
         self._cv = threading.Condition()
         self._pending = collections.deque()
-        self._lane = _DecodeLane(predictor, self.n_slots)
+        self._lane = _DecodeLane(predictor, self.n_slots, draft=draft,
+                                 spec_k=self.spec_k)
         self._closing = False
         self._stopped = False
         self._thread = threading.Thread(
@@ -201,21 +228,42 @@ class DecodeBatcher:
 
     @property
     def session(self):
-        """The lane's DecodeSession (its slot table)."""
+        """The lane's session: a DecodeSession (its slot table), or the
+        SpeculativeDecodeSession of a speculative lane."""
         return self._lane.session
 
     def queue_depth(self):
         return len(self._pending)
 
     def lane_stats(self):
-        """Busy slots, decode steps, tokens emitted, seconds in decode
-        steps, and the lane's error once it died."""
+        """Busy slots, decode steps (rounds, on a speculative lane),
+        tokens emitted, seconds in decode steps, and the lane's error
+        once it died; a speculative lane adds its verify and plain
+        rounds, draft tokens proposed and accepted, `degraded` (latched
+        by its session) and `degrade_error`, the draft failure that
+        degraded it."""
         lane = self._lane
         with self._cv:
-            return {"device": str(self.predictor.device),
-                    "dead": lane.dead, "inflight": len(lane.assigned),
-                    "steps": lane.steps, "tokens": lane.tokens,
-                    "step_s": lane.step_s}
+            stats = {"device": str(self.predictor.device),
+                     "dead": lane.dead, "inflight": len(lane.assigned),
+                     "steps": lane.steps, "tokens": lane.tokens,
+                     "step_s": lane.step_s, "spec_k": self.spec_k}
+            if lane.spec:
+                sess = lane.session
+                stats.update(rounds=sess.rounds,
+                             plain_steps=sess.plain_steps,
+                             proposed=sess.proposed,
+                             accepted=sess.accepted,
+                             degraded=sess.degraded,
+                             degrade_error=sess.degrade_error)
+            return stats
+
+    def kv_cache_info(self):
+        """(kv_cache_dtype, measured slot-table bytes of the lane): the
+        target table's K and V plus an int8 cache's scale table (a
+        speculative lane's draft table is not counted)."""
+        return (str(self.predictor.kv_cache_dtype),
+                int(self._lane.session.cache_bytes()))
 
     # ------------------------------------------------------------------
     # submit side
@@ -390,20 +438,30 @@ class DecodeBatcher:
         if not lane.assigned:
             return True
         t0 = time.monotonic()
-        toks = sess.decode()
+        if lane.spec:
+            toks, counts = sess.step()
+        else:
+            toks = sess.decode()[:, None]
+            counts = np.ones(len(toks), np.int32)
         now = time.monotonic()
         lane.steps += 1
         lane.step_s += now - t0
         for slot, req in list(lane.assigned.items()):
-            tok = int(toks[slot])
-            req.gen.append(tok)
-            req.buf.append(tok)
-            lane.tokens += 1
+            # a speculative round commits 1..k+1 tokens per slot: consume
+            # them in stream order with per-token EOS / max-new cuts, so
+            # the stream is bit-identical to the one-token-per-step path
             finished = None
-            if tok == eos:
-                finished = "eos"
-            elif len(req.gen) >= req.max_new:
-                finished = "length"
+            for j in range(int(counts[slot])):
+                tok = int(toks[slot, j])
+                req.gen.append(tok)
+                req.buf.append(tok)
+                lane.tokens += 1
+                if tok == eos:
+                    finished = "eos"
+                    break
+                if len(req.gen) >= req.max_new:
+                    finished = "length"
+                    break
             if req.stream.cancelled():
                 # client gone: nobody reads the flush — just free
                 req.buf = []

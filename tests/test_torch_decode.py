@@ -216,11 +216,15 @@ def test_eos_finish(pair):
 
 def test_rejects_what_is_not_ported_or_invalid(pair):
     d, _, tp = pair
-    with pytest.raises(NotImplementedError):
-        torch_decode.GenerativePredictor(d, device="cpu",
-                                         kv_cache_dtype="int8")
+    # the fused speculative round waits for fused N-step decode
+    spec = torch_decode.SpeculativeDecodeSession(tp, tp, 1, 2)
+    with pytest.raises(NotImplementedError, match="fused"):
+        spec.step(fused=True)
     with pytest.raises(ValueError):
         torch_decode.normalize_kv_dtype("fp16")
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        torch_decode.GenerativePredictor(d, device="cpu",
+                                         kv_cache_dtype="int4")
     sess = tp.new_session(1)
     with pytest.raises(ValueError, match="token ids"):
         sess.prefill(0, [1, tp.vocab_size])

@@ -1,6 +1,8 @@
 """K3, decode attention with fp32 caches: paddle_tpu_torch's plain version
 against paddle_tpu's Pallas kernel (interpret mode) and its reference, on
-the CPU; the CUDA kernel against the plain version on the card."""
+the CPU; the CUDA kernel against the plain version on the card.  The
+int8 branch (K4) and the head-slice entry are held in
+test_torch_decode_attention_int8.py."""
 
 import numpy as np
 import pytest
@@ -76,13 +78,6 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
                                                    scale=0.25)
     assert torch.equal(out, ref)
     assert torch_kernels.launch_counts["decode_attention"] == 0
-
-
-def test_int8_caches_not_ported():
-    q, k, v, lengths = _torch(*_inputs(2, 16, 2, 8, seed=7))
-    with pytest.raises(NotImplementedError):
-        torch_kernels.decode_attention(q, k.to(torch.int8),
-                                       v.to(torch.int8), lengths)
 
 
 def _need_cuda():

@@ -176,6 +176,21 @@ def test_build_is_keyed_by_the_shared_headers(tmp_path, monkeypatch):
                                     for p in _build._sources()}
 
 
+def test_bound_decode_symbols_are_defined_in_the_source():
+    """K3 and K4 bind two C entry points of one source by ctypes: each
+    is defined there with the argument count its argtypes declare."""
+    from paddle_tpu_torch.ops import pallas_kernels as pk
+    with open(os.path.join(_build.CSRC_DIR, "decode_attention.cu")) as f:
+        src = f.read()
+    assert set(pk._DECODE_ARGTYPES) == {"paddle_decode_attention_f32",
+                                        "paddle_decode_attention_i8"}
+    for symbol, argtypes in pk._DECODE_ARGTYPES.items():
+        head = 'extern "C" cudaError_t %s(' % symbol
+        assert src.count(head) == 1, symbol
+        params = src.split(head, 1)[1].split(")", 1)[0]
+        assert params.count(",") + 1 == len(argtypes), symbol
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(shutil, "which", lambda name: None)
