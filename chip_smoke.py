@@ -55,6 +55,9 @@ Phases, in order; any failure exits non-zero:
                K1, K2-dq and K2-dkv must launch 6 times each per step.
                Prints tokens/s, step ms, peak memory and a torch.profiler
                breakdown of one step.
+     train amp — the same under `fluid.set_amp(True)` (bf16 AMP): the
+               bf16 K1, K2-dq and K2-dkv launch 6 times each per step and
+               no fp32 one; the loss falls; every parameter stays fp32.
   6. train gpu/cpu — a small transformer (2 layers, d_model 128, 2 heads
                of 64, seq 96, dropout 0) from one startup scope carried
                across: 2 steps on the card and on the CPU, losses agree.
@@ -70,12 +73,23 @@ Phases, in order; any failure exits non-zero:
                and the int8 Predictor (1 K5 launch per run).  Prints
                images/s, ms per run, launches, device busy share and
                profiler groups per lane and batch.
+     resnet bf16 — the same artifact on the JAX package's bf16 serving
+               route (tools/bench_infer.py): load, InferenceTranspiler
+               (fold in fp32), every fp32 persistable cast to bf16, the
+               feed retyped to bfloat16, fluid.Executor on the card at
+               batches 1, 8 and 64 — fused at gate 128 (7 K6-bf16
+               launches per run, no fp32 K6) and unfused (gate 0), which
+               must agree; images/s, ms per run, busy share, peak memory,
+               and agreement with the fp32 lane as numbers.
   8. resnet gpu/cpu — a ResNet-50 artifact at 32 x 32 input: the fused
-               Predictor on the card and on the CPU agree.
+               Predictor on the card and on the CPU agree; and its bf16
+               route on the card and on the CPU agree.
 Phase 2 also holds K5 (dequant_matmul) and K6 (fused_bottleneck) against
 their plain versions: K5 at the int8 lane's fc shape and three others, K6
 at ResNet-50's four stage geometries (batch 32), two odd shapes and the
-fused path's four geometries at batch 64.
+fused path's four geometries at batch 64; and the bf16 variants of K1,
+K2 and K6 against their bf16 plain versions at the same shapes, timed
+beside SDPA in bf16 and the cuDNN bf16 convolution chain.
 Prints a {"kernels": [...]} line and, last, the device line
 {"ok": true, "device": {...}}.  Without CUDA, or without the repo around
 it, it exits non-zero and prints no result.
@@ -390,31 +404,53 @@ def phase_int8_kernels(torch, pk):
     return entries["k4"], entries["hs"]
 
 
-def flash_bound(kind, B, S, H, D, causal):
+def flash_bound(kind, B, S, H, D, causal, elem=4, rate=None):
     """Least time for one K1 / K2-dq / K2-dkv call: every byte it must move
-    once (its [B, S, H, D] operands and [B, H, S] row statistics) over HBM
-    bandwidth, or its flops over the fp32 peak, whichever is larger.  The
-    flops are 2 D per live (query, key) pair for each D-long product the
-    function needs: 2 for the forward (q.k, p.v), 3 for dq (q.k, do.v,
-    ds.k), 4 for dk/dv (q.k, do.v, p.do, ds.q)."""
+    once (its [B, S, H, D] operands at `elem` bytes an element and its
+    fp32 [B, H, S] row statistics) over HBM bandwidth, or its flops over
+    the peak `rate` (fp32's by default; bf16's tensor-core peak for the
+    bf16 variants), whichever is larger.  The flops are 2 D per live
+    (query, key) pair for each D-long product the function needs: 2 for
+    the forward (q.k, p.v), 3 for dq (q.k, do.v, ds.k), 4 for dk/dv (q.k,
+    do.v, p.do, ds.q)."""
     pairs = S * (S + 1) // 2 if causal else S * S
     heads, elems = B * H, B * S * H * D
     products, tensors, rowstats = {"fwd": (2, 4, 1), "dq": (3, 5, 2),
                                    "dkv": (4, 6, 2)}[kind]
     flops = 2 * D * pairs * heads * products
-    nbytes = 4 * (tensors * elems + rowstats * heads * S)
+    nbytes = elem * tensors * elems + 4 * rowstats * heads * S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / (rate or FP32_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, flops
 
 
-def phase_flash_kernels(torch, pk):
+def _close(got, want, rtol, atol):
+    """(max abs error, whether |got - want| <= atol + rtol |want|
+    everywhere), in fp32."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), bool((d <= atol + rtol * want.float().abs())
+                                .all())
+
+
+# bf16 against its bf16 plain version: both sum in fp32 in other orders
+# (the forward also rounds each tile's p against its running max, the
+# plain version against the row's final max), so an element may sit one
+# bf16 ulp (2^-7 relative) apart, with a floor of 2^-7 of the array's
+# largest magnitude for the sums of rounded terms; lse stays fp32
+BF16_RTOL = 2.0 ** -7
+
+
+def phase_flash_kernels(torch, pk, dtype=None):
     """K1 and both K2 kernels against their plain versions at the training
     slice's shape (q/k/v as column slices of one fused qkv tensor, as the
     program hands them over), a non-causal and a ragged shape; then
-    device times at the slice's shape."""
+    device times at the slice's shape.  `dtype` torch.bfloat16 runs the
+    bf16 variants (AMP training) against the bf16 plain versions."""
     import torch.nn.functional as F
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    tag = " bf16" if bf16 else ""
     cases = [("slice", 8, 512, 8, 64, True),
              ("non-causal", 4, 256, 4, 64, False),
              ("ragged", 2, 200, 2, 128, True)]
@@ -424,12 +460,13 @@ def phase_flash_kernels(torch, pk):
     entries = {}
     g = torch.Generator(device="cuda").manual_seed(5)
     for name, B, S, H, D, causal in cases:
-        qkv = torch.randn(B, S, 3 * H * D, device="cuda", generator=g)
+        qkv = torch.randn(B, S, 3 * H * D, device="cuda",
+                          generator=g).to(dtype)
         q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, S, H, D)
                    for i in range(3))
         o, lse = pk.flash_attention_fwd(q, k, v, causal)
         ro, rlse = pk.flash_attention_fwd_reference(q, k, v, causal)
-        do = torch.randn(B, S, H, D, device="cuda", generator=g)
+        do = torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
         di = pk._flash_di(ro, do)
         dq = pk.flash_attention_bwd_dq(q, k, v, do, rlse, di, causal)
         dk, dv = pk.flash_attention_bwd_dkv(q, k, v, do, rlse, di, causal)
@@ -438,54 +475,64 @@ def phase_flash_kernels(torch, pk):
         rdk, rdv = pk.flash_attention_bwd_dkv_reference(q, k, v, do, rlse,
                                                         di, causal)
         torch.cuda.synchronize()
+        check(o.dtype == dtype and dq.dtype == dtype and dk.dtype == dtype
+              and dv.dtype == dtype and lse.dtype == torch.float32,
+              "flash%s: outputs o %s, lse %s, dq %s, dk %s, dv %s"
+              % (tag, o.dtype, lse.dtype, dq.dtype, dk.dtype, dv.dtype))
         for what, got, want in (("o", o, ro), ("lse", lse, rlse)):
-            err = float((got - want).abs().max())
-            check(bool(((got - want).abs()
-                        <= 1e-5 + 1e-5 * want.abs()).all()),
-                  "flash %s %s disagrees with the plain version (max abs "
-                  "err %.3g, rtol 1e-5 atol 1e-5)" % (name, what, err))
+            rtol = BF16_RTOL if bf16 and what == "o" else 1e-5
+            atol = BF16_RTOL * float(want.float().abs().max()) \
+                if bf16 and what == "o" else 1e-5
+            err, ok = _close(got, want, rtol, atol)
+            check(ok, "flash%s %s %s disagrees with the plain version (max "
+                  "abs err %.3g, rtol %.3g atol %.3g)"
+                  % (tag, name, what, err, rtol, atol))
             errs["fwd"] = max(errs["fwd"], err)
         # the gradients sum over S in another order: atol scaled by size
+        # (bf16: one ulp, as above)
+        gtol = BF16_RTOL if bf16 else 1e-4
         for kind, what, got, want in (("dq", "dq", dq, rdq),
                                       ("dkv", "dk", dk, rdk),
                                       ("dkv", "dv", dv, rdv)):
-            err = float((got - want).abs().max())
-            atol = 1e-4 * float(want.abs().max())
-            check(bool(((got - want).abs()
-                        <= atol + 1e-4 * want.abs()).all()),
-                  "flash %s %s disagrees with the plain version (max abs "
-                  "err %.3g, atol %.3g = 1e-4 max|%s|, rtol 1e-4)"
-                  % (name, what, err, atol, what))
+            atol = gtol * float(want.float().abs().max())
+            err, ok = _close(got, want, gtol, atol)
+            check(ok, "flash%s %s %s disagrees with the plain version (max "
+                  "abs err %.3g, atol %.3g = %.3g max|%s|, rtol %.3g)"
+                  % (tag, name, what, err, atol, gtol, what, gtol))
             errs[kind] = max(errs[kind], err)
         # end to end: autograd through K1 + K2 against autograd through
-        # the plain forward, on the same cotangent
+        # the plain forward (fp32), or against the plain K2 versions
+        # (bf16: autograd would treat p's and ds's roundings as the
+        # identity), on the same cotangent
         kin = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        rin = [t.detach().requires_grad_(True) for t in (q, k, v)]
         kgrads = torch.autograd.grad(
             pk.flash_attention(*kin, causal=causal), kin, do)
-        rgrads = torch.autograd.grad(
-            pk.flash_attention_reference(*rin, causal=causal), rin, do)
+        if bf16:
+            rgrads = pk.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                                      causal)
+        else:
+            rin = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            rgrads = torch.autograd.grad(
+                pk.flash_attention_reference(*rin, causal=causal), rin, do)
         auto_err = 0.0
         for what, got, want in zip(("dq", "dk", "dv"), kgrads, rgrads):
-            err = float((got - want).abs().max())
-            atol = 1e-4 * float(want.abs().max())
-            check(bool(((got - want).abs()
-                        <= atol + 1e-4 * want.abs()).all()),
-                  "flash %s autograd %s disagrees with the plain version's "
-                  "autograd (max abs err %.3g, atol %.3g, rtol 1e-4)"
-                  % (name, what, err, atol))
+            atol = gtol * float(want.float().abs().max())
+            err, ok = _close(got, want, gtol, atol)
+            check(ok, "flash%s %s autograd %s disagrees with the plain "
+                  "version (max abs err %.3g, atol %.3g, rtol %.3g)"
+                  % (tag, name, what, err, atol, gtol))
             auto_err = max(auto_err, err)
-        log("kernel flash_attention [%s] B=%d S=%d H=%d D=%d causal=%s: "
+        log("kernel flash_attention%s [%s] B=%d S=%d H=%d D=%d causal=%s: "
             "max abs err o %.3g lse %.3g dq %.3g dk %.3g dv %.3g; "
-            "autograd K1+K2 vs plain autograd %.3g"
-            % (name, B, S, H, D, causal, float((o - ro).abs().max()),
-               float((lse - rlse).abs().max()),
-               float((dq - rdq).abs().max()), float((dk - rdk).abs().max()),
-               float((dv - rdv).abs().max()), auto_err))
+            "autograd K1+K2 vs plain %.3g"
+            % (tag, name, B, S, H, D, causal, _close(o, ro, 0, 0)[0],
+               _close(lse, rlse, 0, 0)[0], _close(dq, rdq, 0, 0)[0],
+               _close(dk, rdk, 0, 0)[0], _close(dv, rdv, 0, 0)[0],
+               auto_err))
         if name != "slice":
             continue
-        # timings at the slice's shape; the yardstick is SDPA in fp32
-        # (timed here only; the port never calls it)
+        # timings at the slice's shape; the yardstick is SDPA in the
+        # same dtype (timed here only; the port never calls it)
         ms = {"fwd": median_ms(torch, lambda: pk.flash_attention_fwd(
                   q, k, v, causal), flush),
               "dq": median_ms(torch, lambda: pk.flash_attention_bwd_dq(
@@ -510,11 +557,12 @@ def phase_flash_kernels(torch, pk):
         sdo = do.transpose(1, 2)
         sdpa_bwd = median_ms(torch, lambda: torch.autograd.grad(
             so, (qs, ks, vs), sdo, retain_graph=True), flush)
-        sdpa_err = float((so.detach().transpose(1, 2) - ro).abs().max())
-        log("kernel flash_attention [slice]: SDPA fp32 forward %.4f ms, "
+        sdpa_err = _close(so.detach().transpose(1, 2), ro, 0, 0)[0]
+        log("kernel flash_attention%s [slice]: SDPA %s forward %.4f ms, "
             "backward %.4f ms (dq, dk, dv in one call), forward+backward "
             "%.4f ms; SDPA vs plain o max abs err %.3g"
-            % (sdpa_fwd, sdpa_bwd, sdpa_fwd + sdpa_bwd, sdpa_err))
+            % (tag, str(dtype)[6:], sdpa_fwd, sdpa_bwd, sdpa_fwd + sdpa_bwd,
+               sdpa_err))
         names = {"fwd": ("flash_attention_fwd",
                          "paddle_tpu_torch/ops/csrc/flash_attention_fwd.cu",
                          "paddle_tpu/ops/pallas_kernels.py:243", sdpa_fwd),
@@ -525,8 +573,10 @@ def phase_flash_kernels(torch, pk):
                          "paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                          "paddle_tpu/ops/pallas_kernels.py:414", sdpa_bwd)}
         for kind, (kname, src, rep, lib_ms) in names.items():
+            kname = pk._count_name(kname, dtype)
             bound_ms, bound_by, nbytes, flops = flash_bound(
-                kind, B, S, H, D, causal)
+                kind, B, S, H, D, causal, elem=q.element_size(),
+                rate=BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
             log("kernel %s [slice] B=%d S=%d H=%d D=%d causal: kernel "
                 "%.4f ms, plain %.4f ms, SDPA %.4f ms, bound %.4f ms (%s; "
                 "%d bytes, %d flops) -> %.1f%% of bound, %.1f TFLOP/s"
@@ -564,19 +614,34 @@ def _bound(flops, nbytes, flop_rate=FP32_FLOP_PER_S):
                                  else "operations")
 
 
-def bottleneck_bound(N, H, W, C, F, C4, s, branch):
+def bottleneck_bound(N, H, W, C, F, C4, s, branch, elem=4,
+                     rate=FP32_FLOP_PER_S):
     """Least time for one K6 call: 2 C F flops per input pixel (conv0 runs
     before the stride; at stride 2 the 3x3 taps read every input row and
-    column) and 2 (9 F^2 + F C4 [+ C C4]) per output pixel, over the fp32
-    peak, against x, the filters, the biases and out moved once over HBM
-    bandwidth."""
+    column) and 2 (9 F^2 + F C4 [+ C C4]) per output pixel, over the peak
+    `rate` (fp32's, or bf16's tensor-core peak for the bf16 variant),
+    against x, the filters, the biases and out moved once over HBM
+    bandwidth at `elem` bytes an element."""
     Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
     out_macs = 9 * F * F + F * C4 + (C * C4 if branch else 0)
     macs = C * F + out_macs
     flops = 2 * N * (C * F * H * W + out_macs * Ho * Wo)
     weights = macs + 2 * F + C4 + (C4 if branch else 0)
-    nbytes = 4 * (N * H * W * C + weights + N * Ho * Wo * C4)
-    return _bound(flops, nbytes) + (flops, nbytes)
+    nbytes = elem * (N * H * W * C + weights + N * Ho * Wo * C4)
+    return _bound(flops, nbytes, rate) + (flops, nbytes)
+
+
+def bottleneck_cudnn_chain(x, w0, b0, w1, b1, w2, b2, ws, bs, s):
+    """The unfused block as cuDNN convolutions in the inputs' dtype, with
+    their biases, relus and the shortcut add: K6-bf16's library yardstick
+    (timed in chip_smoke only; the port never calls it)."""
+    import torch.nn.functional as F
+    xc = x.permute(0, 3, 1, 2)
+    a = F.relu(F.conv2d(xc, w0, b0))
+    h = F.relu(F.conv2d(a, w1, b1, stride=s, padding=1))
+    y = F.conv2d(h, w2, b2)
+    short = F.conv2d(xc, ws, bs, stride=s) if ws is not None else xc
+    return F.relu(y + short)
 
 
 def _bottleneck_inputs(torch, g, N, H, W, C, F, C4, branch):
@@ -594,13 +659,18 @@ def _bottleneck_inputs(torch, g, N, H, W, C, F, C4, branch):
     return p
 
 
-def phase_bottleneck_kernel(torch, pk):
+def phase_bottleneck_kernel(torch, pk, dtype=None):
     """K6 against its plain version (cuDNN convolutions, which are also
-    the library yardstick): ResNet-50's four stage geometries at batch
-    32, projection (stride 2 where the stage has it) and identity, one
-    odd-size shape, and the fused path's four geometries at batch 64,
-    whose times summed with their multiplicities are K6's device time
-    per fused run."""
+    the fp32 library yardstick): ResNet-50's four stage geometries at
+    batch 32, projection (stride 2 where the stage has it) and identity,
+    two odd-size shapes, and the fused path's four geometries at batch
+    64, whose times summed with their multiplicities are K6's device time
+    per fused run.  `dtype` torch.bfloat16 runs K6-bf16 against the bf16
+    plain version (fp32 convolutions of the bf16 values, rounded where
+    the TPU kernel rounds); its yardstick is the cuDNN bf16 chain."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    name_of = pk._count_name("fused_bottleneck", dtype)
     g = torch.Generator(device="cuda").manual_seed(11)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
@@ -616,59 +686,72 @@ def phase_bottleneck_kernel(torch, pk):
     for H, C, F, C4, s, branch, count in FUSED_PATH_BLOCKS:
         cases.append(("path b64 H%d C%d F%d s%d" % (H, C, F, s), 64, H, H,
                       C, F, C4, s, branch, count))
+    rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
     max_err = 0.0
-    run = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0,
-           "bytes": 0}
+    run = {"ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound_ms": 0.0,
+           "flops": 0, "bytes": 0}
     for name, N, H, W, C, F, C4, s, branch, count in cases:
-        p = _bottleneck_inputs(torch, g, N, H, W, C, F, C4, branch)
+        p = {k: None if t is None else t.to(dtype) for k, t in
+             _bottleneck_inputs(torch, g, N, H, W, C, F, C4, branch).items()}
         args = (p["x"], p["w0"], p["b0"], p["w1"], p["b1"], p["w2"],
                 p["b2"], p["ws"], p["bs"], s)
         out = pk.fused_bottleneck(*args)
         ref = pk.bottleneck_reference(*args)
         torch.cuda.synchronize()
-        check(tuple(out.shape) == tuple(ref.shape),
-              "fused_bottleneck %s: shape %s vs %s" % (name, out.shape,
-                                                       ref.shape))
+        check(tuple(out.shape) == tuple(ref.shape) and out.dtype == dtype,
+              "%s %s: %s %s vs %s" % (name_of, name, out.dtype, out.shape,
+                                      ref.shape))
         check(bool(torch.isfinite(out).all()),
-              "fused_bottleneck %s: non-finite" % name)
-        err = float((out - ref).abs().max())
-        check(bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()),
-              "fused_bottleneck %s disagrees with the plain version (max "
-              "abs err %.3g, rtol 1e-4 atol 1e-4)" % (name, err))
+              "%s %s: non-finite" % (name_of, name))
+        # bf16: the fp32 sums run in other orders, so an a or h element
+        # may round to the neighbouring bf16 value (up to 2^-8 of max
+        # |out| downstream) and an output sit one ulp (2^-7) apart
+        rtol, atol = (BF16_RTOL, 2.0 ** -8 * float(ref.float().abs().max())) \
+            if bf16 else (1e-4, 1e-4)
+        err, ok = _close(out, ref, rtol, atol)
+        check(ok, "%s %s disagrees with the plain version (max abs err "
+              "%.3g, rtol %.3g atol %.3g)" % (name_of, name, err, rtol,
+                                             atol))
         max_err = max(max_err, err)
         ms = median_ms(torch, lambda: pk.fused_bottleneck(*args), flush,
                        reps=30)
         plain_ms = median_ms(torch, lambda: pk.bottleneck_reference(*args),
                              flush, reps=30)
+        lib_ms = median_ms(torch, lambda: bottleneck_cudnn_chain(*args),
+                           flush, reps=30) if bf16 else plain_ms
         bound_ms, bound_by, flops, nbytes = bottleneck_bound(
-            N, H, W, C, F, C4, s, branch)
-        log("kernel fused_bottleneck [%s] N=%d H=%d W=%d C=%d F=%d C4=%d "
-            "s=%d %s: max abs err %.3g (max |ref| %.3g); kernel %.4f ms, "
-            "plain (cuDNN) %.4f ms, bound %.4f ms (%s; %d flops, %d bytes)"
-            " -> %.1f%% of bound, %.2f TFLOP/s"
-            % (name, N, H, W, C, F, C4, s,
+            N, H, W, C, F, C4, s, branch, elem=out.element_size(),
+            rate=rate)
+        log("kernel %s [%s] N=%d H=%d W=%d C=%d F=%d C4=%d s=%d %s: max abs "
+            "err %.3g (max |ref| %.3g); kernel %.4f ms, plain %.4f ms, cuDNN "
+            "%s chain %.4f ms, bound %.4f ms (%s; %d flops, %d bytes) -> "
+            "%.1f%% of bound, %.2f TFLOP/s"
+            % (name_of, name, N, H, W, C, F, C4, s,
                "projection" if branch else "identity", err,
-               float(ref.abs().max()), ms, plain_ms, bound_ms, bound_by,
-               flops, nbytes, 100.0 * bound_ms / ms, flops / ms / 1e9))
+               float(ref.float().abs().max()), ms, plain_ms,
+               str(dtype)[6:], lib_ms, bound_ms, bound_by, flops, nbytes,
+               100.0 * bound_ms / ms, flops / ms / 1e9))
         if name.startswith("path"):
             run["ms"] += count * ms
             run["plain_ms"] += count * plain_ms
+            run["lib_ms"] += count * lib_ms
             run["bound_ms"] += count * bound_ms
             run["flops"] += count * flops
             run["bytes"] += count * nbytes
         del p, args, out, ref
     del flush
-    _, run_by = _bound(run["flops"], run["bytes"])
-    log("kernel fused_bottleneck [one fused run at batch 64, 7 launches]: "
-        "kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s) -> %.1f%% of "
-        "bound" % (run["ms"], run["plain_ms"], run["bound_ms"], run_by,
-                   100.0 * run["bound_ms"] / run["ms"]))
-    return {"name": "fused_bottleneck", "route": "cuda",
+    _, run_by = _bound(run["flops"], run["bytes"], rate)
+    log("kernel %s [one fused run at batch 64, 7 launches]: kernel %.4f ms, "
+        "plain %.4f ms, cuDNN chain %.4f ms, bound %.4f ms (%s) -> %.1f%% "
+        "of bound" % (name_of, run["ms"], run["plain_ms"], run["lib_ms"],
+                      run["bound_ms"], run_by,
+                      100.0 * run["bound_ms"] / run["ms"]))
+    return {"name": name_of, "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/fused_bottleneck.cu",
             "replaces": "paddle_tpu/ops/pallas_kernels.py:1010",
             "ms": run["ms"], "plain_ms": run["plain_ms"],
             "bound_ms": run["bound_ms"], "bound_by": run_by,
-            "library_ms": run["plain_ms"], "max_abs_err": max_err}
+            "library_ms": run["lib_ms"], "max_abs_err": max_err}
 
 
 def phase_dequant_kernel(torch, pk):
@@ -1205,9 +1288,10 @@ def _kernel_group(key):
     """Which part of the step a device kernel belongs to, by its name."""
     if "paddle_flash" in key:
         return "K1/K2 flash attention"
-    for tag in ("gemm", "gemv", "splitKreduce"):
+    # nvjet: cuBLAS's bf16 GEMM kernels on Hopper
+    for tag in ("gemm", "gemv", "splitKreduce", "nvjet"):
         if tag in key:
-            return "matmul (cuBLAS/CUTLASS, fp32)"
+            return "matmul (cuBLAS/CUTLASS)"
     for tag, group in (("SoftMax", "log_softmax"),
                        ("reduce_kernel", "reductions"),
                        ("index", "gather/scatter"),
@@ -1220,11 +1304,18 @@ def _kernel_group(key):
     return "other"
 
 
-def phase_train(torch, pk, fluid, transformer):
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+def phase_train(torch, pk, fluid, transformer, amp=False):
     """The training path at full width: startup, then TRAIN_STEPS Adam
     steps on one repeated seeded batch (the loss has to fall).  Launch
-    counts are zeroed just before the steps and read just after."""
+    counts are zeroed just before the steps and read just after.  With
+    `amp`, `fluid.set_amp(True)` first: the bf16 K1/K2 variants must
+    carry every attention launch, and every parameter stays fp32."""
     from torch.profiler import ProfilerActivity, profile
+    label = "train amp" if amp else "train"
     main, startup, _, avg_loss, _, _ = transformer.get_model()
     startup.random_seed = TRAIN_SEED
     B, S = 8, 512
@@ -1233,73 +1324,88 @@ def phase_train(torch, pk, fluid, transformer):
     check(exe.device.type == "cuda", "executor not on the card")
     scope = fluid.Scope()
     feed = _batch(np.random.RandomState(TRAIN_SEED), B, S, 32000)
-    with fluid.scope_guard(scope):
-        t0 = time.time()
-        exe.run(startup)
-        torch.cuda.synchronize()
-        n_params = sum(int(np.prod(p.shape))
-                       for p in main.all_parameters())
-        log("train: startup on %s in %.2f s (%d parameters, %d persistable "
-            "tensors)" % (exe.device, time.time() - t0, n_params,
-                          len(list(scope.keys()))))
-        torch.cuda.reset_peak_memory_stats()
-        pk.reset_launch_counts()
-        losses, step_s = [], []
-        for _ in range(TRAIN_STEPS):
-            t0 = time.perf_counter()
-            loss, = exe.run(main, feed=feed, fetch_list=[avg_loss])
-            step_s.append(time.perf_counter() - t0)
-            losses.append(float(loss))
-        counts = dict(pk.launch_counts)
-        peak = torch.cuda.max_memory_allocated()
-        log("train: losses %s" % ["%.5f" % x for x in losses])
-        check(all(np.isfinite(losses)), "non-finite training loss")
-        check(losses[-1] < losses[0] - 0.1 and min(losses[-3:]) < losses[0],
-              "the loss did not fall over %d steps on one batch: %s"
-              % (TRAIN_STEPS, losses))
-        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                     "flash_attention_bwd_dkv"):
-            check(counts[name] == n_layers * TRAIN_STEPS,
-                  "%s launched %d times in %d steps x %d layers"
-                  % (name, counts[name], TRAIN_STEPS, n_layers))
-        check(counts["decode_attention"] == 0,
-              "decode_attention launched on the training path")
-        steady = sorted(step_s[1:])
-        step_ms = float(np.median(steady)) * 1e3
-        stats = {"batch": B, "seq": S, "steps": TRAIN_STEPS,
-                 "losses": losses, "step_ms": [x * 1e3 for x in step_s],
-                 "median_step_ms": step_ms,
-                 "tokens_per_s": B * S / (step_ms / 1e3),
-                 "first_step_ms": step_s[0] * 1e3,
-                 "launches": counts, "peak_mem_bytes": peak}
-        log("train: %d steps of %d tokens: median step %.3f ms (first "
-            "%.1f ms) -> %.1f tokens/s; launches per step: K1 %g, K2-dq "
-            "%g, K2-dkv %g; peak memory %.1f MiB"
-            % (TRAIN_STEPS, B * S, step_ms, step_s[0] * 1e3,
-               stats["tokens_per_s"],
-               counts["flash_attention_fwd"] / TRAIN_STEPS,
-               counts["flash_attention_bwd_dq"] / TRAIN_STEPS,
-               counts["flash_attention_bwd_dkv"] / TRAIN_STEPS,
-               peak / 2 ** 20))
-        log(json.dumps({"train": stats}))
+    dtype, other = ((torch.bfloat16, torch.float32) if amp
+                    else (torch.float32, torch.bfloat16))
+    names = [pk._count_name(n, dtype) for n in FLASH_KERNELS]
+    fluid.set_amp(amp)
+    try:
+        with fluid.scope_guard(scope):
+            t0 = time.time()
+            exe.run(startup)
+            torch.cuda.synchronize()
+            n_params = sum(int(np.prod(p.shape))
+                           for p in main.all_parameters())
+            log("%s: startup on %s in %.2f s (%d parameters, %d persistable"
+                " tensors)" % (label, exe.device, time.time() - t0,
+                               n_params, len(list(scope.keys()))))
+            torch.cuda.reset_peak_memory_stats()
+            pk.reset_launch_counts()
+            losses, step_s = [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                loss, = exe.run(main, feed=feed, fetch_list=[avg_loss])
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+            counts = dict(pk.launch_counts)
+            peak = torch.cuda.max_memory_allocated()
+            log("%s: losses %s" % (label, ["%.5f" % x for x in losses]))
+            check(all(np.isfinite(losses)), "%s: non-finite loss" % label)
+            check(losses[-1] < losses[0] - 0.1
+                  and min(losses[-3:]) < losses[0],
+                  "%s: the loss did not fall over %d steps on one batch: %s"
+                  % (label, TRAIN_STEPS, losses))
+            for name in names:
+                check(counts[name] == n_layers * TRAIN_STEPS,
+                      "%s: %s launched %d times in %d steps x %d layers"
+                      % (label, name, counts[name], TRAIN_STEPS, n_layers))
+            for name in FLASH_KERNELS:
+                name = pk._count_name(name, other)
+                check(counts[name] == 0, "%s: %s launched %d times"
+                      % (label, name, counts[name]))
+            check(counts["decode_attention"] == 0,
+                  "decode_attention launched on the training path")
+            masters = {p.name: scope.get(p.name).dtype
+                       for p in main.all_parameters()}
+            check(all(d == torch.float32 for d in masters.values()),
+                  "%s: parameters not fp32: %s" % (label, {
+                      k: str(d) for k, d in masters.items()
+                      if d != torch.float32}))
+            steady = sorted(step_s[1:])
+            step_ms = float(np.median(steady)) * 1e3
+            stats = {"batch": B, "seq": S, "steps": TRAIN_STEPS,
+                     "losses": losses, "step_ms": [x * 1e3 for x in step_s],
+                     "median_step_ms": step_ms,
+                     "tokens_per_s": B * S / (step_ms / 1e3),
+                     "first_step_ms": step_s[0] * 1e3,
+                     "launches": counts, "peak_mem_bytes": peak}
+            log("%s: %d steps of %d tokens: median step %.3f ms (first "
+                "%.1f ms) -> %.1f tokens/s; launches per step: %s; all %d "
+                "parameters fp32; peak memory %.1f MiB"
+                % (label, TRAIN_STEPS, B * S, step_ms, step_s[0] * 1e3,
+                   stats["tokens_per_s"],
+                   ", ".join("%s %g" % (n, counts[n] / TRAIN_STEPS)
+                             for n in names), len(masters), peak / 2 ** 20))
+            log(json.dumps({label.replace(" ", "_"): stats}))
 
-        # where one step's time goes
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            exe.run(main, feed=feed, fetch_list=[avg_loss])
-            prof_step_ms = (time.perf_counter() - t0) * 1e3
+            # where one step's time goes
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                exe.run(main, feed=feed, fetch_list=[avg_loss])
+                prof_step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fluid.set_amp(False)
     device_ms, rows = profile_rows(torch, prof, 1)
     if not rows:
-        log("train profile: torch.profiler saw no device time; device "
-            "busy share not measured")
+        log("%s profile: torch.profiler saw no device time; device busy "
+            "share not measured" % label)
         return counts
     n_launches = sum(r[1] for r in rows)
     n_ops = len(main.global_block().ops)
-    log("train profile: one step, host %.3f ms under the profiler (%.3f "
+    log("%s profile: one step, host %.3f ms under the profiler (%.3f "
         "ms without): %d program ops, %d kernel launches, device busy "
         "%.3f ms = %.1f%% of the unprofiled step (idle %.1f%%)"
-        % (prof_step_ms, step_ms, n_ops, n_launches, device_ms,
+        % (label, prof_step_ms, step_ms, n_ops, n_launches, device_ms,
            100 * device_ms / step_ms, 100 - 100 * device_ms / step_ms))
     groups = {}
     for us, count, key in rows:
@@ -1307,12 +1413,12 @@ def phase_train(torch, pk, fluid, transformer):
         g[0] += us
         g[1] += count
     for name, (us, count) in sorted(groups.items(), key=lambda x: -x[1][0]):
-        log("train profile:   %10.2f us  %5d launches  [%s]"
-            % (us, count, name))
+        log("%s profile:   %10.2f us  %5d launches  [%s]"
+            % (label, us, count, name))
     for us, count, key in rows[:15]:
-        log("train profile:   %10.2f us  %5d launches  %s"
-            % (us, count, key[:110]))
-    log(json.dumps({"train_profile": {
+        log("%s profile:   %10.2f us  %5d launches  %s"
+            % (label, us, count, key[:110]))
+    log(json.dumps({label.replace(" ", "_") + "_profile": {
         "host_step_ms": step_ms, "device_busy_ms": device_ms,
         "program_ops": n_ops, "launches": n_launches,
         "groups": {k: {"us": v[0], "launches": v[1]}
@@ -1417,13 +1523,13 @@ def _images(batch, seed, hw=224):
         np.float32)
 
 
-def _profile_run(torch, pred, images):
-    """Device busy ms and kernel launches of one Predictor.run, from
+def _profile_run(torch, run, images):
+    """Device busy ms and kernel launches of one run(images), from
     torch.profiler; (None, None) when it sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pred.run([images])
+        run(images)
         torch.cuda.synchronize()
     device_ms, rows = profile_rows(torch, prof, 1)
     if not rows:
@@ -1440,6 +1546,7 @@ def _resnet_group(key):
                        ("implicit", "convolution (cuDNN)"),
                        ("xmma", "convolution (cuDNN)"),
                        ("gemm", "matmul"), ("gemv", "matmul"),
+                       ("nvjet", "matmul"),
                        ("pool", "pooling"), ("reduce", "reduction"),
                        ("elementwise", "elementwise"),
                        ("Memcpy", "memcpy"), ("Memset", "memset"),
@@ -1449,16 +1556,21 @@ def _resnet_group(key):
     return "other"
 
 
-def serve_resnet(torch, pk, pred, lane, kernel, per_run):
-    """Predictor.run at each batch of RESNET_BATCHES: the first run of a
-    batch warms it, then RESNET_RUNS[batch] runs with the launch counts
-    zeroed just before and read just after; `kernel` must launch exactly
-    `per_run` times per run.  Returns {batch: stats}, the outputs of one
-    seeded batch per size."""
+def serve_resnet(torch, pk, run, lane, kernel, per_run, stage=None,
+                 sum_atol=1e-4):
+    """run(images) -> host probabilities (a Predictor.run, or an
+    Executor.run and its fetch's host copy) at each batch of
+    RESNET_BATCHES, on seeded images (`stage` makes the feed from them
+    once, outside the timed runs): the first run of a batch warms it,
+    then RESNET_RUNS[batch] runs with the launch counts zeroed just before
+    and read just after; `kernel` must launch exactly `per_run` times per
+    run.  Returns {batch: (stats, the outputs)}."""
     out = {}
     for b in RESNET_BATCHES:
         images = _images(b, 100 + b)
-        pred.run([images])
+        if stage is not None:
+            images = stage(images)
+        run(images)
         torch.cuda.synchronize()
         runs = RESNET_RUNS[b]
         torch.cuda.reset_peak_memory_stats()
@@ -1466,7 +1578,7 @@ def serve_resnet(torch, pk, pred, lane, kernel, per_run):
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            probs, = pred.run([images])   # returns host arrays: synced
+            probs = run(images)   # host arrays: synced
             times.append(time.perf_counter() - t0)
         counts = dict(pk.launch_counts)
         # the median run: the host is shared, and a mean takes its stalls
@@ -1476,8 +1588,9 @@ def serve_resnet(torch, pk, pred, lane, kernel, per_run):
         check(probs.shape == (b, 1000) and bool(np.isfinite(probs).all()),
               "%s b=%d: predictions of shape %s, finite %s"
               % (lane, b, probs.shape, np.isfinite(probs).all()))
-        check(bool(np.allclose(probs.sum(1), 1.0, atol=1e-4)),
-              "%s b=%d: softmax rows do not sum to 1" % (lane, b))
+        check(bool(np.allclose(probs.sum(1), 1.0, atol=sum_atol)),
+              "%s b=%d: softmax rows do not sum to 1 within %g"
+              % (lane, b, sum_atol))
         if kernel is not None:
             check(counts[kernel] == per_run * runs,
                   "%s b=%d: %s launched %d times in %d runs (want %d per "
@@ -1485,7 +1598,7 @@ def serve_resnet(torch, pk, pred, lane, kernel, per_run):
         others = {k: v for k, v in counts.items() if k != kernel and v}
         check(not others, "%s b=%d: other kernels launched: %s"
               % (lane, b, others))
-        device_ms, launches, rows = _profile_run(torch, pred, images)
+        device_ms, launches, rows = _profile_run(torch, run, images)
         stats = {"batch": b, "runs": runs, "ms_per_run": wall * 1e3,
                  "ms_p10": float(p10), "ms_p90": float(p90),
                  "ms_mean": float(np.mean(times)) * 1e3,
@@ -1521,20 +1634,23 @@ def serve_resnet(torch, pk, pred, lane, kernel, per_run):
     return out
 
 
-def interleaved_ab(preds):
-    """The fused and unfused Predictors alternated run by run (the order
-    flips every pair) on one image batch at each batch of RESNET_AB_RUNS,
-    so both see the same host: median ms of each and the median of the
+def interleaved_ab(runs, label="resnet fp32", stage=None):
+    """The fused and unfused lanes ({"fused": run, "unfused": run}, each
+    run(images) -> host outputs) alternated run by run (the order flips
+    every pair) on one image batch at each batch of RESNET_AB_RUNS, so
+    both see the same host: median ms of each and the median of the
     per-pair ratio fused / unfused."""
     out = {}
     for b, pairs in RESNET_AB_RUNS.items():
         images = _images(b, 100 + b)
+        if stage is not None:
+            images = stage(images)
         times = {"fused": [], "unfused": []}
         for i in range(pairs):
             for name in (("fused", "unfused") if i % 2 == 0
                          else ("unfused", "fused")):
                 t0 = time.perf_counter()
-                preds[name].run([images])
+                runs[name](images)
                 times[name].append(time.perf_counter() - t0)
         fused, unfused = (np.array(times[k]) for k in ("fused", "unfused"))
         out[b] = {"pairs": pairs, "fused_ms": float(np.median(fused)) * 1e3,
@@ -1542,9 +1658,9 @@ def interleaved_ab(preds):
                   "ratio": float(np.median(fused / unfused)),
                   "ratio_p10_p90": [float(r) for r in
                                     np.percentile(fused / unfused, [10, 90])]}
-        log("resnet fp32 A/B b=%d, %d alternated pairs: fused median %.3f ms,"
-            " unfused median %.3f ms, fused/unfused per pair median %.3f "
-            "(p10 %.3f, p90 %.3f)" % (b, pairs, out[b]["fused_ms"],
+        log("%s A/B b=%d, %d alternated pairs: fused median %.3f ms, "
+            "unfused median %.3f ms, fused/unfused per pair median %.3f "
+            "(p10 %.3f, p90 %.3f)" % (label, b, pairs, out[b]["fused_ms"],
                                       out[b]["unfused_ms"], out[b]["ratio"],
                                       *out[b]["ratio_p10_p90"]))
     return out
@@ -1590,8 +1706,8 @@ def phase_resnet(torch, pk, fluid, resnet, inference, tmp):
               % (name, ops.count("fused_bottleneck"), per_run))
         log("resnet fp32 %s (gate %d): predictor in %.2f s, %d program ops"
             % (name, gate, time.time() - t0, len(ops)))
-        lanes[name] = serve_resnet(torch, pk, pred, "resnet fp32 " + name,
-                                   kernel, per_run)
+        lanes[name] = serve_resnet(torch, pk, lambda im: pred.run([im])[0],
+                                   "resnet fp32 " + name, kernel, per_run)
         lanes[name + "_ops"] = len(ops)
         del pred
         torch.cuda.empty_cache()
@@ -1604,7 +1720,8 @@ def phase_resnet(torch, pk, fluid, resnet, inference, tmp):
                 inference.AnalysisConfig(model_dir=art))
         finally:
             FLAGS.fuse_bottleneck_max_width = 0
-    ab = interleaved_ab(preds)
+    ab = interleaved_ab({name: (lambda im, p=p: p.run([im]))
+                         for name, p in preds.items()})
     del preds
     torch.cuda.empty_cache()
     for b in RESNET_BATCHES:
@@ -1640,8 +1757,8 @@ def phase_resnet(torch, pk, fluid, resnet, inference, tmp):
     check(ops.count("dequant_mul") == 1 and "fused_bottleneck" not in ops,
           "int8 program: %d dequant_mul, %d fused_bottleneck"
           % (ops.count("dequant_mul"), ops.count("fused_bottleneck")))
-    lanes["int8"] = serve_resnet(torch, pk, pred, "resnet int8",
-                                 "dequant_matmul", 1)
+    lanes["int8"] = serve_resnet(torch, pk, lambda im: pred.run([im])[0],
+                                 "resnet int8", "dequant_matmul", 1)
     lanes["int8_ops"] = len(ops)
     del pred
     torch.cuda.empty_cache()
@@ -1662,11 +1779,129 @@ def phase_resnet(torch, pk, fluid, resnet, inference, tmp):
                         "int8": lanes["int8_ops"]},
         "int8_vs_fp32": deltas, "bytes_ratio": summary["bytes"]["ratio"],
         "calibration": summary["calibration"]}}))
-    # launches over every counted run of the lane, all batches
-    return tuple(int(sum(lanes[lane][b][0]["kernel_launches_per_run"]
-                         * lanes[lane][b][0]["runs"]
-                         for b in RESNET_BATCHES))
-                 for lane in ("fused", "int8"))
+    # launches over every counted run of the lane, all batches; the fp32
+    # unfused lane's outputs, for the bf16 lane's agreement
+    return (_lane_launches(lanes["fused"]), _lane_launches(lanes["int8"]),
+            {b: lanes["unfused"][b][1] for b in RESNET_BATCHES})
+
+
+def _lane_launches(lane):
+    return int(sum(lane[b][0]["kernel_launches_per_run"] * lane[b][0]["runs"]
+                   for b in RESNET_BATCHES))
+
+
+def bf16_inference_program(torch, fluid, art, exe, scope, gate):
+    """The JAX package's bf16 serving route (tools/bench_infer.py) on the
+    port: load the artifact into `scope` on `exe`'s device, run the
+    InferenceTranspiler at `gate` (batch norm folds in fp32), then cast
+    every fp32 persistable to bf16 and retype the feed var to bfloat16.
+    Returns (program, feed name, fetch name)."""
+    from paddle_tpu_torch.flags import FLAGS
+    FLAGS.fuse_bottleneck_max_width = gate
+    try:
+        with fluid.scope_guard(scope):
+            program, feeds, fetches = fluid.load_inference_model(art, exe)
+            fluid.InferenceTranspiler().transpile(program, scope=scope)
+    finally:
+        FLAGS.fuse_bottleneck_max_width = 0
+    for v in program.global_block().vars.values():
+        val = scope.get(v.name)
+        if v.persistable and val is not None and val.dtype == torch.float32:
+            scope.set(v.name, val.to(torch.bfloat16))
+    program.global_block().var(feeds[0]).dtype = "bfloat16"
+    return program, feeds[0], fetches[0].name
+
+
+def _bf16_runner(torch, exe, scope, program, feed, fetch):
+    """run(images) for a bf16 program: one Executor.run, then the bf16
+    fetch (checked bf16) as host fp32 numbers — a synchronising copy, as
+    Predictor.run's."""
+    def run(images):
+        out, = exe.run(program, feed={feed: images}, fetch_list=[fetch],
+                       scope=scope, return_numpy=False)
+        check(out.dtype == torch.bfloat16, "bf16 lane fetched %s"
+              % out.dtype)
+        return out.float().cpu().numpy()
+    return run
+
+
+# bf16 probabilities against another bf16 or fp32 lane of the same model:
+# the lanes round at other points (fused K6-bf16 rounds a1 once after bias
+# + relu, the unfused program rounds the conv output and again after the
+# bias add; cuDNN and oneDNN sum in other orders), so a logit sits a few
+# bf16 ulps (2^-8 relative each) apart and moves its probability by about
+# that many ulps times the logit's size: 2^-4 of the largest probability
+BF16_PROB_ATOL = 2.0 ** -4
+
+
+def phase_resnet_bf16(torch, pk, fluid, art, fp32_probs):
+    """bf16 ResNet-50 serving through the Executor on the card, as the JAX
+    package's bench_infer.py serves it: the artifact transpiled at
+    FUSE_GATE (7 K6-bf16 launches per run, no fp32 K6) and at gate 0
+    (cuDNN bf16 convolutions, no hand kernel), every persistable and the
+    feed in bf16.  The two lanes must agree (BF16_PROB_ATOL); their
+    agreement with the fp32 lane is reported."""
+    def lane(name, gate):
+        exe = fluid.Executor()
+        check(exe.device.type == "cuda", "executor not on the card")
+        scope = fluid.Scope()
+        t0 = time.time()
+        program, feed, fetch = bf16_inference_program(torch, fluid, art,
+                                                      exe, scope, gate)
+        ops = [op.type for op in program.global_block().ops]
+        n_fused = ops.count("fused_bottleneck")
+        check(n_fused == (7 if gate else 0),
+              "bf16 %s: %d fused_bottleneck ops" % (name, n_fused))
+        log("resnet bf16 %s (gate %d): program in %.2f s, %d ops"
+            % (name, gate, time.time() - t0, len(ops)))
+        return _bf16_runner(torch, exe, scope, program, feed, fetch), \
+            len(ops)
+
+    stage = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    lanes = {}
+    for name, gate, kernel, per_run in (("fused", FUSE_GATE,
+                                         "fused_bottleneck_bf16", 7),
+                                        ("unfused", 0, None, 0)):
+        run, lanes[name + "_ops"] = lane(name, gate)
+        lanes[name] = serve_resnet(torch, pk, run, "resnet bf16 " + name,
+                                   kernel, per_run, stage=stage,
+                                   sum_atol=1e-2)
+        del run
+        torch.cuda.empty_cache()
+    # both bf16 lanes at once (after the lanes, so that each lane's peak
+    # memory is its own), alternated run by run
+    runs = {name: lane(name, gate)[0]
+            for name, gate in (("fused", FUSE_GATE), ("unfused", 0))}
+    ab = interleaved_ab(runs, "resnet bf16", stage)
+    del runs
+    torch.cuda.empty_cache()
+    agree = {}
+    for b in RESNET_BATCHES:
+        f, u = lanes["fused"][b][1], lanes["unfused"][b][1]
+        fu = _agreement(u, f)
+        atol = BF16_PROB_ATOL * float(np.abs(u).max())
+        check(bool((np.abs(f - u) <= atol).all()),
+              "resnet bf16 b=%d: fused and unfused bf16 disagree (%s, atol "
+              "%.3g)" % (b, fu, atol))
+        agree[b] = {"fused_vs_unfused": fu,
+                    "fused_vs_fp32": _agreement(fp32_probs[b], f),
+                    "unfused_vs_fp32": _agreement(fp32_probs[b], u)}
+        log("resnet bf16 b=%d: fused vs unfused bf16 max |d| %.3g (atol "
+            "%.3g), top-1 %.3f; vs the fp32 lane: fused max |d| %.3g, top-1"
+            " %.3f, unfused max |d| %.3g, top-1 %.3f; max prob %.3g"
+            % (b, fu["max_abs"], atol, fu["top1_agreement"],
+               agree[b]["fused_vs_fp32"]["max_abs"],
+               agree[b]["fused_vs_fp32"]["top1_agreement"],
+               agree[b]["unfused_vs_fp32"]["max_abs"],
+               agree[b]["unfused_vs_fp32"]["top1_agreement"],
+               float(u.max())))
+    log(json.dumps({"resnet_bf16": {
+        "fused": {b: lanes["fused"][b][0] for b in RESNET_BATCHES},
+        "unfused": {b: lanes["unfused"][b][0] for b in RESNET_BATCHES},
+        "program_ops": {"fused": lanes["fused_ops"],
+                        "unfused": lanes["unfused_ops"]},
+        "ab": ab, "agreement": agree}}))
+    return _lane_launches(lanes["fused"])
 
 
 def phase_resnet_gpu_vs_cpu(torch, fluid, resnet, inference, tmp):
@@ -1697,6 +1932,36 @@ def phase_resnet_gpu_vs_cpu(torch, fluid, resnet, inference, tmp):
           % (agree, atol))
     log("resnet gpu/cpu (fused, 32x32, batch 4): max |d| %.3g, mean |d| "
         "%.3g, top-1 agreement %.3f (atol %.3g, rtol 1e-4)"
+        % (agree["max_abs"], agree["mean_abs"], agree["top1_agreement"],
+           atol))
+
+
+def phase_resnet_bf16_gpu_vs_cpu(torch, fluid, tmp):
+    """The 32 x 32 ResNet-50 artifact of phase_resnet_gpu_vs_cpu on the
+    bf16 route (fused at FUSE_GATE): K6-bf16 and cuDNN on the card, the
+    plain versions and oneDNN on the CPU, agree within BF16_PROB_ATOL."""
+    art = os.path.join(tmp, "resnet50_32")
+    images = torch.from_numpy(_images(4, 300, hw=32)).to(torch.bfloat16)
+    outs = {}
+    for dev, place in (("cuda", fluid.CUDAPlace(0)),
+                       ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        program, feed, fetch = bf16_inference_program(
+            torch, fluid, art, exe, scope, FUSE_GATE)
+        check(sum(op.type == "fused_bottleneck"
+                  for op in program.global_block().ops) == 7,
+              "bf16 gpu/cpu: the small artifact did not fuse 7 blocks")
+        outs[dev] = _bf16_runner(torch, exe, scope, program, feed,
+                                 fetch)(images)
+    ref, got = outs["cpu"], outs["cuda"]
+    atol = BF16_PROB_ATOL * float(np.abs(ref).max())
+    agree = _agreement(ref, got)
+    check(bool((np.abs(ref - got) <= atol).all()),
+          "resnet bf16 gpu/cpu predictions disagree (%s, atol %.3g)"
+          % (agree, atol))
+    log("resnet bf16 gpu/cpu (fused, 32x32, batch 4): max |d| %.3g, mean "
+        "|d| %.3g, top-1 agreement %.3f (atol %.3g)"
         % (agree["max_abs"], agree["mean_abs"], agree["top1_agreement"],
            atol))
 
@@ -1735,8 +2000,10 @@ def main():
     entry = phase_kernels(torch, pk)
     k4_entry, k4hs_entry = phase_int8_kernels(torch, pk)
     flash_entries = phase_flash_kernels(torch, pk)
+    flash_bf16_entries = phase_flash_kernels(torch, pk, torch.bfloat16)
     k5_entry = phase_dequant_kernel(torch, pk)
     k6_entry = phase_bottleneck_kernel(torch, pk)
+    k6_bf16_entry = phase_bottleneck_kernel(torch, pk, torch.bfloat16)
     torch.cuda.empty_cache()
     # 3. the decode-serving slice at full width
     with tempfile.TemporaryDirectory() as tmp:
@@ -1774,20 +2041,32 @@ def main():
         phase_int8_gpu_vs_cpu(torch, decode, art, pred8)
     del pred, pred8
     torch.cuda.empty_cache()
-    # 5. the training slice at full width, 6. and on the card vs the CPU
+    # 5. the training slice at full width, 5b. under bf16 AMP, 6. on the
+    # card vs the CPU
     counts = phase_train(torch, pk, fluid, transformer)
     for e in flash_entries:
         e["launches"] = counts[e["name"]]
+    torch.cuda.empty_cache()
+    counts = phase_train(torch, pk, fluid, transformer, amp=True)
+    for e in flash_bf16_entries:
+        e["launches"] = counts[e["name"]]
     phase_train_gpu_vs_cpu(torch, fluid, transformer)
     torch.cuda.empty_cache()
-    # 7. ResNet-50 inference: fp32 fused / unfused and int8, 8. gpu vs cpu
+    # 7. ResNet-50 inference: fp32 fused / unfused and int8, 7b. bf16
+    # fused / unfused, 8. gpu vs cpu in fp32 and bf16
     with tempfile.TemporaryDirectory() as tmp:
-        k6_entry["launches"], k5_entry["launches"] = phase_resnet(
-            torch, pk, fluid, resnet, inference, tmp)
+        k6_entry["launches"], k5_entry["launches"], fp32_probs = \
+            phase_resnet(torch, pk, fluid, resnet, inference, tmp)
+        torch.cuda.empty_cache()
+        k6_bf16_entry["launches"] = phase_resnet_bf16(
+            torch, pk, fluid, os.path.join(tmp, "resnet50"), fp32_probs)
+        torch.cuda.empty_cache()
         phase_resnet_gpu_vs_cpu(torch, fluid, resnet, inference, tmp)
+        phase_resnet_bf16_gpu_vs_cpu(torch, fluid, tmp)
     log(smi)
-    log(json.dumps({"kernels": [entry] + flash_entries + [
-        k5_entry, k6_entry, k4_entry, k4hs_entry]}))
+    log(json.dumps({"kernels": [entry] + flash_entries + flash_bf16_entries
+                    + [k5_entry, k6_entry, k6_bf16_entry, k4_entry,
+                       k4hs_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,6 +23,10 @@ __all__ = ["resolve_device"]
 # bits, so it stays off for matmuls and cuDNN alike.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# bf16 parity: XLA sums a bf16 matmul in fp32 and rounds once, and the
+# port's bf16 paths (AMP training, bf16 serving) are held to that.
+# cuBLAS may otherwise reduce a bf16 GEMM's split-K partials in bf16.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None):

@@ -1,13 +1,23 @@
 """The flags the port reads, with paddle_tpu/flags.py's names and
 defaults.  A plain module-level object: set an attribute to override
 (`FLAGS.serving_decode_slots = 4`); environment parsing comes with the
-serving front end."""
+serving front end.  Setting `use_bf16_amp` calls `ops.registry.set_amp`,
+as the JAX flag's on_change hook does."""
 
 import types
 
 __all__ = ["FLAGS"]
 
-FLAGS = types.SimpleNamespace(
+
+class _Flags(types.SimpleNamespace):
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if name == "use_bf16_amp":
+            from .ops import registry
+            registry.set_amp(value)
+
+
+FLAGS = _Flags(
     # slot-table size of each replica's decode lane: the per-replica cap
     # on concurrently generating requests
     serving_decode_slots=8,
@@ -35,4 +45,7 @@ FLAGS = types.SimpleNamespace(
     quantize_min_weight_elems=1024,
     # calibration batches the PTQ pass consumes at most
     quantize_calib_batches=4,
+    # bf16 automatic mixed precision: bf16 matmuls/convs/attention with
+    # fp32 master weights (setting it switches ops.registry's AMP)
+    use_bf16_amp=False,
 )

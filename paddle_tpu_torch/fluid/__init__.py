@@ -12,6 +12,9 @@ Executor runs the program eagerly, op by op, on a torch device.
     exe = fluid.Executor(fluid.CUDAPlace(0))     # or fluid.CPUPlace()
     exe.run(startup)
     exe.run(main, feed={...}, fetch_list=[loss])
+
+`fluid.set_amp(True)` runs the following programs in bf16 mixed
+precision (ops/registry.py's AMP lists), as the JAX package's does.
 """
 
 from . import (backward, core, executor, framework, initializer, io,
@@ -27,6 +30,7 @@ from .io import (load_inference_model, load_params, load_persistables,
                  save_persistables, save_vars, scope_from_jax, scope_to_jax)
 from .param_attr import ParamAttr
 from .transpiler import InferenceTranspiler
+from ..ops.registry import amp_enabled, set_amp
 
 __all__ = [
     "backward", "core", "executor", "framework", "initializer", "io",
@@ -38,5 +42,5 @@ __all__ = [
     "scope_from_jax", "scope_to_jax", "ParamAttr", "save_vars",
     "save_params", "save_persistables", "load_vars", "load_params",
     "load_persistables", "save_inference_model", "load_inference_model",
-    "InferenceTranspiler",
+    "InferenceTranspiler", "set_amp", "amp_enabled",
 ]

@@ -10,6 +10,10 @@ eagerly, op by op, in program order (functionalizer._interpret_ops):
 Persistables (params, optimizer state, the learning rate) live in the
 Scope as torch tensors on the Executor's device and are written back
 after each run.
+
+bfloat16 crosses the host boundary as `ml_dtypes.bfloat16` numpy arrays,
+as in the JAX package: a feed may be one (or a torch bf16 tensor), and a
+bf16 fetch comes back as one.
 """
 
 import threading
@@ -22,7 +26,13 @@ from ..ops import registry
 from . import core
 from .framework import Variable, default_main_program
 
-__all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy"]
+try:
+    from ml_dtypes import bfloat16 as _NP_BF16
+except ImportError:  # pragma: no cover
+    _NP_BF16 = None
+
+__all__ = ["Executor", "Scope", "global_scope", "scope_guard", "as_numpy",
+           "as_tensor"]
 
 class Scope:
     """name -> torch tensor map."""
@@ -70,9 +80,27 @@ class scope_guard:
 
 
 def as_numpy(tensor):
+    """Host numpy array(s) of a tensor (or a list of them); bf16 comes
+    back as an `ml_dtypes.bfloat16` array (numpy has no bfloat16)."""
     if isinstance(tensor, (list, tuple)):
         return [as_numpy(t) for t in tensor]
-    return tensor.detach().cpu().numpy()
+    t = tensor.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    if _NP_BF16 is None:
+        raise TypeError("as_numpy: a bfloat16 tensor needs the ml_dtypes "
+                        "package (numpy has no bfloat16)")
+    return t.view(torch.int16).numpy().view(_NP_BF16)
+
+
+def as_tensor(value):
+    """A CPU torch tensor of an array-like; an `ml_dtypes.bfloat16` array
+    becomes a torch bf16 tensor bit for bit."""
+    arr = np.asarray(value)
+    if _NP_BF16 is not None and arr.dtype == _NP_BF16:
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(arr)
 
 
 def _fetch_name(f):
@@ -172,8 +200,8 @@ class Executor:
         feeds = {}
         for name, value in feed.items():
             v = gb._find_var_recursive(name)
-            t = torch.as_tensor(np.asarray(value)) \
-                if not isinstance(value, torch.Tensor) else value
+            t = value if isinstance(value, torch.Tensor) \
+                else as_tensor(value)
             if v is not None and v.dtype is not None:
                 want = core.convert_dtype_to_torch(v.dtype)
                 both_int = not t.is_floating_point() and \

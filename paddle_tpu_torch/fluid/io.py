@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .executor import global_scope
+from .executor import as_numpy, as_tensor, global_scope
 from .framework import Parameter, Program, Variable, default_main_program
 
 __all__ = [
@@ -183,12 +183,12 @@ def scope_from_jax(np_dict, scope=None, place=None):
     scope = global_scope() if scope is None else scope
     dev = resolve_device(None if place is None else place.torch_device())
     for name, value in np_dict.items():
-        scope.set(name, torch.from_numpy(np.array(value)).to(dev))
+        scope.set(name, as_tensor(np.array(value)).to(dev))
     return scope
 
 
 def scope_to_jax(scope=None):
     """{name: numpy array} of every tensor in `scope`, on the host."""
     scope = global_scope() if scope is None else scope
-    return {name: scope.get(name).detach().cpu().numpy()
+    return {name: as_numpy(scope.get(name))
             for name in scope.keys() if scope.get(name) is not None}

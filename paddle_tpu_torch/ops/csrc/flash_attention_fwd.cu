@@ -1,4 +1,4 @@
-// Flash-attention forward (K1), fp32, for Hopper (sm_90a).
+// Flash-attention forward (K1), fp32 and bf16, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_flash_fwd_pallas` of
 // paddle_tpu/ops/pallas_kernels.py (an instance of its tiled-contraction
@@ -31,6 +31,12 @@
 // No atomics, and each thread reduces in a fixed order, so a result
 // depends only on its inputs.  fp32 on the SIMT units throughout; wgmma,
 // TMA and 16-bit tiles are later work.
+//
+// bf16 (paddle_flash_fwd_bf16, the TPU kernel's bf16 instance under
+// AMP): q, k, v are bf16 and o is written in bf16; lse stays fp32.  Each
+// tile's p is rounded to bf16 before the P . V product, as the TPU kernel
+// casts `p.astype(vb.dtype)`, while the normaliser l sums the unrounded
+// p.  Its bound is the bf16 tensor-core rate, far above these SIMT FMAs.
 
 #include "flash_attention_common.cuh"
 
@@ -42,7 +48,7 @@ constexpr int fwd_smem_bytes() {
   return (3 * kTile * (D + kPad) + kTile * kPRow) * (int)sizeof(float);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   constexpr int R = D + kPad;
@@ -61,7 +67,7 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<D>(Qs, a.q, b, h, q0, a.S);
+  load_tile<D, T>(Qs, a.q, b, h, q0, a.S);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -77,8 +83,8 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's K, V and P reads are done
-    load_tile<D>(Ks, a.k, b, h, k0, a.S);
-    load_tile<D>(Vs, a.v, b, h, k0, a.S);
+    load_tile<D, T>(Ks, a.k, b, h, k0, a.S);
+    load_tile<D, T>(Vs, a.v, b, h, k0, a.S);
     __syncthreads();
 
     // s = q . k for rows ty*4 + i, keys tx + 16 j
@@ -128,7 +134,7 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
       m[i] = m_new;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        Ps[(ty * 4 + i) * kPRow + tx + 16 * j] = s[i][j];
+        Ps[(ty * 4 + i) * kPRow + tx + 16 * j] = round_to(s[i][j], T());
     }
     __syncthreads();
 
@@ -159,7 +165,7 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   float lf[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) lf[i] = fmaxf(l[i], kTiny);
-  store_rows<D>(a.o, b, h, q0, a.S, ty, tx, acc, lf);
+  store_rows<D, T>(a.o, b, h, q0, a.S, ty, tx, acc, lf);
   if (tx == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -169,34 +175,44 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch(const PaddleFlashFwdArgs& a, cudaStream_t st) {
   const int smem = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(a);
+  flash_fwd_kernel<D, T><<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_typed(const PaddleFlashFwdArgs* a, cudaStream_t st) {
+  if (a->B <= 0 || a->S <= 0 || a->H <= 0) return cudaErrorInvalidValue;
+  if ((long long)a->B * a->H > 0x7fffffffLL ||
+      (a->S + kTile - 1) / kTile > 65535)
+    return cudaErrorInvalidValue;
+  switch (a->D) {
+    case 64: return launch<64, T>(*a, st);
+    case 128: return launch<128, T>(*a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 }  // namespace paddle_flash
 
 // Pointers are device pointers, each [B, S, H, D] view 16-byte aligned
-// with D contiguous and strides that are multiples of 4; D is 64 or 128.
-// Launches on `st`, does not synchronise, and returns the launch's
-// cudaError_t (cudaSuccess = 0).
+// with D contiguous and strides that are multiples of 16 bytes; D is 64
+// or 128.  Launches on `st`, does not synchronise, and returns the
+// launch's cudaError_t (cudaSuccess = 0).
 extern "C" cudaError_t paddle_flash_fwd_f32(const PaddleFlashFwdArgs* a,
                                             cudaStream_t st) {
-  if (a->B <= 0 || a->S <= 0 || a->H <= 0) return cudaErrorInvalidValue;
-  if ((long long)a->B * a->H > 0x7fffffffLL ||
-      (a->S + paddle_flash::kTile - 1) / paddle_flash::kTile > 65535)
-    return cudaErrorInvalidValue;
-  switch (a->D) {
-    case 64: return paddle_flash::launch<64>(*a, st);
-    case 128: return paddle_flash::launch<128>(*a, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return paddle_flash::launch_typed<float>(a, st);
+}
+
+extern "C" cudaError_t paddle_flash_fwd_bf16(const PaddleFlashFwdArgs* a,
+                                             cudaStream_t st) {
+  return paddle_flash::launch_typed<__nv_bfloat16>(a, st);
 }

@@ -1,12 +1,12 @@
-// Fused ResNet bottleneck for inference (BN folded), fp32, for Hopper
-// (sm_90a).
+// Fused ResNet bottleneck for inference (BN folded), fp32 and bf16, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel `fused_bottleneck` of
 // paddle_tpu/ops/pallas_kernels.py (`_bottleneck_kernel`, one pallas_call
 // per block): the whole residual block in one launch, so the two
 // intermediate activations never leave the chip.
 //
-//   x  [N, H, W, C] NHWC f32
+//   x  [N, H, W, C] NHWC, f32 or bf16 (every operand and out alike)
 //   w0 [F, C, 1, 1]  b0 [F]     1x1 reduce              + relu
 //   w1 [F, F, 3, 3]  b1 [F]     3x3, stride s, pad 1    + relu
 //   w2 [C4, F, 1, 1] b2 [C4]    1x1 expand
@@ -36,7 +36,7 @@
 // (input channel, tap) in OIHW order and A is the window read as
 // im2col).  The block computes 64 x 64 output tiles, 256 threads each
 // owning a 4 x 4 register tile, over K in chunks of 16 staged in shared
-// memory.  Window and h rows are padded to F + 1 floats so the im2col
+// memory.  Window and h rows are padded to F + 1 elements so the im2col
 // reads of one chunk spread over the banks.
 //
 // What bounds it: per output pixel the block does C F + 9 F^2 + F C4 (+
@@ -52,7 +52,20 @@
 //
 // Sums run in a fixed order fixed by the shape: no atomics, so the
 // result is deterministic.
+//
+// The bf16 instantiation (paddle_fused_bottleneck_bf16) is the TPU
+// kernel's bf16 instance: x, filters and biases are bf16, converted to
+// fp32 as they are loaded, every product is accumulated in fp32, and
+// values are rounded to bf16 (round to nearest even) where the JAX kernel
+// casts them: conv0's output after bias + relu (its `a1.astype`), the
+// 3x3's output after bias + relu (`h ... .astype`) and the block's
+// output.  conv2 + b2 + the shortcut stay fp32 until that last rounding.
+// The window and h hold those bf16 values, so their shared memory halves
+// and taller row blocks fit.  Its bound is the bf16 tensor-core rate (989
+// TFLOP/s, ~295 flops per byte at 3.35 TB/s): the SIMT FMAs of this
+// first version are far from it, and bf16 wgmma tiles are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -67,19 +80,36 @@ constexpr int kLdt = kTile + 4; // staged tile row stride (float4 aligned)
 constexpr int kTargetRows = 128;
 constexpr long long kMinBlocks = 264;
 
+template <typename T>
 struct Args {
-  const float* x;
-  const float* w0;
-  const float* b0;
-  const float* w1;
-  const float* b1;
-  const float* w2;
-  const float* b2;
-  const float* ws;
-  const float* bs;
-  float* out;
+  const T* x;
+  const T* w0;
+  const T* b0;
+  const T* w1;
+  const T* b1;
+  const T* w2;
+  const T* b2;
+  const T* ws;
+  const T* bs;
+  T* out;
   int N, H, W, C, F, C4, stride;
 };
+
+// fp32 values of an element in shared memory (to_f32) or, through the
+// read-only cache, in device memory (ldg_f32); store rounds to T
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 struct Geom {
   int Ho, Wo, R, E, ldw, ldh;
@@ -92,10 +122,11 @@ struct Geom {
 // element: `row(m)` (0 content outside the operand), `col(k)` and
 // `at(row, col)`.  B rows n >= N read 0.  The next chunk is fetched into
 // registers while the current one is multiplied out of shared memory
-// (two staging buffers, one barrier per chunk).
-template <class ALoad>
+// (two staging buffers, one barrier per chunk).  A and B are converted
+// to fp32 as they are fetched; the staging buffers are fp32.
+template <class ALoad, typename T>
 __device__ __forceinline__ void tile_gemm(const ALoad& a,
-                                          const float* __restrict__ B,
+                                          const T* __restrict__ B,
                                           int ldb, int N, int K, int m0,
                                           int n0, float (&acc)[4][4],
                                           float* As, float* Bs) {
@@ -104,7 +135,7 @@ __device__ __forceinline__ void tile_gemm(const ALoad& a,
   const int lk = t % kChunk;   // the chunk column this thread stages
   const int lr = t / kChunk;   // its first row (then +16, +32, +48)
   typename ALoad::Row rows[kTile / 16];
-  const float* brow[kTile / 16];
+  const T* brow[kTile / 16];
 #pragma unroll
   for (int i = 0; i < kTile / 16; ++i) {
     rows[i] = a.row(m0 + lr + 16 * i);
@@ -118,7 +149,7 @@ __device__ __forceinline__ void tile_gemm(const ALoad& a,
 #pragma unroll
     for (int i = 0; i < kTile / 16; ++i) {
       ra[i] = live ? a.at(rows[i], c) : 0.f;
-      rb[i] = (live && brow[i]) ? __ldg(brow[i] + k) : 0.f;
+      rb[i] = (live && brow[i]) ? ldg_f32(brow[i] + k) : 0.f;
     }
   };
   fetch(lk);
@@ -159,21 +190,15 @@ __device__ __forceinline__ void zero(float (&acc)[4][4]) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 }
 
-// A row of an operand whose k runs along contiguous memory: a pointer to
-// its first element, or null for a row outside the operand.
-struct PtrRows {
-  typedef const float* Row;
+// conv0's A: x at window row e (input row row0 + e), column w; a row is
+// a pointer to the pixel's C inputs, or null outside the image.
+template <typename T>
+struct XWindow {
+  typedef const T* Row;
   typedef int Col;
-  __device__ int col(int k) const { return k; }
-  __device__ float at(Row r, int k) const { return r ? r[k] : 0.f; }
-};
-
-// conv0's A: x at window row e (input row row0 + e), column w.
-struct XWindow : PtrRows {
-  const float* x;  // this image
+  const T* x;  // this image
   int H, W, C, row0, M;
-  __device__ XWindow(const float* x_, int H_, int W_, int C_, int row0_,
-                     int M_)
+  __device__ XWindow(const T* x_, int H_, int W_, int C_, int row0_, int M_)
       : x(x_), H(H_), W(W_), C(C_), row0(row0_), M(M_) {}
   __device__ Row row(int m) const {
     if (m >= M) return nullptr;
@@ -182,11 +207,13 @@ struct XWindow : PtrRows {
     if (h < 0 || h >= H) return nullptr;
     return x + ((size_t)h * W + w) * C;
   }
-  __device__ float at(Row r, int k) const { return r ? __ldg(r + k) : 0.f; }
+  __device__ Col col(int k) const { return k; }
+  __device__ float at(Row r, int k) const { return r ? ldg_f32(r + k) : 0.f; }
 };
 
 // the 3x3's A: im2col of the shared window, k = fi * 9 + dy * 3 + dx in
 // OIHW order.
+template <typename T>
 struct Im2col {
   struct Row {
     int base;  // offset of window pixel (s r, s wo - 1)
@@ -197,10 +224,9 @@ struct Im2col {
     int off;   // fi + (dy W + dx) ldw
     int dx;
   };
-  const float* win;
+  const T* win;
   int W, Wo, s, ldw, M;
-  __device__ Im2col(const float* win_, int W_, int Wo_, int s_, int ldw_,
-                    int M_)
+  __device__ Im2col(const T* win_, int W_, int Wo_, int s_, int ldw_, int M_)
       : win(win_), W(W_), Wo(Wo_), s(s_), ldw(ldw_), M(M_) {}
   __device__ Row row(int m) const {
     if (m >= M) return Row{0, kOutside};
@@ -215,25 +241,32 @@ struct Im2col {
   __device__ float at(const Row& r, const Col& c) const {
     const int col = r.col0 + c.dx;
     if (col < 0 || col >= W) return 0.f;
-    return win[r.base + c.off];
+    return to_f32(win[r.base + c.off]);
   }
 };
 
 // conv2's A: the shared row block h.
-struct HRows : PtrRows {
-  const float* h;
+template <typename T>
+struct HRows {
+  typedef const T* Row;
+  typedef int Col;
+  const T* h;
   int ldh, M;
-  __device__ HRows(const float* h_, int ldh_, int M_)
-      : h(h_), ldh(ldh_), M(M_) {}
+  __device__ HRows(const T* h_, int ldh_, int M_) : h(h_), ldh(ldh_), M(M_) {}
   __device__ Row row(int m) const { return m < M ? h + m * ldh : nullptr; }
+  __device__ Col col(int k) const { return k; }
+  __device__ float at(Row r, int k) const { return r ? to_f32(r[k]) : 0.f; }
 };
 
 // the projection shortcut's A: x at (s o, s wo).
-struct XStrided : PtrRows {
-  const float* x;  // this image
+template <typename T>
+struct XStrided {
+  typedef const T* Row;
+  typedef int Col;
+  const T* x;  // this image
   int W, C, Wo, Ho, s, o0, M;
-  __device__ XStrided(const float* x_, int W_, int C_, int Wo_, int Ho_,
-                      int s_, int o0_, int M_)
+  __device__ XStrided(const T* x_, int W_, int C_, int Wo_, int Ho_, int s_,
+                      int o0_, int M_)
       : x(x_), W(W_), C(C_), Wo(Wo_), Ho(Ho_), s(s_), o0(o0_), M(M_) {}
   __device__ Row row(int m) const {
     if (m >= M) return nullptr;
@@ -242,28 +275,30 @@ struct XStrided : PtrRows {
     if (o >= Ho) return nullptr;
     return x + ((size_t)(s * o) * W + s * wo) * C;
   }
-  __device__ float at(Row r, int k) const { return r ? __ldg(r + k) : 0.f; }
+  __device__ Col col(int k) const { return k; }
+  __device__ float at(Row r, int k) const { return r ? ldg_f32(r + k) : 0.f; }
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bottleneck_kernel(const Args a, const Geom g) {
+bottleneck_kernel(const Args<T> a, const Geom g) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* As = smem;                       // 2 staging buffers each
   float* Bs = As + 2 * kChunk * kLdt;
-  float* win = Bs + 2 * kChunk * kLdt;    // [E * W][ldw]
-  float* hbuf = win + g.E * a.W * g.ldw;  // [R * Wo][ldh]
+  T* win = reinterpret_cast<T*>(Bs + 2 * kChunk * kLdt);  // [E * W][ldw]
+  T* hbuf = win + g.E * a.W * g.ldw;                      // [R * Wo][ldh]
 
   const int img = blockIdx.y;
   const int o0 = blockIdx.x * g.R;
   const int s = a.stride;
-  const float* x = a.x + (size_t)img * a.H * a.W * a.C;
+  const T* x = a.x + (size_t)img * a.H * a.W * a.C;
   const int t = threadIdx.x;
   const int tx = t % 16, ty = t / 16;
   float acc[4][4];
 
   // 1. conv0 + b0 + relu over the window rows, zero outside the image
-  const XWindow xa(x, a.H, a.W, a.C, s * o0 - 1, g.E * a.W);
+  const XWindow<T> xa(x, a.H, a.W, a.C, s * o0 - 1, g.E * a.W);
   for (int m0 = 0; m0 < xa.M; m0 += kTile) {
     for (int n0 = 0; n0 < a.F; n0 += kTile) {
       zero(acc);
@@ -278,8 +313,8 @@ bottleneck_kernel(const Args a, const Geom g) {
         for (int j = 0; j < 4; ++j) {
           const int n = n0 + 4 * tx + j;
           if (n < a.F)
-            win[m * g.ldw + n] =
-                inside ? fmaxf(acc[i][j] + __ldg(a.b0 + n), 0.f) : 0.f;
+            store(win + m * g.ldw + n,
+                  inside ? fmaxf(acc[i][j] + ldg_f32(a.b0 + n), 0.f) : 0.f);
         }
       }
     }
@@ -287,7 +322,7 @@ bottleneck_kernel(const Args a, const Geom g) {
   __syncthreads();
 
   // 2. the 3x3 (stride s) + b1 + relu into h
-  const Im2col ca(win, a.W, g.Wo, s, g.ldw, g.R * g.Wo);
+  const Im2col<T> ca(win, a.W, g.Wo, s, g.ldw, g.R * g.Wo);
   const int K1 = 9 * a.F;
   for (int m0 = 0; m0 < ca.M; m0 += kTile) {
     for (int n0 = 0; n0 < a.F; n0 += kTile) {
@@ -301,7 +336,8 @@ bottleneck_kernel(const Args a, const Geom g) {
         for (int j = 0; j < 4; ++j) {
           const int n = n0 + 4 * tx + j;
           if (n < a.F)
-            hbuf[m * g.ldh + n] = fmaxf(acc[i][j] + __ldg(a.b1 + n), 0.f);
+            store(hbuf + m * g.ldh + n,
+                  fmaxf(acc[i][j] + ldg_f32(a.b1 + n), 0.f));
         }
       }
     }
@@ -309,8 +345,8 @@ bottleneck_kernel(const Args a, const Geom g) {
   __syncthreads();
 
   // 3. conv2 (+ projection) + biases (+ identity) + relu, to out
-  const HRows ha(hbuf, g.ldh, g.R * g.Wo);
-  const XStrided sa(x, a.W, a.C, g.Wo, g.Ho, s, o0, g.R * g.Wo);
+  const HRows<T> ha(hbuf, g.ldh, g.R * g.Wo);
+  const XStrided<T> sa(x, a.W, a.C, g.Wo, g.Ho, s, o0, g.R * g.Wo);
   const bool proj = a.ws != nullptr;
   for (int m0 = 0; m0 < ha.M; m0 += kTile) {
     for (int n0 = 0; n0 < a.C4; n0 += kTile) {
@@ -329,52 +365,29 @@ bottleneck_kernel(const Args a, const Geom g) {
         for (int j = 0; j < 4; ++j) {
           const int n = n0 + 4 * tx + j;
           if (n >= a.C4) continue;
-          float y = acc[i][j] + __ldg(a.b2 + n);
+          float y = acc[i][j] + ldg_f32(a.b2 + n);
           // identity: s == 1 and C == C4, so x's pixel (o, wo) is the
           // output pixel's own
-          y += proj ? __ldg(a.bs + n)
-                    : __ldg(x + ((size_t)o * a.W + wo) * a.C + n);
-          a.out[pix * a.C4 + n] = fmaxf(y, 0.f);
+          y += proj ? ldg_f32(a.bs + n)
+                    : ldg_f32(x + ((size_t)o * a.W + wo) * a.C + n);
+          store(a.out + pix * a.C4 + n, fmaxf(y, 0.f));
         }
       }
     }
   }
 }
 
-size_t smem_bytes(const Args& a, int Wo, int R) {
+// staging buffers in fp32; the window and h in T
+template <typename T>
+size_t smem_bytes(const Args<T>& a, int Wo, int R) {
   const int E = a.stride * (R - 1) + 3;
   const size_t ld = (size_t)a.F + 1;
-  return sizeof(float) * (4 * (size_t)kChunk * kLdt +
-                          (size_t)E * a.W * ld + (size_t)R * Wo * ld);
+  return sizeof(float) * 4 * (size_t)kChunk * kLdt +
+         sizeof(T) * ((size_t)E * a.W * ld + (size_t)R * Wo * ld);
 }
 
-}  // namespace
-}  // namespace paddle_bottleneck
-
-// The C interface the port's ctypes wrapper calls
-// (paddle_tpu_torch/ops/pallas_kernels.py fused_bottleneck_oihw).  The
-// wrapper has checked shapes, dtypes and contiguity; pointers are device
-// pointers.  Returns a cudaError_t (0 on a launched kernel).
-struct PaddleBottleneckArgs {
-  const float* x;
-  const float* w0;
-  const float* b0;
-  const float* w1;
-  const float* b1;
-  const float* w2;
-  const float* b2;
-  const float* ws;
-  const float* bs;
-  float* out;
-  int N, H, W, C, F, C4, stride;
-};
-
-extern "C" int paddle_fused_bottleneck_f32(const PaddleBottleneckArgs* p,
-                                           cudaStream_t st) {
-  using namespace paddle_bottleneck;
-  const Args a{p->x, p->w0, p->b0, p->w1, p->b1, p->w2, p->b2, p->ws,
-               p->bs, p->out, p->N, p->H, p->W, p->C, p->F, p->C4,
-               p->stride};
+template <typename T>
+cudaError_t launch(const Args<T>& a, cudaStream_t st) {
   if (a.N <= 0 || a.H <= 0 || a.W <= 0 || a.C <= 0 || a.F <= 0 ||
       a.C4 <= 0 || (a.stride != 1 && a.stride != 2) || a.N > 65535)
     return cudaErrorInvalidValue;
@@ -403,11 +416,55 @@ extern "C" int paddle_fused_bottleneck_f32(const PaddleBottleneckArgs* p,
   if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
   g.R = R;
   g.E = a.stride * (R - 1) + 3;
-  err = cudaFuncSetAttribute(bottleneck_kernel,
+  err = cudaFuncSetAttribute(bottleneck_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.Ho + R - 1) / R, a.N);
-  bottleneck_kernel<<<grid, kThreads, smem, st>>>(a, g);
+  bottleneck_kernel<T><<<grid, kThreads, smem, st>>>(a, g);
   return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace paddle_bottleneck
+
+// The C interface the port's ctypes wrapper calls
+// (paddle_tpu_torch/ops/pallas_kernels.py fused_bottleneck).  The
+// wrapper has checked shapes, dtypes and contiguity; pointers are device
+// pointers to elements of the entry's type (fp32 or bf16).  Returns a
+// cudaError_t (0 on a launched kernel).
+struct PaddleBottleneckArgs {
+  const void* x;
+  const void* w0;
+  const void* b0;
+  const void* w1;
+  const void* b1;
+  const void* w2;
+  const void* b2;
+  const void* ws;
+  const void* bs;
+  void* out;
+  int N, H, W, C, F, C4, stride;
+};
+
+template <typename T>
+static int run_typed(const PaddleBottleneckArgs* p, cudaStream_t st) {
+  using paddle_bottleneck::Args;
+  const Args<T> a{static_cast<const T*>(p->x), static_cast<const T*>(p->w0),
+                  static_cast<const T*>(p->b0), static_cast<const T*>(p->w1),
+                  static_cast<const T*>(p->b1), static_cast<const T*>(p->w2),
+                  static_cast<const T*>(p->b2), static_cast<const T*>(p->ws),
+                  static_cast<const T*>(p->bs), static_cast<T*>(p->out),
+                  p->N, p->H, p->W, p->C, p->F, p->C4, p->stride};
+  return paddle_bottleneck::launch(a, st);
+}
+
+extern "C" int paddle_fused_bottleneck_f32(const PaddleBottleneckArgs* p,
+                                           cudaStream_t st) {
+  return run_typed<float>(p, st);
+}
+
+extern "C" int paddle_fused_bottleneck_bf16(const PaddleBottleneckArgs* p,
+                                            cudaStream_t st) {
+  return run_typed<__nv_bfloat16>(p, st);
 }

@@ -1,8 +1,9 @@
 """Math / elementwise / reduction / activation op lowerings, after
 paddle_tpu/ops/math_ops.py: gelu, elementwise_add with fluid's `axis`
-broadcasting, mul (fc's matmul), sum, scale, mean, cumsum, relu, softmax
-and top_k.  The matmuls are plain torch.matmul in fp32 (TF32 off), as
-the JAX package leaves them to XLA."""
+broadcasting, mul (fc's matmul), matmul, sum, scale, mean, cumsum, relu,
+softmax and top_k.  The matmuls are plain torch.matmul (TF32 off; bf16
+summed in fp32 and rounded once), as the JAX package leaves them to
+XLA."""
 
 import numpy as np
 import torch
@@ -35,9 +36,20 @@ def _broadcast_y(x, y, axis):
                          + [1] * (x.dim() - axis - len(yshape)))
 
 
+def _promote(x, y):
+    """Two float operands in their common dtype by dtype alone, as JAX
+    promotes (bf16 + fp32 is fp32 even where one is 0-dim; torch would
+    keep a tensor's dtype against a 0-dim one)."""
+    if x.dtype != y.dtype and x.is_floating_point() \
+            and y.is_floating_point():
+        dt = torch.promote_types(x.dtype, y.dtype)
+        return x.to(dt), y.to(dt)
+    return x, y
+
+
 @register_op("elementwise_add")
 def _elementwise_add(ctx):
-    x, y = ctx.input("X"), ctx.input("Y")
+    x, y = _promote(ctx.input("X"), ctx.input("Y"))
     return {"Out": x + _broadcast_y(x, y, ctx.attr("axis", -1))}
 
 
@@ -54,6 +66,20 @@ def _mul(ctx):
     out = torch.matmul(_flatten2d(x, xd), _flatten2d(y, yd))
     return {"Out": torch.reshape(out, tuple(x.shape[:xd])
                                  + tuple(y.shape[yd:]))}
+
+
+@register_op("matmul")
+def _matmul(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    if ctx.attr("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if ctx.attr("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = ctx.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
 
 
 @register_op("sum")
@@ -100,8 +126,14 @@ def _relu(ctx):
 
 @register_op("softmax")
 def _softmax(ctx):
-    """Over the last axis, as the JAX lowering (which ignores `axis`)."""
-    return {"Out": torch.softmax(ctx.input("X"), dim=-1)}
+    """Over the last axis, as the JAX lowering (which ignores `axis`).  A
+    16-bit float input rounds where jax.nn.softmax does: exp(x - max) in
+    x's dtype, its sum in fp32 rounded once, the quotient in x's dtype."""
+    x = ctx.input("X")
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return {"Out": torch.softmax(x, dim=-1)}
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return {"Out": e / e.sum(dim=-1, keepdim=True)}
 
 
 @register_op("top_k")

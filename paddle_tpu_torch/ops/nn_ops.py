@@ -66,9 +66,24 @@ def _ceil_extra_pad(extent, k, s, p):
 
 
 def _window_sum(x, ksize, strides):
-    """Sums over every (kh, kw) window of an NCHW tensor, no padding."""
-    return x.unfold(2, ksize[0], strides[0]).unfold(
-        3, ksize[1], strides[1]).sum(dim=(-2, -1))
+    """Sums over every (kh, kw) window of an NCHW tensor, no padding.  A
+    16-bit float tensor sums as XLA's reduce_window does in that dtype
+    (the JAX lowering's bf16 avg pool): the window's elements are added
+    one at a time in row-major order, each partial sum rounded to the
+    dtype — one elementwise add per window element."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return x.unfold(2, ksize[0], strides[0]).unfold(
+            3, ksize[1], strides[1]).sum(dim=(-2, -1))
+    (kh, kw), (sh, sw) = ksize, strides
+    Ho = (x.shape[2] - kh) // sh + 1
+    Wo = (x.shape[3] - kw) // sw + 1
+    acc = None
+    for i in range(kh):
+        for j in range(kw):
+            tap = x[:, :, i:i + sh * (Ho - 1) + 1:sh,
+                    j:j + sw * (Wo - 1) + 1:sw]
+            acc = tap if acc is None else acc + tap
+    return acc
 
 
 @register_op("pool2d")
@@ -76,7 +91,8 @@ def _pool2d(ctx):
     """Max or average pooling with the JAX lowering's window arithmetic:
     symmetric padding plus the ceil_mode extra on the high side; a
     padded average window divides by its count of real elements when
-    `exclusive` (the default), else by kh * kw."""
+    `exclusive` (the default), else by kh * kw.  The average sums and
+    divides in x's dtype (bf16 serving: see _window_sum)."""
     x = ctx.input("X")
     layout = _img_layout(ctx)
     xc = _to_nchw(x, layout)

@@ -15,9 +15,12 @@ dq and dk/dv kernels (csrc/flash_attention_bwd.cu), joined to K1 by a
 torch.autograd.Function; K5, `dequant_matmul` (csrc/dequant_matmul.cu),
 the int8-weight matmul of the quantized inference lane; K6,
 `fused_bottleneck` (csrc/fused_bottleneck.cu), a whole BN-folded ResNet
-bottleneck block in fp32.  The `flash_attention` and `fused_bottleneck`
-ops, through which fluid programs reach K1/K2 and K6, are registered here
-too.  K6's bf16 variant is not ported yet.
+bottleneck block.  K1, K2 and K6 each have an fp32 and a bf16
+instantiation (the dtypes the JAX package runs them in: bf16 under AMP
+training for K1/K2, bf16 serving for K6), counted apart; the bf16 plain
+versions round where the TPU kernels cast.  The `flash_attention` and
+`fused_bottleneck` ops, through which fluid programs reach K1/K2 and K6,
+are registered here too.
 """
 
 import ctypes
@@ -52,7 +55,25 @@ _KERNEL_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 launch_counts = {"decode_attention": 0, "decode_attention_int8": 0,
                  "decode_attention_head_slice": 0, "flash_attention_fwd": 0,
                  "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-                 "dequant_matmul": 0, "fused_bottleneck": 0}
+                 "flash_attention_fwd_bf16": 0,
+                 "flash_attention_bwd_dq_bf16": 0,
+                 "flash_attention_bwd_dkv_bf16": 0,
+                 "dequant_matmul": 0, "fused_bottleneck": 0,
+                 "fused_bottleneck_bf16": 0}
+
+# the dtypes K1/K2 and K6 take on the card -> C entry suffix; the bf16
+# instantiations count under "<kernel>_bf16"
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _count_name(kernel, dtype):
+    return kernel if dtype == torch.float32 else kernel + "_bf16"
+
+
+def _rounded(t, dtype):
+    """t (fp32) rounded to `dtype` and back to fp32: where a TPU kernel
+    casts with `.astype(dtype)` before a product; the identity for fp32."""
+    return t.to(dtype).float()
 
 _fns = {}
 
@@ -288,7 +309,8 @@ def decode_attention_head_slice(q, k_cache, v_cache, lengths, head_offset,
 # path's kernels.  q, k, v are [B, S, H, D] (the JAX package's public
 # layout); the kernels read any strides over B, S and H with D contiguous,
 # so the q/k/v column slices of a fused qkv projection go in without a
-# copy.  The row statistics lse and di are [B, H, S] fp32.
+# copy.  The row statistics lse and di are [B, H, S] fp32.  q, k, v (and
+# do) are fp32 or bf16, all alike; outputs are in their dtype.
 # ---------------------------------------------------------------------------
 
 # head dims the CUDA kernels take: each thread owns D / 16 columns as
@@ -356,14 +378,17 @@ def flash_attention_fwd_reference(q, k, v, causal=False, scale=None):
     """Plain PyTorch version of K1 with the TPU kernel's semantics: q, k, v
     [B, S, H, D] -> (o [B, S, H, D] in q's dtype, lse [B, H, S] fp32).
     Masked scores are the finite -1e30, the normaliser is floored at
-    1e-20 and lse = m + log(l).  Differentiable by autograd (the row max
-    is a constant of the softmax, so it is detached)."""
+    1e-20 and lse = m + log(l).  Products and sums are fp32; for bf16
+    inputs p is rounded to v's dtype before p . v (the kernel's
+    `p.astype(vb.dtype)`), while l sums the unrounded p.  Differentiable
+    by autograd in fp32 (the row max is a constant of the softmax, so it
+    is detached)."""
     scale = _scale_of(q, scale)
     s = _scores(q, k, scale, causal)
     m = s.amax(dim=-1, keepdim=True).detach()
     p = torch.exp(s - m)
     l = torch.clamp_min(p.sum(dim=-1, keepdim=True), _TINY)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) \
+    o = torch.einsum("bhqk,bkhd->bqhd", _rounded(p, v.dtype), v.float()) \
         / l.permute(0, 2, 1, 3)
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
@@ -371,24 +396,26 @@ def flash_attention_fwd_reference(q, k, v, causal=False, scale=None):
 def flash_attention_bwd_dq_reference(q, k, v, do, lse, di, causal=False,
                                      scale=None):
     """Plain PyTorch version of K2's dq kernel: with p = exp(s - lse) and
-    ds = p * (do . v - di) * scale, dq = ds . k  ([B, S, H, D])."""
+    ds = p * (do . v - di) * scale, dq = ds . k  ([B, S, H, D]); for bf16
+    inputs ds is rounded to k's dtype before the product."""
     scale = _scale_of(q, scale)
     p = torch.exp(_scores(q, k, scale, causal) - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - di[..., None]) * scale
+    ds = _rounded(p * (dp - di[..., None]) * scale, k.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, do, lse, di, causal=False,
                                       scale=None):
     """Plain PyTorch version of K2's dk/dv kernel: dk = ds^T . q and
-    dv = p^T . do  (each [B, S, H, D])."""
+    dv = p^T . do  (each [B, S, H, D]); for bf16 inputs p is rounded to
+    do's dtype and ds to q's before the products."""
     scale = _scale_of(q, scale)
     p = torch.exp(_scores(q, k, scale, causal) - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - di[..., None]) * scale
+    ds = _rounded(p * (dp - di[..., None]) * scale, q.dtype)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", _rounded(p, do.dtype), do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -396,8 +423,10 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=False,
                                   scale=None, dlse=None):
     """(dq, dk, dv) of the attention from the forward's o and lse [B, H,
     S] and the cotangents do (and dlse [B, H, S]), without autograd: the
-    plain versions of both K2 kernels."""
+    plain versions of both K2 kernels.  di is formed from the cotangent as
+    given; the kernels then take do in q's dtype (`_fa_bwd`'s cast)."""
     di = _flash_di(o, do, dlse)
+    do = do.to(q.dtype)
     dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, di, causal,
                                           scale)
     dk, dv = flash_attention_bwd_dkv_reference(q, k, v, do, lse, di,
@@ -409,7 +438,9 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
                               return_lse=False):
     """Attention with the kernels' mask and floor conventions, in plain
     PyTorch and differentiated by autograd: [B, S, H, D] -> [B, S, H, D]
-    (or (o, lse [B, S, H]) with return_lse)."""
+    (or (o, lse [B, S, H]) with return_lse).  Autograd treats the bf16
+    rounding casts as the identity, so for bf16 inputs `flash_attention`
+    differentiates through the plain K2 versions instead."""
     o, lse = flash_attention_fwd_reference(q, k, v, causal, scale)
     return (o, lse.transpose(1, 2)) if return_lse else o
 
@@ -425,7 +456,10 @@ def _plain_device(t):
 
 
 def _flash_check(q, named):
-    """Raise on anything the CUDA kernels do not take."""
+    """Raise on anything the CUDA kernels do not take: the [B, S, H, D]
+    operands all float32 or all bfloat16, read by 16-byte loads (D
+    contiguous, strides that are multiples of 16 bytes — 4 fp32 or 8 bf16
+    elements — and a 16-byte aligned start); the row statistics fp32."""
     if q.dim() != 4:
         raise ValueError("flash_attention: q must be [B, S, H, D], got %s"
                          % (tuple(q.shape),))
@@ -433,23 +467,28 @@ def _flash_check(q, named):
     if D not in _FLASH_HEAD_DIMS:
         raise ValueError("flash_attention: head dim %d not in %s"
                          % (D, _FLASH_HEAD_DIMS))
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError("flash_attention: q must be float32 or bfloat16, "
+                        "got %s" % q.dtype)
+    vec = 16 // q.element_size()
     for name, t, shape in named:
         if not isinstance(t, torch.Tensor) or t.device != q.device:
             raise ValueError("flash_attention: %s must be a tensor on %s"
                              % (name, q.device))
-        if t.dtype != torch.float32:
-            raise TypeError("flash_attention: %s must be float32, got %s"
-                            % (name, t.dtype))
+        want = q.dtype if len(shape) == 4 else torch.float32
+        if t.dtype != want:
+            raise TypeError("flash_attention: %s must be %s (as q is %s), "
+                            "got %s" % (name, want, q.dtype, t.dtype))
         if tuple(t.shape) != shape:
             raise ValueError("flash_attention: %s has shape %s, expected %s"
                              % (name, tuple(t.shape), shape))
         if len(shape) == 4:
-            if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:3]) \
+            if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:3]) \
                     or t.data_ptr() % 16:
                 raise ValueError(
                     "flash_attention: %s must have D contiguous, strides "
-                    "that are multiples of 4 and a 16-byte aligned start"
-                    % name)
+                    "that are multiples of %d elements and a 16-byte "
+                    "aligned start" % (name, vec))
         elif not t.is_contiguous():
             raise ValueError("flash_attention: %s must be contiguous" % name)
     return B, S, H, D
@@ -476,24 +515,25 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shape = tuple(q.shape)
     B, S, H, D = _flash_check(q, [("q", q, shape), ("k", k, shape),
                                   ("v", v, shape)])
-    o = torch.empty(shape, dtype=torch.float32, device=q.device)
+    o = torch.empty(shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if B * H == 0 or S == 0:
         return o, lse
     args = _FlashFwdArgs(_t4(q), _t4(k), _t4(v), _t4(o), lse.data_ptr(),
                          B, S, H, D, scale, int(causal))
-    _flash_launch("paddle_flash_fwd_f32", "flash_attention_fwd", args,
-                  q.device, "flash_attention_fwd")
+    _flash_launch("paddle_flash_fwd_" + _KERNEL_DTYPES[q.dtype],
+                  "flash_attention_fwd", args, q.device,
+                  _count_name("flash_attention_fwd", q.dtype))
     return o, lse
 
 
-def _flash_bwd(symbol, count, q, k, v, do, lse, di, causal, scale, outs):
+def _flash_bwd(kernel, q, k, v, do, lse, di, causal, scale, outs):
     shape = tuple(q.shape)
     rows = (shape[0], shape[2], shape[1])
     B, S, H, D = _flash_check(q, [
         ("q", q, shape), ("k", k, shape), ("v", v, shape),
         ("do", do, shape), ("lse", lse, rows), ("di", di, rows)])
-    grads = [torch.empty(shape, dtype=torch.float32, device=q.device)
+    grads = [torch.empty(shape, dtype=q.dtype, device=q.device)
              for _ in outs]
     if B * H == 0 or S == 0:
         return grads
@@ -504,7 +544,10 @@ def _flash_bwd(symbol, count, q, k, v, do, lse, di, causal, scale, outs):
         *[_t4(named[n]) if n in named else empty
           for n in ("dq", "dk", "dv")],
         lse.data_ptr(), di.data_ptr(), B, S, H, D, scale, int(causal))
-    _flash_launch(symbol, "flash_attention_bwd", args, q.device, count)
+    symbol = "paddle_%s_%s" % (kernel.replace("_attention", ""),
+                               _KERNEL_DTYPES[q.dtype])
+    _flash_launch(symbol, "flash_attention_bwd", args, q.device,
+                  _count_name(kernel, q.dtype))
     return grads
 
 
@@ -512,16 +555,15 @@ def _flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        do: torch.Tensor, lse: torch.Tensor,
                        di: torch.Tensor, causal: bool, scale: float
                        ) -> torch.Tensor:
-    return _flash_bwd("paddle_flash_bwd_dq_f32", "flash_attention_bwd_dq",
-                      q, k, v, do, lse, di, causal, scale, ("dq",))[0]
+    return _flash_bwd("flash_attention_bwd_dq", q, k, v, do, lse, di,
+                      causal, scale, ("dq",))[0]
 
 
 def _flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse: torch.Tensor,
                         di: torch.Tensor, causal: bool, scale: float
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    dk, dv = _flash_bwd("paddle_flash_bwd_dkv_f32",
-                        "flash_attention_bwd_dkv", q, k, v, do, lse, di,
+    dk, dv = _flash_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, di,
                         causal, scale, ("dk", "dv"))
     return dk, dv
 
@@ -541,7 +583,8 @@ _flash_bwd_dkv_op = torch.library.custom_op(
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
-    """K1: q, k, v [B, S, H, D] -> (o [B, S, H, D], lse [B, H, S]).
+    """K1: q, k, v [B, S, H, D] fp32 or bf16 -> (o [B, S, H, D] in their
+    dtype, lse [B, H, S] fp32).
 
     A CPU (or meta) tensor runs `flash_attention_fwd_reference`.  A CUDA
     tensor launches csrc/flash_attention_fwd.cu on the current stream
@@ -578,8 +621,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, causal=False,
 
 class _FlashAttention(torch.autograd.Function):
     """K1 forward, K2 backward: the port's `jax.custom_vjp` of
-    `flash_attention`.  The setup_context form keeps it usable under
-    torch.autograd.grad and torch.func alike."""
+    `flash_attention`, through the wrappers (the kernels on the card, the
+    plain versions on the CPU).  The setup_context form keeps it usable
+    under torch.autograd.grad and torch.func alike."""
 
     @staticmethod
     def forward(q, k, v, causal, scale):
@@ -597,8 +641,8 @@ class _FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
         di = _flash_di(o, do, dlse)
+        do = do.to(q.dtype).contiguous()
         dq = flash_attention_bwd_dq(q, k, v, do, lse, di, ctx.causal,
                                     ctx.scale)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, ctx.causal,
@@ -611,12 +655,14 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
     [B, S, H] fp32) with return_lse), differentiable.
 
     On the card it runs K1 forward and K2 backward (`_FlashAttention`);
-    a CPU (or meta) tensor runs `flash_attention_reference`, which
-    autograd differentiates.  The kernels pick their own 64-row tiles and
-    mask the ragged tail, so any S works (the JAX op falls back to plain
-    attention when no block divides S)."""
+    an fp32 CPU (or meta) tensor runs `flash_attention_reference`, which
+    autograd differentiates, and a bf16 one `_FlashAttention` over the
+    plain versions, whose backward rounds ds (and p) as K2 does.  The
+    kernels pick their own 64-row tiles and mask the ragged tail, so any S
+    works (the JAX op falls back to plain attention when no block divides
+    S)."""
     scale = _scale_of(q, scale)
-    if _plain_device(q):
+    if _plain_device(q) and q.dtype == torch.float32:
         return flash_attention_reference(q, k, v, causal, scale, return_lse)
     o, lse = _FlashAttention.apply(q, k, v, bool(causal), scale)
     return (o, lse.transpose(1, 2)) if return_lse else o
@@ -763,19 +809,33 @@ def bottleneck_reference(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
     """Plain PyTorch version of K6: x [N, H, W, C] NHWC, filters OIHW —
     w0 [F, C, 1, 1], w1 [F, F, 3, 3], w2 [C4, F, 1, 1], ws [C4, C, 1, 1]
     (None: identity shortcut) — biases [F], [F], [C4], [C4] -> [N, Ho, Wo,
-    C4] with Ho = (H - 1) // stride + 1, as three (four) convolutions."""
+    C4] in x's dtype with Ho = (H - 1) // stride + 1, as three (four)
+    convolutions.
+
+    The numerics of the JAX kernel and reference in any dtype: each
+    filter is cast to x's dtype (`w.astype(v.dtype)`), the convolutions
+    and bias adds are fp32, a and h are rounded to x's dtype after bias +
+    relu, y + shortcut is fp32 and the output is rounded to x's dtype.
+    For fp32 every cast is the identity."""
     import torch.nn.functional as F
     s = int(stride)
+    dt = x.dtype
+
+    def conv(v, w, **kw):
+        return F.conv2d(v.float(), w.to(dt).float(), **kw)
+
+    def bias(b):
+        return b.float().reshape(1, -1, 1, 1)
+
     xc = _nchw(x)
-    a = torch.relu(F.conv2d(xc, w0) + b0.reshape(1, -1, 1, 1))
-    h = torch.relu(F.conv2d(a, w1, stride=s, padding=1)
-                   + b1.reshape(1, -1, 1, 1))
-    y = F.conv2d(h, w2) + b2.reshape(1, -1, 1, 1)
+    a = torch.relu(conv(xc, w0) + bias(b0)).to(dt)
+    h = torch.relu(conv(a, w1, stride=s, padding=1) + bias(b1)).to(dt)
+    y = conv(h, w2) + bias(b2)
     if ws is not None:
-        short = F.conv2d(xc, ws, stride=s) + bs.reshape(1, -1, 1, 1)
+        short = conv(xc, ws, stride=s) + bias(bs)
     else:
-        short = xc
-    return torch.relu(y + short).permute(0, 2, 3, 1)
+        short = xc.float()
+    return torch.relu(y + short).to(dt).permute(0, 2, 3, 1)
 
 
 class _BottleneckArgs(ctypes.Structure):
@@ -786,24 +846,26 @@ class _BottleneckArgs(ctypes.Structure):
                                     "stride")]
 
 
-def _fused_bottleneck_fn():
-    fn = _fns.get("fused_bottleneck")
+def _fused_bottleneck_fn(symbol):
+    fn = _fns.get(symbol)
     if fn is None:
-        fn = _build.load("fused_bottleneck").paddle_fused_bottleneck_f32
+        fn = getattr(_build.load("fused_bottleneck"), symbol)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fns["fused_bottleneck"] = fn
+        _fns[symbol] = fn
     return fn
 
 
 def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
                      stride=1):
-    """K6 on the program's layouts: x [N, H, W, C] NHWC fp32, OIHW filters
-    and biases as `bottleneck_reference` takes them; stride 1 or 2,
-    any H and W.  A CPU (or meta) tensor runs the plain version.  A CUDA
-    tensor launches csrc/fused_bottleneck.cu on the current stream after
-    checking device, dtypes, shapes and contiguity; it raises on anything
-    the kernel does not take, and on a failed launch."""
+    """K6 on the program's layouts: x [N, H, W, C] NHWC, OIHW filters and
+    biases as `bottleneck_reference` takes them; stride 1 or 2, any H and
+    W.  A CPU (or meta) tensor runs the plain version.  A CUDA tensor
+    launches csrc/fused_bottleneck.cu on the current stream — its fp32
+    instantiation, or its bf16 one (counted as `fused_bottleneck_bf16`),
+    every operand of x's dtype — after checking device, dtypes, shapes
+    and contiguity; it raises on anything the kernel does not take, and
+    on a failed launch."""
     s = int(stride)
     if x.device.type in ("cpu", "meta"):
         return bottleneck_reference(x, w0, b0, w1, b1, w2, b2, ws, bs, s)
@@ -828,13 +890,16 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
              ("w2", w2, (C4, F, 1, 1)), ("b2", b2, (C4,))]
     if branch:
         named += [("ws", ws, (C4, C, 1, 1)), ("bs", bs, (C4,))]
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError("fused_bottleneck: x must be float32 or bfloat16, "
+                        "got %s" % x.dtype)
     for name, t, shape in named:
         if not isinstance(t, torch.Tensor) or t.device != x.device:
             raise ValueError("fused_bottleneck: %s must be a tensor on %s"
                              % (name, x.device))
-        if t.dtype != torch.float32:
-            raise TypeError("fused_bottleneck: %s must be float32, got %s"
-                            % (name, t.dtype))
+        if t.dtype != x.dtype:
+            raise TypeError("fused_bottleneck: %s must be %s as x is, got "
+                            "%s" % (name, x.dtype, t.dtype))
         if tuple(t.shape) != shape:
             raise ValueError("fused_bottleneck: %s has shape %s, expected "
                              "%s" % (name, tuple(t.shape), shape))
@@ -842,7 +907,7 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
             raise ValueError("fused_bottleneck: %s must be contiguous"
                              % name)
     Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
-    out = torch.empty((N, Ho, Wo, C4), dtype=torch.float32, device=x.device)
+    out = torch.empty((N, Ho, Wo, C4), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     args = _BottleneckArgs(
@@ -850,14 +915,16 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         ws.data_ptr() if branch else 0, bs.data_ptr() if branch else 0,
         out.data_ptr(), N, H, W, C, F, C4, s)
-    fn = _fused_bottleneck_fn()
+    fn = _fused_bottleneck_fn("paddle_fused_bottleneck_"
+                              + _KERNEL_DTYPES[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(ctypes.addressof(args), stream)
+    count = _count_name("fused_bottleneck", x.dtype)
     if err:
-        raise KernelError("fused_bottleneck: CUDA kernel launch failed "
-                           "(cudaError %d)" % err)
-    launch_counts["fused_bottleneck"] += 1
+        raise KernelError("%s: CUDA kernel launch failed (cudaError %d)"
+                          % (count, err))
+    launch_counts[count] += 1
     return out
 
 

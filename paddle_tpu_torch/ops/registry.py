@@ -14,13 +14,19 @@ graph lives only until its grad op has run.
 Shape inference: `infer_shape(op, block)` runs the lowering on
 `device="meta"` tensors (shapes and dtypes, no data), substituting a dummy
 extent for the batch placeholder -1 and restoring it on the outputs.
+
+bf16 AMP (`set_amp(True)`): `call_lower` casts the inputs of AMP_WHITE
+ops to bf16 and of AMP_BLACK ops to fp32 before the lowering runs, inside
+the call that `make_forward_and_vjp` differentiates, so fp32 master
+weights receive fp32 gradients.
 """
 
 import torch
 
 __all__ = ["OpDef", "ExecContext", "OpError", "register_op", "get_op_def",
            "has_op", "registered_ops", "infer_shape",
-           "make_forward_and_vjp", "call_lower"]
+           "make_forward_and_vjp", "call_lower", "set_amp", "amp_enabled",
+           "AMP_WHITE", "AMP_BLACK"]
 
 _REGISTRY = {}
 
@@ -262,6 +268,75 @@ def make_forward_and_vjp(op, od, ctx):
     return detached, vjp_to_slots
 
 
+# ---------------------------------------------------------------------------
+# automatic mixed precision (bf16 compute, fp32 master weights), after the
+# JAX registry: the lists are its lists, and the casts live inside the
+# differentiated lowering call
+# ---------------------------------------------------------------------------
+
+_AMP = {"enabled": False}
+
+# compute-bound ops: their float inputs go to bf16 (the card's tensor
+# cores, the TPU's MXU in the JAX package)
+AMP_WHITE = frozenset([
+    "conv2d", "depthwise_conv2d", "conv3d", "conv2d_transpose",
+    "conv3d_transpose", "mul", "matmul", "flash_attention",
+])
+
+# numerically sensitive ops: force fp32 inputs. batch_norm is not here:
+# its lowering normalizes in the input dtype with fp32 statistics, so
+# forcing fp32 inputs would only double every activation's bytes.
+AMP_BLACK = frozenset([
+    "softmax", "softmax_with_cross_entropy", "cross_entropy",
+    "sigmoid_cross_entropy_with_logits", "layer_norm",
+    "group_norm", "mean", "reduce_mean", "reduce_sum", "sum", "exp", "log",
+    "sequence_softmax", "log_softmax", "linear_chain_crf", "warpctc",
+    # optimizer updates accumulate in fp32 master weights
+    "sgd", "momentum", "lars_momentum", "adam", "adamax", "adagrad",
+    "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "proximal_gd",
+])
+
+
+def set_amp(enabled):
+    _AMP["enabled"] = bool(enabled)
+
+
+def amp_enabled():
+    return _AMP["enabled"]
+
+
+def _amp_cast(vals, to_dtype):
+    """fp32 and bf16 tensors of `vals` cast to `to_dtype`; anything else
+    (ints, None) as it is."""
+    out = []
+    for v in vals:
+        if isinstance(v, torch.Tensor) and \
+                v.dtype in (torch.float32, torch.bfloat16) and \
+                v.dtype != to_dtype:
+            v = v.to(to_dtype)
+        out.append(v)
+    return out
+
+
+def _amp_context(od, ctx):
+    """The context the lowering sees: under AMP, a white op's float
+    inputs in bf16 and a black op's in fp32 (`@LOD_LEN` length companions
+    are never cast); otherwise `ctx` itself."""
+    if not _AMP["enabled"]:
+        return ctx
+    if od.type in AMP_WHITE:
+        to = torch.bfloat16
+    elif od.type in AMP_BLACK:
+        to = torch.float32
+    else:
+        return ctx
+    inputs = {slot: vals if slot.endswith("@LOD_LEN")
+              else _amp_cast(vals, to)
+              for slot, vals in ctx._inputs.items()}
+    return ExecContext(ctx.op, inputs, step=ctx.step, seed=ctx.seed,
+                       device=ctx.device)
+
+
 class OpError(RuntimeError):
     """An op lowering failed; the message carries the op's identity and
     its inputs' shapes/dtypes."""
@@ -285,10 +360,11 @@ def _describe_inputs(op, inputs):
 
 
 def call_lower(od, ctx):
-    """All lowering calls go through here so a failure re-raises with the
-    op's type, input names/shapes/dtypes and attrs."""
+    """All lowering calls go through here so (a) the AMP casts sit inside
+    the differentiated call and (b) a failure re-raises with the op's
+    type, input names/shapes/dtypes and attrs."""
     try:
-        return od.lower(ctx)
+        return od.lower(_amp_context(od, ctx))
     except (OpError, NotImplementedError):
         raise
     except Exception as e:

@@ -1,6 +1,7 @@
 """K1/K2, flash attention forward and backward: paddle_tpu_torch's plain
 versions against paddle_tpu's Pallas kernel pair (interpret mode) on the
-CPU; the CUDA kernels against the plain versions on the card."""
+CPU, in fp32 and in bf16; the CUDA kernels against the plain versions on
+the card."""
 
 import numpy as np
 import pytest
@@ -115,6 +116,107 @@ def test_op_lowering_shape_inference_on_meta():
 
 
 # ---------------------------------------------------------------------------
+# bf16 (K1/K2 under AMP): the plain versions round where the TPU kernels
+# cast — p before p . v, ds before ds . k, p and ds before the dk/dv
+# products — against the JAX kernel pair run on bf16 inputs
+# ---------------------------------------------------------------------------
+
+# both sides sum in fp32 in other orders (and the JAX kernel rounds each
+# tile's p against its running max), so an element may land on a
+# neighbouring bf16 value: 2^-7 relative, with a floor of 2^-7 of the
+# array's largest magnitude; lse is fp32 on both sides
+_BF16_TOL = 2.0 ** -7
+_BF16_SHAPES = [(2, 64, 2, 16), (1, 128, 2, 32)]
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+
+
+def _assert_bf16_close(got, want, what):
+    got = got.detach().float().numpy()
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(
+        got, want, rtol=_BF16_TOL,
+        atol=_BF16_TOL * float(np.abs(want).max()), err_msg=what)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,S,H,D", _BF16_SHAPES)
+def test_bf16_forward_and_grads_match_jax_kernel(B, S, H, D, causal):
+    """o, lse and (via jax.vjp, cotangents on o and lse) dq, dk, dv."""
+    rng = np.random.RandomState(S + D + causal)
+    q, k, v, do = (rng.randn(B, S, H, D).astype(np.float32)
+                   for _ in range(4))
+    dlse = rng.randn(B, S, H).astype(np.float32)
+    (jo, jlse), jvjp = jax.vjp(
+        lambda a, b, c: _jax_flash(a, b, c, causal),
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    jgrads = jvjp((jnp.asarray(do, jnp.bfloat16), jnp.asarray(dlse)))
+    assert jo.dtype == jnp.bfloat16 and jlse.dtype == jnp.float32
+    tq, tk, tv = (_bf16(a).requires_grad_(True) for a in (q, k, v))
+    to, tlse = torch_kernels.flash_attention(tq, tk, tv, causal=causal,
+                                             return_lse=True)
+    assert to.dtype == torch.bfloat16 and tlse.dtype == torch.float32
+    _assert_bf16_close(to, jo, "o")
+    np.testing.assert_allclose(tlse.detach().numpy(), np.asarray(jlse),
+                               atol=FWD_ATOL)
+    tgrads = torch.autograd.grad((to, tlse), (tq, tk, tv),
+                                 (_bf16(do), torch.from_numpy(dlse)))
+    for name, jg, tg in zip("qkv", jgrads, tgrads):
+        assert tg.dtype == torch.bfloat16
+        _assert_bf16_close(tg, jg, "d" + name)
+
+
+def test_bf16_cpu_route_is_the_plain_k2_versions():
+    """On the CPU a bf16 `flash_attention` differentiates through the
+    plain K2 versions (which round ds and p), not by autograd of the
+    plain forward (which would treat those casts as the identity)."""
+    rng = np.random.RandomState(21)
+    q, k, v, do = (_bf16(rng.randn(2, 48, 2, 16).astype(np.float32))
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    torch_kernels.reset_launch_counts()
+    o = torch_kernels.flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(o, leaves, do)
+    ro, rlse = torch_kernels.flash_attention_fwd_reference(q, k, v, True)
+    assert torch.equal(o, ro)
+    want = torch_kernels.flash_attention_bwd_reference(q, k, v, ro, rlse,
+                                                       do, True)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    auto_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(torch_kernels.flash_attention_reference(
+        *auto_leaves, causal=True), auto_leaves, do)
+    assert not torch.equal(auto[0], got[0])
+    assert all(n == 0 for n in torch_kernels.launch_counts.values())
+
+
+def test_bf16_plain_versions_round_like_the_kernels():
+    """The bf16 plain versions equal the fp32 formulas with p and ds
+    rounded to bf16 where the TPU kernels cast them."""
+    rng = np.random.RandomState(22)
+    q, k, v, do = (_bf16(rng.randn(1, 32, 2, 16).astype(np.float32))
+                   for _ in range(4))
+    o, lse = torch_kernels.flash_attention_fwd_reference(q, k, v)
+    di = torch_kernels._flash_di(o, do)
+    s = torch_kernels._scores(q, k, 0.25, False)
+    p = torch.exp(s - lse[..., None])
+    rnd = lambda t: t.to(torch.bfloat16).float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - di[..., None]) * 0.25
+    dq = torch.einsum("bhqk,bkhd->bqhd", rnd(ds), k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", rnd(ds), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", rnd(p), do.float())
+    got_dq = torch_kernels.flash_attention_bwd_dq_reference(q, k, v, do, lse,
+                                                            di)
+    got_dk, got_dv = torch_kernels.flash_attention_bwd_dkv_reference(
+        q, k, v, do, lse, di)
+    for want, got in ((dq, got_dq), (dk, got_dk), (dv, got_dv)):
+        assert torch.equal(got, want.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
 # on the card: the CUDA kernels against the plain versions
 # ---------------------------------------------------------------------------
 
@@ -123,13 +225,14 @@ def _need_cuda():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
-def _card_inputs(B, S, H, D, seed, fused_qkv):
+def _card_inputs(B, S, H, D, seed, fused_qkv, dtype=torch.float32):
     g = torch.Generator(device="cuda").manual_seed(seed)
     if fused_qkv:   # q, k, v as column slices of one [B, S, 3 H D] tensor
-        qkv = torch.randn(B, S, 3 * H * D, device="cuda", generator=g)
+        qkv = torch.randn(B, S, 3 * H * D, device="cuda",
+                          generator=g).to(dtype)
         return [qkv[..., i * H * D:(i + 1) * H * D].reshape(B, S, H, D)
                 for i in range(3)]
-    return [torch.randn(B, S, H, D, device="cuda", generator=g)
+    return [torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
             for _ in range(3)]
 
 
@@ -207,3 +310,56 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         torch_kernels.flash_attention_fwd(q.transpose(1, 3).contiguous()
                                           .transpose(1, 3), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,causal,fused", [
+    (8, 512, 8, 64, True, True),      # the training slice's shape
+    (2, 256, 4, 64, False, False),
+    (1, 200, 2, 128, True, False),    # ragged: no 64-row tile divides S
+    (2, 70, 3, 128, False, True),
+])
+def test_cuda_bf16_kernels_match_plain_versions(B, S, H, D, causal, fused):
+    """K1/K2-bf16 against the bf16 plain versions (strided q/k/v read in
+    place); the CPU comparison's bf16 tolerance (the forward rounds each
+    tile's p against its running max, the plain version against the row's
+    final max)."""
+    _need_cuda()
+    q, k, v = _card_inputs(B, S, H, D, seed=S + D, fused_qkv=fused,
+                           dtype=torch.bfloat16)
+    torch_kernels.reset_launch_counts()
+    o, lse = torch_kernels.flash_attention_fwd(q, k, v, causal)
+    ro, rlse = torch_kernels.flash_attention_fwd_reference(q, k, v, causal)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    do = torch.randn_like(o)
+    di = torch_kernels._flash_di(ro, do)
+    dq = torch_kernels.flash_attention_bwd_dq(q, k, v, do, rlse, di, causal)
+    dk, dv = torch_kernels.flash_attention_bwd_dkv(q, k, v, do, rlse, di,
+                                                   causal)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert torch_kernels.launch_counts[name + "_bf16"] == 1
+        assert torch_kernels.launch_counts[name] == 0
+    rdq = torch_kernels.flash_attention_bwd_dq_reference(q, k, v, do, rlse,
+                                                         di, causal)
+    rdk, rdv = torch_kernels.flash_attention_bwd_dkv_reference(
+        q, k, v, do, rlse, di, causal)
+    for name, got, want in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+        assert got.dtype == torch.bfloat16
+        _assert_bf16_close(got.cpu(), want.float().cpu().numpy(), name)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_wrapper_checks_16_byte_strides():
+    """bf16 rows are read 8 elements at a time: a stride of 4 elements
+    (fine for fp32) raises, and so does a bf16 k beside an fp32 q."""
+    _need_cuda()
+    wide = torch.randn(1, 64, 2 * 64 + 4, device="cuda").to(torch.bfloat16)
+    q = wide[..., :128].reshape(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        torch_kernels.flash_attention_fwd(q, q, q)
+    qf = torch.randn(1, 64, 2, 64, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        torch_kernels.flash_attention_fwd(q.contiguous(), qf, qf)

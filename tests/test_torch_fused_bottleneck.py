@@ -6,7 +6,9 @@ kernel run in interpret mode at the JAX package's own five test shapes
 reference); the port's inference rewrites (BN fold + FuseBottleneckPass)
 produce the JAX package's program op for op at gates 0, 4 and 8, with the
 same folded weights and the same outputs; the CUDA kernel is held
-against the plain version on the card (marked `cuda`)."""
+against the plain version on the card (marked `cuda`).  K6's bf16
+variant: the plain version against the JAX kernel run in bf16 at the same
+five shapes, and the fp32 plain version unchanged bit for bit."""
 
 import numpy as np
 import pytest
@@ -73,13 +75,96 @@ def test_reference_matches_jax_kernel(N, H, W, C, F, stride, branch):
     np.testing.assert_array_equal(entry, got)
 
 
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+
+
+# K6-bf16 against JAX: both sum in fp32, in other orders, so an
+# intermediate a or h element may round to the neighbouring bf16 value (up
+# to 2^-8 of max |out| downstream) and an output element sit one bf16 ulp
+# (2^-7 relative) apart
+def _assert_bf16_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7,
+                               atol=2.0 ** -8 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("N,H,W,C,F,stride,branch", SHAPES)
+def test_bf16_reference_matches_jax_kernel(N, H, W, C, F, stride, branch):
+    """K6-bf16: the JAX kernel (interpret mode, as the JAX package's
+    test_kernel_bf16 runs it) on bf16 x, filters and biases against the
+    port's plain version on the same bf16 values."""
+    import jax.numpy as jnp
+    rng = np.random.RandomState(0)
+    C4 = F * 4 if branch else C
+    p = _params(rng, C, F, C4, branch)
+    x = rng.randn(N, H, W, C).astype(np.float32)
+    cast = lambda a: None if a is None else jnp.asarray(a, jnp.bfloat16)
+    out = jkernels.fused_bottleneck(
+        cast(x), *(cast(p[k]) for k in _ORDER), stride=stride,
+        interpret=True)
+    assert out.dtype == jnp.bfloat16
+    want = np.asarray(out, np.float32)
+    args = [None if t is None else t.to(torch.bfloat16)
+            for t in _as_torch(p)]
+    got = tkernels.bottleneck_reference(_bf16(x), *args, stride)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _assert_bf16_close(got.float().numpy(), want)
+    # the wrapper on a CPU tensor is the plain version
+    entry = tkernels.fused_bottleneck(_bf16(x), *args, stride=stride)
+    assert torch.equal(entry, got)
+
+
+def test_bf16_mixed_call_casts_filters_like_jax():
+    """bf16 x with fp32 filters and biases: the JAX reference casts each
+    filter to x's dtype (`w.astype(v.dtype)`) and adds the fp32 biases in
+    fp32, and so does the port's."""
+    import jax.numpy as jnp
+    rng = np.random.RandomState(5)
+    p = _params(rng, 32, 16, 64, True)
+    x = rng.randn(2, 8, 8, 32).astype(np.float32)
+    want = np.asarray(jkernels.bottleneck_reference(
+        jnp.asarray(x, jnp.bfloat16), *(p[k] for k in _ORDER), 2),
+        np.float32)
+    got = tkernels.bottleneck_reference(_bf16(x), *_as_torch(p), 2)
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_close(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("branch", [False, True])
+def test_fp32_reference_is_unchanged_bit_for_bit(branch):
+    """The rounding points are the identity in fp32: the plain version
+    equals the three (four) convolutions written out."""
+    import torch.nn.functional as F
+    rng = np.random.RandomState(6)
+    C, C4 = (32, 32) if not branch else (16, 32)
+    p = _params(rng, C, 8, C4, branch)
+    x = torch.from_numpy(rng.randn(2, 6, 6, C).astype(np.float32))
+    w0, b0, w1, b1, w2, b2, ws, bs = _as_torch(p)
+    s = 2 if branch else 1
+    xc = x.permute(0, 3, 1, 2)
+    a = torch.relu(F.conv2d(xc, w0) + b0.reshape(1, -1, 1, 1))
+    h = torch.relu(F.conv2d(a, w1, stride=s, padding=1)
+                   + b1.reshape(1, -1, 1, 1))
+    y = F.conv2d(h, w2) + b2.reshape(1, -1, 1, 1)
+    short = (F.conv2d(xc, ws, stride=s) + bs.reshape(1, -1, 1, 1)
+             if branch else xc)
+    want = torch.relu(y + short).permute(0, 2, 3, 1)
+    got = tkernels.bottleneck_reference(x, w0, b0, w1, b1, w2, b2, ws, bs,
+                                        s)
+    assert torch.equal(got, want)
+
+
 def test_wrapper_counts_no_launch_on_cpu():
     rng = np.random.RandomState(1)
     p = _params(rng, 16, 8, 32, True)
     x = torch.from_numpy(rng.randn(1, 6, 6, 16).astype(np.float32))
     tkernels.reset_launch_counts()
     tkernels.fused_bottleneck(x, *_as_torch(p), stride=2)
+    tkernels.fused_bottleneck(x.to(torch.bfloat16),
+                              *[t.to(torch.bfloat16) for t in _as_torch(p)],
+                              stride=2)
     assert tkernels.launch_counts["fused_bottleneck"] == 0
+    assert tkernels.launch_counts["fused_bottleneck_bf16"] == 0
 
 
 def _tail(pkg, models, layout):
@@ -223,3 +308,33 @@ def test_cuda_kernel_matches_plain_version(N, H, W, C, F, stride, branch):
     assert tkernels.launch_counts["fused_bottleneck"] == 1
     ref = tkernels.bottleneck_reference(x, *args, stride)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,F,stride,branch",
+                         SHAPES + [(4, 56, 56, 64, 64, 1, True),
+                                   (2, 28, 28, 512, 128, 1, False),
+                                   (2, 56, 56, 256, 128, 2, True)])
+def test_cuda_bf16_kernel_matches_plain_version(N, H, W, C, F, stride,
+                                                branch):
+    """K6-bf16 against the bf16 plain version on the same bf16 inputs, at
+    the tolerance of the comparison with the JAX kernel (fp32 sums in
+    other orders); an fp32 filter beside a bf16 x raises."""
+    _need_cuda()
+    rng = np.random.RandomState(2)
+    C4 = F * 4 if branch else C
+    p = _params(rng, C, F, C4, branch)
+    x = _bf16(rng.randn(N, H, W, C).astype(np.float32)).cuda()
+    args = [None if t is None else t.to(torch.bfloat16).cuda()
+            for t in _as_torch(p)]
+    tkernels.reset_launch_counts()
+    out = tkernels.fused_bottleneck(x, *args, stride=stride)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts["fused_bottleneck_bf16"] == 1
+    assert tkernels.launch_counts["fused_bottleneck"] == 0
+    ref = tkernels.bottleneck_reference(x, *args, stride)
+    assert out.dtype == torch.bfloat16
+    _assert_bf16_close(out.float().cpu().numpy(), ref.float().cpu().numpy())
+    with pytest.raises(TypeError, match="bfloat16"):
+        tkernels.fused_bottleneck(x, args[0].float(), *args[1:],
+                                  stride=stride)

@@ -133,6 +133,13 @@ def test_tf32_is_off_for_fp32_parity():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
+def test_bf16_reduced_precision_reduction_is_off_for_bf16_parity():
+    """XLA sums a bf16 matmul in fp32 and rounds once; cuBLAS may reduce a
+    bf16 GEMM's partials in bf16 unless this is off."""
+    assert torch.backends.cuda.matmul.\
+        allow_bf16_reduced_precision_reduction is False
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path, alone):
     script = CHIP_SMOKE
@@ -189,6 +196,34 @@ def test_bound_decode_symbols_are_defined_in_the_source():
         assert src.count(head) == 1, symbol
         params = src.split(head, 1)[1].split(")", 1)[0]
         assert params.count(",") + 1 == len(argtypes), symbol
+
+
+@pytest.mark.parametrize("stem,symbols", [
+    ("flash_attention_fwd", ["paddle_flash_fwd_f32",
+                             "paddle_flash_fwd_bf16"]),
+    ("flash_attention_bwd", ["paddle_flash_bwd_dq_f32",
+                             "paddle_flash_bwd_dkv_f32",
+                             "paddle_flash_bwd_dq_bf16",
+                             "paddle_flash_bwd_dkv_bf16"]),
+    ("fused_bottleneck", ["paddle_fused_bottleneck_f32",
+                          "paddle_fused_bottleneck_bf16"]),
+])
+def test_bound_fp32_and_bf16_symbols_are_defined_in_the_source(stem,
+                                                               symbols):
+    """K1, K2 and K6 bind an fp32 and a bf16 C entry each, named by the
+    wrappers from the tensor's dtype; each is defined once in its source,
+    with the (args pointer, stream) pair the ctypes argtypes declare."""
+    from paddle_tpu_torch.ops import pallas_kernels as pk
+    with open(os.path.join(_build.CSRC_DIR, stem + ".cu")) as f:
+        src = f.read()
+    assert set(pk._KERNEL_DTYPES.values()) == {"f32", "bf16"}
+    for symbol in symbols:
+        head = "%s(" % symbol
+        defs = [line for line in src.splitlines()
+                if line.startswith('extern "C"') and head in line]
+        assert len(defs) == 1, symbol
+        params = src.split(head, 1)[1].split(")", 1)[0]
+        assert params.count(",") + 1 == 2, symbol
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

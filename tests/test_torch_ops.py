@@ -59,6 +59,9 @@ _CASES = [
      {"X": [_f(2, 3, 4)], "Y": [_f(1, 3, 4)]}, {"axis": -1}),
     ("mul", "mul", {"X": [_f(2, 3, 4)], "Y": [_f(4, 5)]},
      {"x_num_col_dims": 2, "y_num_col_dims": 1}),
+    ("matmul", "matmul", {"X": [_f(2, 3, 4)], "Y": [_f(2, 4, 5)]}, {}),
+    ("matmul_transposed", "matmul", {"X": [_f(4, 3)], "Y": [_f(5, 4)]},
+     {"transpose_X": True, "transpose_Y": True, "alpha": 0.5}),
     ("sum", "sum", {"X": [_f(3, 4), _f(3, 4), _f(3, 4)]}, {}),
     ("scale", "scale", {"X": [_f(3, 4)]},
      {"scale": 0.5, "bias": 0.1, "bias_after_scale": True}),
