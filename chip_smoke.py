@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero:
   1. build   — nvcc builds every CUDA kernel from paddle_tpu_torch/ops/
                csrc into paddle_tpu_torch/build/ (one nvcc per source, all
                at once); prints the build time and the card's name and
-               power limit (nvidia-smi).
+               power limit (nvidia-smi); then cuobjdump -sass of the
+               flash libraries: the three bf16 flash kernels must hold
+               tensor-core instructions (HMMA or HGMMA) and their fp32
+               twins none.
   2. kernels — each kernel against its plain PyTorch version on the card
                at its path's shapes (K3 at the decode shapes and as the
                verify step's 5 pseudo-slots per slot; K4 at the decode
@@ -439,6 +442,34 @@ def _close(got, want, rtol, atol):
 # bf16 ulp (2^-7 relative) apart, with a floor of 2^-7 of the array's
 # largest magnitude for the sums of rounded terms; lse stays fp32
 BF16_RTOL = 2.0 ** -7
+
+
+# mma.sync compiles to HMMA, wgmma to HGMMA
+TC_OPCODES = ("HMMA", "HGMMA")
+
+
+def phase_flash_sass(build):
+    """The bf16 K1/K2 kernels run on the tensor cores and the fp32 ones on
+    the SIMT units: counted in the machine code of the built libraries,
+    for both head-dim instances of each kernel."""
+    for stem, kinds in (("flash_attention_fwd", ("flash_fwd",)),
+                        ("flash_attention_bwd", ("flash_bwd_dq",
+                                                 "flash_bwd_dkv"))):
+        counts = build.sass_opcode_counts(stem, TC_OPCODES)
+        for kind in kinds:
+            for tag, dtype in ((kind + "_tc_kernel", "bf16"),
+                               (kind + "_kernel", "fp32")):
+                fns = {n: c for n, c in counts.items() if tag in n}
+                check(len(fns) == 2, "sass %s: expected the D = 64 and "
+                      "D = 128 instances of %s, found %s"
+                      % (stem, tag, sorted(fns)))
+                for fn, c in sorted(fns.items()):
+                    log("sass %s %s [%s]: %s" % (stem, fn, dtype, ", ".join(
+                        "%s %d" % kv for kv in sorted(c.items()))))
+                    n_tc = sum(c.values())
+                    check(n_tc > 0 if dtype == "bf16" else n_tc == 0,
+                          "sass %s: %s [%s] holds %d tensor-core "
+                          "instructions" % (stem, fn, dtype, n_tc))
 
 
 def phase_flash_kernels(torch, pk, dtype=None):
@@ -1996,6 +2027,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     log(smi)
+    phase_flash_sass(_build)
     # 2. kernels against their plain versions
     entry = phase_kernels(torch, pk)
     k4_entry, k4hs_entry = phase_int8_kernels(torch, pk)

@@ -13,12 +13,13 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "KernelError",
-           "build_all", "load", "build_logs"]
+           "build_all", "load", "build_logs", "sass_opcode_counts"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -128,3 +129,25 @@ def load(stem):
                 raise KernelError("cannot load %s: %s" % (libs[stem], e))
             _libs[stem] = lib
     return lib
+
+
+def sass_opcode_counts(stem, opcodes):
+    """{kernel (mangled name): {opcode: count}} in the machine code of the
+    library built from `csrc/<stem>.cu`, read with the toolkit's
+    `cuobjdump -sass`: shows what a kernel was compiled to, e.g. whether
+    it runs on the tensor cores (HMMA for mma.sync, HGMMA for wgmma)."""
+    lib = build_all()[stem]
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    pattern = re.compile(r"\b(%s)\b" % "|".join(map(re.escape, opcodes)))
+    counts, fn = {}, None
+    for line in out.splitlines():
+        head = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if head:
+            fn = counts.setdefault(head.group(1),
+                                   dict.fromkeys(opcodes, 0))
+        elif fn is not None:
+            for op in pattern.findall(line):
+                fn[op] += 1
+    return counts

@@ -1,5 +1,7 @@
 // Flash-attention backward (K2), fp32 and bf16, for Hopper (sm_90a): the
-// dq kernel and the dk/dv kernel.
+// dq kernel and the dk/dv kernel.  This file holds the fp32 kernels, on
+// the SIMT units; the bf16 entries launch the tensor-core kernels of
+// flash_attention_tc.cuh.
 //
 // Replaces the TPU kernel `_flash_bwd_pallas` of
 // paddle_tpu/ops/pallas_kernels.py: its dq pass (q-stationary, K/V
@@ -29,13 +31,12 @@
 // one thread of one block: no atomics, fixed reduction orders, and a
 // result that depends only on its inputs.
 //
-// bf16 (the TPU kernels' bf16 instance under AMP): q, k, v and dO are
-// bf16, dq, dk and dv are written in bf16, lse and di stay fp32.  As the
-// TPU kernels cast them, ds is rounded to bf16 before ds . k (dq kernel),
-// and p and ds before p^T . dO and ds^T . q (dk/dv kernel); dp and the ds
-// formula use the unrounded fp32 p.
+// bf16 (the TPU kernels' bf16 instance under AMP): flash_attention_tc.cuh's
+// `flash_bwd_dq_tc_kernel` and `flash_bwd_dkv_tc_kernel`, on the bf16
+// tensor cores.
 
 #include "flash_attention_common.cuh"
+#include "flash_attention_tc.cuh"
 
 namespace paddle_flash {
 namespace {
@@ -52,7 +53,7 @@ constexpr int dkv_smem_bytes() {
 }
 
 // dq: block (b*h, q tile); rows ty*4 + i of the q tile, keys tx + 16 j
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
   constexpr int R = D + kPad;
@@ -72,8 +73,8 @@ flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<D, T>(Qs, a.q, b, h, q0, a.S);
-  load_tile<D, T>(dOs, a.dout, b, h, q0, a.S);
+  load_tile<D>(Qs, a.q, b, h, q0, a.S);
+  load_tile<D>(dOs, a.dout, b, h, q0, a.S);
   float lse[4], di[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -89,8 +90,8 @@ flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<D, T>(Ks, a.k, b, h, k0, a.S);
-    load_tile<D, T>(Vs, a.v, b, h, k0, a.S);
+    load_tile<D>(Ks, a.k, b, h, k0, a.S);
+    load_tile<D>(Vs, a.v, b, h, k0, a.S);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -127,7 +128,7 @@ flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
         if (kj >= a.S || (a.causal && kj > qi)) v = kNegInf;
         const float p = expf(v - lse[i]);
         dSs[(ty * 4 + i) * kPRow + tx + 16 * j] =
-            round_to(p * (dp[i][j] - di[i]) * a.scale, T());
+            p * (dp[i][j] - di[i]) * a.scale;
       }
     }
     __syncthreads();
@@ -157,11 +158,11 @@ flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
     }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D, T>(a.dq, b, h, q0, a.S, ty, tx, acc, one);
+  store_rows<D>(a.dq, b, h, q0, a.S, ty, tx, acc, one);
 }
 
 // dk, dv: block (b*h, kv tile); kv rows ty*4 + i, queries tx + 16 j
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
   constexpr int R = D + kPad;
@@ -184,8 +185,8 @@ flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<D, T>(Ks, a.k, b, h, k0, a.S);
-  load_tile<D, T>(Vs, a.v, b, h, k0, a.S);
+  load_tile<D>(Ks, a.k, b, h, k0, a.S);
+  load_tile<D>(Vs, a.v, b, h, k0, a.S);
   float dk[4][NC], dv[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -196,8 +197,8 @@ flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
   for (int qt = a.causal ? kt : 0; qt < nq; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_tile<D, T>(Qs, a.q, b, h, q0, a.S);
-    load_tile<D, T>(dOs, a.dout, b, h, q0, a.S);
+    load_tile<D>(Qs, a.q, b, h, q0, a.S);
+    load_tile<D>(dOs, a.dout, b, h, q0, a.S);
     load_rowstat(lse_s, a.lse, bh, q0, a.S);
     load_rowstat(di_s, a.di, bh, q0, a.S);
     __syncthreads();
@@ -237,9 +238,8 @@ flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
         if (a.causal && kc > qi) v = kNegInf;
         // queries past S do not exist: they contribute nothing
         const float p = qi < a.S ? expf(v - lse_s[r]) : 0.f;
-        Ps[(ty * 4 + i) * kPRow + r] = round_to(p, T());
-        dSs[(ty * 4 + i) * kPRow + r] =
-            round_to(p * (dp[i][j] - di_s[r]) * a.scale, T());
+        Ps[(ty * 4 + i) * kPRow + r] = p;
+        dSs[(ty * 4 + i) * kPRow + r] = p * (dp[i][j] - di_s[r]) * a.scale;
       }
     }
     __syncthreads();
@@ -278,50 +278,54 @@ flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
     }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D, T>(a.dk, b, h, k0, a.S, ty, tx, dk, one);
-  store_rows<D, T>(a.dv, b, h, k0, a.S, ty, tx, dv, one);
+  store_rows<D>(a.dk, b, h, k0, a.S, ty, tx, dk, one);
+  store_rows<D>(a.dv, b, h, k0, a.S, ty, tx, dv, one);
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, const PaddleFlashBwdArgs& a,
-                   cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
-bool bad_shape(const PaddleFlashBwdArgs* a) {
-  return a->B <= 0 || a->S <= 0 || a->H <= 0 ||
-         (long long)a->B * a->H > 0x7fffffffLL ||
-         (a->S + kTile - 1) / kTile > 65535;
-}
-
-template <typename T>
-cudaError_t launch_dq(const PaddleFlashBwdArgs* a, cudaStream_t st) {
-  if (bad_shape(a)) return cudaErrorInvalidValue;
+cudaError_t launch_dq_f32(const PaddleFlashBwdArgs* a, cudaStream_t st) {
   switch (a->D) {
     case 64:
-      return launch(flash_bwd_dq_kernel<64, T>, dq_smem_bytes<64>(), *a, st);
+      return launch_tiles(flash_bwd_dq_kernel<64>, kThreads,
+                          dq_smem_bytes<64>(), *a, st);
     case 128:
-      return launch(flash_bwd_dq_kernel<128, T>, dq_smem_bytes<128>(), *a,
-                    st);
+      return launch_tiles(flash_bwd_dq_kernel<128>, kThreads,
+                          dq_smem_bytes<128>(), *a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t launch_dkv(const PaddleFlashBwdArgs* a, cudaStream_t st) {
-  if (bad_shape(a)) return cudaErrorInvalidValue;
+cudaError_t launch_dkv_f32(const PaddleFlashBwdArgs* a, cudaStream_t st) {
   switch (a->D) {
     case 64:
-      return launch(flash_bwd_dkv_kernel<64, T>, dkv_smem_bytes<64>(), *a,
-                    st);
+      return launch_tiles(flash_bwd_dkv_kernel<64>, kThreads,
+                          dkv_smem_bytes<64>(), *a, st);
     case 128:
-      return launch(flash_bwd_dkv_kernel<128, T>, dkv_smem_bytes<128>(), *a,
-                    st);
+      return launch_tiles(flash_bwd_dkv_kernel<128>, kThreads,
+                          dkv_smem_bytes<128>(), *a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_dq_bf16(const PaddleFlashBwdArgs* a, cudaStream_t st) {
+  switch (a->D) {
+    case 64:
+      return launch_tiles(tc::flash_bwd_dq_tc_kernel<64>, tc::kThreads,
+                          tc::dq_smem_bytes<64>(), *a, st);
+    case 128:
+      return launch_tiles(tc::flash_bwd_dq_tc_kernel<128>, tc::kThreads,
+                          tc::dq_smem_bytes<128>(), *a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_dkv_bf16(const PaddleFlashBwdArgs* a, cudaStream_t st) {
+  switch (a->D) {
+    case 64:
+      return launch_tiles(tc::flash_bwd_dkv_tc_kernel<64>, tc::kThreads,
+                          tc::dkv_smem_bytes<64>(), *a, st);
+    case 128:
+      return launch_tiles(tc::flash_bwd_dkv_tc_kernel<128>, tc::kThreads,
+                          tc::dkv_smem_bytes<128>(), *a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -335,20 +339,20 @@ cudaError_t launch_dkv(const PaddleFlashBwdArgs* a, cudaStream_t st) {
 // and returns the launch's cudaError_t (cudaSuccess = 0).
 extern "C" cudaError_t paddle_flash_bwd_dq_f32(const PaddleFlashBwdArgs* a,
                                                cudaStream_t st) {
-  return paddle_flash::launch_dq<float>(a, st);
+  return paddle_flash::launch_dq_f32(a, st);
 }
 
 extern "C" cudaError_t paddle_flash_bwd_dkv_f32(const PaddleFlashBwdArgs* a,
                                                 cudaStream_t st) {
-  return paddle_flash::launch_dkv<float>(a, st);
+  return paddle_flash::launch_dkv_f32(a, st);
 }
 
 extern "C" cudaError_t paddle_flash_bwd_dq_bf16(const PaddleFlashBwdArgs* a,
                                                 cudaStream_t st) {
-  return paddle_flash::launch_dq<__nv_bfloat16>(a, st);
+  return paddle_flash::launch_dq_bf16(a, st);
 }
 
 extern "C" cudaError_t paddle_flash_bwd_dkv_bf16(const PaddleFlashBwdArgs* a,
                                                  cudaStream_t st) {
-  return paddle_flash::launch_dkv<__nv_bfloat16>(a, st);
+  return paddle_flash::launch_dkv_bf16(a, st);
 }

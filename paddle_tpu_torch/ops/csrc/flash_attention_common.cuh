@@ -1,20 +1,19 @@
 // Shared by the flash-attention forward (flash_attention_fwd.cu) and
 // backward (flash_attention_bwd.cu) kernels: the argument structs the
-// Python wrappers fill through ctypes, the tile geometry, and the tile
-// loader.
+// Python wrappers fill through ctypes, the tile geometry, the fp32 tile
+// loader and row store, and the launcher every C entry goes through.
 //
 // Layout.  q, k, v, o and their gradients are [B, S, H, D] views with the
 // D axis contiguous and any strides (in elements) over B, S and H, so the
 // kernels read the q/k/v column slices of a fused qkv projection in place.
 // The row statistics lse and di are [B * H, S] contiguous, fp32.
 //
-// Element types.  Each kernel has an fp32 and a bf16 instantiation: the
-// [B, S, H, D] operands are all of the entry's type T; every tile is
-// converted to fp32 as it is staged in shared memory, products and sums
-// are fp32, and outputs are rounded to T as they are stored.
+// Element types.  The fp32 entries run the SIMT kernels of the two .cu
+// files on fp32 operands, with the tile loader and the row store below;
+// the bf16 entries run the tensor-core kernels of flash_attention_tc.cuh
+// on bf16 operands.  lse and di are fp32 in both.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -84,52 +83,27 @@ __device__ __forceinline__ float comp(float4 v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// p rounded to T and back: the identity for fp32; for bf16 the TPU
-// kernels' `.astype(bf16)` of p and ds before their products
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// one 16-byte load: 4 fp32 or 8 bf16 elements, as fp32
+// one 16-byte load: 4 fp32 elements
 __device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
   const float4 f = ld4(p);
   v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p,
-                                       float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
 
-// 4 consecutive elements from fp32 values, rounded to T
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  uint2 u;
-  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(a, b);
-  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(c, d);
-  *reinterpret_cast<uint2*>(p) = u;
-}
 
-// Stage rows row0 .. row0 + 63 of head (b, h) of `t` into `dst` (rows of
-// D + kPad floats), 16-byte loads along D; rows at or past S are zero.
-template <int D, typename T>
+// Stage rows row0 .. row0 + 63 of head (b, h) of fp32 `t` into `dst`
+// (rows of D + kPad floats), 16-byte loads along D; rows at or past S are
+// zero.
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const PaddleT4& t,
                                           int b, int h, int row0, int S) {
-  constexpr int VEC = 16 / (int)sizeof(T);  // elements per load
+  constexpr int VEC = 4;  // elements per load
   constexpr int NV = D / VEC;
-  const T* base = static_cast<const T*>(t.ptr) + (long long)b * t.sb +
-                  (long long)h * t.sh;
+  const float* base = static_cast<const float*>(t.ptr) + (long long)b * t.sb +
+                      (long long)h * t.sh;
   for (int idx = threadIdx.x; idx < kTile * NV; idx += kThreads) {
     const int r = idx / NV;
     const int c = idx - r * NV;
@@ -160,19 +134,19 @@ __device__ __forceinline__ void load_rowstat(float* dst, const float* src,
 
 // Store a thread's 4 x (D / 16) accumulator block (rows ty*4 + i, columns
 // g*64 + tx*4 .. +3), each row divided by div[i], as tile rows row0.. of
-// head (b, h) of `t` (rounded to T), skipping rows at or past S.
-template <int D, typename T>
+// head (b, h) of fp32 `t`, skipping rows at or past S.
+template <int D>
 __device__ __forceinline__ void store_rows(const PaddleT4& t, int b, int h,
                                            int row0, int S, int ty, int tx,
                                            const float (&acc)[4][D / 16],
                                            const float (&div)[4]) {
-  T* base = static_cast<T*>(t.ptr) + (long long)b * t.sb +
-            (long long)h * t.sh;
+  float* base = static_cast<float*>(t.ptr) + (long long)b * t.sb +
+                (long long)h * t.sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = row0 + ty * 4 + i;
     if (s >= S) continue;
-    T* row = base + (long long)s * t.ss;
+    float* row = base + (long long)s * t.ss;
 #pragma unroll
     for (int g = 0; g < D / 64; ++g) {
       store4(row + g * 64 + tx * 4, acc[i][g * 4 + 0] / div[i],
@@ -180,6 +154,25 @@ __device__ __forceinline__ void store_rows(const PaddleT4& t, int b, int h,
              acc[i][g * 4 + 3] / div[i]);
     }
   }
+}
+
+// Launch `kernel` on the (b*h, 64-row tile) grid with `threads` threads
+// and `smem` bytes of dynamic shared memory, after refusing the shapes no
+// flash kernel takes (empty, or a grid past CUDA's limits); returns the
+// launch's error.
+template <typename Args>
+cudaError_t launch_tiles(void (*kernel)(const Args), int threads, int smem,
+                         const Args& a, cudaStream_t st) {
+  if (a.B <= 0 || a.S <= 0 || a.H <= 0 ||
+      (long long)a.B * a.H > 0x7fffffffLL ||
+      (a.S + kTile - 1) / kTile > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
+  kernel<<<grid, threads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace paddle_flash

@@ -1,4 +1,6 @@
-// Flash-attention forward (K1), fp32 and bf16, for Hopper (sm_90a).
+// Flash-attention forward (K1), fp32 and bf16, for Hopper (sm_90a).  This
+// file holds the fp32 kernel, on the SIMT units; the bf16 entry launches
+// the tensor-core kernel of flash_attention_tc.cuh.
 //
 // Replaces the TPU kernel `_flash_fwd_pallas` of
 // paddle_tpu/ops/pallas_kernels.py (an instance of its tiled-contraction
@@ -29,16 +31,15 @@
 //   * causal blocks are scheduled longest first (the last q tiles, which
 //     see the most kv tiles, have the lowest block index).
 // No atomics, and each thread reduces in a fixed order, so a result
-// depends only on its inputs.  fp32 on the SIMT units throughout; wgmma,
-// TMA and 16-bit tiles are later work.
+// depends only on its inputs.  fp32 on the SIMT units throughout; TF32
+// tensor cores are later work.
 //
 // bf16 (paddle_flash_fwd_bf16, the TPU kernel's bf16 instance under
-// AMP): q, k, v are bf16 and o is written in bf16; lse stays fp32.  Each
-// tile's p is rounded to bf16 before the P . V product, as the TPU kernel
-// casts `p.astype(vb.dtype)`, while the normaliser l sums the unrounded
-// p.  Its bound is the bf16 tensor-core rate, far above these SIMT FMAs.
+// AMP): flash_attention_tc.cuh's `flash_fwd_tc_kernel`, on the bf16
+// tensor cores.
 
 #include "flash_attention_common.cuh"
+#include "flash_attention_tc.cuh"
 
 namespace paddle_flash {
 namespace {
@@ -48,7 +49,7 @@ constexpr int fwd_smem_bytes() {
   return (3 * kTile * (D + kPad) + kTile * kPRow) * (int)sizeof(float);
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   constexpr int R = D + kPad;
@@ -67,7 +68,7 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<D, T>(Qs, a.q, b, h, q0, a.S);
+  load_tile<D>(Qs, a.q, b, h, q0, a.S);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -83,8 +84,8 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's K, V and P reads are done
-    load_tile<D, T>(Ks, a.k, b, h, k0, a.S);
-    load_tile<D, T>(Vs, a.v, b, h, k0, a.S);
+    load_tile<D>(Ks, a.k, b, h, k0, a.S);
+    load_tile<D>(Vs, a.v, b, h, k0, a.S);
     __syncthreads();
 
     // s = q . k for rows ty*4 + i, keys tx + 16 j
@@ -134,7 +135,7 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
       m[i] = m_new;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        Ps[(ty * 4 + i) * kPRow + tx + 16 * j] = round_to(s[i][j], T());
+        Ps[(ty * 4 + i) * kPRow + tx + 16 * j] = s[i][j];
     }
     __syncthreads();
 
@@ -165,7 +166,7 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   float lf[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) lf[i] = fmaxf(l[i], kTiny);
-  store_rows<D, T>(a.o, b, h, q0, a.S, ty, tx, acc, lf);
+  store_rows<D>(a.o, b, h, q0, a.S, ty, tx, acc, lf);
   if (tx == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -175,27 +176,26 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
   }
 }
 
-template <int D, typename T>
-cudaError_t launch(const PaddleFlashFwdArgs& a, cudaStream_t st) {
-  const int smem = fwd_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
-  flash_fwd_kernel<D, T><<<grid, kThreads, smem, st>>>(a);
-  return cudaGetLastError();
+cudaError_t launch_f32(const PaddleFlashFwdArgs* a, cudaStream_t st) {
+  switch (a->D) {
+    case 64:
+      return launch_tiles(flash_fwd_kernel<64>, kThreads,
+                          fwd_smem_bytes<64>(), *a, st);
+    case 128:
+      return launch_tiles(flash_fwd_kernel<128>, kThreads,
+                          fwd_smem_bytes<128>(), *a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-template <typename T>
-cudaError_t launch_typed(const PaddleFlashFwdArgs* a, cudaStream_t st) {
-  if (a->B <= 0 || a->S <= 0 || a->H <= 0) return cudaErrorInvalidValue;
-  if ((long long)a->B * a->H > 0x7fffffffLL ||
-      (a->S + kTile - 1) / kTile > 65535)
-    return cudaErrorInvalidValue;
+cudaError_t launch_bf16(const PaddleFlashFwdArgs* a, cudaStream_t st) {
   switch (a->D) {
-    case 64: return launch<64, T>(*a, st);
-    case 128: return launch<128, T>(*a, st);
+    case 64:
+      return launch_tiles(tc::flash_fwd_tc_kernel<64>, tc::kThreads,
+                          tc::fwd_smem_bytes<64>(), *a, st);
+    case 128:
+      return launch_tiles(tc::flash_fwd_tc_kernel<128>, tc::kThreads,
+                          tc::fwd_smem_bytes<128>(), *a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -209,10 +209,10 @@ cudaError_t launch_typed(const PaddleFlashFwdArgs* a, cudaStream_t st) {
 // launch's cudaError_t (cudaSuccess = 0).
 extern "C" cudaError_t paddle_flash_fwd_f32(const PaddleFlashFwdArgs* a,
                                             cudaStream_t st) {
-  return paddle_flash::launch_typed<float>(a, st);
+  return paddle_flash::launch_f32(a, st);
 }
 
 extern "C" cudaError_t paddle_flash_fwd_bf16(const PaddleFlashFwdArgs* a,
                                              cudaStream_t st) {
-  return paddle_flash::launch_typed<__nv_bfloat16>(a, st);
+  return paddle_flash::launch_bf16(a, st);
 }

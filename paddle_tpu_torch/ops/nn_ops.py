@@ -225,6 +225,19 @@ def _lookup_table(ctx):
     return {"Out": out}
 
 
+def _take_label(x, label):
+    """x[..., label] [..., 1] as `jnp.take_along_axis` picks it: a label
+    in [-C, 0) wraps, any other label outside [0, C) picks NaN (and its
+    row gets a zero gradient).  Decided on the device, with no host
+    check, so an out-of-range label neither syncs nor faults the card."""
+    C = x.shape[-1]
+    idx = label.long()[..., None]
+    idx = torch.where(idx < 0, idx + C, idx)
+    valid = (idx >= 0) & (idx < C)
+    picked = torch.gather(x, -1, idx.clamp(0, C - 1))
+    return torch.where(valid, picked, torch.full_like(picked, float("nan")))
+
+
 @register_op("softmax_with_cross_entropy")
 def _softmax_with_ce(ctx):
     logits, label = ctx.input("Logits"), ctx.input("Label")
@@ -234,8 +247,7 @@ def _softmax_with_ce(ctx):
     else:
         lab = label.reshape(label.shape[:-1]) \
             if label.dim() == logits.dim() else label
-        lab = lab.long()
-        loss = -torch.gather(logp, -1, lab[..., None])
+        loss = -_take_label(logp, lab)
         ignore = ctx.attr("ignore_index", -100)
         if ignore >= 0:
             loss = torch.where(lab[..., None] == ignore,
@@ -255,7 +267,7 @@ def _cross_entropy(ctx):
     else:
         if label.dim() == x.dim():
             label = label.reshape(label.shape[:-1])
-        picked = torch.gather(x, -1, label.long()[..., None])
+        picked = _take_label(x, label)
         loss = -torch.log(torch.clamp_min(picked, eps))
     return {"Y": loss}
 

@@ -15,10 +15,11 @@ dq and dk/dv kernels (csrc/flash_attention_bwd.cu), joined to K1 by a
 torch.autograd.Function; K5, `dequant_matmul` (csrc/dequant_matmul.cu),
 the int8-weight matmul of the quantized inference lane; K6,
 `fused_bottleneck` (csrc/fused_bottleneck.cu), a whole BN-folded ResNet
-bottleneck block.  K1, K2 and K6 each have an fp32 and a bf16
-instantiation (the dtypes the JAX package runs them in: bf16 under AMP
-training for K1/K2, bf16 serving for K6), counted apart; the bf16 plain
-versions round where the TPU kernels cast.  The `flash_attention` and
+bottleneck block.  K1, K2 and K6 each have an fp32 and a bf16 entry
+(the dtypes the JAX package runs them in: bf16 under AMP training for
+K1/K2, bf16 serving for K6), counted apart; the bf16 plain versions round
+where the TPU kernels cast.  The bf16 K1/K2 kernels run on the tensor
+cores (csrc/flash_attention_tc.cuh), the fp32 ones on the SIMT units.  The `flash_attention` and
 `fused_bottleneck` ops, through which fluid programs reach K1/K2 and K6,
 are registered here too.
 """
@@ -313,8 +314,9 @@ def decode_attention_head_slice(q, k_cache, v_cache, lengths, head_offset,
 # do) are fp32 or bf16, all alike; outputs are in their dtype.
 # ---------------------------------------------------------------------------
 
-# head dims the CUDA kernels take: each thread owns D / 16 columns as
-# float4 groups 64 columns apart
+# head dims the CUDA kernels take: an fp32 kernel's thread owns D / 16
+# columns as float4 groups 64 columns apart; the bf16 kernels are built
+# for the same two
 _FLASH_HEAD_DIMS = (64, 128)
 
 

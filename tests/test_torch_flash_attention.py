@@ -312,18 +312,28 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take():
                                           .transpose(1, 3), k, v)
 
 
+# below, at and around one 64-row tile, and ragged: D = 128 non-causal on
+# strided slices of a fused qkv, and D = 64 causal on plain tensors
+_BF16_EDGE_CASES = [(2, S, 2, 128, False, True) for S in (1, 63, 64, 65, 200)
+                    ] + [(2, S, 3, 64, True, False)
+                         for S in (1, 63, 64, 65, 200)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,D,causal,fused", [
     (8, 512, 8, 64, True, True),      # the training slice's shape
     (2, 256, 4, 64, False, False),
     (1, 200, 2, 128, True, False),    # ragged: no 64-row tile divides S
     (2, 70, 3, 128, False, True),
-])
+] + _BF16_EDGE_CASES)
 def test_cuda_bf16_kernels_match_plain_versions(B, S, H, D, causal, fused):
-    """K1/K2-bf16 against the bf16 plain versions (strided q/k/v read in
-    place); the CPU comparison's bf16 tolerance (the forward rounds each
-    tile's p against its running max, the plain version against the row's
-    final max)."""
+    """K1/K2-bf16 (tensor-core kernels) against the bf16 plain versions
+    (strided q/k/v read in place); the CPU comparison's bf16 tolerance
+    (both sum in fp32 in other orders, and the forward rounds each tile's
+    p against its running max, the plain version against the row's final
+    max).  The edge cases give lse a cotangent too (di's dlse term): with
+    only o's, a row over one key (S = 1) has ds = p (do . v - do . o) = 0
+    exactly, and dq, dk would be rounding noise on both sides."""
     _need_cuda()
     q, k, v = _card_inputs(B, S, H, D, seed=S + D, fused_qkv=fused,
                            dtype=torch.bfloat16)
@@ -332,7 +342,9 @@ def test_cuda_bf16_kernels_match_plain_versions(B, S, H, D, causal, fused):
     ro, rlse = torch_kernels.flash_attention_fwd_reference(q, k, v, causal)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
     do = torch.randn_like(o)
-    di = torch_kernels._flash_di(ro, do)
+    edge = (B, S, H, D, causal, fused) in _BF16_EDGE_CASES
+    di = torch_kernels._flash_di(ro, do,
+                                 torch.randn_like(rlse) if edge else None)
     dq = torch_kernels.flash_attention_bwd_dq(q, k, v, do, rlse, di, causal)
     dk, dv = torch_kernels.flash_attention_bwd_dkv(q, k, v, do, rlse, di,
                                                    causal)
@@ -349,6 +361,25 @@ def test_cuda_bf16_kernels_match_plain_versions(B, S, H, D, causal, fused):
                             ("dv", dv, rdv)):
         assert got.dtype == torch.bfloat16
         _assert_bf16_close(got.cpu(), want.float().cpu().numpy(), name)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernels_run_on_tensor_cores():
+    """The machine code of the bf16 K1/K2 kernels holds tensor-core
+    instructions (HMMA for mma.sync, HGMMA for wgmma); the fp32 kernels,
+    on the SIMT units, hold none."""
+    _need_cuda()
+    from paddle_tpu_torch.ops import _build
+    ops = ("HMMA", "HGMMA")
+    counts = {**_build.sass_opcode_counts("flash_attention_fwd", ops),
+              **_build.sass_opcode_counts("flash_attention_bwd", ops)}
+    for kind in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        tc = [sum(c.values()) for n, c in counts.items()
+              if kind + "_tc_kernel" in n]
+        simt = [sum(c.values()) for n, c in counts.items()
+                if kind + "_kernel" in n]
+        assert len(tc) == len(simt) == 2, kind   # D = 64 and D = 128
+        assert min(tc) > 0 and max(simt) == 0, (kind, tc, simt)
 
 
 @pytest.mark.cuda

@@ -192,6 +192,13 @@ def test_lowering_matches_jax_forward_and_vjp(case):
     name, op_type, specs, attrs = case
     rng = np.random.RandomState(sum(map(ord, name)))
     inputs = {s: [_make(sp, rng) for sp in v] for s, v in specs.items()}
+    _assert_parity(op_type, attrs, inputs, rng)
+
+
+def _assert_parity(op_type, attrs, inputs, rng):
+    """The op's forward outputs and input gradients (seeded cotangents on
+    every float output) agree between the two lowerings; NaN where the
+    JAX lowering gives NaN."""
     op = _op(op_type, attrs, inputs)
 
     jctx = jreg.ExecContext(op, {s: [jnp.asarray(a) for a in v]
@@ -228,6 +235,74 @@ def test_lowering_matches_jax_forward_and_vjp(case):
             np.testing.assert_allclose(tg.numpy(), np.asarray(jg),
                                        rtol=RTOL, atol=ATOL,
                                        err_msg="grad " + slot)
+
+
+# hard labels outside [0, C) at C = 4: in range, wrapped (-1 -> C - 1),
+# the padding label C, past it, and below -C
+_ODD_LABELS = np.array([[1], [-1], [4], [7], [-5]], np.int64)
+
+
+@pytest.mark.parametrize("op_type,attrs", [
+    ("softmax_with_cross_entropy", {"soft_label": False,
+                                    "ignore_index": -100}),
+    ("softmax_with_cross_entropy", {"soft_label": False, "ignore_index": 4}),
+    ("cross_entropy", {"soft_label": False}),
+], ids=["swce_no_ignore", "swce_ignore_C", "cross_entropy"])
+def test_out_of_range_labels_match_jax(op_type, attrs):
+    """`jnp.take_along_axis` semantics: a label in [-C, 0) wraps, any
+    other out-of-range label gives a NaN loss and a zero gradient row,
+    and ignore_index then zeroes its rows — on the CPU, with no raise."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(5, 4).astype(np.float32) if op_type != "cross_entropy" \
+        else rng.rand(5, 4).astype(np.float32) + 0.1
+    slot = "Logits" if op_type != "cross_entropy" else "X"
+    _assert_parity(op_type, attrs, {slot: [x], "Label": [_ODD_LABELS]},
+                   rng)
+
+
+def _ce_program(fluid, C):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[6])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        logits = fluid.layers.fc(x, size=C)
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            logits, label, ignore_index=C))
+        fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    return main, startup, loss
+
+
+def test_padding_labels_train_through_the_executor_as_in_jax():
+    """Labels padded with ignore_index = C: the port's Executor gives the
+    JAX package's loss and gradients from the same startup scope."""
+    import paddle_tpu.fluid as jfluid
+    import paddle_tpu_torch.fluid as tfluid
+    C = 5
+    jm, js, jloss = _ce_program(jfluid, C)
+    tm, _, tloss = _ce_program(tfluid, C)
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), \
+        jfluid.executor.Scope()
+    with jfluid.scope_guard(jscope):
+        jexe.run(js)
+    init = {n: np.asarray(jscope.get(n)) for n in jscope.keys()}
+    tscope = tfluid.scope_from_jax(init, tfluid.Scope(), tfluid.CPUPlace())
+    texe = tfluid.Executor(tfluid.CPUPlace())
+    rng = np.random.RandomState(3)
+    label = rng.randint(0, C, size=(8, 1))
+    label[5:] = C
+    feed = {"x": rng.randn(8, 6).astype(np.float32), "label": label}
+    fetch = [jloss.name, "fc_0.w_0@GRAD", "fc_0.b_0@GRAD"]
+    for _ in range(2):
+        with jfluid.scope_guard(jscope):
+            jr = [np.asarray(a) for a in jexe.run(jm, feed=feed,
+                                                  fetch_list=fetch)]
+        with tfluid.scope_guard(tscope):
+            tr = [np.asarray(a) for a in texe.run(tm, feed=feed,
+                                                  fetch_list=fetch)]
+        assert np.isfinite(tr[0]).all()
+        for name, j, t in zip(fetch, jr, tr):
+            np.testing.assert_allclose(t, j, rtol=RTOL, atol=ATOL,
+                                       err_msg=name)
 
 
 def test_every_registered_op_has_a_parity_case():
