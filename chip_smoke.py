@@ -10,9 +10,9 @@ Phases, in order; any failure exits non-zero:
                csrc into paddle_tpu_torch/build/ (one nvcc per source, all
                at once); prints the build time and the card's name and
                power limit (nvidia-smi); then cuobjdump -sass of the
-               flash libraries: the three bf16 flash kernels must hold
-               tensor-core instructions (HMMA or HGMMA) and their fp32
-               twins none.
+               libraries: the bf16 K1/K2/K6 kernels and the bf16-x K5
+               kernels must hold tensor-core instructions (HMMA or
+               HGMMA) and their fp32 twins none.
   2. kernels — each kernel against its plain PyTorch version on the card
                at its path's shapes (K3 at the decode shapes and as the
                verify step's 5 pseudo-slots per slot; K4 at the decode
@@ -448,28 +448,41 @@ BF16_RTOL = 2.0 ** -7
 TC_OPCODES = ("HMMA", "HGMMA")
 
 
-def phase_flash_sass(build):
-    """The bf16 K1/K2 kernels run on the tensor cores and the fp32 ones on
-    the SIMT units: counted in the machine code of the built libraries,
-    for both head-dim instances of each kernel."""
-    for stem, kinds in (("flash_attention_fwd", ("flash_fwd",)),
-                        ("flash_attention_bwd", ("flash_bwd_dq",
-                                                 "flash_bwd_dkv"))):
-        counts = build.sass_opcode_counts(stem, TC_OPCODES)
-        for kind in kinds:
-            for tag, dtype in ((kind + "_tc_kernel", "bf16"),
-                               (kind + "_kernel", "fp32")):
-                fns = {n: c for n, c in counts.items() if tag in n}
-                check(len(fns) == 2, "sass %s: expected the D = 64 and "
-                      "D = 128 instances of %s, found %s"
-                      % (stem, tag, sorted(fns)))
-                for fn, c in sorted(fns.items()):
-                    log("sass %s %s [%s]: %s" % (stem, fn, dtype, ", ".join(
-                        "%s %d" % kv for kv in sorted(c.items()))))
-                    n_tc = sum(c.values())
-                    check(n_tc > 0 if dtype == "bf16" else n_tc == 0,
-                          "sass %s: %s [%s] holds %d tensor-core "
-                          "instructions" % (stem, fn, dtype, n_tc))
+# (library stem, tensor-core kernel tag, SIMT kernel tag, instances of
+# each): the bf16 kernels against their fp32 twins.  K1/K2 have a D = 64
+# and a D = 128 instance; K5 one per output dtype (bf16 x on the tensor
+# cores, fp32 x on the SIMT units)
+SASS_KERNELS = [("flash_attention_fwd", "flash_fwd_tc_kernel",
+                 "flash_fwd_kernel", 2),
+                ("flash_attention_bwd", "flash_bwd_dq_tc_kernel",
+                 "flash_bwd_dq_kernel", 2),
+                ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel",
+                 "flash_bwd_dkv_kernel", 2),
+                ("fused_bottleneck", "bottleneck_tc_kernel",
+                 "bottleneck_kernel", 1),
+                ("dequant_matmul", "dequant_matmul_tc_kernel",
+                 "dequant_matmul_kernel", 2)]
+
+
+def phase_sass(build):
+    """The bf16 K1/K2/K6 kernels and the bf16-x K5 kernels run on the
+    tensor cores, and their fp32 twins on the SIMT units: counted in the
+    machine code of the built libraries."""
+    counts = {}
+    for stem, tc_tag, simt_tag, n in SASS_KERNELS:
+        if stem not in counts:
+            counts[stem] = build.sass_opcode_counts(stem, TC_OPCODES)
+        for tag, dtype in ((tc_tag, "bf16"), (simt_tag, "fp32")):
+            fns = {f: c for f, c in counts[stem].items() if tag in f}
+            check(len(fns) == n, "sass %s: expected %d instances of %s, "
+                  "found %s" % (stem, n, tag, sorted(fns)))
+            for fn, c in sorted(fns.items()):
+                log("sass %s %s [%s]: %s" % (stem, fn, dtype, ", ".join(
+                    "%s %d" % kv for kv in sorted(c.items()))))
+                n_tc = sum(c.values())
+                check(n_tc > 0 if dtype == "bf16" else n_tc == 0,
+                      "sass %s: %s [%s] holds %d tensor-core "
+                      "instructions" % (stem, fn, dtype, n_tc))
 
 
 def phase_flash_kernels(torch, pk, dtype=None):
@@ -753,15 +766,20 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
         bound_ms, bound_by, flops, nbytes = bottleneck_bound(
             N, H, W, C, F, C4, s, branch, elem=out.element_size(),
             rate=rate)
+        # the tensor-core kernel's launch geometry for this shape
+        geom = ("; R %(R)d, %(blocks)d blocks, %(smem_bytes)d B dynamic "
+                "smem, %(blocks_per_sm)d blocks/SM, %(regs)d registers"
+                % pk.fused_bottleneck_bf16_plan(N, H, W, C, F, C4, s, branch)
+                if bf16 else "")
         log("kernel %s [%s] N=%d H=%d W=%d C=%d F=%d C4=%d s=%d %s: max abs "
             "err %.3g (max |ref| %.3g); kernel %.4f ms, plain %.4f ms, cuDNN "
             "%s chain %.4f ms, bound %.4f ms (%s; %d flops, %d bytes) -> "
-            "%.1f%% of bound, %.2f TFLOP/s"
+            "%.1f%% of bound, %.2f TFLOP/s%s"
             % (name_of, name, N, H, W, C, F, C4, s,
                "projection" if branch else "identity", err,
                float(ref.float().abs().max()), ms, plain_ms,
                str(dtype)[6:], lib_ms, bound_ms, bound_by, flops, nbytes,
-               100.0 * bound_ms / ms, flops / ms / 1e9))
+               100.0 * bound_ms / ms, flops / ms / 1e9, geom))
         if name.startswith("path"):
             run["ms"] += count * ms
             run["plain_ms"] += count * plain_ms
@@ -774,9 +792,10 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
     _, run_by = _bound(run["flops"], run["bytes"], rate)
     log("kernel %s [one fused run at batch 64, 7 launches]: kernel %.4f ms, "
         "plain %.4f ms, cuDNN chain %.4f ms, bound %.4f ms (%s) -> %.1f%% "
-        "of bound" % (name_of, run["ms"], run["plain_ms"], run["lib_ms"],
-                      run["bound_ms"], run_by,
-                      100.0 * run["bound_ms"] / run["ms"]))
+        "of bound, %.2f TFLOP/s"
+        % (name_of, run["ms"], run["plain_ms"], run["lib_ms"],
+           run["bound_ms"], run_by, 100.0 * run["bound_ms"] / run["ms"],
+           run["flops"] / run["ms"] / 1e9))
     return {"name": name_of, "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/fused_bottleneck.cu",
             "replaces": "paddle_tpu/ops/pallas_kernels.py:1010",
@@ -833,11 +852,12 @@ def phase_dequant_kernel(torch, pk):
             + out.element_size() * M * N
         rate = BF16_FLOP_PER_S if xdt == torch.bfloat16 else FP32_FLOP_PER_S
         bound_ms, bound_by = _bound(flops, nbytes, rate)
-        log("kernel dequant_matmul [%s] M=%d K=%d N=%d x %s -> %s: max abs "
-            "err %.3g; kernel %.4f ms, plain %.4f ms, torch.matmul %.4f ms, "
-            "bound %.4f ms (%s; %d flops at %.0f TFLOP/s, %d bytes) -> "
+        route = "tensor cores" if xdt == torch.bfloat16 else "SIMT"
+        log("kernel dequant_matmul [%s] M=%d K=%d N=%d x %s -> %s (%s): max "
+            "abs err %.3g; kernel %.4f ms, plain %.4f ms, torch.matmul %.4f "
+            "ms, bound %.4f ms (%s; %d flops at %.0f TFLOP/s, %d bytes) -> "
             "%.1f%% of bound" % (name, M, K, N, str(xdt)[6:], str(odt)[6:],
-                                 err, ms, plain_ms, lib_ms, bound_ms,
+                                 route, err, ms, plain_ms, lib_ms, bound_ms,
                                  bound_by, flops, rate / 1e12, nbytes,
                                  100.0 * bound_ms / ms))
         if name == "path":
@@ -1497,8 +1517,9 @@ def phase_train_gpu_vs_cpu(torch, fluid, transformer):
 RESNET_SEED = 7
 RESNET_BATCHES = (1, 8, 64)
 RESNET_RUNS = {1: 200, 8: 100, 64: 20}
-# pairs of fused and unfused runs, alternated, where the host decides
-RESNET_AB_RUNS = {1: 300, 8: 200}
+# pairs of fused and unfused runs, alternated: where the host decides
+# (batches 1, 8) and where K6-bf16 decides the bf16 lane (batch 64)
+RESNET_AB_RUNS = {1: 300, 8: 200, 64: 40}
 FUSE_GATE = 128
 
 
@@ -1707,7 +1728,7 @@ def phase_resnet(torch, pk, fluid, resnet, inference, tmp):
     """ResNet-50 through the user's entry points on the card: startup and
     save_inference_model, then the fp32 Predictor at FUSE_GATE (7 K6
     launches per run) and unfused (gate 0, the default; no K6), the two
-    alternated at batches 1 and 8, then the PTQ artifact's int8 Predictor
+    alternated at batches 1, 8 and 64, then the PTQ artifact's int8 Predictor
     (1 K5 launch per run)."""
     from paddle_tpu_torch.flags import FLAGS
     art = os.path.join(tmp, "resnet50")
@@ -2027,7 +2048,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     log(smi)
-    phase_flash_sass(_build)
+    phase_sass(_build)
     # 2. kernels against their plain versions
     entry = phase_kernels(torch, pk)
     k4_entry, k4hs_entry = phase_int8_kernels(torch, pk)

@@ -42,95 +42,27 @@
 // Determinism is kept: q-stationary dq and kv-stationary dk/dv, each
 // gradient row owned by one warp of one block, no atomics, reductions in
 // a fixed order.  Causal tiles above the diagonal are skipped, and the
-// blocks with the most tiles to visit have the lowest block index.
-//
-// Fragment layouts (PTX ISA, mma.m16n8k16, lane = 4 * g + t): an fp32
-// accumulator holds rows g and g + 8, columns 2t and 2t + 1; an A
-// operand holds rows g, g + 8 and columns 2t, 2t + 1, 2t + 8, 2t + 9;
-// a B operand columns (n) g and rows (k) 2t, 2t + 1, 2t + 8, 2t + 9.
+// blocks with the most tiles to visit have the lowest block index.  The
+// ldmatrix / mma.sync / cp.async primitives are those of tc_common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "flash_attention_common.cuh"
+#include "tc_common.cuh"
 
 namespace paddle_flash {
 namespace tc {
 
-typedef __nv_bfloat16 bf16;
+using namespace paddle_tc;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kSkew = 8;  // bf16 elements of padding per staged row
 
 template <int D>
 __host__ __device__ constexpr int tile_elems() {
   return kTile * (D + kSkew);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes global -> shared, asynchronously; zeros where !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address
-// of row (l & 7) of matrix l >> 3.  With .trans each matrix arrives
-// transposed.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, fp32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values rounded to a bf16 pair, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The A operand of rows r0 .. r0+15, columns c0 .. c0+15 of a tile stored

@@ -17,8 +17,13 @@
 // The filters are read in the program's OIHW layout: no transposes per
 // run.  Any H and W (odd sizes too), stride 1 or 2.
 //
-// Design.  One thread block owns one image and R consecutive output rows
-// o0 .. o0 + R - 1 (R picked per shape, below).  It
+// This file holds the fp32 kernel (SIMT) and the C entries; the bf16
+// entry launches the tensor-core kernel of fused_bottleneck_tc.cuh, which
+// keeps this kernel's structure and the TPU kernel's bf16 rounding points
+// and takes C, F and C4 multiples of 8.
+//
+// Design (fp32).  One thread block owns one image and R consecutive
+// output rows o0 .. o0 + R - 1 (R picked per shape, below).  It
 //   1. computes conv0 + b0 + relu for the E = s (R - 1) + 3 input rows
 //      s o0 - 1 .. s (o0 + R - 1) + 1 that the 3x3 taps read, into a
 //      shared-memory window [E, W, F]; rows outside the image are exact
@@ -47,27 +52,17 @@
 // for that by recomputing conv0 on the (E - s R) halo rows that
 // neighbouring blocks share (R = 1, s = 1: 3x; R = 2: 2x), by SIMT FMAs
 // rather than tensor cores, and by re-reading the filters from L2 in
-// every block.  Tensor-core (wgmma / TF32) tiles, TMA staging and
-// splitting F across blocks are later work.
+// every block.  TF32 tensor-core tiles, TMA staging and splitting F across
+// blocks are later work.
 //
 // Sums run in a fixed order fixed by the shape: no atomics, so the
 // result is deterministic.
-//
-// The bf16 instantiation (paddle_fused_bottleneck_bf16) is the TPU
-// kernel's bf16 instance: x, filters and biases are bf16, converted to
-// fp32 as they are loaded, every product is accumulated in fp32, and
-// values are rounded to bf16 (round to nearest even) where the JAX kernel
-// casts them: conv0's output after bias + relu (its `a1.astype`), the
-// 3x3's output after bias + relu (`h ... .astype`) and the block's
-// output.  conv2 + b2 + the shortcut stay fp32 until that last rounding.
-// The window and h hold those bf16 values, so their shared memory halves
-// and taller row blocks fit.  Its bound is the bf16 tensor-core rate (989
-// TFLOP/s, ~295 flops per byte at 3.35 TB/s): the SIMT FMAs of this
-// first version are far from it, and bf16 wgmma tiles are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "fused_bottleneck_tc.cuh"
 
 namespace paddle_bottleneck {
 namespace {
@@ -95,21 +90,11 @@ struct Args {
   int N, H, W, C, F, C4, stride;
 };
 
-// fp32 values of an element in shared memory (to_f32) or, through the
-// read-only cache, in device memory (ldg_f32); store rounds to T
+// an element in shared memory (to_f32) or, through the read-only cache,
+// in device memory (ldg_f32); store writes it
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldg(reinterpret_cast<const unsigned short*>(p))));
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 struct Geom {
   int Ho, Wo, R, E, ldw, ldh;
@@ -123,7 +108,7 @@ struct Geom {
 // `at(row, col)`.  B rows n >= N read 0.  The next chunk is fetched into
 // registers while the current one is multiplied out of shared memory
 // (two staging buffers, one barrier per chunk).  A and B are converted
-// to fp32 as they are fetched; the staging buffers are fp32.
+// to fp32 as they are fetched (the identity for fp32).
 template <class ALoad, typename T>
 __device__ __forceinline__ void tile_gemm(const ALoad& a,
                                           const T* __restrict__ B,
@@ -447,9 +432,10 @@ struct PaddleBottleneckArgs {
   int N, H, W, C, F, C4, stride;
 };
 
-template <typename T>
-static int run_typed(const PaddleBottleneckArgs* p, cudaStream_t st) {
+extern "C" int paddle_fused_bottleneck_f32(const PaddleBottleneckArgs* p,
+                                           cudaStream_t st) {
   using paddle_bottleneck::Args;
+  typedef float T;
   const Args<T> a{static_cast<const T*>(p->x), static_cast<const T*>(p->w0),
                   static_cast<const T*>(p->b0), static_cast<const T*>(p->w1),
                   static_cast<const T*>(p->b1), static_cast<const T*>(p->w2),
@@ -459,12 +445,27 @@ static int run_typed(const PaddleBottleneckArgs* p, cudaStream_t st) {
   return paddle_bottleneck::launch(a, st);
 }
 
-extern "C" int paddle_fused_bottleneck_f32(const PaddleBottleneckArgs* p,
-                                           cudaStream_t st) {
-  return run_typed<float>(p, st);
+static paddle_bottleneck_tc::Args tc_args(const PaddleBottleneckArgs* p) {
+  typedef paddle_tc::bf16 T;
+  return paddle_bottleneck_tc::Args{
+      static_cast<const T*>(p->x),  static_cast<const T*>(p->w0),
+      static_cast<const T*>(p->b0), static_cast<const T*>(p->w1),
+      static_cast<const T*>(p->b1), static_cast<const T*>(p->w2),
+      static_cast<const T*>(p->b2), static_cast<const T*>(p->ws),
+      static_cast<const T*>(p->bs), static_cast<T*>(p->out),
+      p->N, p->H, p->W, p->C, p->F, p->C4, p->stride};
 }
 
 extern "C" int paddle_fused_bottleneck_bf16(const PaddleBottleneckArgs* p,
                                             cudaStream_t st) {
-  return run_typed<__nv_bfloat16>(p, st);
+  return paddle_bottleneck_tc::launch(tc_args(p), st);
+}
+
+// The bf16 kernel's launch geometry for these arguments (pointers may be
+// null; ws non-null selects the projection): out[0..4] = R, blocks,
+// dynamic shared memory bytes, resident blocks per SM, registers per
+// thread.  Returns a cudaError_t.
+extern "C" int paddle_fused_bottleneck_bf16_plan(
+    const PaddleBottleneckArgs* p, int* out) {
+  return paddle_bottleneck_tc::describe(tc_args(p), out);
 }

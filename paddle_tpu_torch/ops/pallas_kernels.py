@@ -18,10 +18,11 @@ the int8-weight matmul of the quantized inference lane; K6,
 bottleneck block.  K1, K2 and K6 each have an fp32 and a bf16 entry
 (the dtypes the JAX package runs them in: bf16 under AMP training for
 K1/K2, bf16 serving for K6), counted apart; the bf16 plain versions round
-where the TPU kernels cast.  The bf16 K1/K2 kernels run on the tensor
-cores (csrc/flash_attention_tc.cuh), the fp32 ones on the SIMT units.  The `flash_attention` and
-`fused_bottleneck` ops, through which fluid programs reach K1/K2 and K6,
-are registered here too.
+where the TPU kernels cast.  The bf16 kernels run on the tensor cores
+(K1/K2: csrc/flash_attention_tc.cuh; K6: csrc/fused_bottleneck_tc.cuh; K5
+with bf16 x in csrc/dequant_matmul.cu), the fp32 ones on the SIMT units.
+The `flash_attention` and `fused_bottleneck` ops, through which fluid
+programs reach K1/K2 and K6, are registered here too.
 """
 
 import ctypes
@@ -33,15 +34,15 @@ from . import _build
 from ._build import KernelError
 
 __all__ = ["decode_attention", "decode_attention_reference",
-           "decode_attention_head_slice",
-           "flash_attention", "flash_attention_reference",
-           "flash_attention_fwd", "flash_attention_fwd_reference",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
+           "decode_attention_head_slice", "flash_attention",
+           "flash_attention_reference", "flash_attention_fwd",
+           "flash_attention_fwd_reference", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dq_reference", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dkv_reference",
            "flash_attention_bwd_reference", "dequant_matmul",
            "dequant_matmul_reference", "fused_bottleneck",
-           "bottleneck_reference", "KernelError", "launch_counts",
-           "reset_launch_counts"]
+           "fused_bottleneck_bf16_plan", "bottleneck_reference", "KernelError",
+           "launch_counts", "reset_launch_counts"]
 
 # Finite mask value (not -inf), as in the TPU kernels: exp(_NEG_INF -
 # finite) underflows to an exact 0 and a fully masked row stays finite.
@@ -744,7 +745,8 @@ def dequant_matmul(x, w_q, scale, out_dtype=None):
     in `out_dtype` (fp32 or bf16; x's dtype by default), at any M, K, N.
 
     A CPU (or meta) tensor runs `dequant_matmul_reference`.  A CUDA
-    tensor launches csrc/dequant_matmul.cu on the current stream after
+    tensor launches csrc/dequant_matmul.cu on the current stream (its
+    tensor-core kernel for bf16 x, its SIMT kernel for fp32 x) after
     checking device, dtypes, shapes and contiguity; it raises on anything
     the kernel does not take, and on a failed launch."""
     out_dtype = out_dtype or x.dtype
@@ -864,10 +866,11 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
     biases as `bottleneck_reference` takes them; stride 1 or 2, any H and
     W.  A CPU (or meta) tensor runs the plain version.  A CUDA tensor
     launches csrc/fused_bottleneck.cu on the current stream — its fp32
-    instantiation, or its bf16 one (counted as `fused_bottleneck_bf16`),
-    every operand of x's dtype — after checking device, dtypes, shapes
-    and contiguity; it raises on anything the kernel does not take, and
-    on a failed launch."""
+    kernel (SIMT), or its bf16 one on the tensor cores (counted as
+    `fused_bottleneck_bf16`; C, F and C4 multiples of 8, operands 16-byte
+    aligned), every operand of x's dtype — after checking device, dtypes,
+    shapes and contiguity; it raises on anything the kernel does not
+    take, and on a failed launch."""
     s = int(stride)
     if x.device.type in ("cpu", "meta"):
         return bottleneck_reference(x, w0, b0, w1, b1, w2, b2, ws, bs, s)
@@ -908,6 +911,16 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
         if not t.is_contiguous():
             raise ValueError("fused_bottleneck: %s must be contiguous"
                              % name)
+    if x.dtype == torch.bfloat16:
+        # the tensor-core kernel reads 16-byte rows of 8 channels
+        if C % 8 or F % 8 or C4 % 8:
+            raise ValueError("fused_bottleneck: bf16 on the card takes C, F "
+                             "and C4 that are multiples of 8, got C %d, F "
+                             "%d, C4 %d" % (C, F, C4))
+        for name, t, _ in named:
+            if t.data_ptr() % 16:
+                raise ValueError("fused_bottleneck: bf16 %s must be 16-byte "
+                                 "aligned" % name)
     Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
     out = torch.empty((N, Ho, Wo, C4), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -928,6 +941,27 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
                           % (count, err))
     launch_counts[count] += 1
     return out
+
+
+def fused_bottleneck_bf16_plan(N, H, W, C, F, C4, stride=1, branch=True):
+    """The launch geometry K6-bf16 picks for a call of these sizes on the
+    current card: {"R": output rows per block, "blocks", "smem_bytes"
+    (dynamic shared memory a block), "blocks_per_sm" (resident), "regs"
+    (registers a thread)}.  Needs the card."""
+    fn = _fns.get("fused_bottleneck_bf16_plan")
+    if fn is None:
+        fn = _build.load("fused_bottleneck").paddle_fused_bottleneck_bf16_plan
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["fused_bottleneck_bf16_plan"] = fn
+    args = _BottleneckArgs(0, 0, 0, 0, 0, 0, 0, 1 if branch else 0, 0, 0,
+                           N, H, W, C, F, C4, int(stride))
+    out = (ctypes.c_int * 5)()
+    err = fn(ctypes.addressof(args), out)
+    if err:
+        raise KernelError("fused_bottleneck_bf16_plan: cudaError %d" % err)
+    return dict(zip(("R", "blocks", "smem_bytes", "blocks_per_sm", "regs"),
+                    out))
 
 
 @register_op("fused_bottleneck")

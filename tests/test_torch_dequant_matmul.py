@@ -192,3 +192,28 @@ def test_cuda_kernel_matches_plain_version(M, K, N, dtype):
                                             out_dtype=torch.float32)
     torch.testing.assert_close(out, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(64, 2048, 1000),   # the int8 lane's fc
+                                   (1, 2048, 1000), (37, 300, 77),
+                                   (65, 129, 250), (100, 24, 65),
+                                   (130, 1000, 130), (8, 4096, 16)])
+def test_cuda_bf16_x_kernel_matches_plain_version(M, K, N, out_dtype):
+    """K5 with bf16 x on the tensor cores at the path's shape and ragged
+    M, K and N (rows copied 16, 8, 4, 2 or 1 bytes at a time, split K or
+    not): fp32 sums in another order, and a bf16 output one ulp apart."""
+    _need_cuda()
+    x, w, s = _inputs(np.random.RandomState(M + K + N), M, K, N)
+    xt = torch.from_numpy(x).to(torch.bfloat16).cuda()
+    wt, st = torch.from_numpy(w).cuda(), torch.from_numpy(s).cuda()
+    tkernels.reset_launch_counts()
+    out = tkernels.dequant_matmul(xt, wt, st, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts["dequant_matmul"] == 1
+    assert out.dtype == out_dtype and tuple(out.shape) == (M, N)
+    ref = tkernels.dequant_matmul_reference(xt, wt, st, out_dtype=out_dtype)
+    rtol = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=1e-5 * float(ref.float().abs().max()))

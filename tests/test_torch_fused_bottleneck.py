@@ -310,11 +310,21 @@ def test_cuda_kernel_matches_plain_version(N, H, W, C, F, stride, branch):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
+# the fused ResNet-50 path's four block geometries (H, C, F, stride,
+# branch; C4 = 4 F), at batch 2
+PATH_SHAPES = [(2, 56, 56, 64, 64, 1, True), (2, 56, 56, 256, 64, 1, False),
+               (2, 56, 56, 256, 128, 2, True),
+               (2, 28, 28, 512, 128, 1, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,W,C,F,stride,branch",
                          SHAPES + [(4, 56, 56, 64, 64, 1, True),
                                    (2, 28, 28, 512, 128, 1, False),
-                                   (2, 56, 56, 256, 128, 2, True)])
+                                   (2, 56, 56, 256, 128, 2, True),
+                                   (3, 9, 7, 24, 8, 2, True),
+                                   (2, 7, 5, 40, 24, 1, False)]
+                         + PATH_SHAPES)
 def test_cuda_bf16_kernel_matches_plain_version(N, H, W, C, F, stride,
                                                 branch):
     """K6-bf16 against the bf16 plain version on the same bf16 inputs, at
@@ -338,3 +348,45 @@ def test_cuda_bf16_kernel_matches_plain_version(N, H, W, C, F, stride,
     with pytest.raises(TypeError, match="bfloat16"):
         tkernels.fused_bottleneck(x, args[0].float(), *args[1:],
                                   stride=stride)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_raises_on_channels_not_multiple_of_8():
+    """The tensor-core K6-bf16 reads rows of 8 channels: a C, F or C4 that
+    is not a multiple of 8 raises ValueError naming the constraint (fp32
+    takes it)."""
+    _need_cuda()
+    rng = np.random.RandomState(3)
+    for C, F, C4, branch in ((12, 8, 32, True), (16, 12, 48, True),
+                             (20, 8, 20, False)):
+        p = _params(rng, C, F, C4, branch)
+        x = torch.from_numpy(rng.randn(1, 6, 6, C).astype(np.float32)).cuda()
+        args = [None if t is None else t.cuda() for t in _as_torch(p)]
+        s = 2 if branch else 1
+        tkernels.fused_bottleneck(x, *args, stride=s)   # fp32: any width
+        xb = x.to(torch.bfloat16)
+        argsb = [None if t is None else t.to(torch.bfloat16) for t in args]
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tkernels.fused_bottleneck(xb, *argsb, stride=s)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_k5_bf16_run_on_tensor_cores():
+    """The machine code of the bf16 K6 kernel and the bf16-x K5 kernels
+    holds tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma);
+    the fp32 K6 kernel and the fp32-x K5 kernels hold none."""
+    _need_cuda()
+    from paddle_tpu_torch.ops import _build
+    ops = ("HMMA", "HGMMA")
+    for stem, tc_tag, simt_tag, n in (
+            ("fused_bottleneck", "bottleneck_tc_kernel", "bottleneck_kernel",
+             1),
+            ("dequant_matmul", "dequant_matmul_tc_kernel",
+             "dequant_matmul_kernel", 2)):   # fp32 and bf16 outputs
+        counts = _build.sass_opcode_counts(stem, ops)
+        tc = [sum(c.values()) for name, c in counts.items()
+              if tc_tag in name]
+        simt = [sum(c.values()) for name, c in counts.items()
+                if simt_tag in name]
+        assert len(tc) == len(simt) == n, (stem, sorted(counts))
+        assert min(tc) > 0 and max(simt) == 0, (stem, tc, simt)
