@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero:
                csrc into paddle_tpu_torch/build/ (one nvcc per source, all
                at once); prints the build time and the card's name and
                power limit (nvidia-smi); then cuobjdump -sass of the
-               libraries: the bf16 K1/K2/K6 kernels and the bf16-x K5
-               kernels must hold tensor-core instructions (HMMA or
-               HGMMA) and their fp32 twins none.
+               libraries, tensor-core instructions counted by input
+               type: the bf16 K1/K2/K6 kernels and the bf16-x K5 kernels
+               must hold bf16 HMMA/HGMMA only, fp32 K2 and K6 TF32 HMMA
+               only (3xTF32), fp32 K1 and the fp32-x K5 none.
   2. kernels — each kernel against its plain PyTorch version on the card
                at its path's shapes (K3 at the decode shapes and as the
                verify step's 5 pseudo-slots per slot; K4 at the decode
@@ -107,9 +108,14 @@ import time
 
 import numpy as np
 
-# H100 SXM published peaks: HBM3 bandwidth and fp32 (non-tensor-core) rate
+# H100 SXM published peaks: HBM3 bandwidth; fp32 on the SIMT units; and
+# fp32-accurate products on the TF32 tensor cores, 495 TFLOP/s over the
+# three products of 3xTF32 — the least time fp32 work can take on the
+# card, so every fp32 operation bound is taken at that rate (the SIMT
+# bound is printed beside it)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP32_ACCURATE_FLOP_PER_S = 495e12 / 3
 FULL_WIDTH = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
                   max_seq_len=512, eos_id=-1, seed=7)
 N_SLOTS = 8
@@ -172,7 +178,7 @@ def decode_attention_bound(lengths, S, H, D, elem=4, q_per_slot=1,
     for live in lives:
         flops += 4 * (live or S) * H * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / FP32_ACCURATE_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes
 
@@ -411,8 +417,8 @@ def flash_bound(kind, B, S, H, D, causal, elem=4, rate=None):
     """Least time for one K1 / K2-dq / K2-dkv call: every byte it must move
     once (its [B, S, H, D] operands at `elem` bytes an element and its
     fp32 [B, H, S] row statistics) over HBM bandwidth, or its flops over
-    the peak `rate` (fp32's by default; bf16's tensor-core peak for the
-    bf16 variants), whichever is larger.  The flops are 2 D per live
+    the peak `rate` (fp32-accurate by default; bf16's tensor-core peak for
+    the bf16 variants), whichever is larger.  The flops are 2 D per live
     (query, key) pair for each D-long product the function needs: 2 for
     the forward (q.k, p.v), 3 for dq (q.k, do.v, ds.k), 4 for dk/dv (q.k,
     do.v, p.do, ds.q)."""
@@ -423,7 +429,7 @@ def flash_bound(kind, B, S, H, D, causal, elem=4, rate=None):
     flops = 2 * D * pairs * heads * products
     nbytes = elem * tensors * elems + 4 * rowstats * heads * S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (rate or FP32_FLOP_PER_S) * 1e3
+    t_ops = flops / (rate or FP32_ACCURATE_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, flops
 
@@ -444,45 +450,48 @@ def _close(got, want, rtol, atol):
 BF16_RTOL = 2.0 ** -7
 
 
-# mma.sync compiles to HMMA, wgmma to HGMMA
-TC_OPCODES = ("HMMA", "HGMMA")
-
-
-# (library stem, tensor-core kernel tag, SIMT kernel tag, instances of
-# each): the bf16 kernels against their fp32 twins.  K1/K2 have a D = 64
-# and a D = 128 instance; K5 one per output dtype (bf16 x on the tensor
-# cores, fp32 x on the SIMT units)
-SASS_KERNELS = [("flash_attention_fwd", "flash_fwd_tc_kernel",
-                 "flash_fwd_kernel", 2),
-                ("flash_attention_bwd", "flash_bwd_dq_tc_kernel",
-                 "flash_bwd_dq_kernel", 2),
-                ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel",
-                 "flash_bwd_dkv_kernel", 2),
-                ("fused_bottleneck", "bottleneck_tc_kernel",
-                 "bottleneck_kernel", 1),
-                ("dequant_matmul", "dequant_matmul_tc_kernel",
-                 "dequant_matmul_kernel", 2)]
+# (library stem, kernel tag, instances, the tensor-core input type its
+# machine code must hold: "bf16", "tf32", or None for none).  K1/K2 have a
+# D = 64 and a D = 128 instance; fp32 K6 one per tile height; K5 one per
+# output dtype.  The bf16
+# kernels run bf16 mma.sync, fp32 K2 and K6 tf32 mma.sync (3xTF32), fp32
+# K1 and fp32-x K5 the SIMT units
+SASS_KERNELS = [("flash_attention_fwd", "flash_fwd_tc_kernel", 2, "bf16"),
+                ("flash_attention_fwd", "flash_fwd_kernel", 2, None),
+                ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 2, "bf16"),
+                ("flash_attention_bwd", "flash_bwd_dq_kernel", 2, "tf32"),
+                ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 2,
+                 "bf16"),
+                ("flash_attention_bwd", "flash_bwd_dkv_kernel", 2, "tf32"),
+                ("fused_bottleneck", "bottleneck_tc_kernel", 1, "bf16"),
+                ("fused_bottleneck", "bottleneck_kernel", 2, "tf32"),
+                ("dequant_matmul", "dequant_matmul_tc_kernel", 2, "bf16"),
+                ("dequant_matmul", "dequant_matmul_kernel", 2, None)]
 
 
 def phase_sass(build):
-    """The bf16 K1/K2/K6 kernels and the bf16-x K5 kernels run on the
-    tensor cores, and their fp32 twins on the SIMT units: counted in the
-    machine code of the built libraries."""
-    counts = {}
-    for stem, tc_tag, simt_tag, n in SASS_KERNELS:
+    """Which tensor cores each kernel runs on, counted by input type in
+    the machine code of the built libraries: the bf16 K1/K2/K6 kernels
+    and the bf16-x K5 kernels hold bf16 HMMA/HGMMA and no other; fp32 K2
+    and K6 hold TF32 HMMA and no other; fp32 K1 and fp32-x K5 hold none."""
+    counts, mnemonics = {}, {}
+    for stem, tag, n, want in SASS_KERNELS:
         if stem not in counts:
-            counts[stem] = build.sass_opcode_counts(stem, TC_OPCODES)
-        for tag, dtype in ((tc_tag, "bf16"), (simt_tag, "fp32")):
-            fns = {f: c for f, c in counts[stem].items() if tag in f}
-            check(len(fns) == n, "sass %s: expected %d instances of %s, "
-                  "found %s" % (stem, n, tag, sorted(fns)))
-            for fn, c in sorted(fns.items()):
-                log("sass %s %s [%s]: %s" % (stem, fn, dtype, ", ".join(
-                    "%s %d" % kv for kv in sorted(c.items()))))
-                n_tc = sum(c.values())
-                check(n_tc > 0 if dtype == "bf16" else n_tc == 0,
-                      "sass %s: %s [%s] holds %d tensor-core "
-                      "instructions" % (stem, fn, dtype, n_tc))
+            counts[stem] = build.tensor_core_counts(stem)
+            mnemonics[stem] = build.sass_opcode_counts(stem,
+                                                       build.TC_OPCODES)
+        fns = {f: c for f, c in counts[stem].items() if tag in f}
+        check(len(fns) == n, "sass %s: expected %d instances of %s, "
+              "found %s" % (stem, n, tag, sorted(fns)))
+        for fn, c in sorted(fns.items()):
+            log("sass %s %s [%s]: %s; mnemonics %s" % (
+                stem, fn, want or "simt", ", ".join(
+                    "%s %d" % kv for kv in sorted(c.items())),
+                json.dumps(mnemonics[stem][fn], sort_keys=True)))
+            others = sum(v for k, v in c.items() if k != want)
+            check(others == 0 and (want is None or c[want] > 0),
+                  "sass %s: %s holds tensor-core instructions %s, expected "
+                  "%s only" % (stem, fn, c, want or "none"))
 
 
 def phase_flash_kernels(torch, pk, dtype=None):
@@ -620,13 +629,14 @@ def phase_flash_kernels(torch, pk, dtype=None):
             kname = pk._count_name(kname, dtype)
             bound_ms, bound_by, nbytes, flops = flash_bound(
                 kind, B, S, H, D, causal, elem=q.element_size(),
-                rate=BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
+                rate=BF16_FLOP_PER_S if bf16 else FP32_ACCURATE_FLOP_PER_S)
             log("kernel %s [slice] B=%d S=%d H=%d D=%d causal: kernel "
                 "%.4f ms, plain %.4f ms, SDPA %.4f ms, bound %.4f ms (%s; "
-                "%d bytes, %d flops) -> %.1f%% of bound, %.1f TFLOP/s"
+                "%d bytes, %d flops) -> %.1f%% of bound, %.1f TFLOP/s%s"
                 % (kname, B, S, H, D, ms[kind], plain[kind], lib_ms,
                    bound_ms, bound_by, nbytes, flops,
-                   100.0 * bound_ms / ms[kind], flops / ms[kind] / 1e9))
+                   100.0 * bound_ms / ms[kind], flops / ms[kind] / 1e9,
+                   "" if bf16 else simt_bound_note(flops, nbytes)))
             entries[kind] = {"name": kname, "route": "cuda", "source": src,
                              "replaces": rep, "ms": ms[kind],
                              "plain_ms": plain[kind], "bound_ms": bound_ms,
@@ -651,19 +661,26 @@ FUSED_PATH_BLOCKS = [(56, 64, 64, 256, 1, True, 1),
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 
 
-def _bound(flops, nbytes, flop_rate=FP32_FLOP_PER_S):
+def _bound(flops, nbytes, flop_rate=FP32_ACCURATE_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
+def simt_bound_note(flops, nbytes):
+    """The fp32 bound at the SIMT units' rate, printed beside the
+    fp32-accurate tensor-core bound of an fp32 row."""
+    return "; SIMT bound %.4f ms" % _bound(flops, nbytes, FP32_FLOP_PER_S)[0]
+
+
 def bottleneck_bound(N, H, W, C, F, C4, s, branch, elem=4,
-                     rate=FP32_FLOP_PER_S):
+                     rate=FP32_ACCURATE_FLOP_PER_S):
     """Least time for one K6 call: 2 C F flops per input pixel (conv0 runs
     before the stride; at stride 2 the 3x3 taps read every input row and
     column) and 2 (9 F^2 + F C4 [+ C C4]) per output pixel, over the peak
-    `rate` (fp32's, or bf16's tensor-core peak for the bf16 variant),
+    `rate` (fp32-accurate, or bf16's tensor-core peak for the bf16
+    variant),
     against x, the filters, the biases and out moved once over HBM
     bandwidth at `elem` bytes an element."""
     Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
@@ -730,7 +747,9 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
     for H, C, F, C4, s, branch, count in FUSED_PATH_BLOCKS:
         cases.append(("path b64 H%d C%d F%d s%d" % (H, C, F, s), 64, H, H,
                       C, F, C4, s, branch, count))
-    rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
+    rate = BF16_FLOP_PER_S if bf16 else FP32_ACCURATE_FLOP_PER_S
+    plan = pk.fused_bottleneck_bf16_plan if bf16 \
+        else pk.fused_bottleneck_fp32_plan
     max_err = 0.0
     run = {"ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound_ms": 0.0,
            "flops": 0, "bytes": 0}
@@ -766,11 +785,12 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
         bound_ms, bound_by, flops, nbytes = bottleneck_bound(
             N, H, W, C, F, C4, s, branch, elem=out.element_size(),
             rate=rate)
-        # the tensor-core kernel's launch geometry for this shape
-        geom = ("; R %(R)d, %(blocks)d blocks, %(smem_bytes)d B dynamic "
-                "smem, %(blocks_per_sm)d blocks/SM, %(regs)d registers"
-                % pk.fused_bottleneck_bf16_plan(N, H, W, C, F, C4, s, branch)
-                if bf16 else "")
+        # the kernel's launch geometry for this shape
+        geom = ("; R %(R)d, %(tile_rows)d-row tiles, %(blocks)d blocks, "
+                "%(smem_bytes)d B dynamic smem, %(blocks_per_sm)d blocks/SM, "
+                "%(regs)d registers" % plan(N, H, W, C, F, C4, s, branch))
+        if not bf16:
+            geom += simt_bound_note(flops, nbytes)
         log("kernel %s [%s] N=%d H=%d W=%d C=%d F=%d C4=%d s=%d %s: max abs "
             "err %.3g (max |ref| %.3g); kernel %.4f ms, plain %.4f ms, cuDNN "
             "%s chain %.4f ms, bound %.4f ms (%s; %d flops, %d bytes) -> "
@@ -792,10 +812,11 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
     _, run_by = _bound(run["flops"], run["bytes"], rate)
     log("kernel %s [one fused run at batch 64, 7 launches]: kernel %.4f ms, "
         "plain %.4f ms, cuDNN chain %.4f ms, bound %.4f ms (%s) -> %.1f%% "
-        "of bound, %.2f TFLOP/s"
+        "of bound, %.2f TFLOP/s%s"
         % (name_of, run["ms"], run["plain_ms"], run["lib_ms"],
            run["bound_ms"], run_by, 100.0 * run["bound_ms"] / run["ms"],
-           run["flops"] / run["ms"] / 1e9))
+           run["flops"] / run["ms"] / 1e9,
+           "" if bf16 else simt_bound_note(run["flops"], run["bytes"])))
     return {"name": name_of, "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/fused_bottleneck.cu",
             "replaces": "paddle_tpu/ops/pallas_kernels.py:1010",
@@ -850,16 +871,19 @@ def phase_dequant_kernel(torch, pk):
         flops = 2 * M * N * K
         nbytes = x.element_size() * M * K + K * N + 4 * N \
             + out.element_size() * M * N
-        rate = BF16_FLOP_PER_S if xdt == torch.bfloat16 else FP32_FLOP_PER_S
+        rate = BF16_FLOP_PER_S if xdt == torch.bfloat16 \
+            else FP32_ACCURATE_FLOP_PER_S
         bound_ms, bound_by = _bound(flops, nbytes, rate)
         route = "tensor cores" if xdt == torch.bfloat16 else "SIMT"
         log("kernel dequant_matmul [%s] M=%d K=%d N=%d x %s -> %s (%s): max "
             "abs err %.3g; kernel %.4f ms, plain %.4f ms, torch.matmul %.4f "
             "ms, bound %.4f ms (%s; %d flops at %.0f TFLOP/s, %d bytes) -> "
-            "%.1f%% of bound" % (name, M, K, N, str(xdt)[6:], str(odt)[6:],
-                                 route, err, ms, plain_ms, lib_ms, bound_ms,
-                                 bound_by, flops, rate / 1e12, nbytes,
-                                 100.0 * bound_ms / ms))
+            "%.1f%% of bound%s" % (name, M, K, N, str(xdt)[6:], str(odt)[6:],
+                                   route, err, ms, plain_ms, lib_ms, bound_ms,
+                                   bound_by, flops, rate / 1e12, nbytes,
+                                   100.0 * bound_ms / ms,
+                                   "" if xdt == torch.bfloat16
+                                   else simt_bound_note(flops, nbytes)))
         if name == "path":
             entry = {"name": "dequant_matmul", "route": "cuda",
                      "source": "paddle_tpu_torch/ops/csrc/dequant_matmul.cu",

@@ -19,7 +19,8 @@ import subprocess
 import threading
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "KernelError",
-           "build_all", "load", "build_logs", "sass_opcode_counts"]
+           "build_all", "load", "build_logs", "sass_opcode_counts",
+           "TC_OPCODES", "tc_kind", "tensor_core_counts"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -132,22 +133,49 @@ def load(stem):
 
 
 def sass_opcode_counts(stem, opcodes):
-    """{kernel (mangled name): {opcode: count}} in the machine code of the
-    library built from `csrc/<stem>.cu`, read with the toolkit's
-    `cuobjdump -sass`: shows what a kernel was compiled to, e.g. whether
-    it runs on the tensor cores (HMMA for mma.sync, HGMMA for wgmma)."""
+    """{kernel (mangled name): {mnemonic: count}} in the machine code of
+    the library built from `csrc/<stem>.cu`, read with the toolkit's
+    `cuobjdump -sass`: every instruction whose opcode is one of `opcodes`,
+    counted under its full mnemonic with the modifiers that name its
+    shape and types (e.g. HMMA.16816.F32.BF16 for a bf16 mma.sync,
+    HMMA.1688.F32.TF32 for a tf32 one, HGMMA... for wgmma)."""
     lib = build_all()[stem]
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", lib], capture_output=True,
                          text=True, check=True, timeout=120).stdout
-    pattern = re.compile(r"\b(%s)\b" % "|".join(map(re.escape, opcodes)))
+    pattern = re.compile(r"\b(?:%s)(?:\.\w+)*"
+                         % "|".join(map(re.escape, opcodes)))
     counts, fn = {}, None
     for line in out.splitlines():
         head = re.match(r"\s*Function\s*:\s*(\S+)", line)
         if head:
-            fn = counts.setdefault(head.group(1),
-                                   dict.fromkeys(opcodes, 0))
+            fn = counts.setdefault(head.group(1), {})
         elif fn is not None:
             for op in pattern.findall(line):
-                fn[op] += 1
+                fn[op] = fn.get(op, 0) + 1
     return counts
+
+
+# tensor-core instructions: HMMA (mma.sync) and HGMMA (wgmma)
+TC_OPCODES = ("HMMA", "HGMMA")
+
+
+def tc_kind(mnemonic):
+    """The input type of a tensor-core mnemonic: "bf16", "tf32" or
+    "other"."""
+    mods = mnemonic.split(".")[1:]
+    return "bf16" if "BF16" in mods else "tf32" if "TF32" in mods \
+        else "other"
+
+
+def tensor_core_counts(stem):
+    """{kernel (mangled name): {"bf16": n, "tf32": n, "other": n}}: the
+    tensor-core instructions of each kernel in `csrc/<stem>.cu`'s library,
+    by input type."""
+    out = {}
+    for fn, counts in sass_opcode_counts(stem, TC_OPCODES).items():
+        kinds = dict.fromkeys(("bf16", "tf32", "other"), 0)
+        for op, n in counts.items():
+            kinds[tc_kind(op)] += n
+        out[fn] = kinds
+    return out

@@ -1,7 +1,7 @@
 // Flash-attention backward (K2), fp32 and bf16, for Hopper (sm_90a): the
 // dq kernel and the dk/dv kernel.  This file holds the fp32 kernels, on
-// the SIMT units; the bf16 entries launch the tensor-core kernels of
-// flash_attention_tc.cuh.
+// the TF32 tensor cores at fp32 accuracy (3xTF32); the bf16 entries launch
+// the bf16 tensor-core kernels of flash_attention_tc.cuh.
 //
 // Replaces the TPU kernel `_flash_bwd_pallas` of
 // paddle_tpu/ops/pallas_kernels.py: its dq pass (q-stationary, K/V
@@ -12,28 +12,52 @@
 //   dp = dO . v
 //   ds = p * (dp - di) * scale   di = rowsum(dO * o) - dlse, from the caller
 //   dq = sum_k ds k,  dk = sum_q ds q,  dv = sum_q p dO.
-// Kv tiles above the causal diagonal are skipped in both kernels.
+// Kv tiles above the causal diagonal are skipped in both kernels.  There
+// is no rounding point but fp32's: p and ds stay fp32, as the TPU kernel's
+// fp32 instance keeps them.
 //
 // What bounds it: per live (query, key) pair the dq kernel does three
 // D-long products (s, dp, ds . k) and the dkv kernel four (s, dp, p . dO,
 // ds . q); at the training slice that is 3.2 and 4.3 GFLOP against 42 and
-// 51 MB moved, both far above the fp32 ridge point: fp32 FMA throughput
-// bounds them.  The design mirrors the forward kernel:
-//   * one 256-thread block per (b*h, 64-row tile): a q tile for dq, a kv
-//     tile for dk/dv.  The stationary tiles stay in shared memory, the
-//     streamed tiles pass through it one after the other;
-//   * each thread computes 4 x 4 blocks of s and dp from float4
-//     shared-memory reads, forms p and ds in registers, and writes them
-//     to shared memory once per tile for the products that follow;
-//   * each thread owns 4 rows x D/16 columns of its gradients in
-//     registers.
-// Because the dkv kernel is kv-stationary, every gradient row is owned by
-// one thread of one block: no atomics, fixed reduction orders, and a
-// result that depends only on its inputs.
+// 51 MB moved, far above the ridge point: the multiply rate bounds them.
+// The SIMT units top out at 67 TFLOP/s; the TF32 tensor cores give 495,
+// and fp32 accuracy on them costs three products (3xTF32, tc_common.cuh:
+// each operand split into TF32 big and small parts, small.big, big.small
+// and big.big accumulated in fp32), so the fp32-accurate ceiling is 165
+// TFLOP/s.  The design follows the bf16 kernels (flash_attention_tc.cuh):
+//   * one block of 4 warps per (b*h, 64-row tile), warp w owning rows
+//     16w .. 16w+15; every product is mma.sync.m16n8k8 tf32 x 3, each of
+//     the three passes run over 8 independent accumulators before the
+//     next;
+//   * the stationary tiles (q and dO for dq, k and v for dk/dv) are
+//     staged once and split in place into big and small tiles; the
+//     streamed tiles stay raw fp32 and are split as their fragments load;
+//   * p and ds are formed in the accumulators and are, register for
+//     register, the A operand of the next product: the m16n8 accumulator
+//     holds (row g, columns 2t, 2t + 1), the m16n8k8 A fragment wants
+//     (row g, columns t, t + 4), so a0..a3 take (2t, 2t, 2t + 1, 2t + 1)
+//     of rows (g, g + 8) and the matching B fragment reads k rows 2t and
+//     2t + 1 instead of t and t + 4: a fixed permutation of the k order,
+//     no shuffles;
+//   * rows are D + 4 floats: the A and B fragment loads (row g, column t;
+//     or row 2t, column g) fall in 32 distinct banks;
+//   * shared memory: 6 tiles, 104 KB at D = 64 (two blocks an SM) and
+//     203 KB at D = 128.  So the streamed tiles are single-buffered; the
+//     dq kernel reloads V as soon as dp is done (it loads during s, p, ds
+//     and ds . k) and K after ds . k (it loads during the next dp), and
+//     the second resident block covers the dk/dv kernel's loads.
+// What holds it back now: the split's instructions (three per streamed
+// element a fragment loads), the single-buffered streams, and mma.sync
+// rather than wgmma.  The gradients accumulate over up to S / 64 tiles on
+// one accumulator, whose sums drift with that count (at S = 512 well
+// inside the 1e-4 scaled tolerance); K6 promotes its partials, this
+// kernel does not yet.
+// Every gradient row is owned by one warp of one block (q-stationary dq,
+// kv-stationary dk/dv): no atomics, fixed reduction orders, and a result
+// that depends only on its inputs.
 //
 // bf16 (the TPU kernels' bf16 instance under AMP): flash_attention_tc.cuh's
-// `flash_bwd_dq_tc_kernel` and `flash_bwd_dkv_tc_kernel`, on the bf16
-// tensor cores.
+// `flash_bwd_dq_tc_kernel` and `flash_bwd_dkv_tc_kernel`.
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_tc.cuh"
@@ -41,140 +65,283 @@
 namespace paddle_flash {
 namespace {
 
+using namespace paddle_tc;
+
+constexpr int kF32Threads = tc::kThreads;  // 4 warps, as the bf16 kernels
+
+template <int D>
+__host__ __device__ constexpr int f32_tile() {
+  return kTile * (D + kPad);
+}
+
+// Stage rows row0 .. row0+63 of head (b, h) of fp32 `t` into `dst` (rows
+// of D + kPad floats) with 16-byte cp.async; rows at or past S are zero.
+// The caller commits the group.
+template <int D>
+__device__ __forceinline__ void stage_f32(float* dst, const PaddleT4& t,
+                                          int b, int h, int row0, int S) {
+  constexpr int NV = D / 4;
+  const float* base = static_cast<const float*>(t.ptr) + (long long)b * t.sb +
+                      (long long)h * t.sh;
+  static_assert(kTile * NV % kF32Threads == 0, "whole passes over the tile");
+#pragma unroll
+  for (int it = 0; it < kTile * NV / kF32Threads; ++it) {
+    const int idx = threadIdx.x + it * kF32Threads;
+    const int r = idx / NV;
+    const int c = idx - r * NV;
+    const int s = row0 + r;
+    const bool valid = s < S;
+    cp_async16(dst + r * (D + kPad) + c * 4,
+               valid ? base + (long long)s * t.ss + c * 4 : base, valid);
+  }
+}
+
+// Split a staged tile in place: `big` keeps the TF32 big parts, `small`
+// receives the small parts.
+template <int D>
+__device__ __forceinline__ void split_tile(float* big, float* small) {
+  for (int i = threadIdx.x; i < f32_tile<D>(); i += kF32Threads) {
+    uint32_t hi, lo;
+    split_tf32(big[i], hi, lo);
+    big[i] = __uint_as_float(hi);
+    small[i] = __uint_as_float(lo);
+  }
+}
+
+// The split A operand of rows r0 .. r0+15, columns c0 .. c0+7 of a split
+// row-major tile
+template <int D>
+__device__ __forceinline__ void load_a_split(SplitA& f, const float* big,
+                                             const float* small, int r0,
+                                             int c0) {
+  const int lane = threadIdx.x & 31;
+  const int i0 = (r0 + (lane >> 2)) * (D + kPad) + c0 + (lane & 3);
+  const int i1 = i0 + 8 * (D + kPad);
+  const int idx[4] = {i0, i1, i0 + 4, i1 + 4};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    f.big[e] = __float_as_uint(big[idx[e]]);
+    f.small[e] = __float_as_uint(small[idx[e]]);
+  }
+}
+
+// The B operand of n rows n0 .. n0+7 of a raw n-major tile (a row holds k
+// contiguous), k columns k0 .. k0+7, split
+template <int D>
+__device__ __forceinline__ void load_b_nk_split(SplitB& f, const float* tile,
+                                                int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  const float* p = tile + (n0 + (lane >> 2)) * (D + kPad) + k0 + (lane & 3);
+  split_b(f, p[0], p[4]);
+}
+
+// The B operand of k rows k0 .. k0+7 of a raw k-major tile (a row holds n
+// contiguous), n columns n0 .. n0+7, in the permuted k order of
+// acc_to_a_split (k rows 2t and 2t + 1), split
+template <int D>
+__device__ __forceinline__ void load_b_kn_split(SplitB& f, const float* tile,
+                                                int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const float* p =
+      tile + (k0 + 2 * (lane & 3)) * (D + kPad) + n0 + (lane >> 2);
+  split_b(f, p[0], p[D + kPad]);
+}
+
+// An accumulator n-tile (rows g, g + 8; columns 2t, 2t + 1) as the split A
+// operand of its 8 columns, in the permuted k order
+__device__ __forceinline__ void acc_to_a_split(SplitA& f, const float (&c)[4]) {
+  split_a(f, c[0], c[2], c[1], c[3]);
+}
+
+// Store a warp's 16 x D fp32 accumulator (rows row0 + g and row0 + g + 8
+// of head (b, h) of `t`, n-tile n at columns 8n + 2t); rows at or past S
+// are skipped.
+template <int D>
+__device__ __forceinline__ void store_acc_f32(const PaddleT4& t, int b, int h,
+                                              int row0, int S,
+                                              const float (&acc)[D / 8][4]) {
+  const int lane = threadIdx.x & 31;
+  float* base = static_cast<float*>(t.ptr) + (long long)b * t.sb +
+                (long long)h * t.sh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = row0 + (lane >> 2) + 8 * half;
+    if (s >= S) continue;
+    float2* row = reinterpret_cast<float2*>(base + (long long)s * t.ss);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      row[4 * n + (lane & 3)] =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+  }
+}
+
 template <int D>
 constexpr int dq_smem_bytes() {
-  return (4 * kTile * (D + kPad) + kTile * kPRow) * (int)sizeof(float);
+  return 6 * f32_tile<D>() * (int)sizeof(float);  // split Q, dO; K, V
 }
 
 template <int D>
 constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (D + kPad) + 2 * kTile * kPRow + 2 * kTile) *
-         (int)sizeof(float);
+  // split K, V; Q, dO; lse, di
+  return (6 * f32_tile<D>() + 2 * kTile) * (int)sizeof(float);
 }
 
-// dq: block (b*h, q tile); rows ty*4 + i of the q tile, keys tx + 16 j
+// K2 fp32 dq: block (b*h, q tile); warp w owns q rows 16w .. 16w+15
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kF32Threads)
 flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
-  constexpr int R = D + kPad;
-  constexpr int NC = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + kTile * R;
-  float* Ks = dOs + kTile * R;
-  float* Vs = Ks + kTile * R;
-  float* dSs = Vs + kTile * R;
+  constexpr int TE = f32_tile<D>();
+  constexpr int KS = D / 8;  // k-steps over D
+  constexpr int ND = D / 8;  // n-tiles over D
+  extern __shared__ float4 smem_f32[];
+  float* Qb = reinterpret_cast<float*>(smem_f32);
+  float* Qsm = Qb + TE;
+  float* Ob = Qsm + TE;
+  float* Osm = Ob + TE;
+  float* Kt = Osm + TE;
+  float* Vt = Kt + TE;
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
   const int b = bh / a.H;
   const int h = bh - b * a.H;
   const int q0 = qt * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<D>(Qs, a.q, b, h, q0, a.S);
-  load_tile<D>(dOs, a.dout, b, h, q0, a.S);
-  float lse[4], di[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    lse[i] = qi < a.S ? a.lse[(long long)bh * a.S + qi] : 0.f;
-    di[i] = qi < a.S ? a.di[(long long)bh * a.S + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int r0 = q0 + 16 * warp + (lane >> 2);  // rows r0, r0 + 8
 
   int n_kv = (a.S + kTile - 1) / kTile;
   if (a.causal) n_kv = min(n_kv, qt + 1);
+
+  stage_f32<D>(Qb, a.q, b, h, q0, a.S);
+  stage_f32<D>(Ob, a.dout, b, h, q0, a.S);
+  stage_f32<D>(Vt, a.v, b, h, 0, a.S);
+  cp_async_commit();
+  stage_f32<D>(Kt, a.k, b, h, 0, a.S);
+  cp_async_commit();
+
+  float lse[2], di[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    lse[i] = qi < a.S ? a.lse[(long long)bh * a.S + qi] : 0.f;
+    di[i] = qi < a.S ? a.di[(long long)bh * a.S + qi] : 0.f;
+  }
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  cp_async_wait<1>();  // Q, dO and V(0); K(0) may be in flight
+  __syncthreads();
+  split_tile<D>(Qb, Qsm);
+  split_tile<D>(Ob, Osm);
+  __syncthreads();
+
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<D>(Ks, a.k, b, h, k0, a.S);
-    load_tile<D>(Vs, a.v, b, h, k0, a.S);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
+    // dp = dO . v^T: 16 rows x 64 keys, n-tile j at keys k0 + 8j
+    float dp[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 kv[4], vv[4];
+    for (int ks = 0; ks < KS; ++ks) {
+      SplitA oa;
+      SplitB vb[8];
+      load_a_split<D>(oa, Ob, Osm, 16 * warp, 8 * ks);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = ld4(Ks + (tx + 16 * j) * R + d);
-        vv[j] = ld4(Vs + (tx + 16 * j) * R + d);
-      }
+      for (int j = 0; j < 8; ++j) load_b_nk_split<D>(vb[j], Vt, 8 * j, 8 * ks);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 qv = ld4(Qs + (ty * 4 + i) * R + d);
-        const float4 ov = ld4(dOs + (ty * 4 + i) * R + d);
+      for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = dot4(qv, kv[j], s[i][j]);
-          dp[i][j] = dot4(ov, vv[j], dp[i][j]);
-        }
-      }
+        for (int j = 0; j < 8; ++j) mma_3xtf32(dp[j], oa, vb[j], pass);
     }
+    cp_async_wait<0>();  // K(kt) has landed ...
+    __syncthreads();     // ... for every thread, and every warp is done with V
+    if (kt + 1 < n_kv) {
+      stage_f32<D>(Vt, a.v, b, h, k0 + kTile, a.S);
+      cp_async_commit();
+    }
+
+    // s = q . k^T
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float v = s[i][j] * a.scale;
-        if (kj >= a.S || (a.causal && kj > qi)) v = kNegInf;
+    for (int ks = 0; ks < KS; ++ks) {
+      SplitA qa;
+      SplitB kb[8];
+      load_a_split<D>(qa, Qb, Qsm, 16 * warp, 8 * ks);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) load_b_nk_split<D>(kb[j], Kt, 8 * j, 8 * ks);
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_3xtf32(s[j], qa, kb[j], pass);
+    }
+
+    // p = exp(s - lse), ds = p (dp - di) scale, in fp32
+    const bool masked = (a.causal && kt == qt) || k0 + kTile > a.S;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float v = s[j][e] * a.scale;
+        if (masked) {
+          const int key = k0 + 8 * j + 2 * tq + (e & 1);
+          if (key >= a.S || (a.causal && key > r0 + 8 * i)) v = kNegInf;
+        }
         const float p = expf(v - lse[i]);
-        dSs[(ty * 4 + i) * kPRow + tx + 16 * j] =
-            p * (dp[i][j] - di[i]) * a.scale;
+        s[j][e] = p * (dp[j][e] - di[i]) * a.scale;
       }
     }
-    __syncthreads();
 
-    // acc += dS . K for rows ty*4 + i, columns g*64 + tx*4 .. +3
-#pragma unroll 2
-    for (int kk = 0; kk < kTile; kk += 4) {
-      float4 dsv[4];
+    // dq += ds . k: 8-key steps, K read k-major in the permuted order
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dsv[i] = ld4(dSs + (ty * 4 + i) * kPRow + kk);
+    for (int kk = 0; kk < 8; ++kk) {
+      SplitA da;
+      acc_to_a_split(da, s[kk]);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int d0 = 0; d0 < ND; d0 += 4) {
+        SplitB kb[4];
 #pragma unroll
-        for (int g = 0; g < D / 64; ++g) {
-          const float4 kv = ld4(Ks + (kk + u) * R + g * 64 + tx * 4);
+        for (int u = 0; u < 4; ++u)
+          load_b_kn_split<D>(kb[u], Kt, 8 * kk, 8 * (d0 + u));
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float w = comp(dsv[i], u);
-            acc[i][g * 4 + 0] = fmaf(w, kv.x, acc[i][g * 4 + 0]);
-            acc[i][g * 4 + 1] = fmaf(w, kv.y, acc[i][g * 4 + 1]);
-            acc[i][g * 4 + 2] = fmaf(w, kv.z, acc[i][g * 4 + 2]);
-            acc[i][g * 4 + 3] = fmaf(w, kv.w, acc[i][g * 4 + 3]);
-          }
-        }
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) mma_3xtf32(dq[d0 + u], da, kb[u], pass);
       }
+    }
+    if (kt + 1 < n_kv) {
+      __syncthreads();  // every warp is done with K
+      stage_f32<D>(Kt, a.k, b, h, k0 + kTile, a.S);
+      cp_async_commit();
+      cp_async_wait<1>();  // V(kt + 1) has landed; K(kt + 1) may not have
+      __syncthreads();
     }
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D>(a.dq, b, h, q0, a.S, ty, tx, acc, one);
+  store_acc_f32<D>(a.dq, b, h, q0 + 16 * warp, a.S, dq);
 }
 
-// dk, dv: block (b*h, kv tile); kv rows ty*4 + i, queries tx + 16 j
+// K2 fp32 dk/dv: block (b*h, kv tile); warp w owns kv rows 16w .. 16w+15.
+// The q tile is taken 32 queries at a time, to bound the live
+// accumulators (dk, dv, s^T, dp^T) at D = 128.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kF32Threads)
 flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
-  constexpr int R = D + kPad;
-  constexpr int NC = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kTile * R;
-  float* Qs = Vs + kTile * R;
-  float* dOs = Qs + kTile * R;
-  float* Ps = dOs + kTile * R;
-  float* dSs = Ps + kTile * kPRow;
-  float* lse_s = dSs + kTile * kPRow;
+  constexpr int TE = f32_tile<D>();
+  constexpr int KS = D / 8;
+  constexpr int ND = D / 8;
+  extern __shared__ float4 smem_f32[];
+  float* Kb = reinterpret_cast<float*>(smem_f32);
+  float* Ksm = Kb + TE;
+  float* Vb = Ksm + TE;
+  float* Vsm = Vb + TE;
+  float* Qt = Vsm + TE;
+  float* Ot = Qt + TE;
+  float* lse_s = Ot + TE;
   float* di_s = lse_s + kTile;
 
   const int bh = blockIdx.x;
@@ -182,114 +349,147 @@ flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
   const int b = bh / a.H;
   const int h = bh - b * a.H;
   const int k0 = kt * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<D>(Ks, a.k, b, h, k0, a.S);
-  load_tile<D>(Vs, a.v, b, h, k0, a.S);
-  float dk[4][NC], dv[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int c0 = k0 + 16 * warp + (lane >> 2);  // kv rows c0, c0 + 8
 
   const int nq = (a.S + kTile - 1) / kTile;
-  for (int qt = a.causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<D>(Qs, a.q, b, h, q0, a.S);
-    load_tile<D>(dOs, a.dout, b, h, q0, a.S);
-    load_rowstat(lse_s, a.lse, bh, q0, a.S);
-    load_rowstat(di_s, a.di, bh, q0, a.S);
-    __syncthreads();
+  const int qt0 = a.causal ? kt : 0;
 
-    float s[4][4], dp[4][4];
+  stage_f32<D>(Kb, a.k, b, h, k0, a.S);
+  stage_f32<D>(Vb, a.v, b, h, k0, a.S);
+  stage_f32<D>(Qt, a.q, b, h, qt0 * kTile, a.S);
+  stage_f32<D>(Ot, a.dout, b, h, qt0 * kTile, a.S);
+  tc::stage_rowstat(lse_s, a.lse, bh, qt0 * kTile, a.S);
+  tc::stage_rowstat(di_s, a.di, bh, qt0 * kTile, a.S);
+  cp_async_commit();
+
+  float dk[ND][4], dv[ND][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], ov[4];
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<D>(Kb, Ksm);
+  split_tile<D>(Vb, Vsm);
+  __syncthreads();
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * kTile;
+    const bool masked = (a.causal && qt == kt) || q0 + kTile > a.S;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = ld4(Qs + (tx + 16 * j) * R + d);
-        ov[j] = ld4(dOs + (tx + 16 * j) * R + d);
-      }
+    for (int half = 0; half < 2; ++half) {
+      const int qc = 32 * half;  // first query column of this half
+      // s^T = k . q^T and dp^T = v . dO^T: 16 kv rows x 32 queries
+      float st[4][4], dpt[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 kv = ld4(Ks + (ty * 4 + i) * R + d);
-        const float4 vv = ld4(Vs + (ty * 4 + i) * R + d);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        SplitA ka, va;
+        load_a_split<D>(ka, Kb, Ksm, 16 * warp, 8 * ks);
+        load_a_split<D>(va, Vb, Vsm, 16 * warp, 8 * ks);
+        SplitB qb[4], ob[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = dot4(qv[j], kv, s[i][j]);
-          dp[i][j] = dot4(ov[j], vv, dp[i][j]);
+          load_b_nk_split<D>(qb[j], Qt, qc + 8 * j, 8 * ks);
+          load_b_nk_split<D>(ob[j], Ot, qc + 8 * j, 8 * ks);
         }
-      }
-    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kc = k0 + ty * 4 + i;
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            mma_3xtf32(st[j], ka, qb[j], pass);
+            mma_3xtf32(dpt[j], va, ob[j], pass);
+          }
+      }
+
+      // p^T = exp(s^T - lse), ds^T = p^T (dp^T - di) scale; queries past
+      // S contribute nothing
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
-        const int qi = q0 + r;
-        float v = s[i][j] * a.scale;
-        if (a.causal && kc > qi) v = kNegInf;
-        // queries past S do not exist: they contribute nothing
-        const float p = qi < a.S ? expf(v - lse_s[r]) : 0.f;
-        Ps[(ty * 4 + i) * kPRow + r] = p;
-        dSs[(ty * 4 + i) * kPRow + r] = p * (dp[i][j] - di_s[r]) * a.scale;
-      }
-    }
-    __syncthreads();
-
-    // dv += P^T . dO and dk += dS^T . Q for kv rows ty*4 + i, columns
-    // g*64 + tx*4 .. +3
-#pragma unroll 2
-    for (int rr = 0; rr < kTile; rr += 4) {
-      float4 pv[4], dsv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = ld4(Ps + (ty * 4 + i) * kPRow + rr);
-        dsv[i] = ld4(dSs + (ty * 4 + i) * kPRow + rr);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int g = 0; g < D / 64; ++g) {
-          const float4 ov = ld4(dOs + (rr + u) * R + g * 64 + tx * 4);
-          const float4 qv = ld4(Qs + (rr + u) * R + g * 64 + tx * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = comp(pv[i], u);
-            const float w = comp(dsv[i], u);
-            dv[i][g * 4 + 0] = fmaf(p, ov.x, dv[i][g * 4 + 0]);
-            dv[i][g * 4 + 1] = fmaf(p, ov.y, dv[i][g * 4 + 1]);
-            dv[i][g * 4 + 2] = fmaf(p, ov.z, dv[i][g * 4 + 2]);
-            dv[i][g * 4 + 3] = fmaf(p, ov.w, dv[i][g * 4 + 3]);
-            dk[i][g * 4 + 0] = fmaf(w, qv.x, dk[i][g * 4 + 0]);
-            dk[i][g * 4 + 1] = fmaf(w, qv.y, dk[i][g * 4 + 1]);
-            dk[i][g * 4 + 2] = fmaf(w, qv.z, dk[i][g * 4 + 2]);
-            dk[i][g * 4 + 3] = fmaf(w, qv.w, dk[i][g * 4 + 3]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = qc + 8 * j + 2 * tq + (e & 1);
+          const int qi = q0 + col;
+          float v = st[j][e] * a.scale;
+          float p = 0.f;
+          if (!masked) {
+            p = expf(v - lse_s[col]);
+          } else if (qi < a.S) {
+            if (a.causal && c0 + 8 * (e >> 1) > qi) v = kNegInf;
+            p = expf(v - lse_s[col]);
           }
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - di_s[col]) * a.scale;
+        }
+      }
+
+      // dv += p^T . dO, dk += ds^T . q: 8-query steps, dO and q read
+      // k-major in the permuted order
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        SplitA pa, da;
+        acc_to_a_split(pa, st[kk]);
+        acc_to_a_split(da, dpt[kk]);
+#pragma unroll
+        for (int d0 = 0; d0 < ND; d0 += 2) {
+          SplitB ob[2], qb[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            load_b_kn_split<D>(ob[u], Ot, qc + 8 * kk, 8 * (d0 + u));
+            load_b_kn_split<D>(qb[u], Qt, qc + 8 * kk, 8 * (d0 + u));
+          }
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              mma_3xtf32(dv[d0 + u], pa, ob[u], pass);
+              mma_3xtf32(dk[d0 + u], da, qb[u], pass);
+            }
         }
       }
     }
+    if (qt + 1 < nq) {
+      __syncthreads();  // every warp is done with this q tile
+      const int qn = q0 + kTile;
+      stage_f32<D>(Qt, a.q, b, h, qn, a.S);
+      stage_f32<D>(Ot, a.dout, b, h, qn, a.S);
+      tc::stage_rowstat(lse_s, a.lse, bh, qn, a.S);
+      tc::stage_rowstat(di_s, a.di, bh, qn, a.S);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D>(a.dk, b, h, k0, a.S, ty, tx, dk, one);
-  store_rows<D>(a.dv, b, h, k0, a.S, ty, tx, dv, one);
+  store_acc_f32<D>(a.dk, b, h, k0 + 16 * warp, a.S, dk);
+  store_acc_f32<D>(a.dv, b, h, k0 + 16 * warp, a.S, dv);
+}
+
+// Launch an fp32 kernel with the most shared memory per SM, so that two
+// D = 64 blocks fit on one
+template <typename Kernel>
+cudaError_t launch_f32(Kernel kernel, int smem, const PaddleFlashBwdArgs& a,
+                       cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return launch_tiles(kernel, kF32Threads, smem, a, st);
 }
 
 cudaError_t launch_dq_f32(const PaddleFlashBwdArgs* a, cudaStream_t st) {
   switch (a->D) {
     case 64:
-      return launch_tiles(flash_bwd_dq_kernel<64>, kThreads,
-                          dq_smem_bytes<64>(), *a, st);
+      return launch_f32(flash_bwd_dq_kernel<64>, dq_smem_bytes<64>(), *a, st);
     case 128:
-      return launch_tiles(flash_bwd_dq_kernel<128>, kThreads,
-                          dq_smem_bytes<128>(), *a, st);
+      return launch_f32(flash_bwd_dq_kernel<128>, dq_smem_bytes<128>(), *a,
+                        st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -297,11 +497,11 @@ cudaError_t launch_dq_f32(const PaddleFlashBwdArgs* a, cudaStream_t st) {
 cudaError_t launch_dkv_f32(const PaddleFlashBwdArgs* a, cudaStream_t st) {
   switch (a->D) {
     case 64:
-      return launch_tiles(flash_bwd_dkv_kernel<64>, kThreads,
-                          dkv_smem_bytes<64>(), *a, st);
+      return launch_f32(flash_bwd_dkv_kernel<64>, dkv_smem_bytes<64>(), *a,
+                        st);
     case 128:
-      return launch_tiles(flash_bwd_dkv_kernel<128>, kThreads,
-                          dkv_smem_bytes<128>(), *a, st);
+      return launch_f32(flash_bwd_dkv_kernel<128>, dkv_smem_bytes<128>(), *a,
+                        st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -8,10 +8,11 @@
 // kernels read the q/k/v column slices of a fused qkv projection in place.
 // The row statistics lse and di are [B * H, S] contiguous, fp32.
 //
-// Element types.  The fp32 entries run the SIMT kernels of the two .cu
-// files on fp32 operands, with the tile loader and the row store below;
-// the bf16 entries run the tensor-core kernels of flash_attention_tc.cuh
-// on bf16 operands.  lse and di are fp32 in both.
+// Element types.  The fp32 entries run the forward's SIMT kernel (with the
+// tile loader and the row store below) and the backward's 3xTF32
+// tensor-core kernels (flash_attention_bwd.cu) on fp32 operands; the bf16
+// entries run the tensor-core kernels of flash_attention_tc.cuh on bf16
+// operands.  lse and di are fp32 in both.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -120,15 +121,6 @@ __device__ __forceinline__ void load_tile(float* dst, const PaddleT4& t,
     for (int u = 0; u < VEC; u += 4)
       *reinterpret_cast<float4*>(d + u) =
           make_float4(v[u], v[u + 1], v[u + 2], v[u + 3]);
-  }
-}
-
-// Stage 64 entries of a [B * H, S] row statistic; zero past S.
-__device__ __forceinline__ void load_rowstat(float* dst, const float* src,
-                                             int bh, int row0, int S) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const int s = row0 + r;
-    dst[r] = s < S ? src[(long long)bh * S + s] : 0.f;
   }
 }
 

@@ -17,397 +17,631 @@
 // The filters are read in the program's OIHW layout: no transposes per
 // run.  Any H and W (odd sizes too), stride 1 or 2.
 //
-// This file holds the fp32 kernel (SIMT) and the C entries; the bf16
-// entry launches the tensor-core kernel of fused_bottleneck_tc.cuh, which
-// keeps this kernel's structure and the TPU kernel's bf16 rounding points
-// and takes C, F and C4 multiples of 8.
+// This file holds the fp32 kernel and the C entries; the bf16 entry
+// launches the kernel of fused_bottleneck_tc.cuh, which keeps the TPU
+// kernel's bf16 rounding points and takes C, F and C4 multiples of 8.
+// Both run on the tensor cores with one structure, and share the launch
+// planning of fused_bottleneck_tc.cuh.
 //
-// Design (fp32).  One thread block owns one image and R consecutive
-// output rows o0 .. o0 + R - 1 (R picked per shape, below).  It
+// Structure (fp32).  One block of 8 warps owns one image and R
+// consecutive output rows o0 .. o0 + R - 1 (R picked per shape on the
+// host).  It
 //   1. computes conv0 + b0 + relu for the E = s (R - 1) + 3 input rows
 //      s o0 - 1 .. s (o0 + R - 1) + 1 that the 3x3 taps read, into a
-//      shared-memory window [E, W, F]; rows outside the image are exact
-//      zeros, as the 3x3's zero padding acts on conv0's OUTPUT (the TPU
-//      kernel masks those rows the same way);
-//   2. computes the 3x3 conv + b1 + relu from that window (the tap's
-//      column outside the image reads 0) into a shared row block
-//      h [R Wo, F];
+//      shared-memory window [E][W + 2][ldw]; rows outside the image are
+//      exact zeros, as the 3x3's zero padding acts on conv0's OUTPUT (the
+//      TPU kernel masks those rows the same way), and columns -1 and W
+//      are zero columns, so no tap branches;
+//   2. computes the 3x3 conv + b1 + relu from that window into a shared
+//      row block h [R Wo][ldh];
 //   3. accumulates conv2 (from h) and the projection shortcut (from x in
-//      device memory, at (s o, s wo)) into one register tile, adds the
+//      device memory, at (s o, s wo)) into one accumulator, adds the
 //      biases (or the identity x row), applies relu and writes out.
-// Each stage is a small GEMM, out[m][n] = sum_k A(m, k) B[n][k], with B a
-// filter read row by row from device memory (OIHW keeps each output
-// channel's K = C, 9 F or F inputs contiguous; for the 3x3, k runs over
-// (input channel, tap) in OIHW order and A is the window read as
-// im2col).  The block computes 64 x 64 output tiles, 256 threads each
-// owning a 4 x 4 register tile, over K in chunks of 16 staged in shared
-// memory.  Window and h rows are padded to F + 1 elements so the im2col
-// reads of one chunk spread over the banks.
+// Each stage is a GEMM out[m][n] = sum_k A(m, k) B[n][k] in 128 x 64
+// block tiles (8 warps of 32 x 32), or 64 x 64 (8 warps of 32 x 16) where
+// a block's few rows would leave most of a 128-row tile empty, on
+// mma.sync.m16n8k8 TF32 at fp32 accuracy (3xTF32, tc_common.cuh: every
+// product is small.big + big.small + big.big, each pass run over all the
+// warp's accumulators before the next, summed in fp32; there is no
+// rounding point but fp32's):
+//   * conv0 and the projection: A is x rows, staged by cp.async (16 bytes
+//     where rows are 16-byte aligned, else 4) into a ring of three chunks
+//     of 16 k, zero past the k edge; B the filter rows w0 [F][C] / ws
+//     [C4][C], read two chunks ahead into registers and split into big and
+//     small parts as they are stored to shared memory;
+//   * the 3x3: one k-step of 8 is 8 channels of one tap, so the A
+//     fragment (pixel g, channels t and t + 4) is read in place from the
+//     window at the tap's offset, with no im2col; the stride only changes
+//     each lane's pixel.  B is w1 in OIHW: per output channel a block of 8
+//     channels is 72 contiguous values (channel-major, tap-minor), staged
+//     as they lie (split), and the fragment for tap j reads elements 9t +
+//     j and 9 (t + 4) + j;
+//   * conv2: A is h read in place, B w2 [C4][F] as conv0's B.
+// The window, h and the A tiles are split as their fragments load.  The
+// tensor cores' fp32 accumulation does not round to nearest, and its
+// error grows with the number of products on one accumulator (to ~3e-4
+// at |out| ~ 8 for a K = 9 x 512 loop); so each 64 k of a 1x1 (four
+// chunks) and each 72 k of the 3x3 (one chunk) accumulate into a zeroed
+// partial that is added to the block's sum in IEEE fp32.  Row strides keep
+// every fragment load free of bank conflicts: 16 + 4 floats for the staged
+// tiles, 72 + 4 for w1's chunk, F8 + 4 for h and a stride-1 window, F8 + 2
+// for a stride-2 window (F8 = F rounded up to 8), whose 8 fragment rows
+// lie 2 pixels apart.  Ragged widths: staged k past the edge is zero, the
+// window's and h's pad channels are zero, and the n edge is masked at the
+// store; any C, F and C4.
 //
 // What bounds it: per output pixel the block does C F + 9 F^2 + F C4 (+
 // C C4) multiply-adds on one read of x and one write of out, hundreds of
-// flops per byte — above the card's fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s, ~20 flops per byte), so it is bound by the fp32 FMA rate.  The
-// design spends no device-memory traffic on the intermediates; it pays
-// for that by recomputing conv0 on the (E - s R) halo rows that
-// neighbouring blocks share (R = 1, s = 1: 3x; R = 2: 2x), by SIMT FMAs
-// rather than tensor cores, and by re-reading the filters from L2 in
-// every block.  TF32 tensor-core tiles, TMA staging and splitting F across
-// blocks are later work.
+// flops per byte, so the multiply rate bounds it: 67 TFLOP/s on the SIMT
+// units, 495 / 3 = 165 TFLOP/s for fp32-accurate products on the TF32
+// tensor cores.  Beyond the three products, its costs are conv0's halo
+// recompute over (E - s R) rows, M tiles rounded up to whole tiles, the
+// split's instructions (three per element loaded), one block an SM at
+// most shapes (the fp32 window fills shared memory), mma.sync rather than
+// wgmma, and filters re-read from L2 by every block.  The tile and R are
+// chosen on the host as for bf16 (pick_rows): the least padded work per
+// SM, weighed by whether two blocks fit and, for 64-row tiles, by their
+// lower rate.
 //
-// Sums run in a fixed order fixed by the shape: no atomics, so the
-// result is deterministic.
+// Sums run in an order fixed by the shape: no atomics, so the result is
+// deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "fused_bottleneck_tc.cuh"
 
 namespace paddle_bottleneck {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;       // BM = BN: output tile edge
-constexpr int kChunk = 16;      // K staged per step
-constexpr int kLdt = kTile + 4; // staged tile row stride (float4 aligned)
-// aim each block at ~2 output tiles of rows, but keep >= 2 blocks per SM
-constexpr int kTargetRows = 128;
-constexpr long long kMinBlocks = 264;
+using namespace paddle_tc;
+using paddle_bottleneck_tc::kBN;
+using paddle_bottleneck_tc::kThreads;
 
-template <typename T>
-struct Args {
-  const T* x;
-  const T* w0;
-  const T* b0;
-  const T* w1;
-  const T* b1;
-  const T* w2;
-  const T* b2;
-  const T* ws;
-  const T* bs;
-  T* out;
-  int N, H, W, C, F, C4, stride;
-};
+// The block's 8 warps: WM along M and 8 / WM along N, each warp 32 rows
+// x 8 WM columns.  WM 4 gives 128-row tiles; WM 2 gives 64-row tiles,
+// for shapes whose few rows a block would leave most of a 128-row tile
+// empty.
+template <int WM>
+using Acc = float[2][WM][4];  // [m sub-tile][n sub-tile][fragment]
 
-// an element in shared memory (to_f32) or, through the read-only cache,
-// in device memory (ldg_f32); store writes it
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+constexpr int kKC = 16;        // k per staged chunk of the 1x1 GEMMs
+constexpr int kLdc = kKC + 4;  // staged row stride of the 1x1 GEMMs
+constexpr int kRing = 3;       // staged A chunks of the 1x1 GEMMs
+constexpr int kKC3 = 72;       // k per chunk of the 3x3: 8 channels x 9 taps
+constexpr int kLd3 = kKC3 + 4;
+// the staging area (floats) of a block of 32 WM-row tiles: the ring of A
+// tiles and two split B tiles of the 1x1 GEMMs, or the 3x3's split B tile
+__host__ __device__ constexpr int stage_floats(int wm) {
+  return kRing * 32 * wm * kLdc + 2 * 2 * kBN * kLdc > 2 * kBN * kLd3
+             ? kRing * 32 * wm * kLdc + 2 * 2 * kBN * kLdc
+             : 2 * kBN * kLd3;
+}
 
+typedef paddle_bottleneck_tc::ArgsT<float> Args;
+
+// Wp = W + 2 window columns; ldw, ldh floats per window or h row
 struct Geom {
-  int Ho, Wo, R, E, ldw, ldh;
+  int Ho, Wo, R, E, Wp, ldw, ldh, wm;
 };
 
-// A block-wide 64 x 64 tile of out[m][n] = sum_k A(m, k) * B[n * ldb + k]:
-// thread (ty, tx) owns rows m0 + 4 ty + i and columns n0 + 4 tx + j.
-// The A operand is a loader with three parts, so the index arithmetic
-// is paid once per row per tile and once per column per chunk, not per
-// element: `row(m)` (0 content outside the operand), `col(k)` and
-// `at(row, col)`.  B rows n >= N read 0.  The next chunk is fetched into
-// registers while the current one is multiplied out of shared memory
-// (two staging buffers, one barrier per chunk).  A and B are converted
-// to fp32 as they are fetched (the identity for fp32).
-template <class ALoad, typename T>
-__device__ __forceinline__ void tile_gemm(const ALoad& a,
-                                          const T* __restrict__ B,
-                                          int ldb, int N, int K, int m0,
-                                          int n0, float (&acc)[4][4],
-                                          float* As, float* Bs) {
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  const int lk = t % kChunk;   // the chunk column this thread stages
-  const int lr = t / kChunk;   // its first row (then +16, +32, +48)
-  typename ALoad::Row rows[kTile / 16];
-  const T* brow[kTile / 16];
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+template <int WM>
+__device__ __forceinline__ void zero(Acc<WM>& acc) {
 #pragma unroll
-  for (int i = 0; i < kTile / 16; ++i) {
-    rows[i] = a.row(m0 + lr + 16 * i);
-    const int n = n0 + lr + 16 * i;
-    brow[i] = n < N ? B + (size_t)n * ldb : nullptr;
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// acc += part in IEEE fp32 (round to nearest), and part = 0
+template <int WM>
+__device__ __forceinline__ void promote(Acc<WM>& acc, Acc<WM>& part) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] += part[i][j][e];
+        part[i][j][e] = 0.f;
+      }
+}
+
+// One k-step of 8 of the warp's 32 x 32 tile: a[mi] are the split A
+// fragments of its rows 32 wm + 16 mi; Bb / Bsm the big and small parts
+// of an n-major staged tile (row = output channel), read at columns
+// kofs .. kofs + 7, or at kofs + kstride t (+ 4 kstride) with kstride 9
+// for the 3x3's channel-major chunk.
+template <int kStride, int WM>
+__device__ __forceinline__ void mma_k8(Acc<WM>& acc, const SplitA (&a)[2],
+                                       const float* Bb, const float* Bsm,
+                                       int ldb, int kofs) {
+  const int lane = threadIdx.x & 31;
+  const int wn = (threadIdx.x >> 5) / WM;
+  const int base =
+      (wn * 8 * WM + (lane >> 2)) * ldb + kofs + kStride * (lane & 3);
+  SplitB b[WM];
+#pragma unroll
+  for (int ni = 0; ni < WM; ++ni) {
+    const int i = base + 8 * ni * ldb;
+    b[ni].big[0] = __float_as_uint(Bb[i]);
+    b[ni].big[1] = __float_as_uint(Bb[i + 4 * kStride]);
+    b[ni].small[0] = __float_as_uint(Bsm[i]);
+    b[ni].small[1] = __float_as_uint(Bsm[i + 4 * kStride]);
   }
-  float ra[kTile / 16], rb[kTile / 16];
-  auto fetch = [&](int k) {
-    const bool live = k < K;
-    const typename ALoad::Col c = a.col(live ? k : 0);
 #pragma unroll
-    for (int i = 0; i < kTile / 16; ++i) {
-      ra[i] = live ? a.at(rows[i], c) : 0.f;
-      rb[i] = (live && brow[i]) ? ldg_f32(brow[i] + k) : 0.f;
+  for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+    for (int ni = 0; ni < WM; ++ni)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        mma_3xtf32(acc[mi][ni], a[mi], b[ni], pass);
+}
+
+// The split A fragment of rows p0 (pixel g) and p1 (pixel g + 8), each a
+// pointer to the fragment's first column
+__device__ __forceinline__ void load_a(SplitA& f, const float* p0,
+                                       const float* p1) {
+  const int t = threadIdx.x & 3;
+  split_a(f, p0[t], p1[t], p0[t + 4], p1[t + 4]);
+}
+
+// acc += A[m0 .. m0+32 WM-1][0, K) . B[n0 .. n0+63][0, K)^T for a 1x1
+// filter B [N][K].  kStagedA: A rows lie in device memory, and arow[i] is
+// the row this thread stages at tile row tid / 4 + 64 i (null: a zero row);
+// otherwise A lies in shared memory and arow[2 mi + hh] is this lane's
+// row g + 8 hh of m sub-tile mi.  Chunks of kKC k go through a ring of
+// kRing A buffers and two B buffers, two chunks in flight ahead of the
+// one multiplied, one barrier a chunk.  Ends with a barrier: the staging
+// area is free.
+template <bool kStagedA, int WM>
+__device__ __forceinline__ void gemm_1x1(Acc<WM>& acc,
+                                         const float* const* arow, bool avec,
+                                         const float* B, int N, int K, int n0,
+                                         float* stage) {
+  constexpr int BM = 32 * WM;
+  float* As = stage;                         // [kRing][BM][kLdc]
+  float* Bs = stage + kRing * BM * kLdc;     // [2][big, small][kBN][kLdc]
+  const int tid = threadIdx.x, lane = tid & 31, wm = (tid >> 5) % WM;
+  const int seg = 4 * (tid & 3);         // this thread's 4 k of a chunk row
+  const int nc = (K + kKC - 1) / kKC;
+  const bool bvec = K % 4 == 0 && aligned16(B);
+  const int bn = n0 + (tid >> 2);
+  const float* brow = bn < N ? B + (size_t)bn * K : nullptr;
+  // stage chunk c of A into buffer buf and commit it (an empty group
+  // past K)
+  auto fill_a = [&](int c, int buf) {
+    if (kStagedA && c < nc) {
+      const int k = c * kKC + seg;
+#pragma unroll
+      for (int i = 0; i < WM / 2; ++i) {
+        float* dst = As + (buf * BM + (tid >> 2) + 64 * i) * kLdc + seg;
+        if (avec) {
+          const bool v = arow[i] != nullptr && k < K;
+          cp_async16(dst, v ? arow[i] + k : B, v);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bool v = arow[i] != nullptr && k + j < K;
+            cp_async4(dst + j, v ? arow[i] + k + j : B, v);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // chunk c of this thread's B row segment, into registers
+  auto load_b = [&](int c, float4& r) {
+    const int k = c * kKC + seg;
+    if (bvec) {
+      r = brow && k < K ? __ldg(reinterpret_cast<const float4*>(brow + k))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      r.x = brow && k < K ? __ldg(brow + k) : 0.f;
+      r.y = brow && k + 1 < K ? __ldg(brow + k + 1) : 0.f;
+      r.z = brow && k + 2 < K ? __ldg(brow + k + 2) : 0.f;
+      r.w = brow && k + 3 < K ? __ldg(brow + k + 3) : 0.f;
     }
   };
-  fetch(lk);
-  int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
-    float* as = As + buf * kChunk * kLdt;
-    float* bs = Bs + buf * kChunk * kLdt;
+  auto store_b = [&](int buf, const float4& r) {
+    float* big = Bs + ((buf * 2) * kBN + (tid >> 2)) * kLdc + seg;
+    float* small = big + kBN * kLdc;
+    const float v[4] = {r.x, r.y, r.z, r.w};
+    uint32_t hi[4], lo[4];
 #pragma unroll
-    for (int i = 0; i < kTile / 16; ++i) {
-      as[lk * kLdt + lr + 16 * i] = ra[i];
-      bs[lk * kLdt + lr + 16 * i] = rb[i];
-    }
+    for (int j = 0; j < 4; ++j) split_tf32(v[j], hi[j], lo[j]);
+    *reinterpret_cast<float4*>(big) =
+        make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                    __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+    *reinterpret_cast<float4*>(small) =
+        make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                    __uint_as_float(lo[2]), __uint_as_float(lo[3]));
+  };
+  // two chunks in flight ahead of the one multiplied: A in a ring of
+  // kRing buffers, B in two register sets (chunks c and c + 1), used in
+  // turn so that each is indexed at compile time
+  float4 breg0, breg1;
+  fill_a(0, 0);
+  fill_a(1, 1);
+  load_b(0, breg0);
+  if (nc > 1) load_b(1, breg1);
+  Acc<WM> part;
+  zero<WM>(part);
+  int abuf = 0;
+  auto step = [&](int c, float4& r) {
+    const int buf = c & 1;
+    store_b(buf, r);
+    cp_async_wait<1>();  // A chunk c has landed (c + 1 may be in flight) ...
+    // ... for every thread, B chunk c is stored, and every thread is done
+    // with chunk c - 1, whose A buffer chunk c + 2 refills
     __syncthreads();
-    if (k0 + kChunk < K) fetch(k0 + kChunk + lk);
+    fill_a(c + 2, abuf == 0 ? kRing - 1 : abuf - 1);
+    if (c + 2 < nc) load_b(c + 2, r);
+    const float* Bb = Bs + (buf * 2) * kBN * kLdc;
 #pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      const float4 av =
-          *reinterpret_cast<const float4*>(as + kk * kLdt + 4 * ty);
-      const float4 bv =
-          *reinterpret_cast<const float4*>(bs + kk * kLdt + 4 * tx);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+    for (int ks = 0; ks < kKC / 8; ++ks) {
+      const int k = c * kKC + 8 * ks;
+      if (k >= K) break;
+      SplitA a[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      for (int mi = 0; mi < 2; ++mi) {
+        if (kStagedA) {
+          const float* p = As + (abuf * BM + wm * 32 + 16 * mi +
+                                 (lane >> 2)) * kLdc + 8 * ks;
+          load_a(a[mi], p, p + 8 * kLdc);
+        } else {
+          load_a(a[mi], arow[2 * mi] + k, arow[2 * mi + 1] + k);
+        }
+      }
+      mma_k8<1>(part, a, Bb, Bb + kBN * kLdc, kLdc, 8 * ks);
     }
-    buf ^= 1;
+    if ((c & 3) == 3 || c + 1 == nc) promote(acc, part);
+    abuf = abuf == kRing - 1 ? 0 : abuf + 1;
+  };
+  for (int c = 0; c < nc; c += 2) {
+    step(c, breg0);
+    if (c + 1 < nc) step(c + 1, breg1);
   }
-  // the caller's next tile stages into these buffers again
+  cp_async_wait<0>();
   __syncthreads();
 }
 
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+// acc += the 3x3 (stride s, the window's zero padding) at the block's
+// output pixels m0 .. m0+32 WM-1 (m = r Wo + wo), output channels n0 ..
+// n0+63.
+// Ends with a barrier.
+template <int WM>
+__device__ __forceinline__ void gemm_3x3(Acc<WM>& acc, const Args& a,
+                                         const Geom& g, const float* win,
+                                         int m0, int n0, float* stage) {
+  const int tid = threadIdx.x, lane = tid & 31, wm = (tid >> 5) % WM;
+  const int F = a.F, s = a.stride, ldw = g.ldw;
+  const int ncb = (F + 7) / 8;
+  // this lane's four A rows: window pixel (s r, s wo) is the tap (0, 0) of
+  // output pixel (r, wo); rows past the block's pixels read pixel 0
+  const float* arow[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    int m = m0 + wm * 32 + 16 * (i >> 1) + (lane >> 2) + 8 * (i & 1);
+    if (m >= g.R * g.Wo) m = 0;
+    const int r = m / g.Wo, wo = m - r * g.Wo;
+    arow[i] = win + (s * r * g.Wp + s * wo) * ldw;
+  }
+  int toff[9];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int tap = 0; tap < 9; ++tap)
+    toff[tap] = ((tap / 3) * g.Wp + tap % 3) * ldw;
+  // B: thread tid stages 18 of the 72 values of output channel tid / 4,
+  // one chunk ahead in registers
+  const int bq = 18 * (tid & 3);
+  const int bn = n0 + (tid >> 2);
+  const bool brow = bn < F;
+  const float* wrow = a.w1 + (size_t)(brow ? bn : 0) * 9 * F + bq;
+  const bool bvec = F % 2 == 0 && ((uintptr_t)a.w1 & 7) == 0;
+  float breg[18];
+  auto load_b = [&](int c) {
+    const int lim = brow ? 9 * (F - 8 * c) - bq : 0;  // valid values
+    const float* src = wrow + 72 * c;
+    if (bvec) {
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        const float2 v = 2 * j < lim
+                             ? __ldg(reinterpret_cast<const float2*>(src) + j)
+                             : make_float2(0.f, 0.f);
+        breg[2 * j] = v.x;
+        breg[2 * j + 1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 18; ++j) breg[j] = j < lim ? __ldg(src + j) : 0.f;
+    }
+  };
+  float* Bb = stage;
+  float* Bsm = stage + kBN * kLd3;
+  auto store_b = [&]() {
+    float* big = Bb + (tid >> 2) * kLd3 + bq;
+    float* small = Bsm + (tid >> 2) * kLd3 + bq;
+#pragma unroll
+    for (int j = 0; j < 18; j += 2) {
+      uint32_t h0, l0, h1, l1;
+      split_tf32(breg[j], h0, l0);
+      split_tf32(breg[j + 1], h1, l1);
+      *reinterpret_cast<float2*>(big + j) =
+          make_float2(__uint_as_float(h0), __uint_as_float(h1));
+      *reinterpret_cast<float2*>(small + j) =
+          make_float2(__uint_as_float(l0), __uint_as_float(l1));
+    }
+  };
+  load_b(0);
+  Acc<WM> part;
+  zero<WM>(part);
+  for (int c = 0; c < ncb; ++c) {
+    __syncthreads();  // every warp is done with chunk c - 1
+    store_b();
+    __syncthreads();
+    if (c + 1 < ncb) load_b(c + 1);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      SplitA af[2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        load_a(af[mi], arow[2 * mi] + toff[tap] + 8 * c,
+               arow[2 * mi + 1] + toff[tap] + 8 * c);
+      mma_k8<9>(part, af, Bb, Bsm, kLd3, tap);
+    }
+    promote(acc, part);
+  }
+  __syncthreads();
 }
 
-// conv0's A: x at window row e (input row row0 + e), column w; a row is
-// a pointer to the pixel's C inputs, or null outside the image.
-template <typename T>
-struct XWindow {
-  typedef const T* Row;
-  typedef int Col;
-  const T* x;  // this image
-  int H, W, C, row0, M;
-  __device__ XWindow(const T* x_, int H_, int W_, int C_, int row0_, int M_)
-      : x(x_), H(H_), W(W_), C(C_), row0(row0_), M(M_) {}
-  __device__ Row row(int m) const {
-    if (m >= M) return nullptr;
-    const int e = m / W, w = m - e * W;
-    const int h = row0 + e;
-    if (h < 0 || h >= H) return nullptr;
-    return x + ((size_t)h * W + w) * C;
-  }
-  __device__ Col col(int k) const { return k; }
-  __device__ float at(Row r, int k) const { return r ? ldg_f32(r + k) : 0.f; }
-};
-
-// the 3x3's A: im2col of the shared window, k = fi * 9 + dy * 3 + dx in
-// OIHW order.
-template <typename T>
-struct Im2col {
-  struct Row {
-    int base;  // offset of window pixel (s r, s wo - 1)
-    int col0;  // s wo - 1; kOutside for a row outside the operand
-  };
-  static constexpr int kOutside = -(1 << 30);
-  struct Col {
-    int off;   // fi + (dy W + dx) ldw
-    int dx;
-  };
-  const T* win;
-  int W, Wo, s, ldw, M;
-  __device__ Im2col(const T* win_, int W_, int Wo_, int s_, int ldw_, int M_)
-      : win(win_), W(W_), Wo(Wo_), s(s_), ldw(ldw_), M(M_) {}
-  __device__ Row row(int m) const {
-    if (m >= M) return Row{0, kOutside};
-    const int r = m / Wo, wo = m - r * Wo;
-    return Row{(s * r * W + s * wo - 1) * ldw, s * wo - 1};
-  }
-  __device__ Col col(int k) const {
-    const int fi = k / 9, tap = k - fi * 9;
-    const int dy = tap / 3, dx = tap - dy * 3;
-    return Col{fi + (dy * W + dx) * ldw, dx};
-  }
-  __device__ float at(const Row& r, const Col& c) const {
-    const int col = r.col0 + c.dx;
-    if (col < 0 || col >= W) return 0.f;
-    return to_f32(win[r.base + c.off]);
-  }
-};
-
-// conv2's A: the shared row block h.
-template <typename T>
-struct HRows {
-  typedef const T* Row;
-  typedef int Col;
-  const T* h;
-  int ldh, M;
-  __device__ HRows(const T* h_, int ldh_, int M_) : h(h_), ldh(ldh_), M(M_) {}
-  __device__ Row row(int m) const { return m < M ? h + m * ldh : nullptr; }
-  __device__ Col col(int k) const { return k; }
-  __device__ float at(Row r, int k) const { return r ? to_f32(r[k]) : 0.f; }
-};
-
-// the projection shortcut's A: x at (s o, s wo).
-template <typename T>
-struct XStrided {
-  typedef const T* Row;
-  typedef int Col;
-  const T* x;  // this image
-  int W, C, Wo, Ho, s, o0, M;
-  __device__ XStrided(const T* x_, int W_, int C_, int Wo_, int Ho_, int s_,
-                      int o0_, int M_)
-      : x(x_), W(W_), C(C_), Wo(Wo_), Ho(Ho_), s(s_), o0(o0_), M(M_) {}
-  __device__ Row row(int m) const {
-    if (m >= M) return nullptr;
-    const int r = m / Wo, wo = m - r * Wo;
-    const int o = o0 + r;
-    if (o >= Ho) return nullptr;
-    return x + ((size_t)(s * o) * W + s * wo) * C;
-  }
-  __device__ Col col(int k) const { return k; }
-  __device__ float at(Row r, int k) const { return r ? ldg_f32(r + k) : 0.f; }
-};
-
-template <typename T>
+template <int WM>
 __global__ void __launch_bounds__(kThreads)
-bottleneck_kernel(const Args<T> a, const Geom g) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* As = smem;                       // 2 staging buffers each
-  float* Bs = As + 2 * kChunk * kLdt;
-  T* win = reinterpret_cast<T*>(Bs + 2 * kChunk * kLdt);  // [E * W][ldw]
-  T* hbuf = win + g.E * a.W * g.ldw;                      // [R * Wo][ldh]
+bottleneck_kernel(const Args a, const Geom g) {
+  constexpr int BM = 32 * WM;
+  extern __shared__ float4 smem_f32[];
+  float* stage = reinterpret_cast<float*>(smem_f32);
+  float* win = stage + stage_floats(WM);            // [E][Wp][ldw]
+  float* hb = win + (size_t)g.E * g.Wp * g.ldw;     // [R Wo][ldh]
 
-  const int img = blockIdx.y;
-  const int o0 = blockIdx.x * g.R;
-  const int s = a.stride;
-  const T* x = a.x + (size_t)img * a.H * a.W * a.C;
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  float acc[4][4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM, gq = lane >> 2, tq = lane & 3;
+  const int img = blockIdx.y, o0 = blockIdx.x * g.R, s = a.stride;
+  const int W = a.W, C = a.C, F = a.F, C4 = a.C4;
+  const float* x = a.x + (size_t)img * a.H * W * C;
+  const int M1 = g.E * W, M2 = g.R * g.Wo;
+  const bool xvec = C % 4 == 0 && aligned16(a.x);
 
-  // 1. conv0 + b0 + relu over the window rows, zero outside the image
-  const XWindow<T> xa(x, a.H, a.W, a.C, s * o0 - 1, g.E * a.W);
-  for (int m0 = 0; m0 < xa.M; m0 += kTile) {
-    for (int n0 = 0; n0 < a.F; n0 += kTile) {
-      zero(acc);
-      tile_gemm(xa, a.w0, a.C, a.F, a.C, m0, n0, acc, As, Bs);
+  // zero the window and h: their zero columns and pad channels stay zero
+  // (the first GEMM's barriers order this before conv0's stores)
+  const int nz = g.E * g.Wp * g.ldw + M2 * g.ldh;
+  for (int i = tid; i < nz; i += kThreads) win[i] = 0.f;
+
+  // 1. conv0 + b0 + relu over the window's E W pixels; rows outside the
+  //    image are zeros
+  for (int m0 = 0; m0 < M1; m0 += BM) {
+    const float* arow[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + 4 * ty + i;
-        if (m >= xa.M) continue;
-        const int h = xa.row0 + m / a.W;
-        const bool inside = h >= 0 && h < a.H;
+    for (int i = 0; i < WM / 2; ++i) {
+      const int m = m0 + (tid >> 2) + 64 * i;
+      const int e = m / W, h = s * o0 - 1 + e;
+      arow[i] = (m < M1 && h >= 0 && h < a.H)
+                    ? x + ((size_t)h * W + (m - e * W)) * C
+                    : nullptr;
+    }
+    for (int n0 = 0; n0 < F; n0 += kBN) {
+      Acc<WM> acc;
+      zero<WM>(acc);
+      gemm_1x1<true, WM>(acc, arow, xvec, a.w0, F, C, n0, stage);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + 4 * tx + j;
-          if (n < a.F)
-            store(win + m * g.ldw + n,
-                  inside ? fmaxf(acc[i][j] + ldg_f32(a.b0 + n), 0.f) : 0.f);
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int m = m0 + wm * 32 + 16 * mi + gq + 8 * hh;
+          if (m >= M1) continue;
+          const int e = m / W, w = m - e * W, h = s * o0 - 1 + e;
+          if (h < 0 || h >= a.H) continue;  // stays zero
+          float* dst = win + ((size_t)e * g.Wp + w + 1) * g.ldw;
+#pragma unroll
+          for (int ni = 0; ni < WM; ++ni) {
+            const int n = n0 + wn * 8 * WM + 8 * ni + 2 * tq;
+            if (n >= F) continue;
+            const float y0 = fmaxf(acc[mi][ni][2 * hh] + __ldg(a.b0 + n), 0.f);
+            const float y1 =
+                n + 1 < F
+                    ? fmaxf(acc[mi][ni][2 * hh + 1] + __ldg(a.b0 + n + 1), 0.f)
+                    : 0.f;
+            *reinterpret_cast<float2*>(dst + n) = make_float2(y0, y1);
+          }
         }
-      }
     }
   }
   __syncthreads();
 
   // 2. the 3x3 (stride s) + b1 + relu into h
-  const Im2col<T> ca(win, a.W, g.Wo, s, g.ldw, g.R * g.Wo);
-  const int K1 = 9 * a.F;
-  for (int m0 = 0; m0 < ca.M; m0 += kTile) {
-    for (int n0 = 0; n0 < a.F; n0 += kTile) {
-      zero(acc);
-      tile_gemm(ca, a.w1, K1, a.F, K1, m0, n0, acc, As, Bs);
+  for (int m0 = 0; m0 < M2; m0 += BM) {
+    for (int n0 = 0; n0 < F; n0 += kBN) {
+      Acc<WM> acc;
+      zero<WM>(acc);
+      gemm_3x3<WM>(acc, a, g, win, m0, n0, stage);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + 4 * ty + i;
-        if (m >= ca.M) continue;
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + 4 * tx + j;
-          if (n < a.F)
-            store(hbuf + m * g.ldh + n,
-                  fmaxf(acc[i][j] + ldg_f32(a.b1 + n), 0.f));
+        for (int hh = 0; hh < 2; ++hh) {
+          const int m = m0 + wm * 32 + 16 * mi + gq + 8 * hh;
+          if (m >= M2) continue;
+          float* dst = hb + (size_t)m * g.ldh;
+#pragma unroll
+          for (int ni = 0; ni < WM; ++ni) {
+            const int n = n0 + wn * 8 * WM + 8 * ni + 2 * tq;
+            if (n >= F) continue;
+            const float y0 = fmaxf(acc[mi][ni][2 * hh] + __ldg(a.b1 + n), 0.f);
+            const float y1 =
+                n + 1 < F
+                    ? fmaxf(acc[mi][ni][2 * hh + 1] + __ldg(a.b1 + n + 1), 0.f)
+                    : 0.f;
+            *reinterpret_cast<float2*>(dst + n) = make_float2(y0, y1);
+          }
         }
-      }
     }
   }
   __syncthreads();
 
   // 3. conv2 (+ projection) + biases (+ identity) + relu, to out
-  const HRows<T> ha(hbuf, g.ldh, g.R * g.Wo);
-  const XStrided<T> sa(x, a.W, a.C, g.Wo, g.Ho, s, o0, g.R * g.Wo);
   const bool proj = a.ws != nullptr;
-  for (int m0 = 0; m0 < ha.M; m0 += kTile) {
-    for (int n0 = 0; n0 < a.C4; n0 += kTile) {
-      zero(acc);
-      tile_gemm(ha, a.w2, a.F, a.C4, a.F, m0, n0, acc, As, Bs);
-      if (proj) tile_gemm(sa, a.ws, a.C, a.C4, a.C, m0, n0, acc, As, Bs);
+  for (int m0 = 0; m0 < M2; m0 += BM) {
+    const float* hrow[4];  // this lane's fragment rows of h
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + 4 * ty + i;
-        if (m >= ha.M) continue;
-        const int r = m / g.Wo, wo = m - r * g.Wo;
-        const int o = o0 + r;
-        if (o >= g.Ho) continue;
-        const size_t pix = ((size_t)img * g.Ho + o) * g.Wo + wo;
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + wm * 32 + 16 * (i >> 1) + gq + 8 * (i & 1);
+      hrow[i] = hb + (size_t)(m < M2 ? m : 0) * g.ldh;
+    }
+    const float* xrow[2];  // the projection rows this thread stages
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + 4 * tx + j;
-          if (n >= a.C4) continue;
-          float y = acc[i][j] + ldg_f32(a.b2 + n);
-          // identity: s == 1 and C == C4, so x's pixel (o, wo) is the
-          // output pixel's own
-          y += proj ? ldg_f32(a.bs + n)
-                    : ldg_f32(x + ((size_t)o * a.W + wo) * a.C + n);
-          store(a.out + pix * a.C4 + n, fmaxf(y, 0.f));
+    for (int i = 0; i < WM / 2; ++i) {
+      const int m = m0 + (tid >> 2) + 64 * i;
+      const int r = m / g.Wo, wo = m - r * g.Wo, o = o0 + r;
+      xrow[i] = (m < M2 && o < g.Ho)
+                    ? x + ((size_t)(s * o) * W + s * wo) * C
+                    : nullptr;
+    }
+    for (int n0 = 0; n0 < C4; n0 += kBN) {
+      Acc<WM> acc;
+      zero<WM>(acc);
+      gemm_1x1<false, WM>(acc, hrow, false, a.w2, C4, F, n0, stage);
+      if (proj) gemm_1x1<true, WM>(acc, xrow, xvec, a.ws, C4, C, n0, stage);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int m = m0 + wm * 32 + 16 * mi + gq + 8 * hh;
+          if (m >= M2) continue;
+          const int r = m / g.Wo, wo = m - r * g.Wo, o = o0 + r;
+          if (o >= g.Ho) continue;
+          float* dst = a.out + (((size_t)img * g.Ho + o) * g.Wo + wo) * C4;
+          // identity: s == 1 and C == C4, x's pixel (o, wo) is the output's
+          const float* sh = proj ? a.bs : x + ((size_t)o * W + wo) * C;
+#pragma unroll
+          for (int ni = 0; ni < WM; ++ni) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = n0 + wn * 8 * WM + 8 * ni + 2 * tq + e;
+              if (n < C4)
+                dst[n] = fmaxf(acc[mi][ni][2 * hh + e] + __ldg(a.b2 + n) +
+                                   __ldg(sh + n),
+                               0.f);
+            }
+          }
         }
-      }
     }
   }
 }
 
-// staging buffers in fp32; the window and h in T
-template <typename T>
-size_t smem_bytes(const Args<T>& a, int Wo, int R) {
-  const int E = a.stride * (R - 1) + 3;
-  const size_t ld = (size_t)a.F + 1;
-  return sizeof(float) * 4 * (size_t)kChunk * kLdt +
-         sizeof(T) * ((size_t)E * a.W * ld + (size_t)R * Wo * ld);
+// F8 + 4 floats a row of h, and of a stride-1 window; F8 + 2 a row of a
+// stride-2 window, whose fragment rows lie two pixels apart
+inline void strides(const Args& a, Geom* g) {
+  const int f8 = (a.F + 7) / 8 * 8;
+  g->ldh = f8 + 4;
+  g->ldw = a.stride == 1 ? f8 + 4 : f8 + 2;
 }
 
-template <typename T>
-cudaError_t launch(const Args<T>& a, cudaStream_t st) {
+inline size_t smem_bytes(const Args& a, const Geom& g, int R, int wm) {
+  const size_t E = (size_t)a.stride * (R - 1) + 3;
+  return sizeof(float) * (stage_floats(wm) + E * (a.W + 2) * g.ldw +
+                          (size_t)R * g.Wo * g.ldh);
+}
+
+// One block's MMA work at R rows, M rounded up to whole BM-row tiles, N
+// to whole 64-column tiles and k to whole k-steps of 8
+inline double block_work(const Args& a, int Wo, int R, int BM) {
+  auto up = [](long long v, long long t) { return (v + t - 1) / t * t; };
+  const long long E = (long long)a.stride * (R - 1) + 3;
+  const double M1 = (double)up(E * a.W, BM);
+  const double M2 = (double)up((long long)R * Wo, BM);
+  const double Fn = (double)up(a.F, kBN), C4n = (double)up(a.C4, kBN);
+  const double k3 = (double)up(a.F, 8) * 9;
+  const double k2 = (double)up(a.F, 8) + (a.ws ? (double)up(a.C, 8) : 0.0);
+  return M1 * Fn * up(a.C, 8) + M2 * Fn * k3 + M2 * C4n * k2;
+}
+
+// Throughput of 64-row tiles against 128-row ones: each A fragment feeds
+// two n-tiles rather than four, so the split costs twice the instructions
+// per product
+constexpr double kHalfTileRate = 0.8;
+
+// The fp32 launch geometry: the tile (WM) and R of least cost by
+// pick_rows, the 64-row tiles' work weighed by kHalfTileRate
+inline cudaError_t plan(const Args& a, Geom* g, size_t* smem) {
   if (a.N <= 0 || a.H <= 0 || a.W <= 0 || a.C <= 0 || a.F <= 0 ||
       a.C4 <= 0 || (a.stride != 1 && a.stride != 2) || a.N > 65535)
     return cudaErrorInvalidValue;
   if (a.ws == nullptr && (a.stride != 1 || a.C != a.C4))
     return cudaErrorInvalidValue;
-  Geom g;
-  g.Ho = (a.H - 1) / a.stride + 1;
-  g.Wo = (a.W - 1) / a.stride + 1;
-  g.ldw = g.ldh = a.F + 1;
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  paddle_bottleneck_tc::Limits l;
+  const cudaError_t err = paddle_bottleneck_tc::card_limits(&l);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(
-      &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  g->Ho = (a.H - 1) / a.stride + 1;
+  g->Wo = (a.W - 1) / a.stride + 1;
+  g->Wp = a.W + 2;
+  strides(a, g);
+  const Geom& gc = *g;
+  double cost4 = 0.0, cost2 = 0.0;
+  const int r4 = paddle_bottleneck_tc::pick_rows(
+      a.N, g->Ho, paddle_bottleneck_tc::kernel_regs(bottleneck_kernel<4>), l,
+      [&](int R) { return smem_bytes(a, gc, R, 4); },
+      [&](int R) { return block_work(a, gc.Wo, R, 128); }, &cost4);
+  const int r2 = paddle_bottleneck_tc::pick_rows(
+      a.N, g->Ho, paddle_bottleneck_tc::kernel_regs(bottleneck_kernel<2>), l,
+      [&](int R) { return smem_bytes(a, gc, R, 2); },
+      [&](int R) { return block_work(a, gc.Wo, R, 64) / kHalfTileRate; },
+      &cost2);
+  if (r2 == 0) return cudaErrorInvalidValue;  // one row does not fit
+  const bool half = r4 == 0 || cost2 < cost4;
+  g->wm = half ? 2 : 4;
+  g->R = half ? r2 : r4;
+  g->E = a.stride * (g->R - 1) + 3;
+  *smem = smem_bytes(a, *g, g->R, g->wm);
+  return cudaSuccess;
+}
+
+template <int WM>
+cudaError_t launch_wm(const Args& a, const Geom& g, size_t smem,
+                      cudaStream_t st) {
+  const cudaError_t err =
+      paddle_bottleneck_tc::configure(bottleneck_kernel<WM>, smem);
   if (err != cudaSuccess) return err;
-  // rows per block: ~kTargetRows GEMM rows, fewer while the window does
-  // not fit or the grid would leave SMs idle
-  int R = kTargetRows / g.Wo;
-  if (R < 1) R = 1;
-  if (R > g.Ho) R = g.Ho;
-  while (R > 1 &&
-         (smem_bytes(a, g.Wo, R) > (size_t)max_smem ||
-          (long long)a.N * ((g.Ho + R - 1) / R) < kMinBlocks))
-    --R;
-  const size_t smem = smem_bytes(a, g.Wo, R);
-  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  g.R = R;
-  g.E = a.stride * (R - 1) + 3;
-  err = cudaFuncSetAttribute(bottleneck_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((g.Ho + R - 1) / R, a.N);
-  bottleneck_kernel<T><<<grid, kThreads, smem, st>>>(a, g);
+  const dim3 grid((g.Ho + g.R - 1) / g.R, a.N);
+  bottleneck_kernel<WM><<<grid, kThreads, smem, st>>>(a, g);
   return cudaGetLastError();
+}
+
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  Geom g;
+  size_t smem = 0;
+  const cudaError_t err = plan(a, &g, &smem);
+  if (err != cudaSuccess) return err;
+  return g.wm == 4 ? launch_wm<4>(a, g, smem, st)
+                   : launch_wm<2>(a, g, smem, st);
+}
+
+cudaError_t describe(const Args& a, int* out) {
+  Geom g;
+  size_t smem = 0;
+  const cudaError_t err = plan(a, &g, &smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = ((g.Ho + g.R - 1) / g.R) * a.N;
+  return g.wm == 4
+             ? paddle_bottleneck_tc::describe_launch(
+                   bottleneck_kernel<4>, g.R, blocks, smem, 128, out)
+             : paddle_bottleneck_tc::describe_launch(
+                   bottleneck_kernel<2>, g.R, blocks, smem, 64, out);
 }
 
 }  // namespace
@@ -432,22 +666,9 @@ struct PaddleBottleneckArgs {
   int N, H, W, C, F, C4, stride;
 };
 
-extern "C" int paddle_fused_bottleneck_f32(const PaddleBottleneckArgs* p,
-                                           cudaStream_t st) {
-  using paddle_bottleneck::Args;
-  typedef float T;
-  const Args<T> a{static_cast<const T*>(p->x), static_cast<const T*>(p->w0),
-                  static_cast<const T*>(p->b0), static_cast<const T*>(p->w1),
-                  static_cast<const T*>(p->b1), static_cast<const T*>(p->w2),
-                  static_cast<const T*>(p->b2), static_cast<const T*>(p->ws),
-                  static_cast<const T*>(p->bs), static_cast<T*>(p->out),
-                  p->N, p->H, p->W, p->C, p->F, p->C4, p->stride};
-  return paddle_bottleneck::launch(a, st);
-}
-
-static paddle_bottleneck_tc::Args tc_args(const PaddleBottleneckArgs* p) {
-  typedef paddle_tc::bf16 T;
-  return paddle_bottleneck_tc::Args{
+template <typename T>
+static paddle_bottleneck_tc::ArgsT<T> args_of(const PaddleBottleneckArgs* p) {
+  return paddle_bottleneck_tc::ArgsT<T>{
       static_cast<const T*>(p->x),  static_cast<const T*>(p->w0),
       static_cast<const T*>(p->b0), static_cast<const T*>(p->w1),
       static_cast<const T*>(p->b1), static_cast<const T*>(p->w2),
@@ -456,16 +677,26 @@ static paddle_bottleneck_tc::Args tc_args(const PaddleBottleneckArgs* p) {
       p->N, p->H, p->W, p->C, p->F, p->C4, p->stride};
 }
 
-extern "C" int paddle_fused_bottleneck_bf16(const PaddleBottleneckArgs* p,
-                                            cudaStream_t st) {
-  return paddle_bottleneck_tc::launch(tc_args(p), st);
+extern "C" int paddle_fused_bottleneck_f32(const PaddleBottleneckArgs* p,
+                                           cudaStream_t st) {
+  return paddle_bottleneck::launch(args_of<float>(p), st);
 }
 
-// The bf16 kernel's launch geometry for these arguments (pointers may be
-// null; ws non-null selects the projection): out[0..4] = R, blocks,
-// dynamic shared memory bytes, resident blocks per SM, registers per
-// thread.  Returns a cudaError_t.
+extern "C" int paddle_fused_bottleneck_bf16(const PaddleBottleneckArgs* p,
+                                            cudaStream_t st) {
+  return paddle_bottleneck_tc::launch(args_of<paddle_tc::bf16>(p), st);
+}
+
+// A kernel's launch geometry for these arguments (pointers may be null;
+// ws non-null selects the projection): out[0..5] = R, blocks, dynamic
+// shared memory bytes, resident blocks per SM, registers per thread, rows
+// of a block's GEMM tile.  Returns a cudaError_t.
+extern "C" int paddle_fused_bottleneck_f32_plan(const PaddleBottleneckArgs* p,
+                                                int* out) {
+  return paddle_bottleneck::describe(args_of<float>(p), out);
+}
+
 extern "C" int paddle_fused_bottleneck_bf16_plan(
     const PaddleBottleneckArgs* p, int* out) {
-  return paddle_bottleneck_tc::describe(tc_args(p), out);
+  return paddle_bottleneck_tc::describe(args_of<paddle_tc::bf16>(p), out);
 }

@@ -1,6 +1,7 @@
 // Tensor-core body of K6-bf16, the fused ResNet bottleneck in bf16,
-// included by fused_bottleneck.cu, whose bf16 C entry launches it (the
-// fp32 entry keeps that file's SIMT kernel).
+// included by fused_bottleneck.cu, whose bf16 C entry launches it; that
+// file's fp32 kernel keeps this structure on TF32 tiles and shares the
+// launch planning at the end of this header (pick_rows).
 //
 // Replaces the bf16 instance of the TPU kernel `fused_bottleneck`
 // (`_bottleneck_kernel`) of paddle_tpu/ops/pallas_kernels.py, with its
@@ -83,19 +84,23 @@ constexpr int kStage1x1 = kRing * (kBM + kBN) * kLdc;
 constexpr int kStage3x3 = 2 * kBN * kLd3;
 constexpr int kStageElems = kStage1x1 > kStage3x3 ? kStage1x1 : kStage3x3;
 
-struct Args {
-  const bf16* x;
-  const bf16* w0;
-  const bf16* b0;
-  const bf16* w1;
-  const bf16* b1;
-  const bf16* w2;
-  const bf16* b2;
-  const bf16* ws;  // nullptr: identity shortcut
-  const bf16* bs;
-  bf16* out;
+// a fused bottleneck's operands, every one of element type T (bf16 here,
+// float for fused_bottleneck.cu's fp32 kernel)
+template <typename T>
+struct ArgsT {
+  const T* x;
+  const T* w0;
+  const T* b0;
+  const T* w1;
+  const T* b1;
+  const T* w2;
+  const T* b2;
+  const T* ws;  // nullptr: identity shortcut
+  const T* bs;
+  T* out;
   int N, H, W, C, F, C4, stride;
 };
+typedef ArgsT<bf16> Args;
 
 // Wp = W + 2 window columns; ld = F + kSkew elements per window or h row
 struct Geom {
@@ -460,15 +465,44 @@ inline double block_work(const Args& a, int Wo, int R) {
   return M1 * Fn * up(a.C, 16) + M2 * Fn * k3 + M2 * C4n * k2;
 }
 
+// The card's limits the row choice reads
+struct Limits {
+  int max_smem, smem_sm, reserved, sms;
+};
+
+inline cudaError_t card_limits(Limits* l) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &l->max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &l->smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &l->reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&l->sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+  return err;
+}
+
+// Registers a thread of `kernel` takes (255 where unknown), read once
+template <typename Kernel>
+inline int kernel_regs(Kernel kernel) {
+  static const int regs = [kernel] {
+    cudaFuncAttributes at;
+    return cudaFuncGetAttributes(&at, kernel) == cudaSuccess ? at.numRegs
+                                                             : 255;
+  }();
+  return regs;
+}
+
 // Blocks of `smem` bytes that an SM holds at once, by shared memory and
 // by registers
-inline int blocks_per_sm(size_t smem, int smem_sm, int reserved) {
-  static const int regs = [] {
-    cudaFuncAttributes at;
-    return cudaFuncGetAttributes(&at, bottleneck_tc_kernel) == cudaSuccess
-               ? at.numRegs : 255;
-  }();
-  const int by_smem = smem_sm / (int)(smem + reserved);
+inline int blocks_per_sm(size_t smem, int regs, const Limits& l) {
+  const int by_smem = l.smem_sm / (int)(smem + l.reserved);
   const int by_regs = 65536 / (((regs + 7) / 8 * 8) * kThreads);
   return by_smem < by_regs ? by_smem : by_regs;
 }
@@ -478,9 +512,68 @@ inline int blocks_per_sm(size_t smem, int smem_sm, int reserved) {
 // with one 69): the second block's warps hide the first's barriers
 constexpr double kTwoBlockGain = 1.2;
 
-// The launch geometry: R minimises each SM's serial work, ceil(blocks /
-// SMs) x block_work, over its throughput (kTwoBlockGain where two blocks
-// fit), among the R whose shared memory fits (ties: the larger R)
+// The rows per block: R minimises each SM's serial work, ceil(blocks /
+// SMs) x work(R), over its throughput (kTwoBlockGain where two blocks
+// fit), among the R whose shared memory smem(R) fits (ties: the larger R);
+// 0 when one row does not fit.  The least cost goes to *cost if given.
+template <class Smem, class Work>
+inline int pick_rows(int N, int Ho, int regs, const Limits& l, Smem smem,
+                     Work work, double* cost_out = nullptr) {
+  int best = 0;
+  double best_cost = 0.0;
+  for (int R = 1; R <= Ho && R <= 64; ++R) {
+    const size_t bytes = smem(R);
+    if (bytes > (size_t)l.max_smem) break;
+    const long long blocks = (long long)N * ((Ho + R - 1) / R);
+    const double gain =
+        blocks_per_sm(bytes, regs, l) >= 2 ? kTwoBlockGain : 1.0;
+    const double cost =
+        (double)((blocks + l.sms - 1) / l.sms) * work(R) / gain;
+    if (best == 0 || cost <= best_cost) {
+      best = R;
+      best_cost = cost;
+    }
+  }
+  if (cost_out) *cost_out = best_cost;
+  return best;
+}
+
+// `smem` bytes of dynamic shared memory a block, and the most shared
+// memory per SM, so that two blocks fit where they can
+template <typename Kernel>
+inline cudaError_t configure(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// What a launch of `kernel` at R rows per block runs: out = {R, blocks,
+// dynamic shared memory bytes, resident blocks per SM, registers per
+// thread, rows of the block's GEMM tile}
+template <typename Kernel>
+inline cudaError_t describe_launch(Kernel kernel, int R, int blocks,
+                                   size_t smem, int tile_rows, int* out) {
+  cudaError_t err = configure(kernel, smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = R;
+  out[1] = blocks;
+  out[2] = (int)smem;
+  out[3] = per_sm;
+  out[4] = attr.numRegs;
+  out[5] = tile_rows;
+  return cudaSuccess;
+}
+
+// The bf16 launch geometry: R by pick_rows on the padded MMA work
 inline cudaError_t plan(const Args& a, Geom* g, size_t* smem) {
   if (a.N <= 0 || a.H <= 0 || a.W <= 0 || a.C <= 0 || a.F <= 0 ||
       a.C4 <= 0 || (a.stride != 1 && a.stride != 2) || a.N > 65535 ||
@@ -488,39 +581,18 @@ inline cudaError_t plan(const Args& a, Geom* g, size_t* smem) {
     return cudaErrorInvalidValue;
   if (a.ws == nullptr && (a.stride != 1 || a.C != a.C4))
     return cudaErrorInvalidValue;
-  int dev = 0, max_smem = 0, smem_sm = 0, reserved = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  Limits l;
+  const cudaError_t err = card_limits(&l);
   if (err != cudaSuccess) return err;
   g->Ho = (a.H - 1) / a.stride + 1;
   g->Wo = (a.W - 1) / a.stride + 1;
   g->Wp = a.W + 2;
   g->ld = a.F + kSkew;
-  int best = 0;
-  double best_cost = 0.0;
-  for (int R = 1; R <= g->Ho && R <= 64; ++R) {
-    const size_t bytes = smem_bytes(a, g->Wo, R);
-    if (bytes > (size_t)max_smem) break;
-    const long long blocks = (long long)a.N * ((g->Ho + R - 1) / R);
-    const double gain =
-        blocks_per_sm(bytes, smem_sm, reserved) >= 2 ? kTwoBlockGain : 1.0;
-    const double cost = (double)((blocks + sms - 1) / sms) *
-                        block_work(a, g->Wo, R) / gain;
-    if (best == 0 || cost <= best_cost) {
-      best = R;
-      best_cost = cost;
-    }
-  }
+  const int Wo = g->Wo;
+  const int best = pick_rows(
+      a.N, g->Ho, kernel_regs(bottleneck_tc_kernel), l,
+      [&](int R) { return smem_bytes(a, Wo, R); },
+      [&](int R) { return block_work(a, Wo, R); });
   if (best == 0) return cudaErrorInvalidValue;  // one row does not fit
   g->R = best;
   g->E = a.stride * (best - 1) + 3;
@@ -528,50 +600,25 @@ inline cudaError_t plan(const Args& a, Geom* g, size_t* smem) {
   return cudaSuccess;
 }
 
-// `smem` bytes of dynamic shared memory a block, and the most shared
-// memory per SM, so that two blocks fit where they can
-inline cudaError_t configure(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(bottleneck_tc_kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-
 inline cudaError_t launch(const Args& a, cudaStream_t st) {
   Geom g;
   size_t smem = 0;
   cudaError_t err = plan(a, &g, &smem);
-  if (err == cudaSuccess) err = configure(smem);
+  if (err == cudaSuccess) err = configure(bottleneck_tc_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.Ho + g.R - 1) / g.R, a.N);
   bottleneck_tc_kernel<<<grid, kThreads, smem, st>>>(a, g);
   return cudaGetLastError();
 }
 
-// What `launch` would run: out = {R, blocks, dynamic shared memory bytes,
-// resident blocks per SM, registers per thread}
+// What `launch` would run, as describe_launch gives it
 inline cudaError_t describe(const Args& a, int* out) {
   Geom g;
   size_t smem = 0;
-  cudaError_t err = plan(a, &g, &smem);
-  if (err == cudaSuccess) err = configure(smem);
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bottleneck_tc_kernel, kThreads, smem);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, bottleneck_tc_kernel);
+  const cudaError_t err = plan(a, &g, &smem);
   if (err != cudaSuccess) return err;
-  out[0] = g.R;
-  out[1] = ((g.Ho + g.R - 1) / g.R) * a.N;
-  out[2] = (int)smem;
-  out[3] = per_sm;
-  out[4] = attr.numRegs;
-  return cudaSuccess;
+  return describe_launch(bottleneck_tc_kernel, g.R,
+                         ((g.Ho + g.R - 1) / g.R) * a.N, smem, kBM, out);
 }
 
 }  // namespace paddle_bottleneck_tc

@@ -1,12 +1,23 @@
-// Tensor-core primitives shared by the port's bf16 kernels for Hopper
-// (sm_90a): the flash-attention kernels (flash_attention_tc.cuh), the
-// fused bottleneck (fused_bottleneck_tc.cuh) and the dequant-matmul
-// (dequant_matmul.cu).
+// Tensor-core primitives shared by the port's kernels for Hopper
+// (sm_90a): the bf16 flash-attention kernels (flash_attention_tc.cuh), the
+// fp32 flash backward (flash_attention_bwd.cu), the fused bottleneck in
+// bf16 and fp32 (fused_bottleneck_tc.cuh, fused_bottleneck.cu) and the
+// dequant-matmul (dequant_matmul.cu).
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16, lane = 4 * g + t): an fp32
-// accumulator holds rows g and g + 8, columns 2t and 2t + 1; an A
+// Fragment layouts (PTX ISA, lane = 4 * g + t).  mma.m16n8k16 (bf16): an
+// fp32 accumulator holds rows g and g + 8, columns 2t and 2t + 1; an A
 // operand holds rows g, g + 8 and columns 2t, 2t + 1, 2t + 8, 2t + 9;
 // a B operand columns (n) g and rows (k) 2t, 2t + 1, 2t + 8, 2t + 9.
+// mma.m16n8k8 (tf32): the accumulator as above; A holds (g, t), (g + 8,
+// t), (g, t + 4), (g + 8, t + 4) in a[0..3]; B holds (k t, n g) and (k
+// t + 4, n g) in b0, b1.
+//
+// fp32 accuracy on the TF32 tensor cores (3xTF32): each fp32 operand x is
+// split into big = rna_tf32(x) and small = x - big (split_tf32), and a
+// product accumulates small.big, big.small, big.big in fp32 (small.small,
+// ~2^-22 of the product, is dropped), so a product carries ~2^-20
+// relative error against fp32's 2^-24 per rounding and one-pass TF32's
+// 2^-11.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,6 +100,66 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// one fp32 value as its TF32 big and small parts.  big is x rounded to
+// nearest TF32, ties away (cvt.rna.tf32.f32's result for finite x, in two
+// integer operations where the compiler emulates cvt in four); small is
+// the exact remainder x - big, of which the tensor core reads the TF32
+// top 19 bits (truncated: |error| <= 2^-10 |small| <= 2^-21 |x|).  A NaN
+// x stays NaN in small, an infinite x gives NaN, as with cvt.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c[16 x 8] += a[16 x 8] . b[8 x 8], tf32 in, fp32 accumulators (not
+// volatile: the compiler may interleave independent products)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A split operand: the big and small TF32 parts of an A (x4) or B (x2)
+// fragment
+struct SplitA {
+  uint32_t big[4], small[4];
+};
+struct SplitB {
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void split_a(SplitA& s, float a0, float a1,
+                                        float a2, float a3) {
+  split_tf32(a0, s.big[0], s.small[0]);
+  split_tf32(a1, s.big[1], s.small[1]);
+  split_tf32(a2, s.big[2], s.small[2]);
+  split_tf32(a3, s.big[3], s.small[3]);
+}
+
+__device__ __forceinline__ void split_b(SplitB& s, float b0, float b1) {
+  split_tf32(b0, s.big[0], s.small[0]);
+  split_tf32(b1, s.big[1], s.small[1]);
+}
+
+// One of the three products of c += a . b at fp32 accuracy: pass 0
+// small.big, 1 big.small, 2 big.big, accumulated in that order (the
+// smallest terms first).  Callers run a pass over all their independent
+// accumulators before the next pass (`pass` a constant after unrolling),
+// so that no product waits on the one before it.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const SplitA& a,
+                                           const SplitB& b, int pass) {
+  if (pass == 0)
+    mma_tf32(c, a.small, b.big[0], b.big[1]);
+  else if (pass == 1)
+    mma_tf32(c, a.big, b.small[0], b.small[1]);
+  else
+    mma_tf32(c, a.big, b.big[0], b.big[1]);
 }
 
 }  // namespace paddle_tc

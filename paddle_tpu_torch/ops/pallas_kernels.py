@@ -20,7 +20,9 @@ bottleneck block.  K1, K2 and K6 each have an fp32 and a bf16 entry
 K1/K2, bf16 serving for K6), counted apart; the bf16 plain versions round
 where the TPU kernels cast.  The bf16 kernels run on the tensor cores
 (K1/K2: csrc/flash_attention_tc.cuh; K6: csrc/fused_bottleneck_tc.cuh; K5
-with bf16 x in csrc/dequant_matmul.cu), the fp32 ones on the SIMT units.
+with bf16 x in csrc/dequant_matmul.cu); so do the fp32 K2 and K6, on TF32
+tiles at fp32 accuracy (3xTF32: csrc/tc_common.cuh).  The fp32 K1, K3/K4
+and fp32-x K5 run on the SIMT units.
 The `flash_attention` and `fused_bottleneck` ops, through which fluid
 programs reach K1/K2 and K6, are registered here too.
 """
@@ -41,7 +43,8 @@ __all__ = ["decode_attention", "decode_attention_reference",
            "flash_attention_bwd_dkv_reference",
            "flash_attention_bwd_reference", "dequant_matmul",
            "dequant_matmul_reference", "fused_bottleneck",
-           "fused_bottleneck_bf16_plan", "bottleneck_reference", "KernelError",
+           "fused_bottleneck_bf16_plan", "fused_bottleneck_fp32_plan",
+           "bottleneck_reference", "KernelError",
            "launch_counts", "reset_launch_counts"]
 
 # Finite mask value (not -inf), as in the TPU kernels: exp(_NEG_INF -
@@ -866,9 +869,10 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
     biases as `bottleneck_reference` takes them; stride 1 or 2, any H and
     W.  A CPU (or meta) tensor runs the plain version.  A CUDA tensor
     launches csrc/fused_bottleneck.cu on the current stream — its fp32
-    kernel (SIMT), or its bf16 one on the tensor cores (counted as
-    `fused_bottleneck_bf16`; C, F and C4 multiples of 8, operands 16-byte
-    aligned), every operand of x's dtype — after checking device, dtypes,
+    kernel (3xTF32 tensor-core tiles at fp32 accuracy; any C, F and C4),
+    or its bf16 one (counted as `fused_bottleneck_bf16`; C, F and C4
+    multiples of 8, operands 16-byte aligned), every operand of x's
+    dtype — after checking device, dtypes,
     shapes and contiguity; it raises on anything the kernel does not
     take, and on a failed launch."""
     s = int(stride)
@@ -943,25 +947,38 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
     return out
 
 
+def _bottleneck_plan(kind, N, H, W, C, F, C4, stride, branch):
+    symbol = "paddle_fused_bottleneck_%s_plan" % kind
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load("fused_bottleneck"), symbol)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    args = _BottleneckArgs(0, 0, 0, 0, 0, 0, 0, 1 if branch else 0, 0, 0,
+                           N, H, W, C, F, C4, int(stride))
+    out = (ctypes.c_int * 6)()
+    err = fn(ctypes.addressof(args), out)
+    if err:
+        raise KernelError("fused_bottleneck_%s_plan: cudaError %d"
+                          % (kind, err))
+    return dict(zip(("R", "blocks", "smem_bytes", "blocks_per_sm", "regs",
+                     "tile_rows"), out))
+
+
 def fused_bottleneck_bf16_plan(N, H, W, C, F, C4, stride=1, branch=True):
     """The launch geometry K6-bf16 picks for a call of these sizes on the
     current card: {"R": output rows per block, "blocks", "smem_bytes"
     (dynamic shared memory a block), "blocks_per_sm" (resident), "regs"
-    (registers a thread)}.  Needs the card."""
-    fn = _fns.get("fused_bottleneck_bf16_plan")
-    if fn is None:
-        fn = _build.load("fused_bottleneck").paddle_fused_bottleneck_bf16_plan
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns["fused_bottleneck_bf16_plan"] = fn
-    args = _BottleneckArgs(0, 0, 0, 0, 0, 0, 0, 1 if branch else 0, 0, 0,
-                           N, H, W, C, F, C4, int(stride))
-    out = (ctypes.c_int * 5)()
-    err = fn(ctypes.addressof(args), out)
-    if err:
-        raise KernelError("fused_bottleneck_bf16_plan: cudaError %d" % err)
-    return dict(zip(("R", "blocks", "smem_bytes", "blocks_per_sm", "regs"),
-                    out))
+    (registers a thread), "tile_rows" (rows of a block's GEMM tile)}.
+    Needs the card."""
+    return _bottleneck_plan("bf16", N, H, W, C, F, C4, stride, branch)
+
+
+def fused_bottleneck_fp32_plan(N, H, W, C, F, C4, stride=1, branch=True):
+    """The launch geometry fp32 K6 picks, as `fused_bottleneck_bf16_plan`
+    returns it.  Needs the card."""
+    return _bottleneck_plan("f32", N, H, W, C, F, C4, stride, branch)
 
 
 @register_op("fused_bottleneck")

@@ -365,21 +365,63 @@ def test_cuda_bf16_kernels_match_plain_versions(B, S, H, D, causal, fused):
 
 @pytest.mark.cuda
 def test_cuda_bf16_kernels_run_on_tensor_cores():
-    """The machine code of the bf16 K1/K2 kernels holds tensor-core
-    instructions (HMMA for mma.sync, HGMMA for wgmma); the fp32 kernels,
-    on the SIMT units, hold none."""
+    """The machine code of the bf16 K1/K2 kernels holds bf16 tensor-core
+    instructions (HMMA for mma.sync, HGMMA for wgmma) and no other; the
+    fp32 K2 kernels (3xTF32) hold TF32 HMMA and no other; the fp32 K1
+    kernel, on the SIMT units, holds none."""
     _need_cuda()
     from paddle_tpu_torch.ops import _build
-    ops = ("HMMA", "HGMMA")
-    counts = {**_build.sass_opcode_counts("flash_attention_fwd", ops),
-              **_build.sass_opcode_counts("flash_attention_bwd", ops)}
-    for kind in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        tc = [sum(c.values()) for n, c in counts.items()
-              if kind + "_tc_kernel" in n]
-        simt = [sum(c.values()) for n, c in counts.items()
-                if kind + "_kernel" in n]
-        assert len(tc) == len(simt) == 2, kind   # D = 64 and D = 128
-        assert min(tc) > 0 and max(simt) == 0, (kind, tc, simt)
+    counts = {**_build.tensor_core_counts("flash_attention_fwd"),
+              **_build.tensor_core_counts("flash_attention_bwd")}
+    for kind, fp32 in (("flash_fwd", None), ("flash_bwd_dq", "tf32"),
+                       ("flash_bwd_dkv", "tf32")):
+        tc = [c for n, c in counts.items() if kind + "_tc_kernel" in n]
+        f32 = [c for n, c in counts.items() if kind + "_kernel" in n]
+        assert len(tc) == len(f32) == 2, kind   # D = 64 and D = 128
+        for want, found in (("bf16", tc), (fp32, f32)):
+            for c in found:
+                others = sum(v for k, v in c.items() if k != want)
+                assert others == 0, (kind, want, c)
+                assert want is None or c[want] > 0, (kind, want, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,causal,fused", [
+    (8, 512, 8, 64, True, True),      # the training slice's shape
+    (2, 1, 3, 64, True, False),       # one key, one query
+    (2, 1, 2, 128, False, True),
+])
+def test_cuda_fp32_bwd_kernels_match_and_rerun_bit_identically(
+        B, S, H, D, causal, fused):
+    """fp32 K2 (3xTF32 tensor-core kernels) against the plain versions at
+    the fp32 tolerance of test_cuda_kernels_match_plain_versions, lse's
+    cotangent in di (at S = 1, ds = p (do . v - do . o) is exactly 0
+    without it); a second launch on the same inputs is bit-identical."""
+    _need_cuda()
+    q, k, v = _card_inputs(B, S, H, D, seed=3 * S + D, fused_qkv=fused)
+    ro, rlse = torch_kernels.flash_attention_fwd_reference(q, k, v, causal)
+    g = torch.Generator(device="cuda").manual_seed(S)
+    do = torch.randn(ro.shape, device="cuda", generator=g)
+    dlse = torch.randn(rlse.shape, device="cuda", generator=g)
+    di = torch_kernels._flash_di(ro, do, dlse)
+    torch_kernels.reset_launch_counts()
+    runs = [(torch_kernels.flash_attention_bwd_dq(q, k, v, do, rlse, di,
+                                                  causal),)
+            + tuple(torch_kernels.flash_attention_bwd_dkv(q, k, v, do, rlse,
+                                                          di, causal))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert torch_kernels.launch_counts[name] == 2
+        assert torch_kernels.launch_counts[name + "_bf16"] == 0
+    ref = torch_kernels.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                                      causal, dlse=dlse)
+    for name, got, again, want in zip(("dq", "dk", "dv"), runs[0], runs[1],
+                                      ref):
+        assert torch.equal(got, again), name
+        atol = 1e-4 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=atol,
+                                   msg=lambda m: "%s: %s" % (name, m))
 
 
 @pytest.mark.cuda

@@ -373,20 +373,63 @@ def test_cuda_bf16_kernel_raises_on_channels_not_multiple_of_8():
 @pytest.mark.cuda
 def test_cuda_k6_k5_bf16_run_on_tensor_cores():
     """The machine code of the bf16 K6 kernel and the bf16-x K5 kernels
-    holds tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma);
-    the fp32 K6 kernel and the fp32-x K5 kernels hold none."""
+    holds bf16 tensor-core instructions (HMMA for mma.sync, HGMMA for
+    wgmma) and no other; the fp32 K6 kernel (3xTF32) holds TF32 HMMA and
+    no other; the fp32-x K5 kernels, on the SIMT units, hold none."""
     _need_cuda()
     from paddle_tpu_torch.ops import _build
-    ops = ("HMMA", "HGMMA")
-    for stem, tc_tag, simt_tag, n in (
+    for stem, tc_tag, f32_tag, n_tc, n_f32, fp32 in (
+            # fp32 K6: 128- and 64-row tiles
             ("fused_bottleneck", "bottleneck_tc_kernel", "bottleneck_kernel",
-             1),
+             1, 2, "tf32"),
             ("dequant_matmul", "dequant_matmul_tc_kernel",
-             "dequant_matmul_kernel", 2)):   # fp32 and bf16 outputs
-        counts = _build.sass_opcode_counts(stem, ops)
-        tc = [sum(c.values()) for name, c in counts.items()
-              if tc_tag in name]
-        simt = [sum(c.values()) for name, c in counts.items()
-                if simt_tag in name]
-        assert len(tc) == len(simt) == n, (stem, sorted(counts))
-        assert min(tc) > 0 and max(simt) == 0, (stem, tc, simt)
+             "dequant_matmul_kernel", 2, 2, None)):   # fp32 and bf16 outputs
+        counts = _build.tensor_core_counts(stem)
+        tc = [c for name, c in counts.items() if tc_tag in name]
+        f32 = [c for name, c in counts.items() if f32_tag in name]
+        assert (len(tc), len(f32)) == (n_tc, n_f32), (stem, sorted(counts))
+        for want, found in (("bf16", tc), (fp32, f32)):
+            for c in found:
+                others = sum(v for k, v in c.items() if k != want)
+                assert others == 0, (stem, want, c)
+                assert want is None or c[want] > 0, (stem, want, c)
+
+
+def _misaligned(t):
+    """t's values in a contiguous tensor that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,C,F,C4,stride,branch,shifted", [
+    (2, 9, 7, 36, 20, 52, 2, True, False),
+    (2, 9, 7, 44, 12, 44, 1, False, False),
+    (1, 6, 5, 13, 7, 9, 2, True, False),     # odd widths: 4-byte staging
+    (2, 8, 6, 32, 16, 64, 1, True, True),    # x and w0 4 bytes off 16
+])
+def test_cuda_fp32_kernel_takes_any_width_and_reruns_bit_identically(
+        N, H, W, C, F, C4, stride, branch, shifted):
+    """fp32 K6 (3xTF32 tensor-core tiles) at widths that are not multiples
+    of 4 or 8, and on operands that are not 16-byte aligned, against the
+    plain version at the fp32 tolerance (rtol/atol 1e-4); a second launch
+    on the same inputs is bit-identical."""
+    _need_cuda()
+    rng = np.random.RandomState(4)
+    p = _params(rng, C, F, C4, branch)
+    x = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32)).cuda()
+    args = [None if t is None else t.cuda() for t in _as_torch(p)]
+    if shifted:
+        x, args[0] = _misaligned(x), _misaligned(args[0])
+    tkernels.reset_launch_counts()
+    out = tkernels.fused_bottleneck(x, *args, stride=stride)
+    again = tkernels.fused_bottleneck(x, *args, stride=stride)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts["fused_bottleneck"] == 2
+    assert tkernels.launch_counts["fused_bottleneck_bf16"] == 0
+    assert torch.equal(out, again)
+    ref = tkernels.bottleneck_reference(x, *args, stride)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)

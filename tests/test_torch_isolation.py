@@ -207,12 +207,15 @@ def test_bound_decode_symbols_are_defined_in_the_source():
                              "paddle_flash_bwd_dkv_bf16"]),
     ("fused_bottleneck", ["paddle_fused_bottleneck_f32",
                           "paddle_fused_bottleneck_bf16"]),
+    ("fused_bottleneck", ["paddle_fused_bottleneck_f32_plan",
+                          "paddle_fused_bottleneck_bf16_plan"]),
 ])
 def test_bound_fp32_and_bf16_symbols_are_defined_in_the_source(stem,
                                                                symbols):
     """K1, K2 and K6 bind an fp32 and a bf16 C entry each, named by the
-    wrappers from the tensor's dtype; each is defined once in its source,
-    with the (args pointer, stream) pair the ctypes argtypes declare."""
+    wrappers from the tensor's dtype (K6 also an fp32 and a bf16 launch
+    plan); each is defined once in its source, with the (args pointer,
+    stream or output) pair the ctypes argtypes declare."""
     from paddle_tpu_torch.ops import pallas_kernels as pk
     with open(os.path.join(_build.CSRC_DIR, stem + ".cu")) as f:
         src = f.read()
@@ -224,6 +227,53 @@ def test_bound_fp32_and_bf16_symbols_are_defined_in_the_source(stem,
         assert len(defs) == 1, symbol
         params = src.split(head, 1)[1].split(")", 1)[0]
         assert params.count(",") + 1 == 2, symbol
+
+
+_SASS_LISTING = """
+\tcode for sm_90a
+\t\tFunction : _Z10bf16_kernelv
+\t.headerflags @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R16, R8, R14, R16 ;
+        /*0030*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+\t\tFunction : _Z10tf32_kernelv
+        /*0010*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+\t\tFunction : _Z10simt_kernelv
+        /*0010*/                   FFMA R4, R8, R12, R4 ;
+"""
+
+
+def test_sass_counts_tell_tf32_from_bf16_tensor_core_instructions(
+        monkeypatch):
+    """sass_opcode_counts keeps each tensor-core instruction's full
+    mnemonic, and tensor_core_counts sorts a kernel's HMMA/HGMMA by input
+    type: a TF32 kernel is told from a bf16 one and from a SIMT one."""
+    class Done:
+        stdout = _SASS_LISTING
+
+    calls = []
+    monkeypatch.setattr(_build, "build_all", lambda: {"k": "/b/libk.so"})
+    monkeypatch.setattr(_build, "_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(_build.subprocess, "run",
+                        lambda cmd, **kw: calls.append(cmd) or Done())
+    assert _build.sass_opcode_counts("k", _build.TC_OPCODES) == {
+        "_Z10bf16_kernelv": {"HMMA.16816.F32.BF16": 2,
+                             "HGMMA.64x64x16.F32.BF16": 1},
+        "_Z10tf32_kernelv": {"HMMA.1688.F32.TF32": 1},
+        "_Z10simt_kernelv": {}}
+    assert calls[0] == ["/cuda/bin/cuobjdump", "-sass", "/b/libk.so"]
+    assert _build.tensor_core_counts("k") == {
+        "_Z10bf16_kernelv": {"bf16": 3, "tf32": 0, "other": 0},
+        "_Z10tf32_kernelv": {"bf16": 0, "tf32": 1, "other": 0},
+        "_Z10simt_kernelv": {"bf16": 0, "tf32": 0, "other": 0}}
+
+
+@pytest.mark.parametrize("mnemonic,kind", [
+    ("HMMA.16816.F32.BF16", "bf16"), ("HMMA.1688.F32.TF32", "tf32"),
+    ("HGMMA.64x128x16.F32.BF16", "bf16"), ("HMMA.16816.F32", "other")])
+def test_tensor_core_mnemonic_kind(mnemonic, kind):
+    assert _build.tc_kind(mnemonic) == kind
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
