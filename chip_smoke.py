@@ -12,13 +12,17 @@ Phases, in order; any failure exits non-zero:
                power limit (nvidia-smi); then cuobjdump -sass of the
                libraries, tensor-core instructions counted by input
                type: the bf16 K1/K2/K6 kernels and the bf16-x K5 kernels
-               must hold bf16 HMMA/HGMMA only, fp32 K2 and K6 TF32 HMMA
-               only (3xTF32), fp32 K1 and the fp32-x K5 none.
+               must hold bf16 HMMA/HGMMA only, fp32 K2 and K6 (3xTF32)
+               and the fp32-x K5 (two TF32 products) TF32 HMMA only,
+               fp32 K1 none.
   2. kernels — each kernel against its plain PyTorch version on the card
                at its path's shapes (K3 at the decode shapes and as the
                verify step's 5 pseudo-slots per slot; K4 at the decode
-               shapes, and its head-slice entry at 1, 2 and 4 local heads,
-               also bit for bit against the full-table K4; K1 and the two
+               shapes and at lengths around its blocks' edges (its split
+               over a cluster: blocks and positions per block logged),
+               each row bit for bit against the row launched alone, and
+               its head-slice entry at 1, 2 and 4 local heads, also bit
+               for bit against the full-table K4; K1 and the two
                K2 kernels at the training slice's shape, a non-causal and
                a ragged shape); times kernel, plain version and the
                PyTorch library yardstick with CUDA events, beside the
@@ -89,7 +93,8 @@ Phases, in order; any failure exits non-zero:
                Predictor on the card and on the CPU agree; and its bf16
                route on the card and on the CPU agree.
 Phase 2 also holds K5 (dequant_matmul) and K6 (fused_bottleneck) against
-their plain versions: K5 at the int8 lane's fc shape and three others, K6
+their plain versions: K5 at the int8 lane's fc shape (bf16 x and fp32 x)
+and four others, K6
 at ResNet-50's four stage geometries (batch 32), two odd shapes and the
 fused path's four geometries at batch 64; and the bf16 variants of K1,
 K2 and K6 against their bf16 plain versions at the same shapes, timed
@@ -115,7 +120,8 @@ import numpy as np
 # bound is printed beside it)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-FP32_ACCURATE_FLOP_PER_S = 495e12 / 3
+TF32_FLOP_PER_S = 495e12
+FP32_ACCURATE_FLOP_PER_S = TF32_FLOP_PER_S / 3
 FULL_WIDTH = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
                   max_seq_len=512, eos_id=-1, seed=7)
 N_SLOTS = 8
@@ -195,6 +201,11 @@ def phase_kernels(torch, pk):
     ]
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
+    # the floor of every kernel time below: one launch that does nothing
+    # (a one-element fill), timed the same way
+    one = torch.empty(1, device="cuda")
+    log("timing floor: an empty launch takes %.4f ms under median_ms"
+        % median_ms(torch, one.zero_, flush))
     max_err = 0.0
     entry = None
     for name, n, s, h, d, lens in cases:
@@ -284,7 +295,10 @@ def _int8_caches(torch, g, n, s, h, d):
 
 
 def phase_int8_kernels(torch, pk):
-    """K4 against its plain version at the decode shapes, and K4's
+    """K4 against its plain version at the decode shapes and at lengths
+    around the edges of its blocks' shares (K4 splits each row's
+    positions over a cluster of blocks: the plan is logged per case),
+    each row bit for bit against the same row launched alone; and K4's
     head-slice entry at 1, 2 and 4 local heads against its plain version
     and, bit for bit, against the full-table K4 (head blocks at every
     offset, concatenated).  The library yardstick is SDPA over an fp32
@@ -294,11 +308,14 @@ def phase_int8_kernels(torch, pk):
     rng = np.random.RandomState(1)
     g = torch.Generator(device="cuda").manual_seed(13)
     N, S, H, D = N_SLOTS, 512, 8, 64
+    share = pk.decode_attention_int8_plan(S, D)["share"]
     cases = [
         ("main mixed", N, S, H, D,
          [0, 1, 511, 512] + list(rng.randint(2, 511, size=N - 4))),
         ("main full", N, S, H, D, [S] * N),
         ("ragged", 3, 80, 2, 64, [0, 80, 41]),
+        ("boundaries", N, S, H, D,
+         [0, 1, share - 1, share, share + 1, S - 1, S, S // 2 + 1]),
     ]
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
@@ -322,6 +339,13 @@ def phase_int8_kernels(torch, pk):
               "(max abs err %.3g, rtol 1e-5, atol 1e-5 max|ref| = %.3g)"
               % (name, err, atol))
         errs["k4"] = max(errs["k4"], err)
+        plan = pk.decode_attention_int8_plan(s, d)
+        alone = all(torch.equal(pk.decode_attention(
+            q[i:i + 1].clone(), k8[i:i + 1].clone(), v8[i:i + 1].clone(),
+            lengths[i:i + 1].clone(), scale=scale, kv_scales=sc)[0], out[i])
+            for i in range(n))
+        check(alone, "K4 %s: a row of the batched call differs from the "
+              "row launched alone" % name)
         exact = {}
         for n_local in (1, 2, 4):
             if n_local > h:
@@ -366,10 +390,12 @@ def phase_int8_kernels(torch, pk):
         log("kernel decode_attention int8 [%s] N=%d S=%d H=%d D=%d: max "
             "abs err %.3g; kernel %.4f ms, plain %.4f ms, SDPA over the "
             "dequantized fp32 cache %.4f ms, bound %.4f ms (%s, %d bytes) "
-            "-> %.1f%% of bound; head slice bit-exact vs full table at "
-            "Hl %s" % (name, n, s, h, d, err, ms, plain_ms, lib_ms,
-                       bound_ms, bound_by, nbytes, 100.0 * bound_ms / ms,
-                       exact))
+            "-> %.1f%% of bound; split over a cluster of %d blocks, %d "
+            "positions each; rows bit-exact vs alone %s; head slice "
+            "bit-exact vs full table at Hl %s"
+            % (name, n, s, h, d, err, ms, plain_ms, lib_ms, bound_ms,
+               bound_by, nbytes, 100.0 * bound_ms / ms, plan["cluster"],
+               plan["share"], alone, exact))
         if name != "main full":
             continue
         entries["k4"] = {
@@ -453,9 +479,9 @@ BF16_RTOL = 2.0 ** -7
 # (library stem, kernel tag, instances, the tensor-core input type its
 # machine code must hold: "bf16", "tf32", or None for none).  K1/K2 have a
 # D = 64 and a D = 128 instance; fp32 K6 one per tile height; K5 one per
-# output dtype.  The bf16
-# kernels run bf16 mma.sync, fp32 K2 and K6 tf32 mma.sync (3xTF32), fp32
-# K1 and fp32-x K5 the SIMT units
+# output dtype.  The bf16 kernels run bf16 mma.sync, fp32 K2 and K6 tf32
+# mma.sync (3xTF32), fp32-x K5 tf32 mma.sync (two products), fp32 K1 the
+# SIMT units
 SASS_KERNELS = [("flash_attention_fwd", "flash_fwd_tc_kernel", 2, "bf16"),
                 ("flash_attention_fwd", "flash_fwd_kernel", 2, None),
                 ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 2, "bf16"),
@@ -466,14 +492,15 @@ SASS_KERNELS = [("flash_attention_fwd", "flash_fwd_tc_kernel", 2, "bf16"),
                 ("fused_bottleneck", "bottleneck_tc_kernel", 1, "bf16"),
                 ("fused_bottleneck", "bottleneck_kernel", 2, "tf32"),
                 ("dequant_matmul", "dequant_matmul_tc_kernel", 2, "bf16"),
-                ("dequant_matmul", "dequant_matmul_kernel", 2, None)]
+                ("dequant_matmul", "dequant_matmul_kernel", 2, "tf32")]
 
 
 def phase_sass(build):
     """Which tensor cores each kernel runs on, counted by input type in
     the machine code of the built libraries: the bf16 K1/K2/K6 kernels
     and the bf16-x K5 kernels hold bf16 HMMA/HGMMA and no other; fp32 K2
-    and K6 hold TF32 HMMA and no other; fp32 K1 and fp32-x K5 hold none."""
+    and K6 and the fp32-x K5 kernels hold TF32 HMMA and no other; fp32 K1
+    holds none."""
     counts, mnemonics = {}, {}
     for stem, tag, n, want in SASS_KERNELS:
         if stem not in counts:
@@ -827,17 +854,21 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
 
 def phase_dequant_kernel(torch, pk):
     """K5 against its plain version at the int8 lane's fc shape (M = 64
-    bucketed images, K = 2048, N = 1000, bf16 x), a transformer fc shape
-    (fp32 x), a ragged shape and a bf16-output shape; the library
-    yardstick is torch.matmul on the bf16-rounded x and the dequantized
-    weight, times the scale."""
+    bucketed images, K = 2048, N = 1000) with bf16 x and with fp32 x, a
+    transformer fc shape (fp32 x), a ragged shape in both x dtypes and a
+    bf16-output shape; the library yardstick is torch.matmul on the
+    (bf16-rounded) x and the dequantized weight, times the scale.  fp32-x
+    rows also print the bound at the two-product rate (495 / 2 TFLOP/s)
+    that the kernel's arithmetic could reach."""
     g = torch.Generator(device="cuda").manual_seed(12)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     cases = [("path", 64, 2048, 1000, torch.bfloat16, torch.float32),
+             ("path fp32 x", 64, 2048, 1000, torch.float32, torch.float32),
              ("transformer fc", 4096, 512, 2048, torch.float32,
               torch.float32),
              ("ragged", 37, 300, 77, torch.bfloat16, torch.float32),
+             ("ragged fp32 x", 37, 300, 77, torch.float32, torch.float32),
              ("bf16 out", 50, 129, 250, torch.bfloat16, torch.bfloat16)]
     entry, max_err = None, 0.0
     for name, M, K, N, xdt, odt in cases:
@@ -874,16 +905,19 @@ def phase_dequant_kernel(torch, pk):
         rate = BF16_FLOP_PER_S if xdt == torch.bfloat16 \
             else FP32_ACCURATE_FLOP_PER_S
         bound_ms, bound_by = _bound(flops, nbytes, rate)
-        route = "tensor cores" if xdt == torch.bfloat16 else "SIMT"
+        if xdt == torch.bfloat16:
+            route, note = "tensor cores (bf16)", ""
+        else:
+            route = "tensor cores (tf32, 2 products)"
+            note = "; two-product bound %.4f ms" % _bound(
+                flops, nbytes, TF32_FLOP_PER_S / 2)[0]
         log("kernel dequant_matmul [%s] M=%d K=%d N=%d x %s -> %s (%s): max "
-            "abs err %.3g; kernel %.4f ms, plain %.4f ms, torch.matmul %.4f "
-            "ms, bound %.4f ms (%s; %d flops at %.0f TFLOP/s, %d bytes) -> "
-            "%.1f%% of bound%s" % (name, M, K, N, str(xdt)[6:], str(odt)[6:],
-                                   route, err, ms, plain_ms, lib_ms, bound_ms,
-                                   bound_by, flops, rate / 1e12, nbytes,
-                                   100.0 * bound_ms / ms,
-                                   "" if xdt == torch.bfloat16
-                                   else simt_bound_note(flops, nbytes)))
+            "abs err %.3g; kernel %.4f ms (%.1f TFLOP/s), plain %.4f ms, "
+            "torch.matmul %.4f ms, bound %.4f ms (%s; %d flops at %.0f "
+            "TFLOP/s, %d bytes) -> %.1f%% of bound%s"
+            % (name, M, K, N, str(xdt)[6:], str(odt)[6:], route, err, ms,
+               flops / ms / 1e9, plain_ms, lib_ms, bound_ms, bound_by,
+               flops, rate / 1e12, nbytes, 100.0 * bound_ms / ms, note))
         if name == "path":
             entry = {"name": "dequant_matmul", "route": "cuda",
                      "source": "paddle_tpu_torch/ops/csrc/dequant_matmul.cu",

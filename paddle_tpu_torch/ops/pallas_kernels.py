@@ -21,8 +21,10 @@ K1/K2, bf16 serving for K6), counted apart; the bf16 plain versions round
 where the TPU kernels cast.  The bf16 kernels run on the tensor cores
 (K1/K2: csrc/flash_attention_tc.cuh; K6: csrc/fused_bottleneck_tc.cuh; K5
 with bf16 x in csrc/dequant_matmul.cu); so do the fp32 K2 and K6, on TF32
-tiles at fp32 accuracy (3xTF32: csrc/tc_common.cuh).  The fp32 K1, K3/K4
-and fp32-x K5 run on the SIMT units.
+tiles at fp32 accuracy (3xTF32: csrc/tc_common.cuh), and K5 with fp32 x
+(two products: an int8 weight is exact in TF32).  K4 splits each row's
+positions over a thread-block cluster.  The fp32 K1 and K3 run on the
+SIMT units.
 The `flash_attention` and `fused_bottleneck` ops, through which fluid
 programs reach K1/K2 and K6, are registered here too.
 """
@@ -36,7 +38,8 @@ from . import _build
 from ._build import KernelError
 
 __all__ = ["decode_attention", "decode_attention_reference",
-           "decode_attention_head_slice", "flash_attention",
+           "decode_attention_head_slice", "decode_attention_int8_plan",
+           "flash_attention",
            "flash_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_reference", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_reference", "flash_attention_bwd_dkv",
@@ -97,6 +100,26 @@ _DECODE_ARGTYPES = {
     "paddle_decode_attention_i8": [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 }
+
+
+def decode_attention_int8_plan(S, D):
+    """K4's split of each row for caches of S positions at head dim D, as
+    csrc/decode_attention.cu computes it: {"cluster": blocks per (slot,
+    head), "share": positions each block takes}.  Fixed by S and D alone.
+    Builds the CUDA library (needs nvcc)."""
+    fn = _fns.get("paddle_decode_attention_i8_plan")
+    if fn is None:
+        fn = _build.load("decode_attention").paddle_decode_attention_i8_plan
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _fns["paddle_decode_attention_i8_plan"] = fn
+    cluster, share = ctypes.c_int(), ctypes.c_int()
+    if fn(int(S), int(D), ctypes.byref(cluster), ctypes.byref(share)):
+        raise ValueError("decode_attention_int8_plan: S %d, D %d not taken"
+                         % (S, D))
+    return {"cluster": cluster.value, "share": share.value}
 
 
 def _decode_attention_fn(symbol):
@@ -718,15 +741,19 @@ def dequant_matmul_reference(x, w_q, scale, out_dtype=None):
 
 
 _DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
-# K5 splits K over blocks while its 64 x 64 output tiles number fewer than
-# this (two blocks per SM of the H100), keeping >= 256 of K per slice
+# K5 splits K over blocks while its output tiles number fewer than this
+# (two blocks per SM of the H100), keeping >= 256 of K per slice
 _DEQUANT_MIN_BLOCKS = 264
+# K5's output tile (rows, columns) by x dtype (csrc/dequant_matmul.cu:
+# kTile for bf16 x, kF32M x kF32N for fp32 x)
+_DEQUANT_TILE = {torch.bfloat16: (64, 64), torch.float32: (128, 64)}
 
 
-def _dequant_k_slices(M, N, K):
-    """How many K slices K5 runs (1 = no split): enough blocks to fill
-    the card, at most 16 slices, none shorter than 256."""
-    tiles = -(-M // 64) * -(-N // 64)
+def _dequant_k_slices(M, N, K, tile):
+    """How many K slices K5 runs (1 = no split) over output tiles of
+    `tile` = (rows, columns): enough blocks to fill the card, at most 16
+    slices, none shorter than 256."""
+    tiles = -(-M // tile[0]) * -(-N // tile[1])
     return max(1, min(_DEQUANT_MIN_BLOCKS // tiles, K // 256, 16))
 
 
@@ -748,8 +775,9 @@ def dequant_matmul(x, w_q, scale, out_dtype=None):
     in `out_dtype` (fp32 or bf16; x's dtype by default), at any M, K, N.
 
     A CPU (or meta) tensor runs `dequant_matmul_reference`.  A CUDA
-    tensor launches csrc/dequant_matmul.cu on the current stream (its
-    tensor-core kernel for bf16 x, its SIMT kernel for fp32 x) after
+    tensor launches csrc/dequant_matmul.cu on the current stream (bf16
+    tensor cores for bf16 x, TF32 tensor cores in two products for fp32
+    x) after
     checking device, dtypes, shapes and contiguity; it raises on anything
     the kernel does not take, and on a failed launch."""
     out_dtype = out_dtype or x.dtype
@@ -782,7 +810,7 @@ def dequant_matmul(x, w_q, scale, out_dtype=None):
         return out
     if K == 0:
         return out.zero_()
-    slices = _dequant_k_slices(M, N, K)
+    slices = _dequant_k_slices(M, N, K, _DEQUANT_TILE[x.dtype])
     work = torch.empty((slices, M, N), dtype=torch.float32,
                        device=x.device) if slices > 1 else None
     fn = _dequant_matmul_fn()

@@ -212,3 +212,72 @@ def test_cuda_q_per_slot_matches_reference():
     rep = torch_kernels.decode_attention(
         q, k.repeat_interleave(C, 0), v.repeat_interleave(C, 0), lengths)
     assert torch.equal(out, rep)
+
+
+def _shifted(t):
+    """t's values in a contiguous tensor that starts 4 bytes past a
+    16-byte boundary (K4 then loads 4 bytes a lane)."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[4:4 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,shifted", [
+    (512, 64, False), (80, 64, False), (513, 64, False),
+    (512, 4, False), (512, 8, False), (512, 16, False), (512, 32, False),
+    (512, 128, False), (513, 128, False), (512, 64, True), (80, 8, True)])
+def test_cuda_int8_split_boundaries_and_bit_exact_rows(S, D, shifted):
+    """K4 splits each row's positions over a cluster of blocks, `share`
+    each, fixed by S and D.  At lengths around a block's edge (0, 1,
+    share - 1, share, share + 1, S - 1, S) it matches the plain version;
+    and bit for bit: each row of a batched call equals the row launched
+    alone, 4 pseudo-slots per slot equal the plain step at the same
+    lengths, and the head blocks at every offset equal the full table."""
+    _need_cuda()
+    plan = torch_kernels.decode_attention_int8_plan(S, D)
+    cs, share = plan["cluster"], plan["share"]
+    assert 1 <= cs <= 8 and cs * share >= S > (cs - 1) * share
+    lens = sorted({min(max(n, 0), S)
+                   for n in (0, 1, share - 1, share, share + 1, S - 1, S)})
+    N, H = len(lens), 4
+    q, k8, v8, _, sc = _int8_inputs(N, S, H, D, seed=S + D)
+    q, k8, v8, scales = (t.cuda() for t in _torch(q, k8, v8, sc))
+    if shifted:
+        k8, v8 = _shifted(k8), _shifted(v8)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    torch_kernels.reset_launch_counts()
+    out = torch_kernels.decode_attention(q, k8, v8, lengths,
+                                         kv_scales=scales)
+    torch.cuda.synchronize()
+    assert torch_kernels.launch_counts["decode_attention_int8"] == 1
+    ref = torch_kernels.decode_attention_reference(q, k8, v8, lengths,
+                                                   kv_scales=scales)
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    if shifted:
+        return
+    for i in range(N):
+        alone = torch_kernels.decode_attention(
+            q[i:i + 1].clone(), k8[i:i + 1].clone(), v8[i:i + 1].clone(),
+            lengths[i:i + 1].clone(), kv_scales=scales)
+        assert torch.equal(alone[0], out[i]), lens[i]
+    C = 4
+    qc = torch.from_numpy(np.random.RandomState(S).randn(
+        N * C, H, D).astype(np.float32)).cuda()
+    lc = torch.tensor([min(n + j, S) for n in lens for j in range(C)],
+                      dtype=torch.int32, device="cuda")
+    verify = torch_kernels.decode_attention(qc, k8, v8, lc, kv_scales=scales,
+                                            q_per_slot=C)
+    plain = torch_kernels.decode_attention(
+        qc, k8.repeat_interleave(C, 0), v8.repeat_interleave(C, 0), lc,
+        kv_scales=scales)
+    assert torch.equal(verify, plain)
+    for n_local in (1, 2):
+        parts = [torch_kernels.decode_attention_head_slice(
+            q[:, o:o + n_local].contiguous(),
+            k8[:, :, o:o + n_local].contiguous(),
+            v8[:, :, o:o + n_local].contiguous(), lengths, o, n_local,
+            kv_scales=scales) for o in range(0, H, n_local)]
+        assert torch.equal(torch.cat(parts, dim=1), out)

@@ -80,6 +80,38 @@ def test_bf16_output_rounds_like_jax():
     np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=1e-6)
 
 
+def test_every_int8_value_is_exact_in_tf32():
+    """TF32 keeps 10 of fp32's 23 mantissa bits: an int8 weight's fp32
+    bit pattern has its low 13 bits clear, so the fp32-x kernel feeds it
+    to the TF32 tensor cores unsplit."""
+    bits = np.arange(-128, 128, dtype=np.float32).view(np.uint32)
+    assert not (bits & np.uint32(0x1fff)).any()
+
+
+def _tf32(bits):
+    return (bits & np.uint32(0xffffe000)).view(np.float32)
+
+
+@pytest.mark.parametrize("K", [512, 2048])
+def test_two_tf32_products_hold_fp32_x_to_the_kernel_tolerance(K):
+    """The fp32-x kernel's arithmetic, emulated exactly in float64: x =
+    big + small, big rounded to nearest TF32 (add 0x1000, clear the low
+    13 bits), small the fp32 remainder of which the tensor core reads the
+    top 19 bits; out = (small . w + big . w) * scale.  It holds the plain
+    version at the kernel's tolerance, and big . w alone does not."""
+    x, w, s = _inputs(np.random.RandomState(K), 16, K, 48)
+    bits = x.view(np.uint32)
+    big = _tf32(bits + np.uint32(0x1000))
+    small = _tf32((x - big).view(np.uint32))
+    wd = w.astype(np.float64)
+    ref = tkernels.dequant_matmul_reference(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(s))
+    two = (small.astype(np.float64) @ wd + big.astype(np.float64) @ wd) * s
+    _close(two, ref.numpy())
+    with pytest.raises(AssertionError):
+        _close((big.astype(np.float64) @ wd) * s, ref.numpy())
+
+
 def test_wrapper_rejects_nothing_on_cpu_and_counts_no_launch():
     x, w, s = _inputs(np.random.RandomState(7), 3, 17, 5)
     tkernels.reset_launch_counts()
@@ -208,6 +240,31 @@ def test_cuda_bf16_x_kernel_matches_plain_version(M, K, N, out_dtype):
     x, w, s = _inputs(np.random.RandomState(M + K + N), M, K, N)
     xt = torch.from_numpy(x).to(torch.bfloat16).cuda()
     wt, st = torch.from_numpy(w).cuda(), torch.from_numpy(s).cuda()
+    tkernels.reset_launch_counts()
+    out = tkernels.dequant_matmul(xt, wt, st, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts["dequant_matmul"] == 1
+    assert out.dtype == out_dtype and tuple(out.shape) == (M, N)
+    ref = tkernels.dequant_matmul_reference(xt, wt, st, out_dtype=out_dtype)
+    rtol = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=1e-5 * float(ref.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,out_dtype", [
+    (64, 2048, 1000, torch.float32),    # the ResNet fc, split K
+    (4096, 512, 2048, torch.float32),   # a transformer fc
+    (37, 300, 77, torch.float32),       # ragged M, K, N
+    (65, 129, 250, torch.float32),      # K % 4 != 0: 4-byte x pieces
+    (50, 129, 250, torch.bfloat16)])
+def test_cuda_fp32_x_kernel_matches_plain_version(M, K, N, out_dtype):
+    """K5 with fp32 x on the TF32 tensor cores (two products, partial sums
+    promoted per K chunk) at the fp32 tolerance, and a bf16 output one ulp
+    apart."""
+    _need_cuda()
+    x, w, s = _inputs(np.random.RandomState(M + K + N), M, K, N)
+    xt, wt, st = (torch.from_numpy(a).cuda() for a in (x, w, s))
     tkernels.reset_launch_counts()
     out = tkernels.dequant_matmul(xt, wt, st, out_dtype=out_dtype)
     torch.cuda.synchronize()

@@ -374,8 +374,8 @@ def test_cuda_bf16_kernel_raises_on_channels_not_multiple_of_8():
 def test_cuda_k6_k5_bf16_run_on_tensor_cores():
     """The machine code of the bf16 K6 kernel and the bf16-x K5 kernels
     holds bf16 tensor-core instructions (HMMA for mma.sync, HGMMA for
-    wgmma) and no other; the fp32 K6 kernel (3xTF32) holds TF32 HMMA and
-    no other; the fp32-x K5 kernels, on the SIMT units, hold none."""
+    wgmma) and no other; the fp32 K6 kernel (3xTF32) and the fp32-x K5
+    kernels (two TF32 products) hold TF32 HMMA and no other."""
     _need_cuda()
     from paddle_tpu_torch.ops import _build
     for stem, tc_tag, f32_tag, n_tc, n_f32, fp32 in (
@@ -383,7 +383,7 @@ def test_cuda_k6_k5_bf16_run_on_tensor_cores():
             ("fused_bottleneck", "bottleneck_tc_kernel", "bottleneck_kernel",
              1, 2, "tf32"),
             ("dequant_matmul", "dequant_matmul_tc_kernel",
-             "dequant_matmul_kernel", 2, 2, None)):   # fp32 and bf16 outputs
+             "dequant_matmul_kernel", 2, 2, "tf32")):  # fp32, bf16 outputs
         counts = _build.tensor_core_counts(stem)
         tc = [c for name, c in counts.items() if tc_tag in name]
         f32 = [c for name, c in counts.items() if f32_tag in name]

@@ -198,6 +198,18 @@ def test_bound_decode_symbols_are_defined_in_the_source():
         assert params.count(",") + 1 == len(argtypes), symbol
 
 
+def test_bound_int8_plan_symbol_is_defined_in_the_source():
+    """`decode_attention_int8_plan` binds K4's split by ctypes: (S, D, two
+    int out-pointers), defined once in decode_attention.cu."""
+    with open(os.path.join(_build.CSRC_DIR, "decode_attention.cu")) as f:
+        src = f.read()
+    head = 'extern "C" cudaError_t paddle_decode_attention_i8_plan('
+    assert src.count(head) == 1
+    params = src.split(head, 1)[1].split(")", 1)[0]
+    assert [p.split()[0] for p in params.split(",")] == [
+        "int", "int", "int*", "int*"]
+
+
 @pytest.mark.parametrize("stem,symbols", [
     ("flash_attention_fwd", ["paddle_flash_fwd_f32",
                              "paddle_flash_fwd_bf16"]),
