@@ -12,17 +12,19 @@ Phases, in order; any failure exits non-zero:
                power limit (nvidia-smi); then cuobjdump -sass of the
                libraries, tensor-core instructions counted by input
                type: the bf16 K1/K2/K6 kernels and the bf16-x K5 kernels
-               must hold bf16 HMMA/HGMMA only, fp32 K2 and K6 (3xTF32)
-               and the fp32-x K5 (two TF32 products) TF32 HMMA only,
-               fp32 K1 none.
+               must hold bf16 HMMA/HGMMA only, fp32 K1, K2 and K6
+               (3xTF32) and the fp32-x K5 (two TF32 products) TF32 HMMA
+               only.
   2. kernels — each kernel against its plain PyTorch version on the card
-               at its path's shapes (K3 at the decode shapes and as the
-               verify step's 5 pseudo-slots per slot; K4 at the decode
-               shapes and at lengths around its blocks' edges (its split
+               at its path's shapes (K3 and K4 at the decode shapes and
+               at lengths around their blocks' edges (each splits a row
                over a cluster: blocks and positions per block logged),
-               each row bit for bit against the row launched alone, and
-               its head-slice entry at 1, 2 and 4 local heads, also bit
-               for bit against the full-table K4; K1 and the two
+               each row bit for bit against the row launched alone; K3
+               also at every cluster size, timed, and as the verify
+               step's 5 pseudo-slots per slot, bit for bit against the
+               plain step; K4's head-slice entry at 1, 2 and 4 local
+               heads, also bit for bit against the full-table K4; K1
+               (3xTF32 tensor cores, its TFLOP/s printed) and the two
                K2 kernels at the training slice's shape, a non-causal and
                a ragged shape); times kernel, plain version and the
                PyTorch library yardstick with CUDA events, beside the
@@ -190,14 +192,23 @@ def decode_attention_bound(lengths, S, H, D, elem=4, q_per_slot=1,
 
 
 def phase_kernels(torch, pk):
+    """K3 against its plain version at the decode shapes and at lengths
+    around the edges of its blocks' shares (K3 splits each row's
+    positions over a cluster of blocks: the plan is logged per case),
+    each row bit for bit against the same row launched alone; at "main
+    full" also K3 at every split a cluster allows (the ones its plan
+    chose among), timed; then the verify step's pseudo-slots."""
     import torch.nn.functional as F
     rng = np.random.RandomState(0)
     N, S, H, D = N_SLOTS, 512, 8, 64
+    share = pk.decode_attention_f32_plan(S, D)["share"]
     cases = [
         ("main mixed", N, S, H, D,
          [0, 1, 511, 512] + list(rng.randint(2, 511, size=N - 4))),
         ("main full", N, S, H, D, [S] * N),
         ("ragged", 3, 80, 2, 64, [0, 80, 41]),
+        ("boundaries", N, S, H, D,
+         [0, 1, share - 1, share, share + 1, S - 1, S, S // 2 + 1]),
     ]
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
@@ -223,6 +234,13 @@ def phase_kernels(torch, pk):
         check(ok, "decode_attention %s disagrees with the plain version "
               "(max abs err %.3g, rtol 1e-5 atol 1e-5)" % (name, err))
         max_err = max(max_err, err)
+        plan = pk.decode_attention_f32_plan(s, d)
+        alone = all(torch.equal(pk.decode_attention(
+            q[i:i + 1].clone(), k[i:i + 1].clone(), v[i:i + 1].clone(),
+            lengths[i:i + 1].clone(), scale=scale)[0], out[i])
+            for i in range(n))
+        check(alone, "K3 %s: a row of the batched call differs from the "
+              "row launched alone" % name)
         ms = median_ms(torch, lambda: pk.decode_attention(
             q, k, v, lengths, scale=scale), flush)
         plain_ms = median_ms(torch, lambda: pk.decode_attention_reference(
@@ -237,16 +255,19 @@ def phase_kernels(torch, pk):
         bound_ms, bound_by, nbytes = decode_attention_bound(lens, s, h, d)
         log("kernel decode_attention [%s] N=%d S=%d H=%d D=%d: max abs "
             "err %.3g; kernel %.4f ms, plain %.4f ms, SDPA %.4f ms, "
-            "bound %.4f ms (%s, %d bytes) -> %.1f%% of bound"
+            "bound %.4f ms (%s, %d bytes) -> %.1f%% of bound; split over "
+            "a cluster of %d blocks, %d positions each; rows bit-exact vs "
+            "alone %s"
             % (name, n, s, h, d, err, ms, plain_ms, lib_ms, bound_ms,
-               bound_by, nbytes, 100.0 * bound_ms / ms))
-        if name == "main full":
-            entry = {"name": "decode_attention", "route": "cuda",
-                     "source":
-                         "paddle_tpu_torch/ops/csrc/decode_attention.cu",
-                     "replaces": "paddle_tpu/ops/pallas_kernels.py:570",
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms}
+               bound_by, nbytes, 100.0 * bound_ms / ms, plan["cluster"],
+               plan["share"], alone))
+        if name != "main full":
+            continue
+        entry = {"name": "decode_attention", "route": "cuda",
+                 "source": "paddle_tpu_torch/ops/csrc/decode_attention.cu",
+                 "replaces": "paddle_tpu/ops/pallas_kernels.py:570",
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": lib_ms}
     # the speculative verify step: C = SPEC_K + 1 chunk positions of each
     # slot attend as pseudo-slots over that slot's cache, read in place
     C = SPEC_K + 1
@@ -272,11 +293,18 @@ def phase_kernels(torch, pk):
         q, k, v, lengths, scale=scale, q_per_slot=C), flush)
     bound_ms, bound_by, nbytes = decode_attention_bound(lens, S, H, D,
                                                         q_per_slot=C)
+    plain_step = pk.decode_attention(q, k.repeat_interleave(C, 0),
+                                     v.repeat_interleave(C, 0), lengths,
+                                     scale=scale)
+    exact = bool(torch.equal(out, plain_step))
+    check(exact, "K3 q_per_slot=%d: the pseudo-slots differ from the plain "
+          "step at the same lengths" % C)
     log("kernel decode_attention [verify, q_per_slot=%d] N=%d S=%d H=%d "
         "D=%d (%d pseudo-slots): max abs err %.3g; kernel %.4f ms, plain "
-        "%.4f ms, bound %.4f ms (%s, %d bytes) -> %.1f%% of bound"
+        "%.4f ms, bound %.4f ms (%s, %d bytes) -> %.1f%% of bound; "
+        "bit-exact vs the plain step %s"
         % (C, N, S, H, D, N * C, err, ms, plain_ms, bound_ms, bound_by,
-           nbytes, 100.0 * bound_ms / ms))
+           nbytes, 100.0 * bound_ms / ms, exact))
     del flush
     entry["max_abs_err"] = max_err
     return entry
@@ -477,13 +505,12 @@ BF16_RTOL = 2.0 ** -7
 
 
 # (library stem, kernel tag, instances, the tensor-core input type its
-# machine code must hold: "bf16", "tf32", or None for none).  K1/K2 have a
-# D = 64 and a D = 128 instance; fp32 K6 one per tile height; K5 one per
-# output dtype.  The bf16 kernels run bf16 mma.sync, fp32 K2 and K6 tf32
-# mma.sync (3xTF32), fp32-x K5 tf32 mma.sync (two products), fp32 K1 the
-# SIMT units
+# machine code must hold: "bf16" or "tf32").  K1/K2 have a D = 64 and a
+# D = 128 instance; fp32 K6 one per tile height; K5 one per output dtype.
+# The bf16 kernels run bf16 mma.sync, fp32 K1, K2 and K6 tf32 mma.sync
+# (3xTF32), fp32-x K5 tf32 mma.sync (two products)
 SASS_KERNELS = [("flash_attention_fwd", "flash_fwd_tc_kernel", 2, "bf16"),
-                ("flash_attention_fwd", "flash_fwd_kernel", 2, None),
+                ("flash_attention_fwd", "flash_fwd_kernel", 2, "tf32"),
                 ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 2, "bf16"),
                 ("flash_attention_bwd", "flash_bwd_dq_kernel", 2, "tf32"),
                 ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 2,
@@ -498,9 +525,8 @@ SASS_KERNELS = [("flash_attention_fwd", "flash_fwd_tc_kernel", 2, "bf16"),
 def phase_sass(build):
     """Which tensor cores each kernel runs on, counted by input type in
     the machine code of the built libraries: the bf16 K1/K2/K6 kernels
-    and the bf16-x K5 kernels hold bf16 HMMA/HGMMA and no other; fp32 K2
-    and K6 and the fp32-x K5 kernels hold TF32 HMMA and no other; fp32 K1
-    holds none."""
+    and the bf16-x K5 kernels hold bf16 HMMA/HGMMA and no other; fp32 K1,
+    K2 and K6 and the fp32-x K5 kernels hold TF32 HMMA and no other."""
     counts, mnemonics = {}, {}
     for stem, tag, n, want in SASS_KERNELS:
         if stem not in counts:
@@ -657,11 +683,13 @@ def phase_flash_kernels(torch, pk, dtype=None):
             bound_ms, bound_by, nbytes, flops = flash_bound(
                 kind, B, S, H, D, causal, elem=q.element_size(),
                 rate=BF16_FLOP_PER_S if bf16 else FP32_ACCURATE_FLOP_PER_S)
-            log("kernel %s [slice] B=%d S=%d H=%d D=%d causal: kernel "
-                "%.4f ms, plain %.4f ms, SDPA %.4f ms, bound %.4f ms (%s; "
-                "%d bytes, %d flops) -> %.1f%% of bound, %.1f TFLOP/s%s"
-                % (kname, B, S, H, D, ms[kind], plain[kind], lib_ms,
-                   bound_ms, bound_by, nbytes, flops,
+            log("kernel %s [slice] B=%d S=%d H=%d D=%d causal (%s): "
+                "kernel %.4f ms, plain %.4f ms, SDPA %.4f ms, bound %.4f ms "
+                "(%s; %d bytes, %d flops) -> %.1f%% of bound, %.1f "
+                "TFLOP/s%s"
+                % (kname, B, S, H, D, "tensor cores (bf16)" if bf16
+                   else "tensor cores (tf32 x3)", ms[kind], plain[kind],
+                   lib_ms, bound_ms, bound_by, nbytes, flops,
                    100.0 * bound_ms / ms[kind], flops / ms[kind] / 1e9,
                    "" if bf16 else simt_bound_note(flops, nbytes)))
             entries[kind] = {"name": kname, "route": "cuda", "source": src,

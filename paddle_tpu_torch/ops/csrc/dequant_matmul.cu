@@ -24,7 +24,10 @@
 // only x needs splitting to keep fp32 accuracy on the TF32 tensor cores:
 // x = big + small, big = x rounded to nearest TF32 and small the exact
 // remainder (`split_tf32` of tc_common.cuh; the tensor core reads small's
-// top 19 bits, an error <= 2^-21 |x|).  Each k-step runs two products,
+// top 19 bits, an error <= 2^-21 |x|).  A block splits x with the
+// three-instruction split first and, when its sums hold a NaN (an
+// infinite or near-FLT_MAX x, or a NaN input), runs its K slice again
+// with the clamped split, which keeps +-inf products +-inf.  Each k-step runs two products,
 // small.w and then big.w; 3xTF32's third term, big.w_small, is exactly
 // zero.  The tensor cores' fp32 sums do not round to nearest (their
 // error grows with K), so the partial sums of each 64 k are promoted into
@@ -225,81 +228,97 @@ dequant_matmul_kernel(const float* __restrict__ x,
   };
   // acc: the IEEE fp32 running sum; part: the chunk's tensor-core sums
   float acc[2][4][4], part[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.f;
-  fill(0);
-  for (int c = 0; c < nc; ++c) {
-    cp_async_wait<0>();  // chunk c has landed ...
-    // ... for every thread, and every thread is done with chunk c - 1,
-    // whose ring slot chunk c + 1 refills
-    __syncthreads();
-    if (c + 1 < nc) fill(c + 1);
-    const float* xs = Xr + (c % kF32Ring) * kF32XFloats;
-    const unsigned char* ws = reinterpret_cast<const unsigned char*>(
-        Wr + (c % kF32Ring) * kF32WBytes);
-    // the fragments of k-step ks: A raw by ldmatrix (four 8 x 4 fp32
-    // matrices, rows g / g + 8 and k t / t + 4: the m16n8k8 tf32 layout),
-    // B as the words of int8 weights at rows k t and k t + 4, columns 4 g
-    // .. 4 g + 3 (one per n-tile), flipped for i8_bits
-    auto load_frags = [&](int ks, uint32_t (&ar)[2][4], uint32_t (&br)[2]) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm4(ar[mi], smem_u32(xs + (32 * wm + 16 * mi + (lane & 7) +
-                                     8 * ((lane >> 3) & 1)) * kF32Ldx +
-                               8 * ks + 4 * (lane >> 4)));
-      const unsigned char* p = ws + (8 * ks + tq) * kF32Ldw + 32 * wn + 4 * g;
-      br[0] = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
-      br[1] = *reinterpret_cast<const uint32_t*>(p + 4 * kF32Ldw) ^ 0x80808080u;
-    };
-    // every k-step of the chunk runs: past k_hi both tiles hold zeros.
-    // The next k-step's fragments load while this one multiplies.
-    uint32_t ar[2][2][4], br[2][2];
-    load_frags(0, ar[0], br[0]);
-#pragma unroll
-    for (int ks = 0; ks < kF32KC / 8; ++ks) {
-      const int cur = ks & 1;
-      if (ks + 1 < kF32KC / 8) load_frags(ks + 1, ar[cur ^ 1], br[cur ^ 1]);
-      SplitA a[2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        split_a(a[mi], __uint_as_float(ar[cur][mi][0]),
-                __uint_as_float(ar[cur][mi][1]),
-                __uint_as_float(ar[cur][mi][2]),
-                __uint_as_float(ar[cur][mi][3]));
-      // int8 as fp32: already a TF32 operand
-      uint32_t b[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        b[ni][0] = i8_bits(br[cur][0], ni);
-        b[ni][1] = i8_bits(br[cur][1], ni);
-      }
-      // small.w over every accumulator, then big.w
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_tf32(part[mi][ni], a[mi].small, b[ni][0], b[ni][1]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_tf32(part[mi][ni], a[mi].big, b[ni][0], b[ni][1]);
-    }
-    // promote the chunk's sums (64 k) into the IEEE fp32 running sum
+  // the K slice with x split unclamped (kClamp false) or clamped
+  // (tc_common.cuh); returns with no copy in flight
+  auto run = [&](auto clamp) {
+    constexpr bool kClamp = decltype(clamp)::value;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[i][j][e] += part[i][j][e];
-          part[i][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.f;
+    fill(0);
+    for (int c = 0; c < nc; ++c) {
+      cp_async_wait<0>();  // chunk c has landed ...
+      // ... for every thread, and every thread is done with chunk c - 1,
+      // whose ring slot chunk c + 1 refills
+      __syncthreads();
+      if (c + 1 < nc) fill(c + 1);
+      const float* xs = Xr + (c % kF32Ring) * kF32XFloats;
+      const unsigned char* ws = reinterpret_cast<const unsigned char*>(
+          Wr + (c % kF32Ring) * kF32WBytes);
+      // the fragments of k-step ks: A raw by ldmatrix (four 8 x 4 fp32
+      // matrices, rows g / g + 8 and k t / t + 4: the m16n8k8 tf32 layout),
+      // B as the words of int8 weights at rows k t and k t + 4, columns 4 g
+      // .. 4 g + 3 (one per n-tile), flipped for i8_bits
+      auto load_frags = [&](int ks, uint32_t (&ar)[2][4], uint32_t (&br)[2]) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldsm4(ar[mi], smem_u32(xs + (32 * wm + 16 * mi + (lane & 7) +
+                                       8 * ((lane >> 3) & 1)) * kF32Ldx +
+                                 8 * ks + 4 * (lane >> 4)));
+        const unsigned char* p = ws + (8 * ks + tq) * kF32Ldw + 32 * wn + 4 * g;
+        br[0] = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+        br[1] = *reinterpret_cast<const uint32_t*>(p + 4 * kF32Ldw) ^ 0x80808080u;
+      };
+      // every k-step of the chunk runs: past k_hi both tiles hold zeros.
+      // The next k-step's fragments load while this one multiplies.
+      uint32_t ar[2][2][4], br[2][2];
+      load_frags(0, ar[0], br[0]);
+#pragma unroll
+      for (int ks = 0; ks < kF32KC / 8; ++ks) {
+        const int cur = ks & 1;
+        if (ks + 1 < kF32KC / 8) load_frags(ks + 1, ar[cur ^ 1], br[cur ^ 1]);
+        SplitA a[2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          split_a<kClamp>(a[mi], __uint_as_float(ar[cur][mi][0]),
+                  __uint_as_float(ar[cur][mi][1]),
+                  __uint_as_float(ar[cur][mi][2]),
+                  __uint_as_float(ar[cur][mi][3]));
+        // int8 as fp32: already a TF32 operand
+        uint32_t b[4][2];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          b[ni][0] = i8_bits(br[cur][0], ni);
+          b[ni][1] = i8_bits(br[cur][1], ni);
         }
-  }
+        // small.w over every accumulator, then big.w
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            mma_tf32(part[mi][ni], a[mi].small, b[ni][0], b[ni][1]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            mma_tf32(part[mi][ni], a[mi].big, b[ni][0], b[ni][1]);
+      }
+      // promote the chunk's sums (64 k) into the IEEE fp32 running sum
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[i][j][e] += part[i][j][e];
+            part[i][j][e] = 0.f;
+          }
+    }
+  };
+  // unclamped first; a block whose sums hold a NaN (an infinite or
+  // near-FLT_MAX x, or a NaN input) runs again clamped
+  run(std::false_type{});
+  bool nan = false;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) nan |= acc[i][j][e] != acc[i][j][e];
+  if (__syncthreads_or(nan)) run(std::true_type{});
   // a lane holds, per row, the 8 adjacent columns 8 t .. 8 t + 7 of the
   // warp's 32: accumulator element h of n-tile ni is column 8 t + 4 h +
   // ni; each group of 4 goes out as one vector where the row allows

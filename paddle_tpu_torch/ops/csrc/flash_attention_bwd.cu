@@ -31,7 +31,11 @@
 //     next;
 //   * the stationary tiles (q and dO for dq, k and v for dk/dv) are
 //     staged once and split in place into big and small tiles; the
-//     streamed tiles stay raw fp32 and are split as their fragments load;
+//     streamed tiles stay raw fp32 and are split as their fragments load,
+//     with the three-instruction split, unclamped, and so is ds: a block
+//     whose gradients then hold a NaN (an infinite or near-FLT_MAX
+//     operand, or a NaN input) runs again with the clamped split
+//     (tc_common.cuh);
 //   * p and ds are formed in the accumulators and are, register for
 //     register, the A operand of the next product: the m16n8 accumulator
 //     holds (row g, columns 2t, 2t + 1), the m16n8k8 A fragment wants
@@ -48,10 +52,10 @@
 //     the second resident block covers the dk/dv kernel's loads.
 // What holds it back now: the split's instructions (three per streamed
 // element a fragment loads), the single-buffered streams, and mma.sync
-// rather than wgmma.  The gradients accumulate over up to S / 64 tiles on
-// one accumulator, whose sums drift with that count (at S = 512 well
-// inside the 1e-4 scaled tolerance); K6 promotes its partials, this
-// kernel does not yet.
+// rather than wgmma.  The gradients accumulate over up to S / 64 tiles
+// on one accumulator, whose sums drift with that count; at S = 4096 they
+// stay inside the 1e-4 scaled tolerance of the card tests, so this kernel
+// does not promote its partials as K6 and K1 do.
 // Every gradient row is owned by one warp of one block (q-stationary dq,
 // kv-stationary dk/dv): no atomics, fixed reduction orders, and a result
 // that depends only on its inputs.
@@ -59,121 +63,11 @@
 // bf16 (the TPU kernels' bf16 instance under AMP): flash_attention_tc.cuh's
 // `flash_bwd_dq_tc_kernel` and `flash_bwd_dkv_tc_kernel`.
 
-#include "flash_attention_common.cuh"
+#include "flash_attention_f32.cuh"
 #include "flash_attention_tc.cuh"
 
 namespace paddle_flash {
 namespace {
-
-using namespace paddle_tc;
-
-constexpr int kF32Threads = tc::kThreads;  // 4 warps, as the bf16 kernels
-
-template <int D>
-__host__ __device__ constexpr int f32_tile() {
-  return kTile * (D + kPad);
-}
-
-// Stage rows row0 .. row0+63 of head (b, h) of fp32 `t` into `dst` (rows
-// of D + kPad floats) with 16-byte cp.async; rows at or past S are zero.
-// The caller commits the group.
-template <int D>
-__device__ __forceinline__ void stage_f32(float* dst, const PaddleT4& t,
-                                          int b, int h, int row0, int S) {
-  constexpr int NV = D / 4;
-  const float* base = static_cast<const float*>(t.ptr) + (long long)b * t.sb +
-                      (long long)h * t.sh;
-  static_assert(kTile * NV % kF32Threads == 0, "whole passes over the tile");
-#pragma unroll
-  for (int it = 0; it < kTile * NV / kF32Threads; ++it) {
-    const int idx = threadIdx.x + it * kF32Threads;
-    const int r = idx / NV;
-    const int c = idx - r * NV;
-    const int s = row0 + r;
-    const bool valid = s < S;
-    cp_async16(dst + r * (D + kPad) + c * 4,
-               valid ? base + (long long)s * t.ss + c * 4 : base, valid);
-  }
-}
-
-// Split a staged tile in place: `big` keeps the TF32 big parts, `small`
-// receives the small parts.
-template <int D>
-__device__ __forceinline__ void split_tile(float* big, float* small) {
-  for (int i = threadIdx.x; i < f32_tile<D>(); i += kF32Threads) {
-    uint32_t hi, lo;
-    split_tf32(big[i], hi, lo);
-    big[i] = __uint_as_float(hi);
-    small[i] = __uint_as_float(lo);
-  }
-}
-
-// The split A operand of rows r0 .. r0+15, columns c0 .. c0+7 of a split
-// row-major tile
-template <int D>
-__device__ __forceinline__ void load_a_split(SplitA& f, const float* big,
-                                             const float* small, int r0,
-                                             int c0) {
-  const int lane = threadIdx.x & 31;
-  const int i0 = (r0 + (lane >> 2)) * (D + kPad) + c0 + (lane & 3);
-  const int i1 = i0 + 8 * (D + kPad);
-  const int idx[4] = {i0, i1, i0 + 4, i1 + 4};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    f.big[e] = __float_as_uint(big[idx[e]]);
-    f.small[e] = __float_as_uint(small[idx[e]]);
-  }
-}
-
-// The B operand of n rows n0 .. n0+7 of a raw n-major tile (a row holds k
-// contiguous), k columns k0 .. k0+7, split
-template <int D>
-__device__ __forceinline__ void load_b_nk_split(SplitB& f, const float* tile,
-                                                int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const float* p = tile + (n0 + (lane >> 2)) * (D + kPad) + k0 + (lane & 3);
-  split_b(f, p[0], p[4]);
-}
-
-// The B operand of k rows k0 .. k0+7 of a raw k-major tile (a row holds n
-// contiguous), n columns n0 .. n0+7, in the permuted k order of
-// acc_to_a_split (k rows 2t and 2t + 1), split
-template <int D>
-__device__ __forceinline__ void load_b_kn_split(SplitB& f, const float* tile,
-                                                int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const float* p =
-      tile + (k0 + 2 * (lane & 3)) * (D + kPad) + n0 + (lane >> 2);
-  split_b(f, p[0], p[D + kPad]);
-}
-
-// An accumulator n-tile (rows g, g + 8; columns 2t, 2t + 1) as the split A
-// operand of its 8 columns, in the permuted k order
-__device__ __forceinline__ void acc_to_a_split(SplitA& f, const float (&c)[4]) {
-  split_a(f, c[0], c[2], c[1], c[3]);
-}
-
-// Store a warp's 16 x D fp32 accumulator (rows row0 + g and row0 + g + 8
-// of head (b, h) of `t`, n-tile n at columns 8n + 2t); rows at or past S
-// are skipped.
-template <int D>
-__device__ __forceinline__ void store_acc_f32(const PaddleT4& t, int b, int h,
-                                              int row0, int S,
-                                              const float (&acc)[D / 8][4]) {
-  const int lane = threadIdx.x & 31;
-  float* base = static_cast<float*>(t.ptr) + (long long)b * t.sb +
-                (long long)h * t.sh;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int s = row0 + (lane >> 2) + 8 * half;
-    if (s >= S) continue;
-    float2* row = reinterpret_cast<float2*>(base + (long long)s * t.ss);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      row[4 * n + (lane & 3)] =
-          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
-  }
-}
 
 template <int D>
 constexpr int dq_smem_bytes() {
@@ -186,15 +80,16 @@ constexpr int dkv_smem_bytes() {
   return (6 * f32_tile<D>() + 2 * kTile) * (int)sizeof(float);
 }
 
-// K2 fp32 dq: block (b*h, q tile); warp w owns q rows 16w .. 16w+15
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
+// One pass of K2 fp32 dq over a block's kv tiles, streamed fragments and
+// ds split with kClamp; stages everything it reads and returns with no
+// copy in flight
+template <int D, bool kClamp>
+__device__ __forceinline__ void dq_pass(const PaddleFlashBwdArgs& a,
+                                        float* smem, float (&dq)[D / 8][4]) {
   constexpr int TE = f32_tile<D>();
   constexpr int KS = D / 8;  // k-steps over D
   constexpr int ND = D / 8;  // n-tiles over D
-  extern __shared__ float4 smem_f32[];
-  float* Qb = reinterpret_cast<float*>(smem_f32);
+  float* Qb = smem;
   float* Qsm = Qb + TE;
   float* Ob = Qsm + TE;
   float* Osm = Ob + TE;
@@ -228,7 +123,6 @@ flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
     lse[i] = qi < a.S ? a.lse[(long long)bh * a.S + qi] : 0.f;
     di[i] = qi < a.S ? a.di[(long long)bh * a.S + qi] : 0.f;
   }
-  float dq[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
@@ -250,7 +144,8 @@ flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
       SplitB vb[8];
       load_a_split<D>(oa, Ob, Osm, 16 * warp, 8 * ks);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) load_b_nk_split<D>(vb[j], Vt, 8 * j, 8 * ks);
+      for (int j = 0; j < 8; ++j)
+        load_b_nk_split<D, kClamp>(vb[j], Vt, 8 * j, 8 * ks);
 #pragma unroll
       for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
@@ -273,7 +168,8 @@ flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
       SplitB kb[8];
       load_a_split<D>(qa, Qb, Qsm, 16 * warp, 8 * ks);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) load_b_nk_split<D>(kb[j], Kt, 8 * j, 8 * ks);
+      for (int j = 0; j < 8; ++j)
+        load_b_nk_split<D, kClamp>(kb[j], Kt, 8 * j, 8 * ks);
 #pragma unroll
       for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
@@ -301,13 +197,13 @@ flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       SplitA da;
-      acc_to_a_split(da, s[kk]);
+      acc_to_a_split<kClamp>(da, s[kk]);
 #pragma unroll
       for (int d0 = 0; d0 < ND; d0 += 4) {
         SplitB kb[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          load_b_kn_split<D>(kb[u], Kt, 8 * kk, 8 * (d0 + u));
+          load_b_kn_split<D, kClamp>(kb[u], Kt, 8 * kk, 8 * (d0 + u));
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
@@ -322,20 +218,36 @@ flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
       __syncthreads();
     }
   }
-  store_acc_f32<D>(a.dq, b, h, q0 + 16 * warp, a.S, dq);
 }
 
-// K2 fp32 dk/dv: block (b*h, kv tile); warp w owns kv rows 16w .. 16w+15.
-// The q tile is taken 32 queries at a time, to bound the live
-// accumulators (dk, dv, s^T, dp^T) at D = 128.
+// K2 fp32 dq: block (b*h, q tile); warp w owns q rows 16w .. 16w+15.  The
+// unclamped pass first; a block whose dq holds a NaN runs again clamped.
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
+flash_bwd_dq_kernel(const PaddleFlashBwdArgs a) {
+  extern __shared__ float4 smem_f32[];
+  float* smem = reinterpret_cast<float*>(smem_f32);
+  float dq[D / 8][4];
+  dq_pass<D, false>(a, smem, dq);
+  if (__syncthreads_or(any_nan(dq))) dq_pass<D, true>(a, smem, dq);
+  const int b = blockIdx.x / a.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  store_acc_f32<D>(a.dq, b, blockIdx.x - b * a.H, q0 + 16 * (threadIdx.x >> 5),
+                   a.S, dq);
+}
+
+// One pass of K2 fp32 dk/dv over a block's q tiles, streamed fragments
+// and ds^T split with kClamp; stages everything it reads and returns with
+// no copy in flight.  The q tile is taken 32 queries at a time, to bound
+// the live accumulators (dk, dv, s^T, dp^T) at D = 128.
+template <int D, bool kClamp>
+__device__ __forceinline__ void dkv_pass(const PaddleFlashBwdArgs& a,
+                                         float* smem, float (&dk)[D / 8][4],
+                                         float (&dv)[D / 8][4]) {
   constexpr int TE = f32_tile<D>();
   constexpr int KS = D / 8;
   constexpr int ND = D / 8;
-  extern __shared__ float4 smem_f32[];
-  float* Kb = reinterpret_cast<float*>(smem_f32);
+  float* Kb = smem;
   float* Ksm = Kb + TE;
   float* Vb = Ksm + TE;
   float* Vsm = Vb + TE;
@@ -365,7 +277,6 @@ flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
   tc::stage_rowstat(di_s, a.di, bh, qt0 * kTile, a.S);
   cp_async_commit();
 
-  float dk[ND][4], dv[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
 #pragma unroll
@@ -397,8 +308,8 @@ flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
         SplitB qb[4], ob[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          load_b_nk_split<D>(qb[j], Qt, qc + 8 * j, 8 * ks);
-          load_b_nk_split<D>(ob[j], Ot, qc + 8 * j, 8 * ks);
+          load_b_nk_split<D, kClamp>(qb[j], Qt, qc + 8 * j, 8 * ks);
+          load_b_nk_split<D, kClamp>(ob[j], Ot, qc + 8 * j, 8 * ks);
         }
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass)
@@ -435,15 +346,17 @@ flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         SplitA pa, da;
-        acc_to_a_split(pa, st[kk]);
-        acc_to_a_split(da, dpt[kk]);
+        acc_to_a_split<false>(pa, st[kk]);  // p <= 1 or NaN
+        acc_to_a_split<kClamp>(da, dpt[kk]);
 #pragma unroll
         for (int d0 = 0; d0 < ND; d0 += 2) {
           SplitB ob[2], qb[2];
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
-            load_b_kn_split<D>(ob[u], Ot, qc + 8 * kk, 8 * (d0 + u));
-            load_b_kn_split<D>(qb[u], Qt, qc + 8 * kk, 8 * (d0 + u));
+            load_b_kn_split<D, kClamp>(ob[u], Ot, qc + 8 * kk,
+                                       8 * (d0 + u));
+            load_b_kn_split<D, kClamp>(qb[u], Qt, qc + 8 * kk,
+                                       8 * (d0 + u));
           }
 #pragma unroll
           for (int pass = 0; pass < 3; ++pass)
@@ -467,8 +380,25 @@ flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
       __syncthreads();
     }
   }
-  store_acc_f32<D>(a.dk, b, h, k0 + 16 * warp, a.S, dk);
-  store_acc_f32<D>(a.dv, b, h, k0 + 16 * warp, a.S, dv);
+}
+
+// K2 fp32 dk/dv: block (b*h, kv tile); warp w owns kv rows 16w .. 16w+15.
+// The unclamped pass first; a block whose dk or dv holds a NaN runs again
+// clamped.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dkv_kernel(const PaddleFlashBwdArgs a) {
+  extern __shared__ float4 smem_f32[];
+  float* smem = reinterpret_cast<float*>(smem_f32);
+  float dk[D / 8][4], dv[D / 8][4];
+  dkv_pass<D, false>(a, smem, dk, dv);
+  if (__syncthreads_or(any_nan(dk) || any_nan(dv)))
+    dkv_pass<D, true>(a, smem, dk, dv);
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x - b * a.H;
+  const int r0 = blockIdx.y * kTile + 16 * (threadIdx.x >> 5);
+  store_acc_f32<D>(a.dk, b, h, r0, a.S, dk);
+  store_acc_f32<D>(a.dv, b, h, r0, a.S, dv);
 }
 
 // Launch an fp32 kernel with the most shared memory per SM, so that two

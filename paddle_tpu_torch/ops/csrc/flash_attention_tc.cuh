@@ -1,8 +1,8 @@
 // Tensor-core bodies of the bf16 flash-attention kernels: K1-bf16
 // (forward) and K2-bf16 (backward dq and dk/dv), included by
 // flash_attention_fwd.cu and flash_attention_bwd.cu, whose bf16 C entries
-// launch them.  The fp32 forward keeps its SIMT kernel; the fp32 backward
-// runs 3xTF32 tensor-core kernels of the same shape (flash_attention_bwd.cu).
+// launch them.  The fp32 forward and backward run 3xTF32 tensor-core
+// kernels of the same shape (flash_attention_fwd.cu, flash_attention_bwd.cu).
 //
 // Replaces the bf16 instances of `_flash_fwd_pallas` and
 // `_flash_bwd_pallas` (its dq and dkv passes) of

@@ -57,7 +57,11 @@
 //     as they lie (split), and the fragment for tap j reads elements 9t +
 //     j and 9 (t + 4) + j;
 //   * conv2: A is h read in place, B w2 [C4][F] as conv0's B.
-// The window, h and the A tiles are split as their fragments load.  The
+// The window, h and the A tiles are split as their fragments load, with
+// the three-instruction split, unclamped: a block that meets a NaN in an
+// accumulator (an infinite or near-FLT_MAX operand, or a NaN input) runs
+// again with the clamped split (tc_common.cuh), checked before each relu,
+// which would drop it.  The filters are split once as staged, clamped.  The
 // tensor cores' fp32 accumulation does not round to nearest, and its
 // error grows with the number of products on one accumulator (to ~3e-4
 // at |out| ~ 8 for a K = 9 x 512 loop); so each 64 k of a 1x1 (four
@@ -188,10 +192,25 @@ __device__ __forceinline__ void mma_k8(Acc<WM>& acc, const SplitA (&a)[2],
 
 // The split A fragment of rows p0 (pixel g) and p1 (pixel g + 8), each a
 // pointer to the fragment's first column
+template <bool kClamp>
 __device__ __forceinline__ void load_a(SplitA& f, const float* p0,
                                        const float* p1) {
   const int t = threadIdx.x & 3;
-  split_a(f, p0[t], p1[t], p0[t + 4], p1[t + 4]);
+  split_a<kClamp>(f, p0[t], p1[t], p0[t + 4], p1[t + 4]);
+}
+
+// Whether any of this thread's accumulators is NaN (the unclamped split's
+// mark, tc_common.cuh)
+template <int WM>
+__device__ __forceinline__ bool any_nan(const Acc<WM>& acc) {
+  bool nan = false;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) nan |= acc[i][j][e] != acc[i][j][e];
+  return nan;
 }
 
 // acc += A[m0 .. m0+32 WM-1][0, K) . B[n0 .. n0+63][0, K)^T for a 1x1
@@ -202,7 +221,7 @@ __device__ __forceinline__ void load_a(SplitA& f, const float* p0,
 // kRing A buffers and two B buffers, two chunks in flight ahead of the
 // one multiplied, one barrier a chunk.  Ends with a barrier: the staging
 // area is free.
-template <bool kStagedA, int WM>
+template <bool kStagedA, int WM, bool kClamp>
 __device__ __forceinline__ void gemm_1x1(Acc<WM>& acc,
                                          const float* const* arow, bool avec,
                                          const float* B, int N, int K, int n0,
@@ -296,9 +315,9 @@ __device__ __forceinline__ void gemm_1x1(Acc<WM>& acc,
         if (kStagedA) {
           const float* p = As + (abuf * BM + wm * 32 + 16 * mi +
                                  (lane >> 2)) * kLdc + 8 * ks;
-          load_a(a[mi], p, p + 8 * kLdc);
+          load_a<kClamp>(a[mi], p, p + 8 * kLdc);
         } else {
-          load_a(a[mi], arow[2 * mi] + k, arow[2 * mi + 1] + k);
+          load_a<kClamp>(a[mi], arow[2 * mi] + k, arow[2 * mi + 1] + k);
         }
       }
       mma_k8<1>(part, a, Bb, Bb + kBN * kLdc, kLdc, 8 * ks);
@@ -318,7 +337,7 @@ __device__ __forceinline__ void gemm_1x1(Acc<WM>& acc,
 // output pixels m0 .. m0+32 WM-1 (m = r Wo + wo), output channels n0 ..
 // n0+63.
 // Ends with a barrier.
-template <int WM>
+template <int WM, bool kClamp>
 __device__ __forceinline__ void gemm_3x3(Acc<WM>& acc, const Args& a,
                                          const Geom& g, const float* win,
                                          int m0, int n0, float* stage) {
@@ -393,7 +412,7 @@ __device__ __forceinline__ void gemm_3x3(Acc<WM>& acc, const Args& a,
       SplitA af[2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
-        load_a(af[mi], arow[2 * mi] + toff[tap] + 8 * c,
+        load_a<kClamp>(af[mi], arow[2 * mi] + toff[tap] + 8 * c,
                arow[2 * mi + 1] + toff[tap] + 8 * c);
       mma_k8<9>(part, af, Bb, Bsm, kLd3, tap);
     }
@@ -402,12 +421,14 @@ __device__ __forceinline__ void gemm_3x3(Acc<WM>& acc, const Args& a,
   __syncthreads();
 }
 
-template <int WM>
-__global__ void __launch_bounds__(kThreads)
-bottleneck_kernel(const Args a, const Geom g) {
+// One pass of the fp32 block, the A fragments split with kClamp; returns
+// whether this thread met a NaN in an accumulator, before the relus
+// (which would drop it)
+template <int WM, bool kClamp>
+__device__ __forceinline__ bool bottleneck_pass(const Args& a, const Geom& g,
+                                                float* stage) {
   constexpr int BM = 32 * WM;
-  extern __shared__ float4 smem_f32[];
-  float* stage = reinterpret_cast<float*>(smem_f32);
+  bool nan = false;
   float* win = stage + stage_floats(WM);            // [E][Wp][ldw]
   float* hb = win + (size_t)g.E * g.Wp * g.ldw;     // [R Wo][ldh]
 
@@ -439,7 +460,8 @@ bottleneck_kernel(const Args a, const Geom g) {
     for (int n0 = 0; n0 < F; n0 += kBN) {
       Acc<WM> acc;
       zero<WM>(acc);
-      gemm_1x1<true, WM>(acc, arow, xvec, a.w0, F, C, n0, stage);
+      gemm_1x1<true, WM, kClamp>(acc, arow, xvec, a.w0, F, C, n0, stage);
+      nan |= any_nan<WM>(acc);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -470,7 +492,8 @@ bottleneck_kernel(const Args a, const Geom g) {
     for (int n0 = 0; n0 < F; n0 += kBN) {
       Acc<WM> acc;
       zero<WM>(acc);
-      gemm_3x3<WM>(acc, a, g, win, m0, n0, stage);
+      gemm_3x3<WM, kClamp>(acc, a, g, win, m0, n0, stage);
+      nan |= any_nan<WM>(acc);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -515,8 +538,10 @@ bottleneck_kernel(const Args a, const Geom g) {
     for (int n0 = 0; n0 < C4; n0 += kBN) {
       Acc<WM> acc;
       zero<WM>(acc);
-      gemm_1x1<false, WM>(acc, hrow, false, a.w2, C4, F, n0, stage);
-      if (proj) gemm_1x1<true, WM>(acc, xrow, xvec, a.ws, C4, C, n0, stage);
+      gemm_1x1<false, WM, kClamp>(acc, hrow, false, a.w2, C4, F, n0, stage);
+      if (proj)
+        gemm_1x1<true, WM, kClamp>(acc, xrow, xvec, a.ws, C4, C, n0, stage);
+      nan |= any_nan<WM>(acc);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -542,6 +567,18 @@ bottleneck_kernel(const Args a, const Geom g) {
         }
     }
   }
+  return nan;
+}
+
+// The unclamped pass first; a block that met a NaN runs again clamped,
+// writing its rows of out again
+template <int WM>
+__global__ void __launch_bounds__(kThreads)
+bottleneck_kernel(const Args a, const Geom g) {
+  extern __shared__ float4 smem_f32[];
+  float* stage = reinterpret_cast<float*>(smem_f32);
+  if (__syncthreads_or(bottleneck_pass<WM, false>(a, g, stage)))
+    bottleneck_pass<WM, true>(a, g, stage);
 }
 
 // F8 + 4 floats a row of h, and of a stride-1 window; F8 + 2 a row of a

@@ -103,14 +103,47 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // one fp32 value as its TF32 big and small parts.  big is x rounded to
-// nearest TF32, ties away (cvt.rna.tf32.f32's result for finite x, in two
-// integer operations where the compiler emulates cvt in four); small is
-// the exact remainder x - big, of which the tensor core reads the TF32
-// top 19 bits (truncated: |error| <= 2^-10 |small| <= 2^-21 |x|).  A NaN
-// x stays NaN in small, an infinite x gives NaN, as with cvt.
+// nearest TF32, ties away (cvt.rna.tf32.f32's result for finite x, by
+// integer add and mask where the compiler emulates cvt in four
+// instructions); small is the exact remainder x - big, of which the
+// tensor core reads the TF32 top 19 bits (truncated: |error| <= 2^-10
+// |small| <= 2^-21 |x|).
+//
+// kClamp (the default) clamps the rounding at the largest finite TF32 of
+// x's sign (+-0x1.ffcp127, M below): a signed integer min against
+// 0x7f7fffff, or 0xff7fffff for a negative x (a more negative float is a
+// larger negative integer), before the mask.  So big is never infinite:
+//   * a finite x within half a TF32 ulp of FLT_MAX gets big = M (x
+//     truncated) and an exact small;
+//   * x = +-inf gets big = +-M and small = x - big = +-inf, never inf -
+//     inf; each product small.big + big.small + big.big with a finite y
+//     is then +-inf . big_y = +-inf (big_y has y's sign) plus finite
+//     terms, +-inf where x . y is, and NaN where x . y is (y = 0).  The
+//     term M . small_y stays finite while |small_y| <= 1, i.e. |y| < 2^12;
+//     past that, as for two finite operands whose product overflows by
+//     2^11 or more, the terms may overflow with opposite signs to NaN;
+//   * a NaN x stays NaN in small (big is M or +-0).
+// Five instructions (the bound is formed beside the add).
+//
+// Without kClamp, three: an x of |x| >= 0x1.ffep127 (within half a TF32
+// ulp of FLT_MAX, or infinite) gets an infinite big and a NaN or infinite
+// small of the other sign, and every product with it — small.big +
+// big.small + big.big with any y — is NaN; every other x splits as with
+// kClamp.  A kernel that splits streamed operands at each fragment load
+// (fp32 K1 and K2) runs a block unclamped first and, when the block's
+// results hold a NaN, runs it again clamped: a block whose results hold
+// none met no such operand (or only where its product is masked
+// anyway), so it computed what the clamped split computes.
+template <bool kClamp = true>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  const uint32_t u = __float_as_uint(x);
+  if constexpr (kClamp)
+    big = (uint32_t)min((int)(u + 0x1000u),
+                        (int)((u & 0x80000000u) | 0x7f7fffffu)) &
+          0xffffe000u;
+  else
+    big = (u + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(x - __uint_as_float(big));
 }
 
@@ -134,17 +167,19 @@ struct SplitB {
   uint32_t big[2], small[2];
 };
 
+template <bool kClamp = true>
 __device__ __forceinline__ void split_a(SplitA& s, float a0, float a1,
                                         float a2, float a3) {
-  split_tf32(a0, s.big[0], s.small[0]);
-  split_tf32(a1, s.big[1], s.small[1]);
-  split_tf32(a2, s.big[2], s.small[2]);
-  split_tf32(a3, s.big[3], s.small[3]);
+  split_tf32<kClamp>(a0, s.big[0], s.small[0]);
+  split_tf32<kClamp>(a1, s.big[1], s.small[1]);
+  split_tf32<kClamp>(a2, s.big[2], s.small[2]);
+  split_tf32<kClamp>(a3, s.big[3], s.small[3]);
 }
 
+template <bool kClamp = true>
 __device__ __forceinline__ void split_b(SplitB& s, float b0, float b1) {
-  split_tf32(b0, s.big[0], s.small[0]);
-  split_tf32(b1, s.big[1], s.small[1]);
+  split_tf32<kClamp>(b0, s.big[0], s.small[0]);
+  split_tf32<kClamp>(b1, s.big[1], s.small[1]);
 }
 
 // One of the three products of c += a . b at fp32 accuracy: pass 0

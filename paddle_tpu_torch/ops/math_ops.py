@@ -136,7 +136,28 @@ def _softmax(ctx):
     return {"Out": e / e.sum(dim=-1, keepdim=True)}
 
 
+# the signed integer type of each float type's width, for _order_key
+_KEY_INTS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _order_key(x):
+    """Integer keys whose order is IEEE totalOrder on x (x itself for an
+    integer tensor): -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN.  A
+    negative float's magnitude bits are flipped, so a larger magnitude
+    sorts lower."""
+    if not x.is_floating_point():
+        return x
+    bits = x.detach().view(_KEY_INTS[x.element_size()])
+    mag = torch.iinfo(bits.dtype).max
+    return bits ^ ((bits >> (8 * x.element_size() - 1)) & mag)
+
+
 @register_op("top_k")
 def _top_k(ctx):
-    vals, idx = torch.topk(ctx.input("X"), int(ctx.attr("k", 1)), dim=-1)
-    return {"Out": vals, "Indices": idx.to(torch.int64)}
+    """jax.lax.top_k's order: descending in IEEE totalOrder (NaNs of
+    either sign at the ends, -0 below +0), the lower index first among
+    equal values."""
+    x, k = ctx.input("X"), int(ctx.attr("k", 1))
+    idx = torch.sort(_order_key(x), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return {"Out": x.gather(-1, idx), "Indices": idx.to(torch.int64)}

@@ -23,6 +23,12 @@ def _pair(v, n=2):
     return (int(v),) * n
 
 
+def _pads(ctx):
+    """The (H, W) padding of a conv2d or pool2d: the first two entries of
+    `paddings`, as the JAX lowerings read a four-element list."""
+    return _pair(ctx.attr("paddings", [0, 0]))[:2]
+
+
 def _img_layout(ctx):
     return ctx.attr("data_format", None) or ctx.attr("data_layout", None) \
         or "NCHW"
@@ -49,7 +55,7 @@ def _conv2d(ctx):
     layout = _img_layout(ctx)
     out = _from_nchw(conv2d_nchw(
         _to_nchw(x, layout), w, _pair(ctx.attr("strides", [1, 1])),
-        _pair(ctx.attr("paddings", [0, 0])),
+        _pads(ctx),
         _pair(ctx.attr("dilations", [1, 1])),
         int(ctx.attr("groups", 1) or 1)), layout)
     if ctx.has_input("Bias"):
@@ -99,7 +105,7 @@ def _pool2d(ctx):
     ptype = ctx.attr("pooling_type", "max")
     ksize = _pair(ctx.attr("ksize", [2, 2]))
     strides = _pair(ctx.attr("strides", [1, 1]))
-    pads = _pair(ctx.attr("paddings", [0, 0]))
+    pads = _pads(ctx)
     ceil_mode = bool(ctx.attr("ceil_mode", False))
     if ctx.attr("global_pooling", False) or (
             ctx.attr("adaptive", False) and tuple(ksize) == (1, 1)):

@@ -20,11 +20,10 @@ bottleneck block.  K1, K2 and K6 each have an fp32 and a bf16 entry
 K1/K2, bf16 serving for K6), counted apart; the bf16 plain versions round
 where the TPU kernels cast.  The bf16 kernels run on the tensor cores
 (K1/K2: csrc/flash_attention_tc.cuh; K6: csrc/fused_bottleneck_tc.cuh; K5
-with bf16 x in csrc/dequant_matmul.cu); so do the fp32 K2 and K6, on TF32
-tiles at fp32 accuracy (3xTF32: csrc/tc_common.cuh), and K5 with fp32 x
-(two products: an int8 weight is exact in TF32).  K4 splits each row's
-positions over a thread-block cluster.  The fp32 K1 and K3 run on the
-SIMT units.
+with bf16 x in csrc/dequant_matmul.cu); so do the fp32 K1, K2 and K6, on
+TF32 tiles at fp32 accuracy (3xTF32: csrc/tc_common.cuh), and K5 with
+fp32 x (two products: an int8 weight is exact in TF32).  K3 and K4 split
+each row's positions over a thread-block cluster.
 The `flash_attention` and `fused_bottleneck` ops, through which fluid
 programs reach K1/K2 and K6, are registered here too.
 """
@@ -38,7 +37,8 @@ from . import _build
 from ._build import KernelError
 
 __all__ = ["decode_attention", "decode_attention_reference",
-           "decode_attention_head_slice", "decode_attention_int8_plan",
+           "decode_attention_head_slice", "decode_attention_f32_plan",
+           "decode_attention_int8_plan",
            "flash_attention",
            "flash_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_reference", "flash_attention_bwd_dq",
@@ -99,27 +99,38 @@ _DECODE_ARGTYPES = {
     # head_offset; scale; stream
     "paddle_decode_attention_i8": [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    # S, D; cluster and share out
+    "paddle_decode_attention_f32_plan": [ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_int)],
+    "paddle_decode_attention_i8_plan": [ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int),
+                                        ctypes.POINTER(ctypes.c_int)],
 }
 
 
-def decode_attention_int8_plan(S, D):
-    """K4's split of each row for caches of S positions at head dim D, as
-    csrc/decode_attention.cu computes it: {"cluster": blocks per (slot,
-    head), "share": positions each block takes}.  Fixed by S and D alone.
-    Builds the CUDA library (needs nvcc)."""
-    fn = _fns.get("paddle_decode_attention_i8_plan")
-    if fn is None:
-        fn = _build.load("decode_attention").paddle_decode_attention_i8_plan
-        fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        _fns["paddle_decode_attention_i8_plan"] = fn
+def _decode_plan(symbol, name, S, D):
     cluster, share = ctypes.c_int(), ctypes.c_int()
-    if fn(int(S), int(D), ctypes.byref(cluster), ctypes.byref(share)):
-        raise ValueError("decode_attention_int8_plan: S %d, D %d not taken"
-                         % (S, D))
+    if _decode_attention_fn(symbol)(int(S), int(D), ctypes.byref(cluster),
+                                    ctypes.byref(share)):
+        raise ValueError("%s: S %d, D %d not taken" % (name, S, D))
     return {"cluster": cluster.value, "share": share.value}
+
+
+def decode_attention_f32_plan(S, D):
+    """K3's split of each row for fp32 caches of S positions at head dim
+    D, as csrc/decode_attention.cu computes it: {"cluster": blocks per
+    (slot, head), "share": positions each block takes}.  Fixed by S and
+    D alone.  Builds the CUDA library (needs nvcc)."""
+    return _decode_plan("paddle_decode_attention_f32_plan",
+                        "decode_attention_f32_plan", S, D)
+
+
+def decode_attention_int8_plan(S, D):
+    """K4's split of each row for int8 caches, as
+    `decode_attention_f32_plan` gives K3's."""
+    return _decode_plan("paddle_decode_attention_i8_plan",
+                        "decode_attention_int8_plan", S, D)
 
 
 def _decode_attention_fn(symbol):
@@ -341,9 +352,7 @@ def decode_attention_head_slice(q, k_cache, v_cache, lengths, head_offset,
 # do) are fp32 or bf16, all alike; outputs are in their dtype.
 # ---------------------------------------------------------------------------
 
-# head dims the CUDA kernels take: an fp32 kernel's thread owns D / 16
-# columns as float4 groups 64 columns apart; the bf16 kernels are built
-# for the same two
+# head dims the CUDA kernels are built for (fp32 and bf16 alike)
 _FLASH_HEAD_DIMS = (64, 128)
 
 

@@ -21,7 +21,8 @@ import math
 
 import torch
 
-from .nn_ops import _from_nchw, _img_layout, _pair, _to_nchw, conv2d_nchw
+from .nn_ops import (_from_nchw, _img_layout, _pads, _pair, _to_nchw,
+                     conv2d_nchw)
 from .pallas_kernels import dequant_matmul
 from .registry import register_op
 
@@ -84,7 +85,7 @@ def _dequant_conv2d(ctx):
     out = conv2d_nchw(
         _to_nchw(xq.float(), layout), w.to(xq.dtype).float(),
         _pair(ctx.attr("strides", [1, 1])),
-        _pair(ctx.attr("paddings", [0, 0])),
+        _pads(ctx),
         _pair(ctx.attr("dilations", [1, 1])),
         int(ctx.attr("groups", 1) or 1))
     out = _from_nchw(out, layout)

@@ -101,3 +101,50 @@ def test_cuda_kernel_matches_reference(N, S, H, D, lengths):
     assert torch_kernels.launch_counts["decode_attention"] == 1
     ref = torch_kernels.decode_attention_reference(*args)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D", [
+    (512, 64), (80, 64), (513, 64), (512, 4), (512, 8), (512, 16),
+    (512, 32), (512, 128), (513, 128), (80, 4)])
+def test_cuda_split_boundaries_and_bit_exact_rows(S, D):
+    """K3 splits each row's positions over a cluster of blocks, `share`
+    each, fixed by S and D.  At lengths around a block's edge (0, 1,
+    share - 1, share, share + 1, S - 1, S) it matches the plain version;
+    and bit for bit: each row of a batched call equals the row launched
+    alone, and 4 pseudo-slots per slot equal the plain step at the same
+    lengths."""
+    _need_cuda()
+    plan = torch_kernels.decode_attention_f32_plan(S, D)
+    cs, share = plan["cluster"], plan["share"]
+    assert 1 <= cs <= 8 and cs * share >= S > (cs - 1) * share
+    lens = sorted({min(max(n, 0), S)
+                   for n in (0, 1, share - 1, share, share + 1, S - 1, S)})
+    N, H = len(lens), 4
+    q, k, v, _ = _inputs(N, S, H, D, seed=S + D)
+    q, k, v = (t.cuda() for t in _torch(q, k, v))
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    torch_kernels.reset_launch_counts()
+    out = torch_kernels.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert torch_kernels.launch_counts["decode_attention"] == 1
+    ref = torch_kernels.decode_attention_reference(q, k, v, lengths)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    for i in range(N):
+        alone = torch_kernels.decode_attention(
+            q[i:i + 1].clone(), k[i:i + 1].clone(), v[i:i + 1].clone(),
+            lengths[i:i + 1].clone())
+        assert torch.equal(alone[0], out[i]), lens[i]
+    C = 4
+    qc = torch.from_numpy(np.random.RandomState(S).randn(
+        N * C, H, D).astype(np.float32)).cuda()
+    lc = torch.tensor([min(n + j, S) for n in lens for j in range(C)],
+                      dtype=torch.int32, device="cuda")
+    verify = torch_kernels.decode_attention(qc, k, v, lc, q_per_slot=C)
+    plain = torch_kernels.decode_attention(
+        qc, k.repeat_interleave(C, 0), v.repeat_interleave(C, 0), lc)
+    assert torch.equal(verify, plain)
+    torch.testing.assert_close(verify, torch_kernels.
+                               decode_attention_reference(
+                                   qc, k, v, lc, q_per_slot=C),
+                               rtol=1e-5, atol=1e-5)

@@ -181,7 +181,7 @@ def test_cuda_int8_kernel_and_head_slice(N, S, H, D, lengths):
     torch.testing.assert_close(out, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
     # the head blocks at every offset, concatenated, equal the full
-    # table's output bit for bit (one block per (slot, head))
+    # table's output bit for bit (each (slot, head) row is its own cluster)
     qd, kd, vd, ld = args
     for n_local in (1, 2):
         parts = [torch_kernels.decode_attention_head_slice(

@@ -242,6 +242,12 @@ def _card_inputs(B, S, H, D, seed, fused_qkv, dtype=torch.float32):
     (2, 256, 4, 64, False, False),
     (1, 200, 2, 128, True, False),    # ragged: no 64-row tile divides S
     (2, 70, 3, 128, False, True),
+    # long rows (the JAX package's S 1024 / 4096 lanes): K1 folds S / 64
+    # tiles into o, K2 sums S / 64 tiles into each gradient row
+    (1, 2048, 2, 64, True, True),
+    (1, 4096, 2, 64, True, False),
+    (1, 2048, 2, 128, False, False),
+    (1, 4096, 1, 128, True, True),
 ])
 def test_cuda_kernels_match_plain_versions(B, S, H, D, causal, fused):
     _need_cuda()
@@ -367,13 +373,12 @@ def test_cuda_bf16_kernels_match_plain_versions(B, S, H, D, causal, fused):
 def test_cuda_bf16_kernels_run_on_tensor_cores():
     """The machine code of the bf16 K1/K2 kernels holds bf16 tensor-core
     instructions (HMMA for mma.sync, HGMMA for wgmma) and no other; the
-    fp32 K2 kernels (3xTF32) hold TF32 HMMA and no other; the fp32 K1
-    kernel, on the SIMT units, holds none."""
+    fp32 K1 and K2 kernels (3xTF32) hold TF32 HMMA and no other."""
     _need_cuda()
     from paddle_tpu_torch.ops import _build
     counts = {**_build.tensor_core_counts("flash_attention_fwd"),
               **_build.tensor_core_counts("flash_attention_bwd")}
-    for kind, fp32 in (("flash_fwd", None), ("flash_bwd_dq", "tf32"),
+    for kind, fp32 in (("flash_fwd", "tf32"), ("flash_bwd_dq", "tf32"),
                        ("flash_bwd_dkv", "tf32")):
         tc = [c for n, c in counts.items() if kind + "_tc_kernel" in n]
         f32 = [c for n, c in counts.items() if kind + "_kernel" in n]

@@ -184,13 +184,16 @@ def test_build_is_keyed_by_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_bound_decode_symbols_are_defined_in_the_source():
-    """K3 and K4 bind two C entry points of one source by ctypes: each
-    is defined there with the argument count its argtypes declare."""
+    """K3 and K4 bind the C entry points of one source by ctypes (the two
+    launches and the two plans): each is defined there with the argument
+    count its argtypes declare."""
     from paddle_tpu_torch.ops import pallas_kernels as pk
     with open(os.path.join(_build.CSRC_DIR, "decode_attention.cu")) as f:
         src = f.read()
-    assert set(pk._DECODE_ARGTYPES) == {"paddle_decode_attention_f32",
-                                        "paddle_decode_attention_i8"}
+    assert set(pk._DECODE_ARGTYPES) == {
+        "paddle_decode_attention_f32", "paddle_decode_attention_i8",
+        "paddle_decode_attention_f32_plan",
+        "paddle_decode_attention_i8_plan"}
     for symbol, argtypes in pk._DECODE_ARGTYPES.items():
         head = 'extern "C" cudaError_t %s(' % symbol
         assert src.count(head) == 1, symbol
@@ -204,6 +207,18 @@ def test_bound_int8_plan_symbol_is_defined_in_the_source():
     with open(os.path.join(_build.CSRC_DIR, "decode_attention.cu")) as f:
         src = f.read()
     head = 'extern "C" cudaError_t paddle_decode_attention_i8_plan('
+    assert src.count(head) == 1
+    params = src.split(head, 1)[1].split(")", 1)[0]
+    assert [p.split()[0] for p in params.split(",")] == [
+        "int", "int", "int*", "int*"]
+
+
+def test_bound_f32_plan_symbol_is_defined_in_the_source():
+    """`decode_attention_f32_plan` binds K3's split by ctypes: (S, D, two
+    int out-pointers), defined once in decode_attention.cu."""
+    with open(os.path.join(_build.CSRC_DIR, "decode_attention.cu")) as f:
+        src = f.read()
+    head = 'extern "C" cudaError_t paddle_decode_attention_f32_plan('
     assert src.count(head) == 1
     params = src.split(head, 1)[1].split(")", 1)[0]
     assert [p.split()[0] for p in params.split(",")] == [

@@ -107,6 +107,10 @@ _CASES = [
     ("relu", "relu", {"X": [_f(3, 4)]}, {}),
     ("softmax", "softmax", {"X": [_f(3, 5)]}, {}),
     ("top_k", "top_k", {"X": [_f(4, 7)]}, {"k": 3}),
+    # equal values (the lower index first), NaNs of both signs, infinities
+    # and signed zeros (jax.lax.top_k orders by IEEE totalOrder)
+    ("top_k_ties", "top_k", {"X": [("ties", (6, 40))]}, {"k": 9}),
+    ("top_k_nans", "top_k", {"X": [("nans", (6, 24))]}, {"k": 24}),
     ("conv2d_nchw", "conv2d",
      {"Input": [_f(2, 3, 7, 7)], "Filter": [_f(4, 3, 3, 3)]},
      {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
@@ -134,6 +138,25 @@ _CASES = [
     ("pool2d_global_avg_nhwc", "pool2d", {"X": [_f(2, 5, 5, 4)]},
      {"pooling_type": "avg", "ksize": [1, 1], "global_pooling": True,
       "data_format": "NHWC"}),
+    # four `paddings`: the JAX lowerings pad (H, W) by the first two
+    ("conv2d_nchw_four_paddings", "conv2d",
+     {"Input": [_f(2, 3, 7, 7)], "Filter": [_f(4, 3, 3, 3)]},
+     {"strides": [1, 1], "paddings": [1, 2, 0, 1], "data_format": "NCHW"}),
+    ("conv2d_nhwc_four_paddings", "conv2d",
+     {"Input": [_f(2, 6, 6, 3)], "Filter": [_f(4, 3, 3, 3)]},
+     {"strides": [2, 2], "paddings": [0, 1, 1, 0], "data_format": "NHWC"}),
+    ("pool2d_max_nchw_four_paddings", "pool2d", {"X": [_f(2, 3, 7, 7)]},
+     {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+      "paddings": [1, 0, 0, 1], "data_format": "NCHW"}),
+    ("pool2d_max_nhwc_four_paddings", "pool2d", {"X": [_f(2, 7, 7, 3)]},
+     {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+      "paddings": [0, 1, 1, 0], "data_format": "NHWC"}),
+    ("pool2d_avg_nchw_four_paddings", "pool2d", {"X": [_f(2, 3, 7, 7)]},
+     {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+      "paddings": [1, 0, 0, 1], "exclusive": True, "data_format": "NCHW"}),
+    ("pool2d_avg_nhwc_four_paddings", "pool2d", {"X": [_f(2, 7, 7, 3)]},
+     {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+      "paddings": [0, 1, 1, 0], "exclusive": False, "data_format": "NHWC"}),
     ("batch_norm_is_test_nhwc", "batch_norm",
      {"X": [_f(2, 4, 4, 3)], "Scale": [_f(3)], "Bias": [_f(3)],
       "Mean": [_f(3)], "Variance": [("pos", (3,))]},
@@ -170,6 +193,16 @@ def _make(spec, rng):
         return rng.randint(0, spec[1], size=spec[2]).astype(np.int64)
     if kind == "pos":
         return rng.rand(*spec[1]).astype(np.float32) + 0.1
+    if kind == "ties":   # few distinct values, zeros of both signs
+        x = rng.randint(-2, 3, size=spec[1]).astype(np.float32)
+        return np.where(x == 0, np.copysign(x, rng.randn(*spec[1])), x)
+    if kind == "nans":   # NaNs and infinities of both signs, signed zeros
+        x = rng.randn(*spec[1]).astype(np.float32)
+        pick = rng.randint(0, 8, size=spec[1])
+        sign = np.sign(rng.randn(*spec[1])).astype(np.float32)
+        for code, val in ((0, np.nan), (1, np.inf), (2, 0.0)):
+            x = np.where(pick == code, np.copysign(np.float32(val), sign), x)
+        return x.astype(np.float32)
     return np.full(spec[1], {"lr": 1e-2, "b1p": 0.9 ** 3,
                              "b2p": 0.999 ** 3}[kind], np.float32)
 
@@ -235,6 +268,67 @@ def _assert_parity(op_type, attrs, inputs, rng):
             np.testing.assert_allclose(tg.numpy(), np.asarray(jg),
                                        rtol=RTOL, atol=ATOL,
                                        err_msg="grad " + slot)
+
+
+def _top_k_both(x, k, dtype, device):
+    """top_k through both packages' lowerings on the same bits: x (fp32)
+    rounded to `dtype` once, in numpy.  Returns (JAX values, JAX indices,
+    the port's values, the port's indices), the values as fp32."""
+    xj = jnp.asarray(x).astype(dtype)
+    bits = np.asarray(xj).view(np.int16 if dtype == jnp.bfloat16
+                                else np.int32)
+    xt = torch.from_numpy(bits.copy()).view(
+        torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+    op = _op("top_k", {"k": k}, {"X": [x]})
+    jouts = jreg.get_op_def("top_k").lower(
+        jreg.ExecContext(op, {"X": [xj]}))
+    touts = treg.get_op_def("top_k").lower(
+        treg.ExecContext(op, {"X": [xt.to(device)]}, device=device))
+    return (np.asarray(jouts["Out"]).astype(np.float32),
+            np.asarray(jouts["Indices"]),
+            touts["Out"].float().cpu().numpy(),
+            touts["Indices"].cpu().numpy())
+
+
+def _assert_same_top_k(got, want, msg=""):
+    """Indices equal; values equal with NaN where JAX has NaN, and zeros
+    of JAX's sign (a NaN's payload is not compared)."""
+    jv, ji, tv, ti = want + got
+    np.testing.assert_array_equal(ti, ji, err_msg=msg)
+    np.testing.assert_array_equal(tv, jv, err_msg=msg)
+    np.testing.assert_array_equal(np.signbit(tv[~np.isnan(jv)]),
+                                  np.signbit(jv[~np.isnan(jv)]), err_msg=msg)
+
+
+def _top_k_input(kind):
+    rng = np.random.RandomState(sum(map(ord, kind)))
+    if kind == "softmax":   # the bf16 ResNet lanes' output: many ties
+        return np.asarray(jax.nn.softmax(jnp.asarray(
+            rng.randn(16, 1000).astype(np.float32) * 0.1)))
+    return _make((kind, (8, 64)), rng)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["ties", "nans", "softmax"])
+def test_top_k_orders_ties_and_nans_as_jax(kind, dtype):
+    """jax.lax.top_k's indices and values, bit for bit, on equal values,
+    NaNs and infinities of both signs, signed zeros, and a softmax over
+    1000 classes, in fp32 and bf16."""
+    jv, ji, tv, ti = _top_k_both(_top_k_input(kind), 5 if kind ==
+                                 "softmax" else 40, getattr(jnp, dtype),
+                                 "cpu")
+    _assert_same_top_k((tv, ti), (jv, ji))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_top_k_orders_ties_and_nans_as_jax(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for kind in ("ties", "nans", "softmax"):
+        jv, ji, tv, ti = _top_k_both(_top_k_input(kind), 5, getattr(
+            jnp, dtype), "cuda")
+        _assert_same_top_k((tv, ti), (jv, ji), kind)
 
 
 # hard labels outside [0, C) at C = 4: in range, wrapped (-1 -> C - 1),
