@@ -52,6 +52,18 @@ Phases, in order; any failure exits non-zero:
                twin draft (accept rate exactly 1.0) and with a mismatched
                draft (2 layers, seed 101: rolls back on most rounds,
                streams still exact).
+     fused   — fused N-step decode: the CUDA graph of an 8-step window
+               against the eager masked loop, bit for bit, with an EOS
+               mid-window and a max_trips clamp; then the fp32, int8 and
+               speculative lanes unfused and fused (fuse_steps 8), three
+               alternated pairs of runs of the same 16 requests each:
+               fused streams equal the unfused ones, freed slots are
+               zero, K3/K4 launches equal the graphs' warm-ups and
+               replays (plus the eager plain rounds); tokens/s, ms per
+               dispatch and step, dispatches and host round trips per
+               token, masked trips, peak memory and a profile of 20 fused
+               windows or rounds beside 20 unfused ones; an fp32 twin
+               draft is accepted whole in fused rounds.
   4. gpu/cpu — one 64-token prompt, prefill + 8 steps on the card and on
                the CPU: KV caches agree, tokens are identical; for the
                int8 predictor the scales are equal and at most 1e-3 of
@@ -129,6 +141,10 @@ FULL_WIDTH = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
 N_SLOTS = 8
 N_REQUESTS = 16
 SPEC_K = 4
+# the fused lanes' window (steps per dispatch), and the fused/unfused
+# pairs of runs per lane, alternated
+FUSE_STEPS = 8
+FUSED_PAIRS = 3
 # ~1 ms at the H100's ~1.98 GHz boost clock: longer than the host takes
 # to enqueue any timed function here
 SPIN_CYCLES = 2_000_000
@@ -1041,18 +1057,31 @@ def phase_slice(torch, pk, decode, batcher, art):
                           "outs": outs, "stats": stats}
 
 
-def phase_profile(torch, pred, steps=20, label="profile", draft=None):
+def phase_profile(torch, pred, steps=20, label="profile", draft=None,
+                  fused=False):
     """Where a decode step's time goes with all 8 slots live (128-token
     prompts): host wall per step without the profiler, then the device
     time per step by kernel under torch.profiler over the same steps.
     With a `draft` the steps are speculative rounds of a
-    SpeculativeDecodeSession (SPEC_K drafts, one verify)."""
+    SpeculativeDecodeSession (SPEC_K drafts, one verify).  `fused` makes
+    each step a fused window of FUSE_STEPS steps (`decode_fused`, one
+    CUDA-graph replay), or a fused round; the kernels per token count
+    every device kernel the profiler saw over the tokens committed."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference.decode import SpeculativeDecodeSession
     rng = np.random.RandomState(7)
     sess = pred.new_session(N_SLOTS) if draft is None else \
         SpeculativeDecodeSession(pred, draft, N_SLOTS, SPEC_K)
-    step = sess.decode if draft is None else sess.step
+    if draft is not None:
+        def step():
+            return int(sess.step(fused=fused)[1].sum())
+    elif fused:
+        def step():
+            return int(sess.decode_fused(FUSE_STEPS)[1].sum())
+    else:
+        def step():
+            sess.decode()
+            return N_SLOTS
     for s in range(N_SLOTS):
         sess.prefill(s, [int(t) for t in rng.randint(
             0, pred.vocab_size, size=128)])
@@ -1066,26 +1095,30 @@ def phase_profile(torch, pred, steps=20, label="profile", draft=None):
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
+        tokens = sum(step() for _ in range(steps))
         torch.cuda.synchronize()
     device_ms, rows = profile_rows(torch, prof, steps)
-    unit = "step" if draft is None else "round"
+    unit = ("window" if fused else "step") if draft is None else "round"
     if not rows:
         log("%s: torch.profiler saw no device time; device busy share not "
             "measured (host %.3f ms/%s)" % (label, step_ms, unit))
         return {"host_ms": step_ms, "device_busy_ms": None}
+    kernels = sum(r[1] for r in rows) * steps
     log("%s: %d decode %ss at 8 live slots: host %.3f ms/%s, device busy "
-        "%.3f ms/%s (%.1f%% of the %s; idle %.1f%%)"
+        "%.3f ms/%s (%.1f%% of the %s; idle %.1f%%); %d tokens, %.2f "
+        "device kernels per token"
         % (label, steps, unit, step_ms, unit, device_ms, unit,
            100 * device_ms / step_ms, unit,
-           100 - 100 * device_ms / step_ms))
+           100 - 100 * device_ms / step_ms, tokens, kernels / tokens))
     for us, count, key in rows[:10]:
         log("%s:   %9.2f us/%s  %5.1f launches/%s  %s"
             % (label, us, unit, count, unit, key[:110]))
     out = {"steps": steps, "unit": unit, "host_ms": step_ms,
            "device_busy_ms": device_ms,
            "device_busy_share": device_ms / step_ms,
+           "tokens": tokens, "kernels_per_token": kernels / tokens,
+           "attention_launches": sum(r[1] for r in rows
+                                     if "decode_attention" in r[2]) * steps,
            "top": [{"kernel": k[:160], "us": us, "launches": c}
                    for us, c, k in rows[:10]]}
     log(json.dumps({label: out}))
@@ -1190,7 +1223,7 @@ def phase_int8_lane(torch, pk, decode, batcher, art, plain):
            peak / 2 ** 20, stats["fp32_prefix_agreement"]))
     stats["profile"] = phase_profile(torch, pred, label="int8 profile")
     log(json.dumps({"int8": stats}))
-    return pred, counts
+    return pred, counts, outs, stats["profile"]
 
 
 def phase_verify_form(torch, pred):
@@ -1335,7 +1368,298 @@ def phase_spec_lane(torch, pk, decode, batcher, art, pred, pred8, plain):
     log(json.dumps({"spec": stats}))
     hs = sum(c["decode_attention_head_slice"]
              for c in (counts, twin_counts, mis_counts))
-    return counts["decode_attention"], counts["decode_attention_int8"], hs
+    return (counts["decode_attention"], counts["decode_attention_int8"], hs,
+            stats["profile"])
+
+
+def _lane_run(torch, pk, b, prompts, budgets):
+    """The requests through the open batcher `b`, launch counts zeroed
+    just before and read just after; returns (streams, wall s, counts,
+    lane stats before, lane stats after, graph stats before, after)."""
+    torch.cuda.synchronize()
+    lane0, graph0 = b.lane_stats(), b.session.graph_stats()
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = [b.submit(p, max_new_tokens=m)
+               for p, m in zip(prompts, budgets)]
+    outs = [st.result(timeout=600)[0].tolist() for st in streams]
+    wall = time.perf_counter() - t0
+    counts = dict(pk.launch_counts)
+    return (outs, wall, counts, lane0, b.lane_stats(), graph0,
+            b.session.graph_stats())
+
+
+def _graph_launches(g0, g1):
+    """(replays, launches) that a lane's captured graph ran between two
+    of its stats (a plain lane's {n_steps: stats}, or a speculative
+    lane's stats): the warm-up of a capture made in between, plus the
+    replays times the launches per replay."""
+    if g1 and FUSE_STEPS in g1:
+        g0, g1 = (g0 or {}).get(FUSE_STEPS), g1[FUSE_STEPS]
+    if not g1:
+        return 0, {}
+    replays = g1["replays"] - (g0["replays"] if g0 else 0)
+    out = {k: n * replays for k, n in g1["launches"].items()}
+    if not g0:
+        for k, n in g1["warmup"].items():
+            out[k] = out.get(k, 0) + n
+    return replays, out
+
+
+def _check_lane_launches(label, fused, counts, lane0, lane1, g0, g1, spec,
+                         draft_steps, n_layers):
+    """The kernel launches of one run against what the lane ran: on a
+    fused lane the graphs' warm-ups and replays plus the eager plain
+    rounds of a speculative lane; on an unfused lane K3 (K4 on the int8
+    lane) once per layer per step, or K3 per verify or plain round and K4
+    per draft step on a speculative lane.  Returns the run's (K3, K4)
+    launches and the device trips of a fused plain lane."""
+    k3, k4 = counts["decode_attention"], counts["decode_attention_int8"]
+    d = {k: lane1[k] - lane0[k] for k in ("steps", "trips")}
+    if spec:
+        for k in ("rounds", "plain_steps"):
+            d[k] = lane1[k] - lane0[k]
+    device_trips = None
+    if fused:
+        replays, want = _graph_launches(g0, g1)
+        if spec:
+            want = {k: want.get(k, 0) + d["plain_steps"] * n_layers
+                    for k in ("decode_attention", "decode_attention_int8")}
+            check(replays == d["rounds"], "%s: %d graph replays for %d "
+                  "fused rounds" % (label, replays, d["rounds"]))
+        else:
+            device_trips = (replays + (0 if g0 else 1)) * FUSE_STEPS
+            check(replays == d["steps"], "%s: %d graph replays for %d "
+                  "windows" % (label, replays, d["steps"]))
+            check(k3 + k4 == device_trips * n_layers,
+                  "%s: %d attention launches for %d device trips x %d "
+                  "layers" % (label, k3 + k4, device_trips, n_layers))
+        for k, n in (("decode_attention", k3),
+                     ("decode_attention_int8", k4)):
+            check(n == want.get(k, 0), "%s: %s launched %d times, the "
+                  "graphs and eager rounds account for %d"
+                  % (label, k, n, want.get(k, 0)))
+    elif spec:
+        check(k3 == n_layers * (d["rounds"] + d["plain_steps"])
+              and k4 == n_layers * draft_steps,
+              "%s: K3 %d, K4 %d for %d rounds, %d plain rounds, %d draft "
+              "steps x %d layers" % (label, k3, k4, d["rounds"],
+                                     d["plain_steps"], draft_steps,
+                                     n_layers))
+    else:
+        check(k3 + k4 == d["steps"] * n_layers and min(k3, k4) == 0,
+              "%s: K3 %d, K4 %d for %d steps x %d layers"
+              % (label, k3, k4, d["steps"], n_layers))
+    return k3, k4, device_trips, d
+
+
+def _fused_session_check(torch, decode, art, streams):
+    """The CUDA graph against the eager masked loop on one 8-slot table,
+    bit for bit: a window in which an EOS mid-window and budgets of 1-3
+    stop every slot before the last trip (trips < n_steps; the rest run
+    masked), then a max_trips clamp.  The EOS is the first token at index
+    3..FUSE_STEPS - 1 of an fp32 lane's stream that did not occur before
+    it; that request takes slot 0."""
+    rng = np.random.RandomState(1234)
+    pred = decode.load_decode_predictor(art)
+    V = pred.vocab_size
+    prompts = [[int(t) for t in rng.randint(0, V, size=rng.randint(8, 201))]
+               for _ in range(N_REQUESTS)]
+    found = next(((r, j) for r, st in enumerate(streams)
+                  for j in range(3, FUSE_STEPS) if st[j] not in st[:j]),
+                 None)
+    check(found is not None, "fused check: no EOS candidate in the streams")
+    r, j = found
+    pred.meta = dict(pred.meta, eos_id=int(streams[r][j]))
+    prompts = [prompts[r]] + [p for i, p in enumerate(prompts)
+                              if i != r][:N_SLOTS - 1]
+    graph, eager = pred.new_session(N_SLOTS), pred.new_session(N_SLOTS)
+    for sess in (graph, eager):
+        for s, p in enumerate(prompts):
+            sess.prefill(s, p)
+    budget = [FUSE_STEPS] + [1 + s % 3 for s in range(1, N_SLOTS)]
+    out = []
+    for kw in (dict(budget=budget), dict(max_trips=3)):
+        got = graph.decode_fused(FUSE_STEPS, **kw)
+        want = eager.decode_fused_plain(FUSE_STEPS, **kw)
+        check(all(np.array_equal(a, b) for a, b in zip(got, want))
+              and np.array_equal(graph.lengths, eager.lengths)
+              and torch.equal(graph._kc, eager._kc)
+              and torch.equal(graph._vc, eager._vc),
+              "fused check %s: the CUDA graph and the eager loop differ"
+              % sorted(kw))
+        out.append((got[2], got[1].tolist()))
+    check(out[0][0] == j and out[0][1][0] == j,
+          "fused check: EOS at trip %d, the window ran %d trips, slot 0 "
+          "emitted %d" % (j, out[0][0], out[0][1][0]))
+    check(out[1][0] == 3, "fused check: max_trips 3 ran %d trips"
+          % out[1][0])
+    log("fused check: CUDA graph == eager masked loop bit for bit (tokens, "
+        "counts, trips, lengths, caches): an EOS mid-window ended a window "
+        "of %d after %d trips (%d masked), a max_trips clamp after %d"
+        % (FUSE_STEPS, out[0][0], FUSE_STEPS - out[0][0], out[1][0]))
+    return {"eos_trips": out[0][0], "clamp_trips": out[1][0]}
+
+
+def _median(xs):
+    return float(np.median(xs)) if xs else None
+
+
+def phase_fused(torch, pk, decode, batcher, art, pred, pred8, plain,
+                int8_outs, unfused_profiles):
+    """Fused N-step decode at full width (FUSE_STEPS per window, 8 slots,
+    the same 16 requests): the fp32 lane (K3), the int8 lane (K4) and the
+    speculative lane (int8 twin draft, SPEC_K), each unfused and fused
+    in FUSED_PAIRS alternated pairs of runs on two open batchers (a first
+    untimed pair of two requests captures the graphs).  Every fused
+    stream equals the lane's unfused stream (fp32 and speculative: fp32
+    greedy decode), freed slots are zero, and K3/K4 launches equal what
+    the graphs' warm-ups and replays and the eager rounds launched; the
+    session check holds the graph against the eager loop; an fp32 twin
+    draft is accepted whole in fused rounds.  Prints per lane, fused
+    against unfused: tokens/s, ms per dispatch and per step, dispatches
+    and host round trips per token, masked trips, peak memory, and a
+    profile of 20 fused windows or rounds beside the earlier phases'
+    profiles of unfused steps or rounds (`unfused_profiles`)."""
+    prompts, budgets = plain["prompts"], plain["budgets"]
+    n_layers = FULL_WIDTH["n_layers"]
+    check_stats = _fused_session_check(torch, decode, art, plain["outs"])
+    lanes = [("fp32", pred, None, plain["outs"]),
+             ("int8", pred8, None, int8_outs),
+             ("spec", pred, pred8, plain["outs"])]
+    totals = {"decode_attention": 0, "decode_attention_int8": 0}
+    report = {"fuse_steps": FUSE_STEPS, "session_check": check_stats}
+    for name, target, draft, refs in lanes:
+        kw = dict(draft=draft, spec_k=SPEC_K) if draft is not None else {}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bs = {mode: batcher.DecodeBatcher(target, n_slots=N_SLOTS,
+                                          fuse_steps=fuse, **kw)
+              for mode, fuse in (("unfused", 1), ("fused", FUSE_STEPS))}
+        runs = {"unfused": [], "fused": []}
+        try:
+            for i in range(FUSED_PAIRS + 1):
+                order = ("fused", "unfused") if i % 2 else \
+                    ("unfused", "fused")
+                for mode in order:
+                    b = bs[mode]
+                    ds0 = b.session.draft_session.steps if draft else 0
+                    n = len(prompts) if i else 2
+                    (outs, wall, counts, lane0, lane1, g0,
+                     g1) = _lane_run(torch, pk, b, prompts[:n], budgets[:n])
+                    label = "fused %s %s run %d" % (name, mode, i)
+                    for r, (o, ref) in enumerate(zip(outs, refs)):
+                        check(o == ref, "%s: request %d diverged from the "
+                              "unfused stream at token %d"
+                              % (label, r, _first_divergence(o, ref)))
+                    sessions = [b.session] + (
+                        [b.session.draft_session] if draft else [])
+                    check(all(sess.slot_is_zero(s) for sess in sessions
+                              for s in range(N_SLOTS)),
+                          "%s: a freed slot still holds K/V" % label)
+                    ds = (b.session.draft_session.steps - ds0) if draft \
+                        else 0
+                    k3, k4, trips_dev, d = _check_lane_launches(
+                        label, mode == "fused", counts, lane0, lane1, g0,
+                        g1, draft is not None, ds, n_layers)
+                    if mode == "fused":
+                        totals["decode_attention"] += k3
+                        totals["decode_attention_int8"] += k4
+                    if i == 0:
+                        continue
+                    tokens = sum(len(o) for o in outs)
+                    decoded = tokens - len(outs)
+                    # host round trips: a step, a window or a fused round
+                    # each; a host-driven round makes one per draft step,
+                    # one for the verify (a plain round: its step and the
+                    # draft's catch-up)
+                    trips_host = d["steps"] if not draft else (
+                        d["rounds"] + 2 * d["plain_steps"]
+                        + (0 if mode == "fused" else ds))
+                    run = {"tokens_per_s": tokens / wall,
+                           "dispatch_ms": (lane1["step_s"] - lane0["step_s"])
+                           / d["steps"] * 1e3,
+                           "step_ms": (lane1["step_s"] - lane0["step_s"])
+                           / d["trips"] * 1e3,
+                           "dispatches_per_token": d["steps"] / decoded,
+                           "round_trips_per_token": trips_host / decoded,
+                           "tokens_per_dispatch": decoded / d["steps"]}
+                    if trips_dev:
+                        run["masked_trip_share"] = \
+                            1 - d["trips"] / (d["steps"] * FUSE_STEPS)
+                    runs[mode].append(run)
+        finally:
+            for b in bs.values():
+                b.close()
+        peak = torch.cuda.max_memory_allocated()
+        pairs = [f["tokens_per_s"] / u["tokens_per_s"]
+                 for f, u in zip(runs["fused"], runs["unfused"])]
+        lane = {mode: {k: _median([r[k] for r in rs]) for k in rs[0]}
+                for mode, rs in runs.items()}
+        runs_s = lane["tokens_per_s_runs"] = {
+            mode: [r["tokens_per_s"] for r in rs] for mode, rs in runs.items()}
+        lane["fused_over_unfused_tokens_per_s"] = pairs
+        lane["median_ratio"] = _median(pairs)
+        lane["peak_mem_bytes"] = peak
+        lane["unfused"]["profile"] = unfused_profiles[name]
+        lane["fused"]["profile"] = phase_profile(
+            torch, target, label="fused %s profile" % name, draft=draft,
+            fused=True)
+        # the launch counts against the profiler's kernel records: it may
+        # lose the records of part of the replay it starts in, never more
+        prof = lane["fused"]["profile"]
+        if prof.get("attention_launches"):
+            per = (SPEC_K + 2 if draft is not None else FUSE_STEPS) * n_layers
+            want = prof["steps"] * per
+            seen = round(prof["attention_launches"])
+            check(want - per <= seen <= want,
+                  "fused %s: the profiler saw %d attention kernels in %d "
+                  "replays, the launch counts %d" % (
+                      name, seen, prof["steps"], want))
+            lane["profiler_attention_kernels"] = [seen, want]
+        log("fused %s: tokens/s %s unfused, %s fused (runs alternated), "
+            "per-pair fused/unfused %s, median %.3f; ms per dispatch %.3f "
+            "unfused, %.3f fused (%.3f per step); dispatches per token %.4f "
+            "-> %.4f, host round trips per token %.4f -> %.4f; masked trips "
+            "%s; peak memory %.1f MiB with the graphs' pools; streams "
+            "token-identical to the unfused lane"
+            % (name, ["%.1f" % x for x in runs_s["unfused"]],
+               ["%.1f" % x for x in runs_s["fused"]],
+               ["%.3f" % x for x in pairs], lane["median_ratio"],
+               lane["unfused"]["dispatch_ms"], lane["fused"]["dispatch_ms"],
+               lane["fused"]["step_ms"],
+               lane["unfused"]["dispatches_per_token"],
+               lane["fused"]["dispatches_per_token"],
+               lane["unfused"]["round_trips_per_token"],
+               lane["fused"]["round_trips_per_token"],
+               lane["fused"].get("masked_trip_share"), peak / 2 ** 20))
+        log(json.dumps({"fused_" + name: lane}))
+        report[name] = lane
+    # an fp32 twin draft proposes the target's own tokens: accepted whole
+    # in fused rounds too
+    twin = decode.load_decode_predictor(art)
+    outs, lane, twin_counts, wall, _, b = _serve(
+        torch, pk, batcher, pred, prompts[:4], budgets[:4], draft=twin,
+        spec_k=SPEC_K, fuse_steps=FUSE_STEPS)
+    check(outs == plain["outs"][:4], "fused fp32 twin: a stream diverged")
+    check(lane["proposed"] > 0 and lane["accepted"] == lane["proposed"],
+          "fused fp32 twin draft accepted %d of %d" % (lane["accepted"],
+                                                        lane["proposed"]))
+    _check_lane_launches("fused twin", True, twin_counts,
+                         dict(lane, steps=0, trips=0, rounds=0,
+                              plain_steps=0), lane, None,
+                         b.session.graph_stats(), True, 0, n_layers)
+    for k in totals:
+        totals[k] += twin_counts[k]
+    log("fused fp32 twin: 4 requests, accept rate exactly %.1f (%d drafts) "
+        "in %d fused rounds; streams bit-exact"
+        % (lane["accepted"] / lane["proposed"], lane["proposed"],
+           lane["rounds"]))
+    report["fp32_twin_rounds"] = lane["rounds"]
+    log(json.dumps({"fused": {"totals": totals,
+                              "session_check": check_stats}}))
+    return totals["decode_attention"], totals["decode_attention_int8"]
 
 
 def phase_gpu_vs_cpu(torch, decode, art, gpu_pred):
@@ -2123,7 +2447,7 @@ def main():
                                          torch.version.cuda,
                                          sys.version.split()[0]))
     # 1. build
-    t0 = time.time()
+    t0 = t_main = time.time()
     libs = _build.build_all()
     log("build: %d CUDA libraries in %.2f s: %s"
         % (len(libs), time.time() - t0, sorted(libs.values())))
@@ -2136,6 +2460,7 @@ def main():
     log(smi)
     phase_sass(_build)
     # 2. kernels against their plain versions
+    t_phase = time.time()
     entry = phase_kernels(torch, pk)
     k4_entry, k4hs_entry = phase_int8_kernels(torch, pk)
     flash_entries = phase_flash_kernels(torch, pk)
@@ -2144,7 +2469,9 @@ def main():
     k6_entry = phase_bottleneck_kernel(torch, pk)
     k6_bf16_entry = phase_bottleneck_kernel(torch, pk, torch.bfloat16)
     torch.cuda.empty_cache()
+    log("kernel phases: %.1f s" % (time.time() - t_phase))
     # 3. the decode-serving slice at full width
+    t_phase = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "lm")
         t0 = time.time()
@@ -2153,16 +2480,24 @@ def main():
             % (time.time() - t0))
         pred, plain_counts, plain = phase_slice(torch, pk, decode, batcher,
                                                 art)
-        phase_profile(torch, pred)
+        profiles = {"fp32": phase_profile(torch, pred)}
         # 3b. the int8 KV cache, 3c. speculative decoding with its twin
-        pred8, int8_counts = phase_int8_lane(torch, pk, decode, batcher,
-                                             art, plain)
-        k3_spec, k4_spec, hs_spec = phase_spec_lane(
+        pred8, int8_counts, int8_outs, profiles["int8"] = phase_int8_lane(
+            torch, pk, decode, batcher, art, plain)
+        k3_spec, k4_spec, hs_spec, profiles["spec"] = phase_spec_lane(
             torch, pk, decode, batcher, art, pred, pred8, plain)
+        log("decode phases before fused: %.1f s" % (time.time() - t_phase))
+        # 3d. fused N-step decode: the three lanes again, in CUDA graphs
+        t_phase = time.time()
+        k3_fused, k4_fused = phase_fused(torch, pk, decode, batcher, art,
+                                         pred, pred8, plain, int8_outs,
+                                         profiles)
+        log("fused phase: %.1f s" % (time.time() - t_phase))
+        t_phase = time.time()
         launches = plain_counts["decode_attention"]
         k4_launches = int8_counts["decode_attention_int8"]
-        entry["launches"] = launches + k3_spec
-        k4_entry["launches"] = k4_launches + k4_spec
+        entry["launches"] = launches + k3_spec + k3_fused
+        k4_entry["launches"] = k4_launches + k4_spec + k4_fused
         # no one-card path runs the head-slice entry (its caller is the
         # tensor-parallel lane): the serving runs above must count none
         k4hs_entry["launches"] = (
@@ -2172,16 +2507,20 @@ def main():
               "the head-slice entry launched %d times on a one-card path"
               % k4hs_entry["launches"])
         log("launches on the main paths: K3 %d (fp32 lane %d, spec verify "
-            "%d), K4 %d (int8 lane %d, spec drafts %d), K4 head slice %d"
-            % (entry["launches"], launches, k3_spec, k4_entry["launches"],
-               k4_launches, k4_spec, k4hs_entry["launches"]))
+            "%d, fused lanes %d), K4 %d (int8 lane %d, spec drafts %d, fused "
+            "lanes %d), K4 head slice %d"
+            % (entry["launches"], launches, k3_spec, k3_fused,
+               k4_entry["launches"], k4_launches, k4_spec, k4_fused,
+               k4hs_entry["launches"]))
         # 4. the port on the card against the port on the CPU
         phase_gpu_vs_cpu(torch, decode, art, pred)
         phase_int8_gpu_vs_cpu(torch, decode, art, pred8)
     del pred, pred8
     torch.cuda.empty_cache()
+    log("decode phases after fused: %.1f s" % (time.time() - t_phase))
     # 5. the training slice at full width, 5b. under bf16 AMP, 6. on the
     # card vs the CPU
+    t_phase = time.time()
     counts = phase_train(torch, pk, fluid, transformer)
     for e in flash_entries:
         e["launches"] = counts[e["name"]]
@@ -2191,6 +2530,8 @@ def main():
         e["launches"] = counts[e["name"]]
     phase_train_gpu_vs_cpu(torch, fluid, transformer)
     torch.cuda.empty_cache()
+    log("training phases: %.1f s" % (time.time() - t_phase))
+    t_phase = time.time()
     # 7. ResNet-50 inference: fp32 fused / unfused and int8, 7b. bf16
     # fused / unfused, 8. gpu vs cpu in fp32 and bf16
     with tempfile.TemporaryDirectory() as tmp:
@@ -2202,6 +2543,8 @@ def main():
         torch.cuda.empty_cache()
         phase_resnet_gpu_vs_cpu(torch, fluid, resnet, inference, tmp)
         phase_resnet_bf16_gpu_vs_cpu(torch, fluid, tmp)
+    log("resnet phases: %.1f s; the whole script %.1f s"
+        % (time.time() - t_phase, time.time() - t_main))
     log(smi)
     log(json.dumps({"kernels": [entry] + flash_entries + flash_bf16_entries
                     + [k5_entry, k6_entry, k6_bf16_entry, k4_entry,

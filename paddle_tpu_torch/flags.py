@@ -28,8 +28,9 @@ FLAGS = _Flags(
     serving_max_new_tokens=128,
     # a stream flushes a token chunk every this many generated tokens
     serving_stream_chunk_tokens=1,
-    # decode steps per lane dispatch; the port runs 1 (one step per
-    # dispatch) and rejects larger windows until fused decode is ported
+    # decode steps per lane dispatch: above 1 a DecodeBatcher runs fused
+    # windows of up to this many steps (a fused round on a speculative
+    # lane), one CUDA-graph replay each on the card
     serving_decode_fuse_steps=1,
     # default KV-cache numerics ('' = float32, or 'int8')
     serving_kv_cache_dtype="",

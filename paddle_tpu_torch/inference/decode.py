@@ -21,7 +21,8 @@ by tests/test_torch_*.py.
   [layers, n_slots, max_seq_len, heads, head_dim] on the predictor's
   device, updated IN PLACE by prefill, step, free and rollback.  A
   request owns one slot from prefill to finish; freeing a slot zeroes it,
-  and a step writes only active slots, so a dead slot stays exactly zero.
+  and a step writes back the old row of every slot it does not advance,
+  so a dead slot stays exactly zero.
   Per-slot math is independent (row-wise matmuls, a per-slot kernel with
   no atomics), so at equal n_slots a batched stream is bit-exact against
   a single-request one.  With `kv_cache_dtype="int8"` the table is int8:
@@ -31,10 +32,16 @@ by tests/test_torch_*.py.
   (its int8 twin, say): k draft steps propose, one target verify scores
   all k + 1 positions, and the longest agreeing prefix commits — a
   stream bit-identical to target-only greedy decode.
+* **Fused N-step decode**: `DecodeSession.decode_fused` runs up to N
+  steps in one dispatch and `SpeculativeDecodeSession.step(fused=True)`
+  a whole round; on the card each is one CUDA graph, captured per
+  session on first use and replayed (the port's form of the JAX
+  package's `lax.while_loop` executables).  The steps are the same
+  fixed-shape masked `CausalLM.step`, so the streams are bit-exact
+  against the unfused ones.
 
-Not ported yet: fused N-step decode (and the fused speculative round),
-tensor-parallel lanes (`_TPContext`, the caller of K4's head-slice
-entry), mesh replicas, the compile cache and the AOT export.
+Not ported yet: tensor-parallel lanes (`_TPContext`, the caller of K4's
+head-slice entry), mesh replicas, the compile cache and the AOT export.
 
 Sampling is greedy argmax (the first maximum, as in JAX).  Tokens and
 lengths stay int32, as in the JAX package (x64 off).
@@ -51,7 +58,8 @@ from torch import nn
 from .. import resolve_device
 from ..flags import FLAGS
 from ..native import wire
-from ..ops.pallas_kernels import KernelError, decode_attention
+from ..ops.pallas_kernels import (KernelError, decode_attention,
+                                  launch_counts)
 
 __all__ = ["GenerativePredictor", "DecodeSession", "SpeculativeDecodeSession",
            "CausalLM", "save_decode_model", "build_tiny_decode_model",
@@ -346,29 +354,37 @@ class CausalLM(nn.Module):
             torch.int32)
 
     @torch.no_grad()
-    def step(self, kc, vc, lengths, last_tokens, write_slots):
-        """One decode step over the whole slot table.  kc/vc [L, N, S, H,
-        Dh] caches (fp32, or int8 under `kv_scales`), UPDATED IN PLACE;
+    def step(self, kc, vc, lengths, last_tokens, running):
+        """One decode step over the whole slot table at fixed shapes (the
+        counterpart of paddle_tpu's `_step_math`).  kc/vc [L, N, S, H, Dh]
+        caches (fp32, or int8 under `kv_scales`), UPDATED IN PLACE;
         lengths [N] int64 (live cached positions), last_tokens [N] int64,
-        write_slots [A] int64 (the active slots with cache room) -> new
-        tokens [N] int32.
+        running [N] bool (the slots this step advances) -> new tokens [N]
+        int32.
 
-        Each writing slot's new K/V row lands at position lengths[n]
-        before attention, which then covers lengths + 1 positions (write
-        before attend); under int8 the row is quantized first.  Only
-        writing slots are written, so a dead slot's cache stays exactly
-        zero."""
+        Every slot's new K/V row goes to position lengths[n] (clamped to
+        S - 1) before attention, which then covers lengths + 1 positions
+        (write before attend); under int8 the row is quantized first.  A
+        slot that is not running, or whose cache is full, gets its old
+        row written back, so a dead slot stays exactly zero.  No shape
+        depends on which slots run, so the step can be captured in a CUDA
+        graph and replayed for any running set."""
         N, S = kc.shape[1], kc.shape[2]
-        x = self.embed[last_tokens] \
-            + self.pos[torch.clamp(lengths, max=S - 1)]
-        write_pos = lengths[write_slots]
+        pos = torch.clamp(lengths, max=S - 1)
+        x = self.embed[last_tokens] + self.pos[pos]
+        flat = torch.arange(N, device=pos.device) * S + pos
+        write = (running & (lengths < S))[:, None, None]
+        # every layer's rows at the write positions, read once: each is
+        # written once in this step, by its own layer
+        old_k = _flat(kc).index_select(1, flat)
+        old_v = _flat(vc).index_select(1, flat)
         att_lengths = (lengths + 1).to(torch.int32)
         for i, layer in enumerate(self.layers):
             q, k_new, v_new = self._qkv(layer, x)
-            kc[i, write_slots, write_pos] = self._to_cache(
-                k_new[write_slots], i, 0)
-            vc[i, write_slots, write_pos] = self._to_cache(
-                v_new[write_slots], i, 1)
+            _flat(kc)[i].index_copy_(0, flat, torch.where(
+                write, self._to_cache(k_new, i, 0), old_k[i]))
+            _flat(vc)[i].index_copy_(0, flat, torch.where(
+                write, self._to_cache(v_new, i, 1), old_v[i]))
             att = decode_attention(q, kc[i], vc[i], att_lengths,
                                    scale=self.attn_scale,
                                    kv_scales=self._attention_scales(i))
@@ -376,14 +392,14 @@ class CausalLM(nn.Module):
         return self._greedy(x)
 
     @torch.no_grad()
-    def verify(self, kc, vc, lengths, tokens, write_slots):
+    def verify(self, kc, vc, lengths, tokens, running):
         """One speculative verify step over the whole slot table (the
         counterpart of paddle_tpu's `_verify_math`): tokens [N, C] int64 =
         [pending token, drafts d1..dk] (C = k + 1), lengths [N] int64,
-        write_slots [A] int64 (the active slots, each with >= C rows of
+        running [N] bool (the slots verified; each needs >= C rows of
         room) -> (g [N, C] int32, the target's greedy token after each
         chunk position; m [N] int32, the accepted draft count 0..k).
-        The caches are updated in place.
+        The caches are updated in place, at fixed shapes as in `step`.
 
         Chunk position j of slot n rounds exactly like the plain step
         that would consume token j there: its embedding, projections,
@@ -400,25 +416,33 @@ class CausalLM(nn.Module):
         Acceptance is computed here: m is the longest prefix with d_i ==
         g_{i-1}.  Rows this step wrote past lengths + m + 1 (the rejected
         suffix) are zeroed before returning, so stale draft K/V never
-        survives into the committed cache."""
+        survives into the committed cache.  Slots not running keep their
+        bytes: each write and the zeroing select the old row where they
+        do not apply."""
         N, C = tokens.shape
         S = kc.shape[2]
         dev = tokens.device
         steps = torch.arange(C, device=dev)
-        pos = torch.clamp(lengths[:, None] + steps[None], max=S - 1)
+        at = lengths[:, None] + steps[None]
+        pos = torch.clamp(at, max=S - 1)
+        base = torch.arange(N, device=dev)[:, None] * S
+        flat = base + pos                                           # [N, C]
+        write = (running[:, None] & (at < S))[:, :, None, None]
+        old_k = _flat(kc).index_select(1, flat.reshape(-1)).unflatten(
+            1, (N, C))
+        old_v = _flat(vc).index_select(1, flat.reshape(-1)).unflatten(
+            1, (N, C))
         xs = [self.embed[tokens[:, j]] + self.pos[pos[:, j]]
               for j in range(C)]
-        write_pos = lengths[write_slots]
-        q_lengths = (lengths[:, None] + steps[None] + 1).reshape(N * C).to(
-            torch.int32)
+        q_lengths = (at + 1).reshape(N * C).to(torch.int32)
         for i, layer in enumerate(self.layers):
             qs = []
             for j, x in enumerate(xs):
                 q, k_new, v_new = self._qkv(layer, x)
-                kc[i, write_slots, write_pos + j] = self._to_cache(
-                    k_new[write_slots], i, 0)
-                vc[i, write_slots, write_pos + j] = self._to_cache(
-                    v_new[write_slots], i, 1)
+                _flat(kc)[i].index_copy_(0, flat[:, j], torch.where(
+                    write[:, j], self._to_cache(k_new, i, 0), old_k[i, :, j]))
+                _flat(vc)[i].index_copy_(0, flat[:, j], torch.where(
+                    write[:, j], self._to_cache(v_new, i, 1), old_v[i, :, j]))
                 qs.append(q)
             q = torch.stack(qs, dim=1).reshape(N * C, self.n_heads,
                                                self.head_dim)
@@ -431,18 +455,184 @@ class CausalLM(nn.Module):
         g = torch.stack([self._greedy(x) for x in xs], dim=1)
         match = (tokens[:, 1:] == g[:, :C - 1]).to(torch.int32)
         m = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
-        if C > 1 and write_slots.numel():
-            # the rejected suffix: chunk rows j > m of the written slots
-            A = write_slots.numel()
-            rows = write_slots[:, None].expand(A, C - 1)
-            at = write_pos[:, None] + steps[None, 1:]
-            stale = (steps[None, 1:] > m[write_slots][:, None])[
-                None, :, :, None, None]
-            for cache in (kc, vc):
-                cache[:, rows, at] = torch.where(
-                    stale, torch.zeros((), dtype=cache.dtype, device=dev),
-                    cache[:, rows, at])
+        # the rejected suffix: chunk rows j > m of the written slots (at
+        # positions taken mod S, distinct within every slot)
+        stale = write[:, 1:, 0, 0] & (steps[None, 1:] > m[:, None])
+        _zero_rows(kc, vc, base + (at[:, 1:] % S), stale)
         return g, m
+
+
+def _flat(cache):
+    """A cache [L, N, S, H, Dh] as rows [L, N * S, H, Dh] (a view): row
+    slot * S + position."""
+    return cache.view(cache.shape[0], -1, *cache.shape[-2:])
+
+
+def _zero_rows(kc, vc, flat, zero):
+    """Zero, in every layer of both caches, the rows at the flat
+    positions `flat` (no position twice) where `zero` (flat's shape) is
+    true; the other rows are written back as they are."""
+    flat, mask = flat.reshape(-1), zero.reshape(1, -1, 1, 1)
+    for cache in (kc, vc):
+        rows = _flat(cache)
+        rows.index_copy_(1, flat, rows.index_select(1, flat).masked_fill(
+            mask, 0))
+
+
+def _fused_window(model, kc, vc, ins, n_steps, eos, early_exit):
+    """The fused decode window (paddle_tpu's `_fused_step_math`): up to
+    `n_steps` trips of the masked `CausalLM.step` with the per-trip
+    bookkeeping, over caches kc/vc [L, N, S, H, Dh] updated in place.
+    ins [4N + 1] int32 packs lengths, last tokens, active, budget and
+    max_trips; returns the packed int32 [N * n_steps + 3N + 1]: tokens
+    [N, n_steps], counts [N], trips, lengths [N], last tokens [N].
+
+    A slot runs while it has emitted fewer than its budget, has not
+    emitted EOS and has cache room; trip i runs the running slots only
+    while i < max_trips, so one window serves every clamp.  With
+    `early_exit` (the eager plain version) the loop ends once no slot
+    runs; without it (the CUDA graph) the remaining trips run fully
+    masked and write nothing.  `trips` counts the trips in which some
+    slot ran, as paddle_tpu's while_loop does."""
+    N, S = kc.shape[1], kc.shape[2]
+    v = ins.long()
+    start, last = v[:N], v[N:2 * N]
+    # a slot runs from trip 0 without a gap, so the trips in which some
+    # slot ran are the most tokens a slot emitted
+    limit = torch.clamp(start + v[3 * N:4 * N], max=S)
+    running = (v[2 * N:3 * N] != 0) & (start < limit)
+    allowed = torch.arange(n_steps, device=v.device) < v[4 * N]
+    lengths, toks = start, []
+    for i in range(n_steps):
+        run = running & allowed[i]
+        if early_exit and not bool(run.any()):
+            break
+        tok = model.step(kc, vc, lengths, last, run).long()
+        toks.append(torch.where(run, tok, 0))
+        lengths = lengths + run
+        last = torch.where(run, tok, last)
+        running = run & (tok != eos) & (lengths < limit)
+    toks += [torch.zeros_like(start)] * (n_steps - len(toks))
+    emitted = lengths - start
+    return torch.cat([torch.stack(toks, dim=1).reshape(-1), emitted,
+                      emitted.max().reshape(1), lengths, last]).to(
+                          torch.int32)
+
+
+def _spec_window(target, draft, t_kc, t_vc, d_kc, d_vc, ins, k):
+    """The fused speculative round (paddle_tpu's `_fused_spec_math`): k
+    masked draft steps, the masked verify with its accept count, the
+    target commit, the draft rollback and the catch-up draft step, over
+    the target's and the draft's caches (updated in place).  ins [5N]
+    int32 packs the target's lengths and last tokens, the draft's, and
+    active; returns the packed int32 [N (k + 1) + 5N]: g [N, k + 1], m
+    [N], then the four updated vectors in the same order.
+
+    Every part is the host-driven round's math at its shapes: the draft
+    steps and the catch-up are `CausalLM.step`, the verify is
+    `CausalLM.verify`, and the rollback zeroes the rows [d_len - nback,
+    d_len) of each partially accepted slot, nback = k - 1 - m, as
+    `DecodeSession.rollback` does — at most k - 1 fixed rows a slot
+    (positions taken mod S, so none twice), in one pass."""
+    N, Sd = d_kc.shape[1], d_kc.shape[2]
+    v = ins.long()
+    t_len, t_last, d_len, d_last = (v[i * N:(i + 1) * N] for i in range(4))
+    active = v[4 * N:] != 0
+    adv = active.long()
+    drafts = []
+    for _ in range(k):
+        tok = draft.step(d_kc, d_vc, d_len, d_last, active).long()
+        d_len = d_len + adv
+        d_last = torch.where(active, tok, d_last)
+        drafts.append(tok)
+    g, m = target.verify(t_kc, t_vc, t_len,
+                         torch.stack([t_last] + drafts, dim=1), active)
+    g = g.long()
+    m = torch.where(active, m.long(), 0)
+    pick = g.gather(1, torch.clamp(m, max=k)[:, None])[:, 0]
+    t_len = t_len + torch.where(active, m + 1, 0)
+    t_last = torch.where(active, pick, t_last)
+    # partially accepted slots roll the draft's rejected rows back and
+    # re-pin its pending token to the target's correction...
+    part = active & (m < k)
+    nback = torch.where(part, k - 1 - m, 0)
+    back = torch.arange(1, k, device=v.device)[None]
+    _zero_rows(d_kc, d_vc, (torch.arange(N, device=v.device) * Sd)[:, None]
+               + (d_len[:, None] - back) % Sd, nback[:, None] >= back)
+    d_len = d_len - nback
+    d_last = torch.where(part, pick, d_last)
+    # ...and fully accepted ones owe the draft one catch-up step (it
+    # proposed d_k without consuming it), pinned to the bonus token
+    full = active & (m == k)
+    draft.step(d_kc, d_vc, d_len, d_last, full)
+    d_len = d_len + full.long()
+    d_last = torch.where(full, g[:, k], d_last)
+    return torch.cat([g.reshape(-1), m, t_len, t_last, d_len, d_last]).to(
+        torch.int32)
+
+
+class _CapturedWindow:
+    """A window captured once as a CUDA graph over a session's own
+    caches, then replayed: one host-to-device copy of the packed int32
+    inputs, one graph launch, one device-to-host copy of the packed
+    outputs and one sync per window.
+
+    `body(ins)` computes the window from the static input buffer `ins`
+    and returns its packed int32 outputs.  Before capture it runs once on
+    a side stream with the inputs zeroed (no slot active, so it writes
+    nothing): that builds the kernels and sets up cuBLAS on the stream;
+    its launches are real and stay counted (`warmup`).  Capture runs no
+    kernel, so the launches the kernel wrappers counted during capture
+    are taken back from `launch_counts` and added again on every replay
+    (`launches`, per replay).  A failed capture or replay raises;
+    nothing falls back to the eager loop."""
+
+    def __init__(self, device, n_in, body):
+        with torch.cuda.device(device):
+            self.ins = torch.zeros(n_in, dtype=torch.int32, device=device)
+            self.host_in = torch.zeros(n_in, dtype=torch.int32,
+                                       pin_memory=True)
+            self.stream = torch.cuda.Stream(device)
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+            before = dict(launch_counts)
+            with torch.cuda.stream(self.stream):
+                body(self.ins)
+            self.stream.synchronize()
+            self.warmup = _count_delta(before)
+            before = dict(launch_counts)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                self.outs = body(self.ins)
+        self.launches = _count_delta(before)
+        for name, n in self.launches.items():
+            launch_counts[name] -= n
+        self.host_out = torch.empty(self.outs.shape, dtype=torch.int32,
+                                    pin_memory=True)
+        self.replays = 0
+
+    def run(self, ins):
+        """Replay on the packed inputs `ins` (numpy int32); returns the
+        packed outputs as numpy int32."""
+        self.host_in.numpy()[:] = ins
+        self.ins.copy_(self.host_in, non_blocking=True)
+        self.graph.replay()
+        self.host_out.copy_(self.outs, non_blocking=True)
+        torch.cuda.current_stream(self.ins.device).synchronize()
+        for name, n in self.launches.items():
+            launch_counts[name] += n
+        self.replays += 1
+        return self.host_out.numpy().copy()
+
+    def stats(self):
+        return {"replays": self.replays, "launches": dict(self.launches),
+                "warmup": dict(self.warmup)}
+
+
+def _count_delta(before):
+    """The kernel launches counted since the snapshot `before`."""
+    return {name: launch_counts[name] - n for name, n in before.items()
+            if launch_counts[name] != n}
 
 
 def state_from_jax(state_np, meta, device):
@@ -668,6 +858,7 @@ class DecodeSession:
         self.last_tokens = np.zeros(self.n_slots, np.int32)
         self.active = np.zeros(self.n_slots, bool)
         self.steps = 0
+        self._windows = {}   # n_steps -> its captured CUDA graph
 
     # -- occupancy ------------------------------------------------------
 
@@ -718,22 +909,95 @@ class DecodeSession:
         """ONE step over the whole slot table; returns the np.int32
         [n_slots] token vector (meaningful for the slots active at call
         time) and bumps each active slot's length and last token."""
-        S = self.predictor.max_seq_len
         N = self.n_slots
         act = self.active
-        write_slots = np.nonzero(act & (self.lengths < S))[0]
         # one host->device copy carries the step's integer inputs
         ints = torch.from_numpy(np.concatenate(
-            [self.lengths, self.last_tokens, write_slots]).astype(
-                np.int64)).to(self.predictor.device)
+            [self.lengths, self.last_tokens, act]).astype(np.int64)).to(
+                self.predictor.device)
         toks = self.predictor.model.step(
-            self._kc, self._vc, ints[:N], ints[N:2 * N], ints[2 * N:])
+            self._kc, self._vc, ints[:N], ints[N:2 * N], ints[2 * N:] != 0)
         toks = toks.cpu().numpy()
         self.lengths = self.lengths + act.astype(np.int32)
         self.last_tokens = np.where(act, toks, self.last_tokens).astype(
             np.int32)
         self.steps += 1
         return toks
+
+    def _fused_inputs(self, n_steps, budget, max_trips):
+        """(n_steps, the packed int32 window inputs) with paddle_tpu's
+        clipping: budget to [0, n_steps] and 0 for inactive slots,
+        max_trips to [1, n_steps]."""
+        T = int(n_steps)
+        if T < 1:
+            raise ValueError("n_steps must be >= 1, got %d" % T)
+        act = self.active
+        if budget is None:
+            b = np.where(act, T, 0)
+        else:
+            b = np.asarray(budget, np.int64).reshape(self.n_slots)
+            b = np.clip(np.where(act, b, 0), 0, T)
+        mt = T if max_trips is None else max(1, min(int(max_trips), T))
+        return T, np.concatenate([self.lengths, self.last_tokens, act, b,
+                                  [mt]]).astype(np.int32)
+
+    def _fused_outputs(self, T, out):
+        """Unpack a window's outputs into the session's bookkeeping;
+        returns (tokens [N, T], counts [N], trips)."""
+        N = self.n_slots
+        toks = out[:N * T].reshape(N, T)
+        counts = out[N * T:N * T + N]
+        trips = int(out[N * T + N])
+        self.lengths = out[N * T + N + 1:N * T + 2 * N + 1].copy()
+        self.last_tokens = out[N * T + 2 * N + 1:].copy()
+        self.steps += trips
+        return toks, counts, trips
+
+    def decode_fused(self, n_steps, budget=None, max_trips=None):
+        """Up to `n_steps` decode steps in ONE dispatch (paddle_tpu's
+        `decode_fused`).  Returns (tokens [n_slots, n_steps] int32,
+        counts [n_slots] int32, trips int): slot s emitted `counts[s]`
+        tokens, `tokens[s, :counts[s]]` in stream order; `trips` is the
+        number of steps in which some slot still ran.  `budget`
+        [n_slots] caps each slot's tokens (clipped to [0, n_steps], 0 for
+        inactive slots); `max_trips` clamps the whole window (the serving
+        deadline governor) to [1, n_steps] without a new capture.  A slot
+        stops after EOS, at its budget, or with its cache full.
+
+        On the card the window is one CUDA graph per n_steps, captured on
+        first use over this session's caches and replayed; its trips
+        after the last running slot stopped run fully masked.  On the CPU
+        it is `decode_fused_plain`.  Either way the stream is bit-exact
+        against n_steps `decode()` calls: every trip is the same masked
+        step."""
+        if self.predictor.device.type != "cuda":
+            return self.decode_fused_plain(n_steps, budget, max_trips)
+        T, ins = self._fused_inputs(n_steps, budget, max_trips)
+        win = self._windows.get(T)
+        if win is None:
+            model, eos = self.predictor.model, self.predictor.eos_id
+            win = self._windows[T] = _CapturedWindow(
+                self.predictor.device, ins.size,
+                lambda t: _fused_window(model, self._kc, self._vc, t, T,
+                                        eos, early_exit=False))
+        return self._fused_outputs(T, win.run(ins))
+
+    def decode_fused_plain(self, n_steps, budget=None, max_trips=None):
+        """The plain version of `decode_fused`: the same masked step in an
+        eager loop that ends once no slot runs.  `decode_fused` runs it
+        on the CPU; on the card it runs only when called by name."""
+        T, ins = self._fused_inputs(n_steps, budget, max_trips)
+        out = _fused_window(
+            self.predictor.model, self._kc, self._vc,
+            torch.from_numpy(ins).to(self.predictor.device), T,
+            self.predictor.eos_id, early_exit=True)
+        return self._fused_outputs(T, out.cpu().numpy())
+
+    def graph_stats(self):
+        """{n_steps: {"replays", "launches" per replay, "warmup"
+        launches}} of this session's captured windows (none on the
+        CPU)."""
+        return {T: w.stats() for T, w in sorted(self._windows.items())}
 
     def verify(self, chunk):
         """One speculative verify step (`CausalLM.verify`) over the slot
@@ -745,13 +1009,12 @@ class DecodeSession:
         accepted drafts' rows."""
         N = self.n_slots
         chunk = np.asarray(chunk, np.int32).reshape(N, -1)
-        write_slots = np.nonzero(self.active)[0]
         ints = torch.from_numpy(np.concatenate(
-            [self.lengths, chunk.reshape(-1), write_slots]).astype(
+            [self.lengths, chunk.reshape(-1), self.active]).astype(
                 np.int64)).to(self.predictor.device)
         g, m = self.predictor.model.verify(
             self._kc, self._vc, ints[:N], ints[N:N + chunk.size].reshape(
-                chunk.shape), ints[N + chunk.size:])
+                chunk.shape), ints[N + chunk.size:] != 0)
         gm = torch.cat([g, m[:, None]], dim=1).cpu().numpy()
         return gm[:, :-1], gm[:, -1]
 
@@ -821,9 +1084,9 @@ class SpeculativeDecodeSession:
     Duck-types the DecodeSession surface the DecodeBatcher drives
     (prefill/free/room/free_slots/occupancy/slot_is_zero/cache_bytes),
     with `step()`, the variable-accept round returning (tokens [N, k+1],
-    counts [N]), in place of `decode()`.  The rounds are driven from the
-    host; the fused one-dispatch round is not ported.  NOT thread-safe,
-    the same single-owner contract as DecodeSession."""
+    counts [N]), in place of `decode()`.  A round is driven from the
+    host, or fused into one dispatch (`step(fused=True)`).  NOT
+    thread-safe: the same single-owner contract as DecodeSession."""
 
     def __init__(self, target, draft, n_slots, spec_k):
         if int(spec_k) < 1:
@@ -852,6 +1115,7 @@ class SpeculativeDecodeSession:
         self.plain_steps = 0     # fallback / degraded plain rounds
         self.proposed = 0        # draft tokens offered to verify
         self.accepted = 0        # draft tokens accepted
+        self._window = None      # the fused round's CUDA graph
 
     # -- DecodeSession surface (the batcher's contract) -----------------
 
@@ -935,13 +1199,69 @@ class SpeculativeDecodeSession:
         inactive slots, 1 in a plain round, 1..k+1 in a speculative one).
 
         A round runs speculatively unless the session is degraded or
-        some occupied slot lacks the k+1 cache rows a verify writes: those rounds run ONE plain target step for
-        every slot (a nearly full slot never blocks progress), with a
-        draft catch-up step keeping the tables mirrored."""
-        if fused:
-            raise NotImplementedError(
-                "fused speculative rounds (one dispatch per round) are not "
-                "ported yet; they come with fused N-step decode")
+        some occupied slot lacks the k+1 cache rows a verify writes:
+        those rounds run ONE plain target step for every slot (a nearly
+        full slot never blocks progress), with a draft catch-up step
+        keeping the tables mirrored.
+
+        `fused=True` runs a speculative round as ONE dispatch
+        (paddle_tpu's fused round): on the card one CUDA graph per
+        session, captured on first use, holds the k draft steps, the
+        verify, the commit, the draft rollback and the catch-up
+        (`_spec_window`); on the CPU the same math runs eagerly.  The
+        committed stream is bit-identical either way.  The draft-poison
+        chaos check still fires k times, on the host before the
+        dispatch, so a poisoned draft degrades the round to the plain
+        round as in the host-driven one."""
+        return self._round(fused, graph=True)
+
+    def step_fused_plain(self):
+        """`step(fused=True)` with the fused round's math run eagerly:
+        its plain version, which `step(fused=True)` runs on the CPU and
+        the card runs only when called by name."""
+        return self._round(True, graph=False)
+
+    def graph_stats(self):
+        """{"replays", "launches" per replay, "warmup" launches} of the
+        captured speculative round; None before the first fused round on
+        the card."""
+        return None if self._window is None else self._window.stats()
+
+    def _fused_round(self, active, occupied, graph):
+        """The speculative round in one dispatch (`_spec_window`), and
+        its host bookkeeping as paddle_tpu's fused branch keeps it."""
+        ts, ds = self.session, self.draft_session
+        k, N = self.spec_k, self.n_slots
+        C = k + 1
+        ins = np.concatenate([ts.lengths, ts.last_tokens, ds.lengths,
+                              ds.last_tokens, active]).astype(np.int32)
+        dev = self.predictor.device
+
+        def body(t):
+            return _spec_window(self.predictor.model,
+                                self.draft_predictor.model, ts._kc, ts._vc,
+                                ds._kc, ds._vc, t, k)
+        if graph and dev.type == "cuda":
+            if self._window is None:
+                self._window = _CapturedWindow(dev, ins.size, body)
+            out = self._window.run(ins)
+        else:
+            out = body(torch.from_numpy(ins).to(dev)).cpu().numpy()
+        g = out[:N * C].reshape(N, C)
+        m = np.where(active, out[N * C:N * C + N], 0).astype(np.int32)
+        ts.lengths, ts.last_tokens, ds.lengths, ds.last_tokens = (
+            out[N * C + N * i:N * C + N * (i + 1)].copy()
+            for i in range(1, 5))
+        ts.steps += 1
+        # the draft table ran k steps, and the catch-up when a slot
+        # accepted every draft (paddle_tpu's count)
+        ds.steps += k + int(bool((m[occupied] == k).any()))
+        self.rounds += 1
+        self.proposed += k * occupied.size
+        self.accepted += int(m[occupied].sum())
+        return g, np.where(active, m + 1, 0).astype(np.int32)
+
+    def _round(self, fused, graph):
         ts = self.session
         k = self.spec_k
         C = k + 1
@@ -950,6 +1270,20 @@ class SpeculativeDecodeSession:
         occupied = np.nonzero(active)[0]
         spec_ok = (not self._degraded and occupied.size > 0
                    and all(ts.room(int(s)) >= C for s in occupied))
+        if spec_ok and fused:
+            # the poison counter advances once per logical draft step,
+            # before the dispatch: a poisoned draft degrades this round
+            # to the plain round before the fused round launches
+            try:
+                for _ in range(k):
+                    _check_draft_poison()
+            except KernelError:
+                raise
+            except Exception as e:
+                self._degrade(e)
+                spec_ok = False
+            if spec_ok:
+                return self._fused_round(active, occupied, graph)
         drafts = []
         if spec_ok:
             try:

@@ -60,8 +60,9 @@
 // The window, h and the A tiles are split as their fragments load, with
 // the three-instruction split, unclamped: a block that meets a NaN in an
 // accumulator (an infinite or near-FLT_MAX operand, or a NaN input) runs
-// again with the clamped split (tc_common.cuh), checked before each relu,
-// which would drop it.  The filters are split once as staged, clamped.  The
+// again with the clamped split (tc_common.cuh), checked on the
+// accumulators.  The relus keep a NaN (`relu`, tc_common.cuh), so a NaN
+// input costs one rerun and still reaches out.  The filters are split once as staged, clamped.  The
 // tensor cores' fp32 accumulation does not round to nearest, and its
 // error grows with the number of products on one accumulator (to ~3e-4
 // at |out| ~ 8 for a K = 9 x 512 loop); so each 64 k of a 1x1 (four
@@ -422,8 +423,7 @@ __device__ __forceinline__ void gemm_3x3(Acc<WM>& acc, const Args& a,
 }
 
 // One pass of the fp32 block, the A fragments split with kClamp; returns
-// whether this thread met a NaN in an accumulator, before the relus
-// (which would drop it)
+// whether this thread met a NaN in an accumulator
 template <int WM, bool kClamp>
 __device__ __forceinline__ bool bottleneck_pass(const Args& a, const Geom& g,
                                                 float* stage) {
@@ -475,10 +475,10 @@ __device__ __forceinline__ bool bottleneck_pass(const Args& a, const Geom& g,
           for (int ni = 0; ni < WM; ++ni) {
             const int n = n0 + wn * 8 * WM + 8 * ni + 2 * tq;
             if (n >= F) continue;
-            const float y0 = fmaxf(acc[mi][ni][2 * hh] + __ldg(a.b0 + n), 0.f);
+            const float y0 = relu(acc[mi][ni][2 * hh] + __ldg(a.b0 + n));
             const float y1 =
                 n + 1 < F
-                    ? fmaxf(acc[mi][ni][2 * hh + 1] + __ldg(a.b0 + n + 1), 0.f)
+                    ? relu(acc[mi][ni][2 * hh + 1] + __ldg(a.b0 + n + 1))
                     : 0.f;
             *reinterpret_cast<float2*>(dst + n) = make_float2(y0, y1);
           }
@@ -505,10 +505,10 @@ __device__ __forceinline__ bool bottleneck_pass(const Args& a, const Geom& g,
           for (int ni = 0; ni < WM; ++ni) {
             const int n = n0 + wn * 8 * WM + 8 * ni + 2 * tq;
             if (n >= F) continue;
-            const float y0 = fmaxf(acc[mi][ni][2 * hh] + __ldg(a.b1 + n), 0.f);
+            const float y0 = relu(acc[mi][ni][2 * hh] + __ldg(a.b1 + n));
             const float y1 =
                 n + 1 < F
-                    ? fmaxf(acc[mi][ni][2 * hh + 1] + __ldg(a.b1 + n + 1), 0.f)
+                    ? relu(acc[mi][ni][2 * hh + 1] + __ldg(a.b1 + n + 1))
                     : 0.f;
             *reinterpret_cast<float2*>(dst + n) = make_float2(y0, y1);
           }
@@ -559,9 +559,8 @@ __device__ __forceinline__ bool bottleneck_pass(const Args& a, const Geom& g,
             for (int e = 0; e < 2; ++e) {
               const int n = n0 + wn * 8 * WM + 8 * ni + 2 * tq + e;
               if (n < C4)
-                dst[n] = fmaxf(acc[mi][ni][2 * hh + e] + __ldg(a.b2 + n) +
-                                   __ldg(sh + n),
-                               0.f);
+                dst[n] = relu(acc[mi][ni][2 * hh + e] + __ldg(a.b2 + n) +
+                              __ldg(sh + n));
             }
           }
         }

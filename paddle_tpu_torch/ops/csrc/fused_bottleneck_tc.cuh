@@ -360,8 +360,8 @@ bottleneck_tc_kernel(const Args a, const Geom g) {
             if (n >= F) continue;
             const float2 b = ldg_bf16x2(a.b0 + n);
             *reinterpret_cast<uint32_t*>(dst + n) =
-                inside ? pack_bf16(fmaxf(acc[mi][ni][2 * hh] + b.x, 0.f),
-                                   fmaxf(acc[mi][ni][2 * hh + 1] + b.y, 0.f))
+                inside ? pack_bf16(relu(acc[mi][ni][2 * hh] + b.x),
+                                   relu(acc[mi][ni][2 * hh + 1] + b.y))
                        : 0u;
           }
         }
@@ -388,8 +388,8 @@ bottleneck_tc_kernel(const Args a, const Geom g) {
             if (n >= F) continue;
             const float2 b = ldg_bf16x2(a.b1 + n);
             *reinterpret_cast<uint32_t*>(dst + n) =
-                pack_bf16(fmaxf(acc[mi][ni][2 * hh] + b.x, 0.f),
-                          fmaxf(acc[mi][ni][2 * hh + 1] + b.y, 0.f));
+                pack_bf16(relu(acc[mi][ni][2 * hh] + b.x),
+                          relu(acc[mi][ni][2 * hh + 1] + b.y));
           }
         }
     }
@@ -437,8 +437,8 @@ bottleneck_tc_kernel(const Args a, const Geom g) {
             const float2 b = ldg_bf16x2(a.b2 + n);
             const float2 sh = ldg_bf16x2(proj ? a.bs + n : xid + n);
             *reinterpret_cast<uint32_t*>(dst + n) = pack_bf16(
-                fmaxf(acc[mi][ni][2 * hh] + b.x + sh.x, 0.f),
-                fmaxf(acc[mi][ni][2 * hh + 1] + b.y + sh.y, 0.f));
+                relu(acc[mi][ni][2 * hh] + b.x + sh.x),
+                relu(acc[mi][ni][2 * hh + 1] + b.y + sh.y));
           }
         }
     }

@@ -96,10 +96,17 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two fp32 values rounded to a bf16 pair, lo in the low half
+// two fp32 values rounded to a bf16 pair, lo in the low half (a NaN stays
+// NaN)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// max(v, 0) that keeps a NaN v, as torch.relu and the JAX kernel's
+// jnp.maximum do (fmaxf(v, 0.f) returns 0 for it): a compare and a select
+__device__ __forceinline__ float relu(float v) {
+  return (v > 0.f || v != v) ? v : 0.f;
 }
 
 // one fp32 value as its TF32 big and small parts.  big is x rounded to

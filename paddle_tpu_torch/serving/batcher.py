@@ -1,6 +1,6 @@
 """Continuous batching for autoregressive decode — the port of
 paddle_tpu/serving/batcher.py's `DecodeBatcher` (its one-lane path, plain
-or speculative, one dispatch per step or round).
+or speculative, one step or round per dispatch or fused windows).
 
 Each request is many tiny steps over growing state, so the utilization
 lever is slot occupancy over time.  The DecodeBatcher keeps one
@@ -16,14 +16,21 @@ target verify step scores all k + 1 positions, and slots advance 1..k+1
 committed tokens, consumed in stream order with per-token EOS and
 max-new cuts, so every stream is bit-identical to the plain path.
 
+With `fuse_steps` N > 1 (default FLAGS.serving_decode_fuse_steps) one
+dispatch runs a fused window: up to N steps of a plain lane
+(`DecodeSession.decode_fused`, per-slot budgets, the deadline governor's
+trip clamp), or one fused speculative round.  On the card each is a
+CUDA-graph replay.  Requests join and leave at window boundaries; the
+streams are bit-identical to the one-step path.
+
 Admission control: a bounded queue (`max_queue`); past it, an arriving
 request evicts the lowest strictly-lower-priority queued request or is
 shed itself with `ServerOverloaded` (shed, never hang).
 
-Not ported yet: replica lanes, fused multi-step windows (and fused
-speculative rounds), mesh / tensor-parallel lanes, the static-batching
-baseline, serving metrics, trace ids and the obs spans and events (among
-them `spec_degraded`: a lane reports degradation in `lane_stats()`).
+Not ported yet: replica lanes, mesh / tensor-parallel lanes, the
+static-batching baseline, serving metrics, trace ids and the obs spans
+and events (among them `spec_degraded`: a lane reports degradation in
+`lane_stats()`).
 """
 
 import collections
@@ -161,8 +168,8 @@ class _DecodeLane:
     draft and spec_k >= 1 the session is a SpeculativeDecodeSession and
     the lane advances slots 1..k+1 tokens per round."""
 
-    __slots__ = ("session", "spec", "assigned", "steps", "tokens",
-                 "step_s", "dead")
+    __slots__ = ("session", "spec", "assigned", "steps", "trips", "tokens",
+                 "step_s", "step_ewma", "dead")
 
     def __init__(self, predictor, n_slots, draft=None, spec_k=0):
         self.spec = draft is not None and int(spec_k) >= 1
@@ -173,9 +180,13 @@ class _DecodeLane:
         else:
             self.session = predictor.new_session(n_slots)
         self.assigned = {}   # slot -> _DecodeRequest
-        self.steps = 0       # decode steps run
+        self.steps = 0       # dispatches: decode steps, rounds or windows
+        self.trips = 0       # logical steps (a fused window's trips)
         self.tokens = 0      # tokens emitted (prefill first tokens too)
-        self.step_s = 0.0    # seconds spent in decode steps
+        self.step_s = 0.0    # seconds spent in dispatches
+        # EWMA seconds per logical step (per trip under fusion): the
+        # deadline governor's estimate for clamping a window's trips
+        self.step_ewma = None
         self.dead = None     # error string once the lane's loop died
 
 
@@ -192,15 +203,18 @@ class DecodeBatcher:
     the lane speculative.  A draft failure degrades the lane to
     target-only rounds within one round, never wedging a stream; a
     kernel that fails to build or launch ends the lane instead, as on a
-    plain lane."""
+    plain lane.
+
+    `fuse_steps` (default FLAGS.serving_decode_fuse_steps, at least 1) is
+    the fused window: above 1 a plain lane runs up to that many steps a
+    dispatch, and a speculative lane fuses each round into one
+    dispatch.  Cancelled and expired streams leave at window boundaries,
+    and a deadline clamps a window's trips to what the lane's EWMA step
+    time says fits, so it overshoots by about one window at most."""
 
     def __init__(self, predictor, n_slots=None, max_queue=None,
-                 max_new_tokens=None, draft=None, spec_k=None):
-        if int(FLAGS.serving_decode_fuse_steps) != 1:
-            raise NotImplementedError(
-                "fused multi-step decode (serving_decode_fuse_steps=%s) "
-                "is not ported yet; the port runs one decode step per "
-                "dispatch" % FLAGS.serving_decode_fuse_steps)
+                 max_new_tokens=None, draft=None, spec_k=None,
+                 fuse_steps=None):
         self.predictor = predictor
         self.n_slots = max(int(FLAGS.serving_decode_slots
                                if n_slots is None else n_slots), 1)
@@ -213,6 +227,8 @@ class DecodeBatcher:
                           else spec_k)
         if draft is None or self.spec_k < 1:
             self.spec_k = 0
+        self.fuse_steps = max(int(FLAGS.serving_decode_fuse_steps
+                                  if fuse_steps is None else fuse_steps), 1)
         self._cv = threading.Condition()
         self._pending = collections.deque()
         self._lane = _DecodeLane(predictor, self.n_slots, draft=draft,
@@ -236,18 +252,22 @@ class DecodeBatcher:
         return len(self._pending)
 
     def lane_stats(self):
-        """Busy slots, decode steps (rounds, on a speculative lane),
-        tokens emitted, seconds in decode steps, and the lane's error
-        once it died; a speculative lane adds its verify and plain
-        rounds, draft tokens proposed and accepted, `degraded` (latched
-        by its session) and `degrade_error`, the draft failure that
-        degraded it."""
+        """Busy slots, dispatches (`steps`: decode steps, rounds or fused
+        windows), logical steps (`trips`: a fused window's trips, one a
+        step or round otherwise), tokens emitted, seconds in dispatches,
+        the EWMA ms per logical step and the lane's error once it died;
+        a speculative lane adds its verify and plain rounds, draft tokens
+        proposed and accepted, `degraded` (latched by its session) and
+        `degrade_error`, the draft failure that degraded it."""
         lane = self._lane
         with self._cv:
             stats = {"device": str(self.predictor.device),
                      "dead": lane.dead, "inflight": len(lane.assigned),
-                     "steps": lane.steps, "tokens": lane.tokens,
-                     "step_s": lane.step_s, "spec_k": self.spec_k}
+                     "steps": lane.steps, "trips": lane.trips,
+                     "tokens": lane.tokens, "step_s": lane.step_s,
+                     "step_ewma_ms": None if lane.step_ewma is None
+                     else lane.step_ewma * 1e3,
+                     "fuse_steps": self.fuse_steps, "spec_k": self.spec_k}
             if lane.spec:
                 sess = lane.session
                 stats.update(rounds=sess.rounds,
@@ -420,7 +440,8 @@ class DecodeBatcher:
 
     def _lane_iter(self):
         """One iteration of the continuous loop: admit + prefill, one
-        decode step, stream bookkeeping.  Returns False to stop."""
+        dispatch (a decode step, a round or a fused window), stream
+        bookkeeping.  Returns False to stop."""
         lane = self._lane
         sess = lane.session
         eos = self.predictor.eos_id
@@ -437,19 +458,52 @@ class DecodeBatcher:
             self._prefill(req)
         if not lane.assigned:
             return True
+        fuse = self.fuse_steps
+        if fuse > 1:
+            # window-boundary housekeeping: drop cancelled and expired
+            # streams BEFORE spending a window on them
+            nowb = time.monotonic()
+            for slot, req in list(lane.assigned.items()):
+                if req.stream.cancelled():
+                    req.buf = []
+                    self._finish(slot, req, "cancelled")
+                elif req.deadline is not None and nowb > req.deadline:
+                    self._expire(slot, req, nowb)
+            if not lane.assigned:
+                return True
         t0 = time.monotonic()
+        trips = 1
         if lane.spec:
-            toks, counts = sess.step()
+            toks, counts = sess.step(fused=fuse > 1)
+        elif fuse > 1:
+            # per-slot budgets (max-new and cache-room headroom) and the
+            # deadline governor: the lane's EWMA step time clamps the
+            # trips so a deadlined stream overshoots by ~one window
+            budget = np.zeros(self.n_slots, np.int32)
+            max_trips = fuse
+            for slot, req in lane.assigned.items():
+                budget[slot] = min(req.max_new - len(req.gen),
+                                   sess.room(slot), fuse)
+                if req.deadline is not None and lane.step_ewma:
+                    allow = int((req.deadline - t0) / lane.step_ewma)
+                    max_trips = min(max_trips, max(allow, 1))
+            toks, counts, trips = sess.decode_fused(
+                fuse, budget=budget, max_trips=max_trips)
         else:
             toks = sess.decode()[:, None]
             counts = np.ones(len(toks), np.int32)
         now = time.monotonic()
         lane.steps += 1
+        lane.trips += trips
         lane.step_s += now - t0
+        per_step = (now - t0) / max(trips, 1)
+        lane.step_ewma = per_step if lane.step_ewma is None \
+            else 0.5 * lane.step_ewma + 0.5 * per_step
         for slot, req in list(lane.assigned.items()):
-            # a speculative round commits 1..k+1 tokens per slot: consume
-            # them in stream order with per-token EOS / max-new cuts, so
-            # the stream is bit-identical to the one-token-per-step path
+            # a speculative round commits 1..k+1 tokens per slot, a fused
+            # window up to fuse_steps: consume them in stream order with
+            # per-token EOS / max-new cuts, so the stream is bit-identical
+            # to the one-token-per-step path
             finished = None
             for j in range(int(counts[slot])):
                 tok = int(toks[slot, j])

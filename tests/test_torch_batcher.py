@@ -151,12 +151,18 @@ def test_submit_validation(predictor):
             b.submit([1] * 64)
     finally:
         b.close()
+    # the flag sets the fused window of a batcher that names none
     FLAGS.serving_decode_fuse_steps = 4
     try:
-        with pytest.raises(NotImplementedError):
-            DecodeBatcher(predictor)
+        b = DecodeBatcher(predictor, n_slots=1)
     finally:
         FLAGS.serving_decode_fuse_steps = 1
+    try:
+        assert b.fuse_steps == 4
+        out = b.submit([1, 2], max_new_tokens=6).result(timeout=30)[0]
+        assert out.tolist() == greedy_decode(predictor, [1, 2], 6)[0]
+    finally:
+        b.close()
 
 
 def test_failed_step_fails_streams_typed(predictor):

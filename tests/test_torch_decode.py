@@ -216,10 +216,15 @@ def test_eos_finish(pair):
 
 def test_rejects_what_is_not_ported_or_invalid(pair):
     d, _, tp = pair
-    # the fused speculative round waits for fused N-step decode
+    # a fused speculative round commits what the host-driven one does
+    # (a twin draft: all k + 1 tokens)
     spec = torch_decode.SpeculativeDecodeSession(tp, tp, 1, 2)
-    with pytest.raises(NotImplementedError, match="fused"):
-        spec.step(fused=True)
+    host = torch_decode.SpeculativeDecodeSession(tp, tp, 1, 2)
+    for sess in (spec, host):
+        sess.prefill(0, [1, 2, 3])
+    (g, counts), (gh, ch) = spec.step(fused=True), host.step()
+    assert counts.tolist() == ch.tolist() == [3]
+    assert g.tolist() == gh.tolist()
     with pytest.raises(ValueError):
         torch_decode.normalize_kv_dtype("fp16")
     with pytest.raises(ValueError, match="kv_cache_dtype"):

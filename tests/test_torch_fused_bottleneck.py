@@ -433,3 +433,94 @@ def test_cuda_fp32_kernel_takes_any_width_and_reruns_bit_identically(
     assert torch.equal(out, again)
     ref = tkernels.bottleneck_reference(x, *args, stride)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+# non-finite inputs: K6's relus keep a NaN, as the plain version's
+# torch.relu and the JAX kernel's jnp.maximum do.  Two pixels of x hold
+# the non-finite value; what they reach is the 3x3 neighbourhood (in
+# output rows and columns, |s * o - h| <= 1), every output channel.
+NAN_SHAPES = [(2, 9, 7, 32, 16, 1, False),   # identity shortcut
+              (2, 9, 7, 32, 16, 1, True),    # projection, stride 1
+              (2, 9, 7, 32, 16, 2, True)]    # projection, stride 2
+NAN_PIXELS = [(0, 0, 0), (1, 4, 3)]
+
+
+def _nonfinite_inputs(case, N, H, W, C, F, branch, dtype):
+    """x and the OIHW filters with x non-finite at NAN_PIXELS, channel 5:
+    "nan_x" puts a NaN there; "inside" puts +inf there, with w0's column
+    for that channel positive (conv0 gives +inf, relu keeps it) and w1's
+    input channels 0 and 1 of opposite signs at every tap, so the 3x3
+    meets +inf - inf and makes the NaN inside the block."""
+    rng = np.random.RandomState(6)
+    C4 = F * 4 if branch else C
+    args = _as_torch(_params(rng, C, F, C4, branch))
+    x = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32))
+    for n, h, w in NAN_PIXELS:
+        x[n, h, w, 5] = float("nan") if case == "nan_x" else float("inf")
+    if case == "inside":
+        args[0][:, 5] = args[0][:, 5].abs()
+        args[2][:, 0] = args[2][:, 0].abs()
+        args[2][:, 1] = -args[2][:, 1].abs()
+    return x.to(dtype), [None if t is None else t.to(dtype) for t in args]
+
+
+def _neighbourhood(N, H, W, C4, s):
+    Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
+    mask = np.zeros((N, Ho, Wo, C4), bool)
+    for n, h, w in NAN_PIXELS:
+        for o in range(Ho):
+            for p in range(Wo):
+                if abs(s * o - h) <= 1 and abs(s * p - w) <= 1:
+                    mask[n, o, p] = True
+    return mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["nan_x", "inside"])
+@pytest.mark.parametrize("N,H,W,C,F,stride,branch", NAN_SHAPES)
+def test_plain_version_keeps_nan_in_its_neighbourhood(
+        N, H, W, C, F, stride, branch, case, dtype):
+    """The plain version (what the card's K6 is held against) puts NaN
+    at exactly the non-finite pixels' 3x3 neighbourhood, all channels,
+    and finite values elsewhere."""
+    x, args = _nonfinite_inputs(case, N, H, W, C, F, branch, dtype)
+    ref = tkernels.bottleneck_reference(x, *args, stride).float().numpy()
+    C4 = ref.shape[-1]
+    mask = _neighbourhood(N, H, W, C4, stride)
+    assert np.array_equal(np.isnan(ref), mask)
+    assert np.isfinite(ref[~mask]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["nan_x", "inside"])
+@pytest.mark.parametrize("N,H,W,C,F,stride,branch", NAN_SHAPES)
+def test_cuda_kernel_keeps_nan_where_the_plain_version_does(
+        N, H, W, C, F, stride, branch, case, dtype):
+    """fp32 and bf16 K6 on a NaN in x (identity and projection
+    shortcuts) and on a NaN made inside the block: NaN in the same output
+    positions as the plain version (on the CPU), the other positions at
+    the tolerances of the tests above; fp32 K6 reruns the blocks that
+    met the NaN clamped (tc_common.cuh), once."""
+    _need_cuda()
+    x, args = _nonfinite_inputs(case, N, H, W, C, F, branch, dtype)
+    ref = tkernels.bottleneck_reference(x, *args, stride).float().numpy()
+    tkernels.reset_launch_counts()
+    out = tkernels.fused_bottleneck(
+        x.cuda(), *[None if t is None else t.cuda() for t in args],
+        stride=stride)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts[_count_name(dtype)] == 1
+    out = out.float().cpu().numpy()
+    assert np.array_equal(np.isnan(out), np.isnan(ref))
+    keep = ~np.isnan(ref)
+    if dtype == torch.bfloat16:
+        _assert_bf16_close(out[keep], ref[keep])
+    else:
+        np.testing.assert_allclose(out[keep], ref[keep], rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _count_name(dtype):
+    return "fused_bottleneck_bf16" if dtype == torch.bfloat16 \
+        else "fused_bottleneck"
