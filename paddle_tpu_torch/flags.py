@@ -49,4 +49,14 @@ FLAGS = _Flags(
     # bf16 automatic mixed precision: bf16 matmuls/convs/attention with
     # fp32 master weights (setting it switches ops.registry's AMP)
     use_bf16_amp=False,
+    # serve a program's backward section with ONE torch.autograd.grad over
+    # the whole forward region instead of per-op stashed vjps, when the
+    # program shape allows it (straight-line forward, generic grads only);
+    # what makes FLAGS.remat_policy real
+    whole_graph_ad=False,
+    # rematerialization policy of the whole-graph step: '' (save what
+    # autograd saves), 'conv_out' (keep conv outputs, recompute the batch
+    # norm and activation tails), 'block_out' (keep the residual blocks'
+    # outputs, recompute their interiors), 'dots' or 'nothing'
+    remat_policy="",
 )

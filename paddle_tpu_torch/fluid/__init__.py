@@ -13,12 +13,17 @@ Executor runs the program eagerly, op by op, on a torch device.
     exe.run(startup)
     exe.run(main, feed={...}, fetch_list=[loss])
 
-`fluid.set_amp(True)` runs the following programs in bf16 mixed
-precision (ops/registry.py's AMP lists), as the JAX package's does.
+With `FLAGS.whole_graph_ad` the Executor serves the backward section
+with one `torch.autograd.grad` over the forward region
+(`functionalizer.build_whole_graph_step_fn`), under `FLAGS.remat_policy`
+if one is set.  `fluid.set_amp(True)` runs the following programs in
+bf16 mixed precision (ops/registry.py's AMP lists), as the JAX
+package's does.
 """
 
-from . import (backward, core, executor, framework, initializer, io,
-               ir_passes, layers, optimizer, transpiler, unique_name)
+from . import (backward, core, executor, framework, functionalizer,
+               initializer, io, ir_passes, layers, nets, optimizer,
+               regularizer, transpiler, unique_name)
 from .backward import append_backward
 from .core import CPUPlace, CUDAPlace
 from .executor import Executor, Scope, as_numpy, global_scope, scope_guard
@@ -33,8 +38,9 @@ from .transpiler import InferenceTranspiler
 from ..ops.registry import amp_enabled, set_amp
 
 __all__ = [
-    "backward", "core", "executor", "framework", "initializer", "io",
-    "ir_passes", "layers", "optimizer", "transpiler", "unique_name",
+    "backward", "core", "executor", "framework", "functionalizer",
+    "initializer", "io", "ir_passes", "layers", "nets", "optimizer",
+    "regularizer", "transpiler", "unique_name",
     "append_backward", "CPUPlace",
     "CUDAPlace", "Executor", "Scope", "as_numpy", "global_scope",
     "scope_guard", "Operator", "Parameter", "Program", "Variable",

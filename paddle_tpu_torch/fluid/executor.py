@@ -1,15 +1,19 @@
 """Scope and Executor, after paddle_tpu/fluid/executor.py.
 
 The JAX Executor traces a whole block into one jitted step
-(functionalizer.build_step_fn).  The port's Executor interprets the block
-eagerly, op by op, in program order (functionalizer._interpret_ops):
-  * a forward op whose `<type>_grad` appears later in the block runs
-    under autograd and stashes its vjp closure (ops/registry.py
-    make_forward_and_vjp); the grad op consumes and drops it;
-  * every other op runs its lowering under `torch.no_grad()`.
+(functionalizer.build_step_fn).  The port's Executor builds the same
+step function, cached per (program, version, feeds, fetches, AMP, AD
+flags), and calls it eagerly (fluid/functionalizer.py):
+  * per op, by default: a forward op whose `<type>_grad` appears later
+    in the block runs under autograd and stashes its vjp closure
+    (ops/registry.py make_forward_and_vjp); the grad op consumes and
+    drops it; every other op runs its lowering under `torch.no_grad()`;
+  * with FLAGS.whole_graph_ad (or a FLAGS.remat_policy): one
+    torch.autograd.grad over the forward region serves the backward.
 Persistables (params, optimizer state, the learning rate) live in the
 Scope as torch tensors on the Executor's device and are written back
-after each run.
+after each run.  `run_loop` runs K steps on one feed and returns the
+last step's fetches.
 
 bfloat16 crosses the host boundary as `ml_dtypes.bfloat16` numpy arrays,
 as in the JAX package: a feed may be one (or a torch bf16 tensor), and a
@@ -23,8 +27,11 @@ import torch
 
 from .. import resolve_device
 from ..ops import registry
-from . import core
+from . import core, functionalizer
 from .framework import Variable, default_main_program
+# the per-op interpreter and the state set live in functionalizer.py;
+# importable from here as before
+from .functionalizer import persistable_names, run_block  # noqa: F401
 
 try:
     from ml_dtypes import bfloat16 as _NP_BF16
@@ -111,79 +118,6 @@ def _fetch_name(f):
     raise TypeError("bad fetch entry: %r" % (f,))
 
 
-def persistable_names(program):
-    return [v.name for blk in program.blocks for v in blk.vars.values()
-            if v.persistable]
-
-
-def _is_generic_grad(op):
-    return (op.type.endswith("_grad") and "fwd_uid" in op.attrs
-            and not registry.has_op(op.type))
-
-
-def _gather_inputs(op, env):
-    return {slot: [env.get(n) if n else None for n in names]
-            for slot, names in op.inputs.items()}
-
-
-def _write_outputs(op, outs, env):
-    for slot, vals in outs.items():
-        if not isinstance(vals, (list, tuple)):
-            vals = [vals]
-        for name, val in zip(op.outputs.get(slot, []), vals):
-            if name and val is not None:
-                env[name] = val
-
-
-def _run_grad_op(op, env, vjp_cache):
-    fwd_uid = op.attrs["fwd_uid"]
-    entry = vjp_cache.pop(fwd_uid, None)
-    if entry is None:
-        raise RuntimeError(
-            "%s: the forward op (uid %d) did not run in this block before "
-            "its grad op" % (op.type, fwd_uid))
-    vjp_fn, outs = entry
-    cotangents = {}
-    for slot, vals in outs.items():
-        gnames = op.inputs.get("GRAD:" + slot, [])
-        cs = []
-        for i, y in enumerate(vals):
-            g = env.get(gnames[i]) if i < len(gnames) and gnames[i] \
-                else None
-            if g is not None and isinstance(y, torch.Tensor):
-                g = g.to(y.dtype).reshape(y.shape)
-            cs.append(g)
-        cotangents[slot] = cs
-    grads = vjp_fn(cotangents)
-    for slot, gvals in grads.items():
-        for name, g in zip(op.outputs.get("GRAD:" + slot, []), gvals):
-            if name and g is not None:
-                env[name] = g
-
-
-def run_block(block, env, step=0, seed=0, device=None):
-    """Interpret `block` eagerly, op by op, mutating env."""
-    needed_vjp = {op.attrs["fwd_uid"] for op in block.ops
-                  if _is_generic_grad(op)}
-    vjp_cache = {}
-    for op in block.ops:
-        if _is_generic_grad(op):
-            with torch.no_grad():
-                _run_grad_op(op, env, vjp_cache)
-            continue
-        od = registry.get_op_def(op.type)
-        ctx = registry.ExecContext(op, _gather_inputs(op, env), step=step,
-                                   seed=seed, device=device)
-        if op.uid in needed_vjp:
-            outs, vjp_fn = registry.make_forward_and_vjp(op, od, ctx)
-            vjp_cache[op.uid] = (vjp_fn, outs)
-        else:
-            with torch.no_grad():
-                outs = registry.call_lower(od, ctx)
-        _write_outputs(op, outs, env)
-    return env
-
-
 class Executor:
     """Runs programs eagerly on one device.  `place=None` means the card
     (`cuda`), and a host without CUDA raises; `fluid.CPUPlace()` runs on
@@ -194,6 +128,7 @@ class Executor:
         self.device = resolve_device(
             None if place is None else place.torch_device())
         self._step_counters = {}  # id(program) -> steps run
+        self._cache = {}  # step-fn key -> step fn
 
     def _prepare_feeds(self, program, feed):
         gb = program.global_block()
@@ -211,43 +146,87 @@ class Executor:
             feeds[name] = t.to(self.device)
         return feeds
 
+    def _step_fn(self, program, feed_names, fetch_names, state_names):
+        """The program's step function, built once per (program, its
+        version, feeds, fetches, state, AMP, AD flags), as the JAX
+        Executor's _get_jitted."""
+        wga, remat = functionalizer.flags_ad_config()
+        key = (id(program), program._version, feed_names, fetch_names,
+               state_names, registry.amp_enabled(), wga, remat)
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = functionalizer.build_step_fn(
+                program, feed_names, fetch_names, state_names,
+                whole_graph_ad=wga, remat_policy=remat, device=self.device)
+            self._cache[key] = fn
+        return fn
+
+    def _prepare_step(self, program, feed, fetch_list, scope):
+        if len(program.blocks) != 1:
+            raise NotImplementedError(
+                "Executor.run: programs with sub-blocks (control flow) are "
+                "not ported to paddle_tpu_torch yet")
+        fetch_names = tuple(_fetch_name(f) for f in (fetch_list or []))
+        feeds = self._prepare_feeds(program, feed or {})
+        state_names = tuple(persistable_names(program))
+        state = {}
+        for n in state_names:
+            val = scope.get(n)
+            if val is not None:
+                state[n] = val if val.device == self.device \
+                    else val.to(self.device)
+        fn = self._step_fn(program, tuple(sorted(feeds)), fetch_names,
+                           state_names)
+        return fn, state, feeds, fetch_names
+
+    @staticmethod
+    def _finish(scope, new_state, fetch_names, fetches, return_numpy):
+        for n, val in new_state.items():
+            scope.set(n, val)
+        for n, val in zip(fetch_names, fetches):
+            if val is None:
+                raise KeyError("fetch %r: no op of the program wrote it"
+                               % n)
+        if return_numpy:
+            return [as_numpy(f) for f in fetches]
+        return list(fetches)
+
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
-        """One step: feeds in, every op of block 0 in order, persistables
+        """One step: feeds in, the program's step function, persistables
         back to the scope, fetches out (numpy arrays unless
         return_numpy=False)."""
         if program is None:
             program = default_main_program()
         if scope is None:
             scope = global_scope()
-        fetch_names = [_fetch_name(f) for f in (fetch_list or [])]
-        if len(program.blocks) != 1:
-            raise NotImplementedError(
-                "Executor.run: programs with sub-blocks (control flow) are "
-                "not ported to paddle_tpu_torch yet")
-
-        persistables = persistable_names(program)
-        env = {}
-        for n in persistables:
-            val = scope.get(n)
-            if val is not None:
-                env[n] = val if val.device == self.device \
-                    else val.to(self.device)
-        env.update(self._prepare_feeds(program, feed or {}))
+        fn, state, feeds, fetch_names = self._prepare_step(
+            program, feed, fetch_list, scope)
         step = self._step_counters.get(id(program), 0)
-        run_block(program.global_block(), env, step=step,
-                  seed=program.random_seed, device=self.device)
+        fetches, new_state = fn(state, feeds, step)
         self._step_counters[id(program)] = step + 1
+        return self._finish(scope, new_state, fetch_names, fetches,
+                            return_numpy)
 
-        for n in persistables:
-            if n in env:
-                scope.set(n, env[n])
-        fetches = []
-        for n in fetch_names:
-            if n not in env:
-                raise KeyError("fetch %r: no op of the program wrote it"
-                               % n)
-            fetches.append(env[n])
-        if return_numpy:
-            return [as_numpy(f) for f in fetches]
-        return fetches
+    def run_loop(self, program=None, feed=None, fetch_list=None, steps=1,
+                 scope=None, return_numpy=True):
+        """`steps` training steps on one feed, the step counter folded per
+        iteration so random ops draw as under `steps` calls of run();
+        returns the LAST step's fetches.  The counter advances only when
+        every step succeeded (the JAX package's run_loop runs them as one
+        device loop; here a plain loop of the step function)."""
+        if program is None:
+            program = default_main_program()
+        if scope is None:
+            scope = global_scope()
+        steps = int(steps)
+        if steps < 1:
+            raise ValueError("run_loop: steps must be >= 1")
+        fn, state, feeds, fetch_names = self._prepare_step(
+            program, feed, fetch_list, scope)
+        step0 = self._step_counters.get(id(program), 0)
+        fetches, new_state = functionalizer.run_loop(fn, state, feeds,
+                                                     step0, steps)
+        self._step_counters[id(program)] = step0 + steps
+        return self._finish(scope, new_state, fetch_names, fetches,
+                            return_numpy)

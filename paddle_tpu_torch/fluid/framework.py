@@ -243,6 +243,7 @@ class Block:
         op = Operator(self, type=type, inputs=inputs, outputs=outputs,
                       attrs=attrs)
         self.ops.append(op)
+        self.program._bump_version()
         for vs in op.outputs.values():
             for name in vs:
                 v = self._find_var_recursive(name)
@@ -271,10 +272,16 @@ class Program:
         self.current_block_idx = 0
         self._seed = 0
         self._op_uid = 0
+        # the Executor's step-fn cache token: bumped wherever an op list
+        # changes
+        self._version = 0
 
     def _next_op_uid(self):
         self._op_uid += 1
         return self._op_uid
+
+    def _bump_version(self):
+        self._version += 1
 
     @property
     def random_seed(self):
@@ -319,6 +326,7 @@ class Program:
                               if n not in feed_names)
         keep.reverse()
         blk.ops = keep
+        p._bump_version()
         used = set(feed_names) | set(fetches)
         for op in blk.ops:
             used.update(op.input_arg_names)

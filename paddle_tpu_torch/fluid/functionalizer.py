@@ -1,0 +1,491 @@
+"""Block functionalization, after paddle_tpu/fluid/functionalizer.py: a
+Program becomes a pure step function `fn(state, feeds, step) ->
+(fetches, new_state)` over dicts of torch tensors, which the Executor
+calls once per step.
+
+The JAX package traces the step into one jitted computation.  The port
+interprets it eagerly, in one of two forms:
+
+  * per op (`run_block`): every op in program order; a forward op whose
+    `<type>_grad` comes later runs under autograd and stashes its vjp
+    closure (ops/registry.py make_forward_and_vjp), which the grad op
+    consumes;
+  * whole graph (`build_whole_graph_step_fn`, FLAGS.whole_graph_ad): the
+    backward region is dropped, the forward region runs once under
+    autograd with the differentiated vars as leaves, and ONE
+    `torch.autograd.grad` stands in for the JAX package's `jax.vjp`.
+    Only this form can rematerialize (`_resolve_remat_policy`): the
+    forward region is the differentiated function, so
+    `torch.utils.checkpoint` can drop activations and recompute them in
+    the backward.
+
+`run_loop` is the JAX package's `jit_loop` as a plain loop of the step.
+"""
+
+import functools
+
+import torch
+from torch.utils import checkpoint as torch_checkpoint
+
+from ..ops import registry
+from .framework import GRAD_VAR_SUFFIX as GRAD_SUFFIX, grad_var_name
+
+__all__ = ["persistable_names", "run_block", "build_step_fn",
+           "build_whole_graph_step_fn", "run_loop", "flags_ad_config"]
+
+
+def persistable_names(program):
+    return [v.name for blk in program.blocks for v in blk.vars.values()
+            if v.persistable]
+
+
+def flags_ad_config():
+    """(whole_graph_ad, remat_policy) from FLAGS: a remat policy implies
+    whole-graph AD, so a policy alone never runs the per-op path under a
+    remat label.  Executor cache keys include this pair."""
+    from ..flags import FLAGS
+    return (FLAGS.whole_graph_ad or bool(FLAGS.remat_policy),
+            FLAGS.remat_policy or None)
+
+
+# ---------------------------------------------------------------------------
+# the per-op interpreter
+# ---------------------------------------------------------------------------
+
+def _is_generic_grad(op):
+    return (op.type.endswith("_grad") and "fwd_uid" in op.attrs
+            and not registry.has_op(op.type))
+
+
+def _gather_inputs(op, env):
+    return {slot: [env.get(n) if n else None for n in names]
+            for slot, names in op.inputs.items()}
+
+
+def _write_outputs(op, outs, env):
+    for slot, vals in outs.items():
+        if not isinstance(vals, (list, tuple)):
+            vals = [vals]
+        for name, val in zip(op.outputs.get(slot, []), vals):
+            if name and val is not None:
+                env[name] = val
+
+
+def _run_grad_op(op, env, vjp_cache):
+    fwd_uid = op.attrs["fwd_uid"]
+    entry = vjp_cache.pop(fwd_uid, None)
+    if entry is None:
+        raise RuntimeError(
+            "%s: the forward op (uid %d) did not run in this block before "
+            "its grad op" % (op.type, fwd_uid))
+    vjp_fn, outs = entry
+    cotangents = {}
+    for slot, vals in outs.items():
+        gnames = op.inputs.get("GRAD:" + slot, [])
+        cs = []
+        for i, y in enumerate(vals):
+            g = env.get(gnames[i]) if i < len(gnames) and gnames[i] \
+                else None
+            if g is not None and isinstance(y, torch.Tensor):
+                g = g.to(y.dtype).reshape(y.shape)
+            cs.append(g)
+        cotangents[slot] = cs
+    grads = vjp_fn(cotangents)
+    for slot, gvals in grads.items():
+        for name, g in zip(op.outputs.get("GRAD:" + slot, []), gvals):
+            if name and g is not None:
+                env[name] = g
+
+
+def _touched(op):
+    """Names `op` reads or writes in the env.  A generic grad op lists
+    its forward op's inputs and outputs but reads only the cotangents
+    (the GRAD: slots): its vjp closure holds what it needs."""
+    if _is_generic_grad(op):
+        names = [n for slot, ns in op.inputs.items()
+                 if slot.startswith("GRAD:") for n in ns]
+    else:
+        names = [n for ns in op.inputs.values() for n in ns]
+    names += [n for ns in op.outputs.values() for n in ns]
+    return {n for n in names if n}
+
+
+def _drop_plan(ops, keep):
+    """For each op, the env names that no later op touches: the step
+    drops them once the op has run, so an activation or an activation's
+    grad lives only as long as the step needs it.  Names in `keep`
+    (state, fetches, a segment's outputs) stay."""
+    last = {}
+    for i, op in enumerate(ops):
+        for n in _touched(op):
+            last[n] = i
+    plan = [[] for _ in ops]
+    for n, i in last.items():
+        if n not in keep:
+            plan[i].append(n)
+    return plan
+
+
+def _interpret_ops(ops, env, step=0, seed=0, device=None, drops=None):
+    """Run `ops` in order, mutating env.  An op whose generic grad is
+    among `ops` runs under autograd and stashes its vjp; every other op
+    runs its lowering in the caller's grad mode.  `drops` (a _drop_plan)
+    removes dead names as the ops run."""
+    needed_vjp = {op.attrs["fwd_uid"] for op in ops if _is_generic_grad(op)}
+    vjp_cache = {}
+    for i, op in enumerate(ops):
+        if _is_generic_grad(op):
+            _run_grad_op(op, env, vjp_cache)
+        else:
+            od = registry.get_op_def(op.type)
+            ctx = registry.ExecContext(op, _gather_inputs(op, env),
+                                       step=step, seed=seed, device=device)
+            if op.uid in needed_vjp:
+                outs, vjp_fn = registry.make_forward_and_vjp(op, od, ctx)
+                vjp_cache[op.uid] = (vjp_fn, outs)
+            else:
+                outs = registry.call_lower(od, ctx)
+            _write_outputs(op, outs, env)
+        if drops is not None:
+            for n in drops[i]:
+                env.pop(n, None)
+    return env
+
+
+def run_block(block, env, step=0, seed=0, device=None):
+    """Interpret `block` eagerly, op by op, mutating env (every value it
+    writes stays there)."""
+    with torch.no_grad():
+        return _interpret_ops(block.ops, env, step=step, seed=seed,
+                              device=device)
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
+
+def build_step_fn(program, feed_names, fetch_names, state_names,
+                  block_idx=0, whole_graph_ad=False, remat_policy=None,
+                  device=None):
+    """Return pure fn(state_dict, feed_dict, step) -> (fetches,
+    new_state); a fetch no op wrote is None.
+
+    With whole_graph_ad the backward region is served by ONE
+    torch.autograd.grad over the forward region
+    (build_whole_graph_step_fn).  An ineligible program falls back to the
+    per-op interpreter, except under a remat policy: the per-op path
+    cannot rematerialize, so that raises rather than run unlabelled."""
+    if whole_graph_ad:
+        fn = build_whole_graph_step_fn(
+            program, feed_names, fetch_names, state_names,
+            block_idx=block_idx, remat_policy=remat_policy, device=device)
+        if fn is not None:
+            return fn
+        has_backward = any(_is_generic_grad(op)
+                           for op in program.blocks[block_idx].ops)
+        if remat_policy and has_backward:
+            raise RuntimeError(
+                "remat_policy %r requested but the program is ineligible "
+                "for whole-graph AD (control-flow sub-blocks, custom grad "
+                "ops, or grads of intermediates)" % (remat_policy,))
+    ops = list(program.blocks[block_idx].ops)
+    seed = program.random_seed
+    state_names = tuple(state_names)
+    fetch_names = tuple(fetch_names)
+    drops = _drop_plan(ops, set(state_names) | set(fetch_names))
+
+    def step_fn(state, feeds, step):
+        env = dict(state)
+        env.update(feeds)
+        with torch.no_grad():
+            _interpret_ops(ops, env, step=step, seed=seed, device=device,
+                           drops=drops)
+        fetches = [env.get(n) for n in fetch_names]
+        new_state = {n: env[n] for n in state_names if n in env}
+        return fetches, new_state
+
+    return step_fn
+
+
+def run_loop(step_fn, state, feeds, step0, steps):
+    """`steps` calls of step_fn on one feed, the step counter folded per
+    iteration (step0, step0 + 1, ...) so per-op random streams advance
+    as under per-step execution; returns the last step's (fetches,
+    state).  The JAX package's jit_loop, as a plain loop."""
+    if steps < 1:
+        raise ValueError("run_loop: steps must be >= 1")
+    fetches = None
+    for i in range(steps):
+        fetches, state = step_fn(state, feeds, step0 + i)
+    return fetches, state
+
+
+# ---------------------------------------------------------------------------
+# whole-graph AD
+# ---------------------------------------------------------------------------
+
+def _writes(op):
+    return {n for names in op.outputs.values() for n in names if n}
+
+
+def _partition_whole_graph(block):
+    """Split block.ops into (forward_ops, update_ops, loss_name) for
+    whole-graph AD, or None when the program is ineligible (control-flow
+    sub-blocks, custom grad lowerings, several grad seeds, grad-writing
+    ops outside the backward region).
+
+    The backward region (the seed fill_constant, the generic
+    `<type>_grad` ops and their fan-in sum/assign ops) is DROPPED:
+    autograd serves it.  Everything after it (regularizers, optimizer
+    ops) is the update region and still interprets op by op."""
+    ops = list(block.ops)
+    seed_idx = None
+    for i, op in enumerate(ops):
+        outs = _writes(op)
+        if (op.type == "fill_constant" and outs
+                and all(n.endswith(GRAD_SUFFIX) for n in outs)):
+            seed_idx = i
+            break
+    if seed_idx is None:
+        return None
+    seed_outs = sorted(_writes(ops[seed_idx]))
+    if len(seed_outs) != 1:
+        return None
+    loss_name = seed_outs[0][:-len(GRAD_SUFFIX)]
+
+    def _is_bwd_helper(op):
+        # fan-in accumulation / canonical rebinding emitted by backward.py
+        return (op.type in ("sum", "assign")
+                and all(GRAD_SUFFIX in n for n in _writes(op)))
+
+    end = seed_idx + 1
+    while end < len(ops):
+        op = ops[end]
+        if _is_generic_grad(op) or _is_bwd_helper(op):
+            end += 1
+            continue
+        if op.type.endswith("_grad"):
+            return None  # a custom grad lowering needs per-op semantics
+        break
+    forward_ops, update_ops = ops[:seed_idx], ops[end:]
+    for op in forward_ops:
+        if op.attrs.get("sub_block") is not None or any(
+                GRAD_SUFFIX in n for n in _writes(op)):
+            return None
+    for op in update_ops:
+        if op.attrs.get("sub_block") is not None or \
+                op.type.endswith("_grad"):
+            return None
+    return forward_ops, update_ops, loss_name
+
+
+class _RematPolicy:
+    """How the whole-graph step checkpoints its forward region.
+
+    segment_tags: remat_tag tags that cut the region into segments (each
+    segment's inputs are all it keeps); empty: one segment.  save_ops:
+    aten ops whose outputs a segment keeps (selective checkpointing);
+    None: a segment keeps nothing inside it."""
+
+    def __init__(self, segment_tags=(), save_ops=None):
+        self.segment_tags = frozenset(segment_tags)
+        self.save_ops = save_ops
+
+    def context_fn(self):
+        if self.save_ops is None:
+            return torch_checkpoint.noop_context_fn
+        save_ops = self.save_ops
+
+        def policy(ctx, op, *args, **kwargs):
+            return (torch_checkpoint.CheckpointPolicy.MUST_SAVE
+                    if op in save_ops
+                    else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+        return functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, policy)
+
+
+def _conv_ops():
+    return frozenset([torch.ops.aten.convolution.default])
+
+
+def _dot_ops():
+    aten = torch.ops.aten
+    return _conv_ops() | frozenset([aten.mm.default, aten.addmm.default,
+                                    aten.bmm.default, aten.baddbmm.default])
+
+
+_KNOWN_TAGS = ("block_out", "conv_out")
+
+
+def _resolve_remat_policy(policy):
+    """The JAX package's policy names, validated (a mistyped tag would
+    save nothing and record a maximal-recompute run under a remat label):
+      * "nothing": the whole forward region is recomputed in the backward;
+      * "dots": matmul and convolution outputs are kept;
+      * a comma-separated subset of "block_out" and "conv_out":
+        "block_out" cuts the region at the `remat_tag` ops tagged
+        block_out (the residual blocks' outputs are kept, their interiors
+        recomputed); "conv_out" keeps every convolution's output
+        (`aten.convolution`, the JAX package's `checkpoint_name(out,
+        "conv_out")`) and recomputes the batch-norm and activation tails.
+    None means no remat."""
+    if policy is None:
+        return None
+    if not isinstance(policy, str):
+        raise TypeError("remat policy must be a string, got %r"
+                        % (policy,))
+    if policy == "nothing":
+        return _RematPolicy()
+    if policy == "dots":
+        return _RematPolicy(save_ops=_dot_ops())
+    names = [n.strip() for n in policy.split(",") if n.strip()]
+    if not names or not set(names) <= set(_KNOWN_TAGS):
+        raise ValueError(
+            "unknown remat policy %r; expected 'nothing', 'dots' or a "
+            "comma-separated subset of %s" % (policy, list(_KNOWN_TAGS)))
+    return _RematPolicy(
+        segment_tags=["block_out"] if "block_out" in names else (),
+        save_ops=_conv_ops() if "conv_out" in names else None)
+
+
+def _segments(forward_ops, tags):
+    """forward_ops cut after every remat_tag op whose tag is in `tags`."""
+    segs, cur = [], []
+    for op in forward_ops:
+        cur.append(op)
+        if op.type == "remat_tag" and op.attrs.get("tag") in tags:
+            segs.append(cur)
+            cur = []
+    if cur:
+        segs.append(cur)
+    return segs
+
+
+def _reads(op):
+    return {n for names in op.inputs.values() for n in names if n}
+
+
+def _run_segment(ops, drops, out_names, step, seed, device, env_in):
+    """One segment of the forward region: a fresh env from `env_in`
+    (never mutated, so a recomputation sees the first run's inputs);
+    returns the written values that later code reads."""
+    env = dict(env_in)
+    _interpret_ops(ops, env, step=step, seed=seed, device=device,
+                   drops=drops)
+    return {n: env[n] for n in out_names if n in env}
+
+
+def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
+                              block_idx=0, remat_policy=None, device=None):
+    """The whole-graph AD step: fn(state, feeds, step) -> (fetches,
+    new_state), with the program's backward region served by one
+    torch.autograd.grad over the forward region.
+
+    The forward region runs once under torch.enable_grad() with the
+    differentiated vars (the vars whose canonical grads the update
+    region or the fetch list reads) as fresh leaves, as segments that
+    each keep only what later code reads; under a remat policy each
+    segment runs in torch.utils.checkpoint.  What the region writes and
+    later code reads (moving statistics, the loss, fetches) is taken,
+    detached, from that first run, so a recomputation changes nothing.
+    The update region runs op by op under no_grad.
+
+    Returns None when the program is ineligible (see
+    _partition_whole_graph, and grads of intermediate vars)."""
+    block = program.blocks[block_idx]
+    part = _partition_whole_graph(block)
+    if part is None:
+        return None
+    forward_ops, update_ops, loss_name = part
+    seed = program.random_seed
+    state_names = tuple(state_names)
+    fetch_names = tuple(fetch_names)
+    policy = _resolve_remat_policy(remat_policy)
+
+    needed_gnames = set()
+    for op in update_ops:
+        needed_gnames.update(n for n in _reads(op)
+                             if n.endswith(GRAD_SUFFIX))
+    needed_gnames.update(n for n in fetch_names if n.endswith(GRAD_SUFFIX))
+    diff_names = tuple(sorted(n[:-len(GRAD_SUFFIX)] for n in needed_gnames))
+
+    forward_writes = set()
+    for op in forward_ops:
+        forward_writes |= _writes(op)
+    if any(n in forward_writes for n in diff_names):
+        return None  # the grad of an intermediate: the per-op path's
+
+    # forward values read after the backward; everything else may die
+    # inside the differentiated region (keeping it would pin every
+    # activation and defeat remat)
+    downstream = set(fetch_names) | set(state_names)
+    for op in update_ops:
+        downstream |= _reads(op)
+    aux_names = tuple(sorted((downstream & forward_writes) | {loss_name}))
+
+    segments = [forward_ops] if policy is None else \
+        _segments(forward_ops, policy.segment_tags)
+    # (ops, drop plan, inputs, outputs) per segment: a segment returns
+    # what a later segment or the update region reads
+    plan = []
+    later = set(aux_names)
+    for seg in reversed(segments):
+        written, read = set(), set()
+        for op in seg:
+            written |= _writes(op)
+            read |= _reads(op)
+        outs = tuple(sorted(written & later))
+        plan.append((seg, _drop_plan(seg, set(outs)), tuple(sorted(read)),
+                     outs))
+        later |= read
+    plan.reverse()
+    update_drops = _drop_plan(update_ops,
+                              set(state_names) | set(fetch_names))
+
+    def forward(env, step):
+        for seg, drops, ins, outs in plan:
+            env_in = {n: env[n] for n in ins if n in env}
+            if policy is None:
+                env.update(_run_segment(seg, drops, outs, step, seed,
+                                        device, env_in))
+                continue
+            env.update(torch_checkpoint.checkpoint(
+                _run_segment, seg, drops, outs, step, seed, device, env_in,
+                use_reentrant=False,
+                # the random ops draw from generators seeded per (seed,
+                # op, step): a recomputation draws the same values
+                preserve_rng_state=False,
+                context_fn=policy.context_fn()))
+        return env
+
+    def step_fn(state, feeds, step):
+        env0 = dict(state)
+        env0.update(feeds)
+        missing = [n for n in diff_names if n not in env0]
+        if missing:
+            raise ValueError("whole-graph AD: differentiated vars %s are "
+                             "not in state or feeds" % (missing,))
+        leaves = [env0[n].detach().requires_grad_(True) for n in diff_names]
+        with torch.enable_grad():
+            env = dict(env0)
+            env.update(zip(diff_names, leaves))
+            env = forward(env, step)
+            loss = env[loss_name]
+            grads = torch.autograd.grad(
+                [loss], leaves, [torch.ones_like(loss)], allow_unused=True)
+        aux = {n: env[n].detach() for n in aux_names if n in env}
+        del env, loss
+        env = dict(env0)
+        env.update(aux)
+        for n, leaf, g in zip(diff_names, leaves, grads):
+            env[grad_var_name(n)] = torch.zeros_like(leaf) if g is None \
+                else g
+        with torch.no_grad():
+            _interpret_ops(update_ops, env, step=step, seed=seed,
+                           device=device, drops=update_drops)
+        fetches = [env.get(n) for n in fetch_names]
+        new_state = {n: env[n] for n in state_names if n in env}
+        return fetches, new_state
+
+    return step_fn

@@ -297,6 +297,7 @@ class FuseBottleneckPass(Pass):
         for op in m.values():
             blk.ops.remove(op)
         blk.ops.insert(first, fused)
+        blk.program._bump_version()
         return True
 
     def apply_impl(self, program):

@@ -1,26 +1,26 @@
 """Optimizers — program-rewriting, after paddle_tpu/fluid/optimizer.py:
-`Optimizer.minimize` (append_backward, then one update op per parameter)
-and `AdamOptimizer`.  Accumulators (moments, beta pows) and the learning
-rate are persistable vars initialised in the startup program, under the
-JAX package's names, so a scope carries across by name.  Gradient
-clipping, regularization and the other optimizers are not ported."""
+`Optimizer.minimize` (append_backward, then regularization, then one
+update op per parameter), `SGDOptimizer`, `MomentumOptimizer` and
+`AdamOptimizer`.  Accumulators (velocities, moments, beta pows) and the
+learning rate are persistable vars initialised in the startup program,
+under the JAX package's names, so a scope carries across by name.
+Gradient clipping and the other optimizers are not ported."""
 
 from . import framework, unique_name
+from . import regularizer as regularizer_mod
 from .backward import append_backward
 from .framework import Variable, default_main_program, \
     default_startup_program
 from .initializer import Constant
 from .layer_helper import LayerHelper
 
-__all__ = ["Adam", "AdamOptimizer"]
+__all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer", "Adam",
+           "AdamOptimizer"]
 
 
 class Optimizer:
     def __init__(self, learning_rate, regularization=None):
-        if regularization is not None:
-            raise NotImplementedError(
-                "Optimizer(regularization=...) is not ported to "
-                "paddle_tpu_torch yet")
+        self.regularization = regularization
         self._learning_rate = learning_rate
         self._learning_rate_map = {}
         self._accumulators = {}  # name -> {param_name: var}
@@ -115,22 +115,68 @@ class Optimizer:
             return append_backward(loss, parameter_list, no_grad_set)
 
     def apply_gradients(self, params_grads):
+        """Sorted by parameter name, then clipping, then regularization,
+        in the JAX package's order."""
+        params_grads = sorted(params_grads, key=lambda x: x[0].name)
         for p, _ in params_grads:
-            if getattr(p, "gradient_clip_attr", None) is not None or \
-                    getattr(p, "regularizer", None) is not None:
+            if getattr(p, "gradient_clip_attr", None) is not None:
                 raise NotImplementedError(
-                    "gradient clipping and regularization (param %s) are "
-                    "not ported to paddle_tpu_torch yet" % p.name)
-        return sorted(params_grads, key=lambda x: x[0].name)
+                    "gradient clipping (param %s) is not ported to "
+                    "paddle_tpu_torch yet" % p.name)
+        return regularizer_mod.append_regularization_ops(
+            params_grads, self.regularization)
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
-        params_grads = self.apply_gradients(params_grads)
+        with framework.program_guard(loss.block.program, startup_program or
+                                     default_startup_program()):
+            params_grads = self.apply_gradients(params_grads)
         optimize_ops = self._create_optimization_pass(
             params_grads, loss, startup_program)
         return optimize_ops, params_grads
+
+
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0]}, infer_shape=False)
+
+
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator(self._velocity_acc_str,
+                                         param_and_grad[0])
+        return block.append_op(
+            type=self.type,
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "Velocity": velocity,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0],
+                     "VelocityOut": velocity},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+            infer_shape=False)
 
 
 class AdamOptimizer(Optimizer):
@@ -185,4 +231,6 @@ class AdamOptimizer(Optimizer):
                     attrs={"scale": beta}, infer_shape=False)
 
 
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -51,6 +51,7 @@ class InferenceTranspiler:
                     attrs={"scale": scale, "bias": 0.0,
                            "bias_after_scale": True}))
             block.ops = new_ops
+            program._bump_version()
 
     def _fuse_batch_norm(self, program, scope):
         """conv2d -> batch_norm, where the conv's output feeds only the
@@ -76,6 +77,7 @@ class InferenceTranspiler:
                             continue
                 result.append(op)
             block.ops = result
+            program._bump_version()
 
     @staticmethod
     def _only_consumer(ops, name):

@@ -5,10 +5,11 @@ conv.  The same layer calls, names and op list as the JAX package, so an
 artifact saved by either package serves in the other.
 
 `layout` selects the activation layout (NCHW, or NHWC — the layout
-FuseBottleneckPass fuses); filters are OIHW in both.  The port builds
-inference programs only: `is_train=True` (Momentum with L2Decay, batch
-statistics in training mode, remat tags) waits for the ResNet training
-slice.
+FuseBottleneckPass fuses); filters are OIHW in both.  `is_train=True`
+builds the training program that the JAX package's bench.py times: batch
+norm on batch statistics, a `remat_tag` at every block's output (the
+boundary of the whole-graph step's `block_out` remat), and Momentum 0.9
+with L2Decay(1e-4).
 """
 
 import paddle_tpu_torch.fluid as fluid
@@ -113,12 +114,7 @@ def get_model(batch_size=256, class_dim=1000, depth=50, dataset="imagenet",
               lr=0.1, is_train=True, dtype="float32", layout="NCHW"):
     """(main, startup, feeds, loss, acc, predict), as the JAX package's
     get_model.  With layout="NHWC" the `data` feed is channels-last
-    ([H, W, 3]).  Only is_train=False is ported."""
-    if is_train:
-        raise NotImplementedError(
-            "resnet.get_model(is_train=True): training needs Momentum with "
-            "L2Decay and batch-norm training statistics, which are not "
-            "ported to paddle_tpu_torch yet; build with is_train=False")
+    ([H, W, 3])."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         if dataset == "imagenet":
@@ -139,4 +135,9 @@ def get_model(batch_size=256, class_dim=1000, depth=50, dataset="imagenet",
         cost = fluid.layers.cross_entropy(input=predict, label=label)
         avg_cost = fluid.layers.mean(cost)
         batch_acc = fluid.layers.accuracy(input=predict, label=label)
+        if is_train:
+            opt = fluid.optimizer.Momentum(
+                learning_rate=lr, momentum=0.9,
+                regularization=fluid.regularizer.L2Decay(1e-4))
+            opt.minimize(avg_cost)
     return main, startup, [image, label], avg_cost, batch_acc, predict

@@ -1,7 +1,7 @@
 """Math / elementwise / reduction / activation op lowerings, after
 paddle_tpu/ops/math_ops.py: gelu, elementwise_add with fluid's `axis`
 broadcasting, mul (fc's matmul), matmul, sum, scale, mean, cumsum, relu,
-softmax and top_k.  The matmuls are plain torch.matmul (TF32 off; bf16
+sign, softmax and top_k.  The matmuls are plain torch.matmul (TF32 off; bf16
 summed in fp32 and rounded once), as the JAX package leaves them to
 XLA."""
 
@@ -122,6 +122,14 @@ def _cumsum(ctx):
 @register_op("relu")
 def _relu(ctx):
     return {"Out": torch.relu(ctx.input("X"))}
+
+
+@register_op("sign")
+def _sign(ctx):
+    """-1, 0 or 1, and a NaN stays NaN (torch.sign gives 0), as
+    jnp.sign; L1Decay's op."""
+    x = ctx.input("X")
+    return {"Out": torch.where(torch.isnan(x), x, torch.sign(x))}
 
 
 @register_op("softmax")

@@ -22,6 +22,7 @@ weights receive fp32 gradients.
 """
 
 import torch
+import torch.utils.checkpoint
 
 __all__ = ["OpDef", "ExecContext", "OpError", "register_op", "get_op_def",
            "has_op", "registered_ops", "infer_shape",
@@ -342,6 +343,14 @@ class OpError(RuntimeError):
     its inputs' shapes/dtypes."""
 
 
+# raised through a lowering, never by one: torch.utils.checkpoint stops a
+# recomputation early by raising this from a saved-tensor hook
+_CONTROL_FLOW = tuple(
+    getattr(torch.utils.checkpoint, name) for name in
+    ("_StopRecomputationError",)
+    if hasattr(torch.utils.checkpoint, name))
+
+
 def _describe_inputs(op, inputs):
     lines = []
     for slot, names in op.inputs.items():
@@ -365,7 +374,7 @@ def call_lower(od, ctx):
     type, input names/shapes/dtypes and attrs."""
     try:
         return od.lower(_amp_context(od, ctx))
-    except (OpError, NotImplementedError):
+    except (OpError, NotImplementedError) + _CONTROL_FLOW:
         raise
     except Exception as e:
         lines = ["%s: %s" % (type(e).__name__, e),

@@ -200,8 +200,11 @@ def test_unported_features_raise():
             tfluid.layers.embedding(ids, size=[5, 2], is_sparse=True)
         with pytest.raises(NotImplementedError):
             tfluid.layers.data("seq", shape=[1], lod_level=1)
-        with pytest.raises(NotImplementedError):
-            tfluid.optimizer.Adam(0.1, regularization=object())
+        x = tfluid.layers.data("x", shape=[3], dtype="float32")
+        loss = tfluid.layers.mean(tfluid.layers.fc(
+            x, size=2, param_attr=tfluid.ParamAttr(gradient_clip=object())))
+        with pytest.raises(NotImplementedError, match="gradient clipping"):
+            tfluid.optimizer.Adam(0.1).minimize(loss)
 
 
 def test_fetch_of_an_unwritten_var_raises():

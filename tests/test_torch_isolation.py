@@ -81,7 +81,12 @@ def test_importing_every_module_loads_no_jax_or_paddle_tpu():
             "paddle_tpu_torch.ops.quant_ops",
             "paddle_tpu_torch.ops.pallas_kernels",
             "paddle_tpu_torch.models.transformer",
-            "paddle_tpu_torch.models.resnet"} <= set(mods)
+            "paddle_tpu_torch.models.resnet",
+            "paddle_tpu_torch.models.mnist",
+            "paddle_tpu_torch.fluid.regularizer",
+            "paddle_tpu_torch.fluid.functionalizer",
+            "paddle_tpu_torch.fluid.nets",
+            "paddle_tpu_torch.bench"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.path.insert(0, %r)\n"

@@ -104,6 +104,16 @@ _CASES = [
     ("flash_attention", "flash_attention",
      {"Q": [_f(2, 16, 32)], "K": [_f(2, 16, 32)], "V": [_f(2, 16, 32)]},
      {"num_heads": 2, "causal": True}),
+    ("sgd", "sgd",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)],
+      "LearningRate": [("lr", (1,))]}, {}),
+    ("momentum", "momentum",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)], "Velocity": [_f(4, 3)],
+      "LearningRate": [("lr", (1,))]}, {"mu": 0.9, "use_nesterov": False}),
+    ("momentum_nesterov", "momentum",
+     {"Param": [_f(5)], "Grad": [_f(5)], "Velocity": [_f(5)],
+      "LearningRate": [("lr", (1,))]}, {"mu": 0.9, "use_nesterov": True}),
+    ("sign", "sign", {"X": [("ties", (4, 6))]}, {}),
     ("relu", "relu", {"X": [_f(3, 4)]}, {}),
     ("softmax", "softmax", {"X": [_f(3, 5)]}, {}),
     ("top_k", "top_k", {"X": [_f(4, 7)]}, {"k": 3}),

@@ -92,8 +92,16 @@ def test_get_model_program_equals_jax():
 
 
 def test_training_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Momentum"):
-        tresnet.get_model(is_train=True)
+    """ResNet training is ported now (tests/test_torch_resnet_train.py):
+    is_train=True builds Momentum with L2Decay, where it used to raise;
+    is_train=False still builds no optimizer op."""
+    main = tresnet.get_model(is_train=True)[0]
+    types = [op.type for op in main.global_block().ops]
+    assert "momentum" in types and "scale" in types
+    infer = tresnet.get_model(is_train=False)[0]
+    assert not any(op.type in ("momentum", "remat_tag") or
+                   op.type.endswith("_grad")
+                   for op in infer.global_block().ops)
 
 
 def _build(pkg, models):
