@@ -126,6 +126,26 @@ Phases, in order; any failure exits non-zero:
                16, 10 classes): two Momentum steps on the card and on the
                CPU, the first losses within 1e-4, and every op of both
                steps on the CPU's inputs within a Frobenius error of 1e-4.
+ 11. zoo     — the benchmark/fluid zoo through the port's fluid_benchmark
+               (paddle_tpu_torch/fluid_benchmark.py) at its published
+               cells: VGG-16 CIFAR-10 (batch 128, NCHW), SE-ResNeXt-50
+               32x4d (batch 64, 224 x 224, NHWC; Momentum, piecewise
+               decay, L2Decay) and stacked_dynamic_lstm (batch 64, dict
+               5147, 512 wide, 3 layers; ragged LoDTensor feeds, lengths
+               3-11 and 64-256).  Lanes per op fp32 and AMP (and
+               whole-graph AMP for SE-ResNeXt), 2 + 20 steps each:
+               examples/s, median step ms, busy share, peak memory, ops
+               and launches a step, the largest device groups.  Gates:
+               finite losses; no hand kernel launches; the LR counter
+               advances once a step (also under block_out remat); the
+               fetched LSTM hidden is a LoDTensor with the feed's
+               lengths; 10 steps on one batch lower the loss; per-op and
+               whole-graph agree bit for bit over 3 steps (fp32,
+               deterministic cuDNN).
+ 12. zoo gpu/cpu — the three models at a small size from one startup
+               state: first losses on the card and on the CPU within
+               1e-4; the small LSTM's 3 losses and persistables within
+               1e-5.
 Phase 2 also holds K5 (dequant_matmul) and K6 (fused_bottleneck) against
 their plain versions: K5 at the int8 lane's fc shape (bf16 x and fp32 x)
 and four others, K6
@@ -2480,29 +2500,35 @@ def _is_update_op(op):
         for n in op.output_arg_names)
 
 
+def _resnet_label(op):
+    if op.type == "batch_norm":
+        return "batch norm fwd"
+    if _is_update_op(op):
+        return "optimizer+regularizer"
+    return None
+
+
 class _op_ranges:
-    """While active, the batch-norm forward lowerings and the update
-    region's ops run inside torch.profiler ranges ("grp:batch norm fwd",
-    "grp:optimizer+regularizer"), so a profile can split their kernels
+    """While active, each forward lowering that `label(op)` names runs
+    inside a torch.profiler range "grp:<label>" (by default the batch
+    norms' and the update region's), so a profile can split their kernels
     from the rest (the backward runs on autograd's own thread and is
     split by aten op instead)."""
 
-    def __init__(self, registry):
+    def __init__(self, registry, label=_resnet_label):
         self.registry = registry
         self.orig = registry.call_lower
+        self.label = label
 
     def __enter__(self):
         from torch.profiler import record_function
-        orig = self.orig
+        orig, label_of = self.orig, self.label
 
         def ranged(od, ctx):
-            if od.type == "batch_norm":
-                label = "grp:batch norm fwd"
-            elif _is_update_op(ctx.op):
-                label = "grp:optimizer+regularizer"
-            else:
+            label = label_of(ctx.op)
+            if label is None:
                 return orig(od, ctx)
-            with record_function(label):
+            with record_function("grp:" + label):
                 return orig(od, ctx)
         self.registry.call_lower = ranged
 
@@ -2527,7 +2553,7 @@ def _aten_group(name):
     return "other"
 
 
-def _train_profile_groups(torch, prof):
+def _train_profile_groups(torch, prof, aten_group=_aten_group):
     """{group: device us} of a profile: each kernel goes to the innermost
     'grp:' range above the CPU op that launched it, else to that op's
     aten group.  Empty when the profile links no kernel to a CPU op."""
@@ -2542,7 +2568,7 @@ def _train_profile_groups(torch, prof):
                 group = p.name[4:]
                 break
             p = p.cpu_parent
-        group = group or _aten_group(e.name)
+        group = group or aten_group(e.name)
         groups[group] = groups.get(group, 0.0) + sum(
             k.duration for k in kernels)
     return groups
@@ -2789,8 +2815,15 @@ def _forced_device_step(torch, fluid, functionalizer, registry, main, env0,
                 else:
                     outs = registry.call_lower(od, ctx)
                 functionalizer._write_outputs(op, outs, env)
+                functionalizer._propagate_lod(op, env)
             for n in op.output_arg_names:
                 if not n or last[n] != i:
+                    continue
+                if n not in values:
+                    # a declared output no lowering writes (the lstm's
+                    # BatchGate): the card must not write it either
+                    check(n not in env, "train gpu/cpu: %s (%s) written "
+                          "on the card only" % (n, op.type))
                     continue
                 want = values[n]
                 got = env[n].cpu()
@@ -2801,7 +2834,7 @@ def _forced_device_step(torch, fluid, functionalizer, registry, main, env0,
                                     1e-30))
                     worst = max(worst, (err, n, op.type))
                 else:
-                    check(torch.equal(got, want), "resnet train gpu/cpu: "
+                    check(torch.equal(got, want), "train gpu/cpu: "
                           "%s (%s) differs" % (n, op.type))
                 env[n] = want.to(device)
     return worst
@@ -2878,6 +2911,462 @@ def phase_resnet_train_gpu_vs_cpu(torch, fluid):
         "tolerance 1e-4); op by op over 2 steps, worst %s (%s) at %.3g "
         "(tolerance 1e-4)" % (RT_SMALL_BATCH, losses["gpu"], losses["cpu"],
                                err, worst[1], worst[2], worst[0]))
+
+
+ZOO_ITERS = 20
+ZOO_SKIP = 2
+# (model, the fluid_benchmark flags of its published cell, whole-graph AMP
+# lane too); the LSTM runs twice, at the JAX tool's lengths 3-11 (T 16)
+# and at 64-256 (T 256), the IMDB reviews' range
+ZOO_MODELS = (
+    ("vgg", ["--model", "vgg", "--batch_size", "128"], False),
+    ("se_resnext", ["--model", "se_resnext", "--batch_size", "64",
+                    "--layout", "NHWC"], True),
+    ("lstm T16", ["--model", "stacked_dynamic_lstm", "--batch_size", "64"],
+     False),
+    ("lstm T256", ["--model", "stacked_dynamic_lstm", "--batch_size", "64",
+                   "--seq_len", "256"], False),
+)
+ZOO_REMAT = "block_out"
+ZOO_COUNTER = "@LR_DECAY_COUNTER@"
+
+
+def _zoo_label(op):
+    """The profile group of a forward lowering, or None (its aten ops'
+    group): batch norm, the LSTM's step loop, the update region (the
+    optimizer, its regularizer and beta-pow scales, the LR schedule)."""
+    if op.type == "batch_norm":
+        return "batch norm fwd"
+    if op.type == "lstm":
+        return "lstm step loop fwd"
+    if op.type in ("adam", "increment", "less_than", "where") or \
+            _is_update_op(op) or any(
+                n.endswith("_pow_acc_0") for n in op.output_arg_names):
+        return "update (optimizer, regularizer, LR schedule)"
+    return None
+
+
+def _zoo_aten_group(name):
+    if name in ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul",
+                "aten::linear"):
+        return "matmul (fc, LSTM gates)"
+    return _aten_group(name)
+
+
+def _zoo_args(fb, argv, amp, whole_graph, iters=ZOO_ITERS, skip=ZOO_SKIP,
+              remat=None):
+    extra = ["--iterations", str(iters), "--skip_batch_num", str(skip)]
+    if not amp:
+        extra.append("--no_amp")
+    if whole_graph:
+        extra.append("--whole_graph_ad")
+    if remat:
+        extra += ["--remat_policy", remat]
+    return fb.parse_args(argv + extra)
+
+
+def _zoo_lane(torch, pk, registry, functionalizer, fb, model, argv, amp,
+              whole_graph):
+    """One lane of phase_zoo_train through fluid_benchmark.benchmark:
+    ZOO_SKIP + ZOO_ITERS steps on fresh synthetic batches, then (with the
+    lane's flags still set) one profiled step and the lane's checks.
+    Launch counts are zeroed just before and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+    label = "%s %s %s" % (model, "whole-graph" if whole_graph else "per-op",
+                          "amp" if amp else "fp32")
+    args = _zoo_args(fb, argv, amp, whole_graph)
+    seen = {}
+
+    def after(d):
+        feed = d["make_batch"]()
+        with _op_ranges(registry, _zoo_label), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            outs = d["exe"].run(d["main"], feed=feed, fetch_list=d["fetch"],
+                                scope=d["scope"])
+            torch.cuda.synchronize()
+            seen["prof_ms"] = (time.perf_counter() - t0) * 1e3
+        seen["prof"] = prof
+        seen["losses"] = list(d["losses"]) + [float(np.asarray(
+            outs[0]).ravel()[0])]
+        seen["ops"] = _train_ops_per_step(functionalizer, d["main"],
+                                          whole_graph)
+        if model.startswith("lstm"):
+            feed = d["make_batch"]()
+            loss, hidden = d["exe"].run(
+                d["main"], feed=feed, fetch_list=[d["fetch"][0],
+                                                  "lstm_0.tmp_0"],
+                scope=d["scope"])
+            seen["hidden"] = (type(hidden).__name__,
+                              hidden.recursive_sequence_lengths()
+                              if hasattr(hidden, "lod") else None,
+                              feed["words"].recursive_sequence_lengths(),
+                              np.asarray(hidden).shape)
+            seen["losses"].append(float(np.asarray(loss).ravel()[0]))
+        seen["steps_run"] = d["exe"]._step_counters[id(d["main"])]
+        counter = d["scope"].get(ZOO_COUNTER)
+        seen["counter"] = None if counter is None else float(counter[0])
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_counts()
+    t0 = time.time()
+    record, detail = fb.benchmark(args, after=after)
+    counts = dict(pk.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.time() - t0
+    losses = seen["losses"]
+    check(all(np.isfinite(losses)), "zoo %s: non-finite loss %s"
+          % (label, losses))
+    launched = {k: v for k, v in counts.items() if v}
+    check(not launched, "zoo %s: hand kernels launched on a training lane "
+          "(none is on this path): %s" % (label, launched))
+    if seen["counter"] is not None:
+        # the counter starts at -1 and reads the completed steps - 1
+        check(seen["counter"] == seen["steps_run"] - 1,
+              "zoo %s: the LR counter reads %s after %d steps (want %d)"
+              % (label, seen["counter"], seen["steps_run"],
+                 seen["steps_run"] - 1))
+    if "hidden" in seen:
+        kind, got, want, shape = seen["hidden"]
+        check(kind == "LoDTensor" and got == want,
+              "zoo %s: the fetched LSTM hidden is %s with lengths %s, not a "
+              "LoDTensor with the feed's %s" % (label, kind, got, want))
+    step_ms = float(np.median(detail["step_s"])) * 1e3
+    prof = seen["prof"]
+    rows = [r for r in profile_rows(torch, prof, 1)[1]
+            if not r[2].startswith("grp:")]
+    device_ms = sum(r[0] for r in rows) / 1e3
+    out = {"label": label, "record": record, "losses": losses,
+           "examples_per_s": record["examples_per_sec"],
+           "median_step_ms": step_ms,
+           "step_ms": [s * 1e3 for s in detail["step_s"]],
+           "peak_mem_bytes": peak, "ops_per_step": seen["ops"],
+           "profiled_step_ms": seen["prof_ms"], "wall_s": wall,
+           "counter": seen["counter"], "steps_run": seen["steps_run"]}
+    if "hidden" in seen:
+        out["hidden"] = {"lengths": seen["hidden"][1][0][:8],
+                         "rows": seen["hidden"][3][0]}
+    log("zoo %s: losses %s" % (label, ["%.4f" % x for x in losses]))
+    if rows:
+        groups = _train_profile_groups(torch, prof, _zoo_aten_group)
+        out.update({"launches_per_step": sum(r[1] for r in rows),
+                    "device_busy_ms": device_ms,
+                    "busy_share": device_ms / step_ms,
+                    "groups_us": groups,
+                    "top": [{"kernel": k[:160], "us": us, "launches": c}
+                            for us, c, k in rows[:10]]})
+        log("zoo %s: %.1f examples/s, median step %.2f ms (%d timed steps), "
+            "%d ops and %.0f launches a step, device busy %.2f ms = %.1f%% "
+            "of the step, peak memory %.2f GiB, %.1f s in all"
+            % (label, record["examples_per_sec"], step_ms, ZOO_ITERS,
+               seen["ops"], out["launches_per_step"], device_ms,
+               100 * device_ms / step_ms, peak / 2 ** 30, wall))
+        for g, us in sorted(groups.items(), key=lambda x: -x[1])[:6]:
+            log("zoo %s profile:   %10.1f us  [%s]" % (label, us, g))
+        for us, c, k in rows[:5]:
+            log("zoo %s profile:   %10.1f us  %5d launches  %s"
+                % (label, us, c, k[:90]))
+    else:
+        log("zoo %s: %.1f examples/s, median step %.2f ms, peak %.2f GiB; "
+            "torch.profiler saw no device time: busy share not measured"
+            % (label, record["examples_per_sec"], step_ms, peak / 2 ** 30))
+    log(json.dumps(record))
+    log(json.dumps({"zoo_lane": out}))
+    return out
+
+
+def zoo_program_stats(fluid, fb, argv, T=None):
+    """(ops per op, ops whole-graph, forward multiply-adds, training FLOP,
+    fp32 forward activation bytes) of a cell's program at its batch; a
+    ragged var counts B x T rows (T: the padded length)."""
+    from paddle_tpu_torch.fluid import functionalizer
+    args = fb.parse_args(argv)
+    B = args.batch_size
+    with fluid.unique_name.guard():
+        main = fb.build_model(args)[0]
+    gb = main.global_block()
+    fwd, update, _ = functionalizer._partition_whole_graph(gb)
+
+    def shape(n):
+        v = gb._find_var_recursive(n)
+        lead = [B, T] if v.lod_level and T else [B]
+        return lead + [d for d in v.shape[1:]]
+    macs = act = 0
+    for op in fwd:
+        if op.type == "conv2d":
+            w = gb._find_var_recursive(op.input("Filter")[0]).shape
+            macs += np.prod(shape(op.output("Output")[0])) * np.prod(w[1:])
+        elif op.type == "mul":
+            x = gb._find_var_recursive(op.input("X")[0])
+            y = gb._find_var_recursive(op.input("Y")[0]).shape
+            rows = B * (T if x.lod_level and T else 1)
+            macs += rows * y[0] * y[1]
+        elif op.type == "lstm":
+            w = gb._find_var_recursive(op.input("Weight")[0]).shape
+            macs += B * T * w[0] * w[1]
+        for n in op.output_arg_names:
+            v = gb._find_var_recursive(n)
+            if v is not None and not v.persistable and v.shape and \
+                    v.dtype == fluid.core.VarDesc.VarType.FP32:
+                act += int(np.prod(shape(n))) * 4
+    return (len(gb.ops), len(fwd) + len(update), float(macs),
+            6.0 * float(macs), float(act))
+
+
+def _zoo_one_batch(torch, fluid, fb, model, argv):
+    """10 per-op fp32 steps of the cell's program on one of the tool's
+    synthetic batches from its startup state: the loss must fall below
+    the first step's.  The tool's labels lie in {0, 1}; at SE-ResNeXt's
+    lr 0.1 its softmax saturates on that two-class prior within 3 steps
+    and cross_entropy's 1e-8 floor stops the gradient (in the JAX package
+    too), so its batch draws labels over all 1000 classes."""
+    args = _zoo_args(fb, argv, False, False)
+    with fluid.unique_name.guard():
+        main, startup, feeds, loss, _, predict = fb.build_model(args)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(1)
+    feed = fb.synth_feed(feeds, args.batch_size, rng, program=main,
+                         lengths=fb.lod_lengths(args))
+    if args.model == "se_resnext":
+        feed["label"] = rng.randint(0, predict.shape[-1],
+                                    (args.batch_size, 1)).astype(np.int64)
+    losses = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss],
+                                       scope=scope)[0]).ravel()[0])
+              for _ in range(10)]
+    check(all(np.isfinite(losses)) and min(losses[5:]) < losses[0],
+          "zoo %s: 10 per-op fp32 steps on one batch did not lower the "
+          "loss below the first step's: %s" % (model, losses))
+    log("zoo %s: one batch, per-op fp32: losses %s"
+        % (model, ["%.4f" % x for x in losses]))
+    del exe, scope
+    torch.cuda.empty_cache()
+
+
+def _zoo_paths_agree(torch, fb, model, argv):
+    """3 steps per op and whole graph from one startup state (the same
+    seed on the card) on the same 3 batches, deterministic cuDNN: fp32
+    bit for bit; SE-ResNeXt also under AMP (within 2e-2, as the ResNet
+    training gate) and under block_out remat (the counter reads 2, the first
+    loss equals the unremat whole-graph one within one bf16 ulp)."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        kinds = [("fp32", False, None)]
+        if model == "se_resnext":
+            kinds += [("amp", True, None), ("amp", True, ZOO_REMAT)]
+        for kind, amp, remat in kinds:
+            for whole in ((False, True) if remat is None else (True,)):
+                _, d = fb.benchmark(_zoo_args(fb, argv, amp, whole, iters=3,
+                                              skip=0, remat=remat))
+                counter = d["scope"].get(ZOO_COUNTER)
+                runs[(kind, whole, remat)] = (
+                    d["losses"], None if counter is None
+                    else float(counter[0]))
+                del d
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    per_op, whole = runs[("fp32", False, None)], runs[("fp32", True, None)]
+    check(per_op == whole, "zoo %s fp32: per-op %s and whole-graph %s "
+          "(losses, counter) are not bit for bit equal over 3 steps"
+          % (model, per_op, whole))
+    log("zoo %s fp32: 3 steps per-op %s, whole-graph %s (deterministic "
+        "cuDNN): bit for bit %s" % (model, per_op[0], whole[0],
+                                    per_op == whole))
+    if model != "se_resnext":
+        return
+    a, b = runs[("amp", False, None)], runs[("amp", True, None)]
+    err = max(abs(x - y) / max(abs(x), 1e-30) for x, y in zip(a[0], b[0]))
+    check(err <= 2e-2 and a[1] == b[1] == 2.0,
+          "zoo se_resnext amp: per-op %s and whole-graph %s disagree (max "
+          "rel err %.3g > 2e-2) or the counters %s, %s are not 2"
+          % (a[0], b[0], err, a[1], b[1]))
+    r = runs[("amp", True, ZOO_REMAT)]
+    rerr = abs(r[0][0] - b[0][0]) / max(abs(b[0][0]), 1e-30)
+    check(r[1] == 2.0 and rerr <= 2.0 ** -7,
+          "zoo se_resnext amp remat %s: counter %s (want 2.0), first loss "
+          "%.6f against %.6f without remat" % (ZOO_REMAT, r[1], r[0][0],
+                                               b[0][0]))
+    log("zoo se_resnext amp: per-op %s, whole-graph %s: max rel err %.3g "
+        "(bit for bit %s); %s remat %s, counter %s, first loss rel err %.3g"
+        % (a[0], b[0], err, a[0] == b[0], ZOO_REMAT, r[0], r[1], rerr))
+
+
+def phase_zoo_train(torch, pk, fluid):
+    """The benchmark/fluid zoo at its published cells through the port's
+    fluid_benchmark (python -m paddle_tpu_torch.fluid_benchmark): VGG-16
+    CIFAR-10 (batch 128, 32 x 32, NCHW), SE-ResNeXt-50 32x4d (batch 64,
+    224 x 224, NHWC) and stacked_dynamic_lstm (batch 64, dict 5147, emb
+    and hid 512, 3 layers) at lengths 3-11 (T 16) and 64-256 (T 256).
+    Lanes per op in fp32 and in the tool's AMP default, SE-ResNeXt also
+    whole-graph AMP; ZOO_SKIP + ZOO_ITERS steps on fresh synthetic
+    batches each, a profiled step, and the gates: finite losses, no hand
+    kernel launches, the LR counter, the LSTM's LoDTensor fetch, and per
+    model (the T 16 LSTM for both) the loss falling on one batch and
+    per-op against whole-graph."""
+    from paddle_tpu_torch import fluid_benchmark as fb
+    from paddle_tpu_torch.fluid import functionalizer
+    from paddle_tpu_torch.ops import registry
+    lanes = []
+    for model, argv, whole_amp in ZOO_MODELS:
+        t0 = time.time()
+        T = {"lstm T16": 16, "lstm T256": 256}.get(model)
+        ops, wg_ops, macs, flop, act = zoo_program_stats(fluid, fb, argv, T)
+        log("zoo %s: %d ops per op, %d whole-graph; %.4g forward "
+            "multiply-adds, %.4g FLOP a training step, %.4g bytes of fp32 "
+            "forward activations" % (model, ops, wg_ops, macs, flop, act))
+        for amp, whole in ((False, False), (True, False)) + (
+                ((True, True),) if whole_amp else ()):
+            lanes.append(_zoo_lane(torch, pk, registry, functionalizer, fb,
+                                   model, argv, amp, whole))
+            torch.cuda.empty_cache()
+        if model != "lstm T256":
+            _zoo_one_batch(torch, fluid, fb, model, argv)
+            _zoo_paths_agree(torch, fb, model, argv)
+        log("zoo %s: %.1f s" % (model, time.time() - t0))
+    return lanes
+
+
+def _zoo_small_programs(fluid):
+    """The three models at a small size, dropout off (the card's and the
+    CPU's generators draw other masks): (name, main, startup, loss, feed
+    maker, steps)."""
+    from paddle_tpu_torch.models import se_resnext, stacked_dynamic_lstm, vgg
+
+    def no_dropout(main):
+        for op in main.global_block().ops:
+            if op.type == "dropout":
+                op.attrs["dropout_prob"] = 0.0
+            if op.type == "dropout_grad":
+                op.attrs["fwd_attrs"]["dropout_prob"] = 0.0
+        main._bump_version()
+
+    def image_feed(shape):
+        def make(step):
+            rng = np.random.RandomState(step)
+            return {"data": rng.randn(*shape).astype(np.float32),
+                    "label": rng.randint(0, 10, (shape[0], 1))}
+        return make
+
+    def lstm_feed(step):
+        rng = np.random.RandomState(step)
+        lens = [3, 7, 1, 5]
+        words = fluid.create_lod_tensor(
+            rng.randint(0, 50, (sum(lens), 1)).astype(np.int64), [lens],
+            None)
+        return {"words": words, "label": rng.randint(0, 2, (4, 1))}
+
+    out = []
+    with fluid.unique_name.guard():
+        m, s, _, loss, _, _ = vgg.get_model(batch_size=4)
+    no_dropout(m)
+    out.append(("vgg (batch 4, 32x32)", m, s, loss,
+                image_feed((4, 3, 32, 32)), 1))
+    with fluid.unique_name.guard():
+        m, s, _, loss, _, _ = se_resnext.get_model(
+            batch_size=8, class_dim=10, img_size=32, layout="NHWC")
+    no_dropout(m)
+    out.append(("se_resnext (batch 8, 32x32, 10 classes)", m, s, loss,
+                image_feed((8, 32, 32, 3)), 1))
+    with fluid.unique_name.guard():
+        m, s, _, loss, _, _ = stacked_dynamic_lstm.get_model(
+            dict_dim=50, emb_dim=16, hid_dim=16, stacked_num=2)
+    out.append(("stacked_dynamic_lstm (2 layers, 16 wide, batch 4)", m, s,
+                loss, lstm_feed, 3))
+    return out
+
+
+def _worst_spread(a, b):
+    """The largest max|a - b| over arrays, relative to b's largest
+    magnitude: (spread, name)."""
+    worst = (0.0, "")
+    for n in b:
+        scale = max(float(np.abs(b[n]).max()), 1e-30)
+        worst = max(worst, (float(np.abs(a[n] - b[n]).max()) / scale, n))
+    return worst
+
+
+def phase_zoo_gpu_vs_cpu(torch, fluid):
+    """Each zoo model at a small size from one startup state (run on the
+    CPU, carried to the card), deterministic cuDNN: the first loss on the
+    card and on the CPU within 1e-4 relative.  The small LSTM trains 3
+    Adam steps free running, its losses within 1e-5; and each of those
+    steps is held op by op, every op on the card on the CPU step's values
+    of its inputs, every value it writes (the updated parameters and
+    moments included) within a Frobenius error of 1e-5 of the CPU's.
+    The free-running parameters are printed beside the CPU's own spread
+    when one embedding ulp moves: Adam turns a bias grad summed with
+    cancellation into a parameter step, so a free-running parameter of
+    this model is no better conditioned than that spread."""
+    from paddle_tpu_torch.fluid import functionalizer
+    from paddle_tpu_torch.ops import registry
+    cpu, gpu = fluid.CPUPlace(), fluid.CUDAPlace(0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, main, startup, loss, make, steps in \
+                _zoo_small_programs(fluid):
+            scope0 = fluid.Scope()
+            fluid.Executor(cpu).run(startup, scope=scope0)
+            init = {n: scope0.get(n).numpy() for n in scope0.keys()}
+            nudged = dict(init)
+            if steps > 1:
+                emb = "embedding_0.w_0"
+                nudged[emb] = np.nextafter(init[emb], np.float32(np.inf))
+            res = {}
+            for dev, place, state in (("gpu", gpu, init), ("cpu", cpu, init),
+                                      ("cpu nudged", cpu, nudged)):
+                if dev == "cpu nudged" and steps == 1:
+                    continue
+                scope = fluid.scope_from_jax(state, fluid.Scope(), place)
+                exe = fluid.Executor(place)
+                losses = [float(np.asarray(exe.run(
+                    main, feed=make(s), fetch_list=[loss],
+                    scope=scope)[0]).ravel()[0]) for s in range(steps)]
+                res[dev] = (losses, {n: scope.get(n).cpu().numpy()
+                                     for n in init})
+            (lg, sg), (lc, sc) = res["gpu"], res["cpu"]
+            err = abs(lg[0] - lc[0]) / abs(lc[0])
+            check(err <= 1e-4, "zoo gpu/cpu %s: first losses gpu %.6f cpu "
+                  "%.6f (rel err %.3g > 1e-4)" % (name, lg[0], lc[0], err))
+            if steps == 1:
+                log("zoo gpu/cpu %s (fp32): first losses gpu %s cpu %s, rel "
+                    "err %.3g (tolerance 1e-4)" % (name, lg, lc, err))
+                continue
+            check(all(abs(x - y) <= 1e-5 * abs(y) for x, y in zip(lg, lc)),
+                  "zoo gpu/cpu %s: losses gpu %s cpu %s (tolerance 1e-5)"
+                  % (name, lg, lc))
+            # op by op: the CPU step keeps every value it writes
+            state = {n: torch.from_numpy(v) for n, v in init.items()}
+            exe = fluid.Executor(cpu)
+            worst_op = (0.0, "", "")
+            for step in range(steps):
+                env0 = dict(state)
+                env0.update(exe._prepare_feeds(main, make(step)))
+                values = functionalizer.run_block(
+                    main.global_block(), dict(env0), step=step,
+                    seed=main.random_seed, device=torch.device("cpu"))
+                worst_op = max(worst_op, _forced_device_step(
+                    torch, fluid, functionalizer, registry, main, env0,
+                    values, gpu.torch_device(), step))
+                state = {n: values[n] for n in state}
+            check(worst_op[0] <= 1e-5, "zoo gpu/cpu %s: %s (%s) on the card "
+                  "lies %.3g (Frobenius, relative) from the CPU's" % (
+                      name, worst_op[1], worst_op[2], worst_op[0]))
+            free = _worst_spread(sg, sc)
+            nudge = _worst_spread(res["cpu nudged"][1], sc)
+            log("zoo gpu/cpu %s (fp32): losses gpu %s cpu %s (tolerance "
+                "1e-5); op by op over %d steps, worst %s (%s) at %.3g "
+                "(tolerance 1e-5); free running, the worst persistable %s "
+                "at %.3g of its largest magnitude, against %s at %.3g on "
+                "the CPU when one embedding ulp moves" % (
+                    name, lg, lc, steps, worst_op[1], worst_op[2],
+                    worst_op[0], free[1], free[0], nudge[1], nudge[0]))
+    finally:
+        torch.backends.cudnn.deterministic = False
 
 
 def main():
@@ -3001,7 +3490,14 @@ def main():
     t_phase = time.time()
     phase_resnet_train(torch, pk, fluid)
     phase_resnet_train_gpu_vs_cpu(torch, fluid)
-    log("resnet train phases: %.1f s; the whole script %.1f s"
+    log("resnet train phases: %.1f s" % (time.time() - t_phase))
+    # 11. the benchmark/fluid zoo at its published cells, 12. small zoo
+    # models on the card vs the CPU
+    t_phase = time.time()
+    phase_zoo_train(torch, pk, fluid)
+    torch.cuda.empty_cache()
+    phase_zoo_gpu_vs_cpu(torch, fluid)
+    log("zoo phases: %.1f s; the whole script %.1f s"
         % (time.time() - t_phase, time.time() - t_main))
     log(smi)
     log(json.dumps({"kernels": [entry] + flash_entries + flash_bf16_entries

@@ -18,14 +18,17 @@ with one `torch.autograd.grad` over the forward region
 (`functionalizer.build_whole_graph_step_fn`), under `FLAGS.remat_policy`
 if one is set.  `fluid.set_amp(True)` runs the following programs in
 bf16 mixed precision (ops/registry.py's AMP lists), as the JAX
-package's does.
+package's does.  Ragged sequences go in as `fluid.LoDTensor` feeds
+(`fluid.create_lod_tensor`) of `layers.data(..., lod_level=1)` vars.
 """
 
-from . import (backward, core, executor, framework, functionalizer,
-               initializer, io, ir_passes, layers, nets, optimizer,
-               regularizer, transpiler, unique_name)
+from . import (backward, core, data_feeder, executor, framework,
+               functionalizer, initializer, io, ir_passes, layers, lod, nets,
+               optimizer, regularizer, transpiler, unique_name)
 from .backward import append_backward
 from .core import CPUPlace, CUDAPlace
+from .data_feeder import DataFeeder
+from .lod import LoDTensor, create_lod_tensor, create_random_int_lodtensor
 from .executor import Executor, Scope, as_numpy, global_scope, scope_guard
 from .framework import (Operator, Parameter, Program, Variable,
                         default_main_program, default_startup_program,
@@ -38,10 +41,11 @@ from .transpiler import InferenceTranspiler
 from ..ops.registry import amp_enabled, set_amp
 
 __all__ = [
-    "backward", "core", "executor", "framework", "functionalizer",
-    "initializer", "io", "ir_passes", "layers", "nets", "optimizer",
-    "regularizer", "transpiler", "unique_name",
-    "append_backward", "CPUPlace",
+    "backward", "core", "data_feeder", "executor", "framework",
+    "functionalizer", "initializer", "io", "ir_passes", "layers", "lod",
+    "nets", "optimizer", "regularizer", "transpiler", "unique_name",
+    "append_backward", "CPUPlace", "DataFeeder", "LoDTensor",
+    "create_lod_tensor", "create_random_int_lodtensor",
     "CUDAPlace", "Executor", "Scope", "as_numpy", "global_scope",
     "scope_guard", "Operator", "Parameter", "Program", "Variable",
     "default_main_program", "default_startup_program", "program_guard",

@@ -18,6 +18,11 @@ last step's fetches.
 bfloat16 crosses the host boundary as `ml_dtypes.bfloat16` numpy arrays,
 as in the JAX package: a feed may be one (or a torch bf16 tensor), and a
 bf16 fetch comes back as one.
+
+A `LoDTensor` feed (fluid/lod.py) becomes the padded [B, T, ...] tensor
+on the Executor's device plus its `<name>@LOD_LEN` int32 lengths; a
+fetched var with lengths comes back as a packed `LoDTensor`, whatever
+`return_numpy` says, as the JAX Executor returns it.
 """
 
 import threading
@@ -29,6 +34,8 @@ from .. import resolve_device
 from ..ops import registry
 from . import core, functionalizer
 from .framework import Variable, default_main_program
+from .functionalizer import LOD_LEN_SUFFIX
+from .lod import LoDTensor, pad_lod_feed, unpad_to_lod_tensor
 # the per-op interpreter and the state set live in functionalizer.py;
 # importable from here as before
 from .functionalizer import persistable_names, run_block  # noqa: F401
@@ -135,6 +142,15 @@ class Executor:
         feeds = {}
         for name, value in feed.items():
             v = gb._find_var_recursive(name)
+            if isinstance(value, LoDTensor) and value.lod():
+                value, lens, seg = pad_lod_feed(value)
+                if seg is not None:
+                    raise NotImplementedError(
+                        "feed %r: nested (lod_level 2) LoD feeds are not "
+                        "ported to paddle_tpu_torch yet (ROADMAP.md, queue "
+                        "1 item 13)" % name)
+                feeds[name + LOD_LEN_SUFFIX] = torch.from_numpy(lens).to(
+                    self.device)
             t = value if isinstance(value, torch.Tensor) \
                 else as_tensor(value)
             if v is not None and v.dtype is not None:
@@ -162,11 +178,15 @@ class Executor:
         return fn
 
     def _prepare_step(self, program, feed, fetch_list, scope):
+        """(step fn, state, feeds, fetch names); the step fn also fetches
+        each fetch's lengths companion (None for a dense var)."""
         if len(program.blocks) != 1:
             raise NotImplementedError(
                 "Executor.run: programs with sub-blocks (control flow) are "
                 "not ported to paddle_tpu_torch yet")
         fetch_names = tuple(_fetch_name(f) for f in (fetch_list or []))
+        fetch_ext = fetch_names + tuple(n + LOD_LEN_SUFFIX
+                                        for n in fetch_names)
         feeds = self._prepare_feeds(program, feed or {})
         state_names = tuple(persistable_names(program))
         state = {}
@@ -175,21 +195,31 @@ class Executor:
             if val is not None:
                 state[n] = val if val.device == self.device \
                     else val.to(self.device)
-        fn = self._step_fn(program, tuple(sorted(feeds)), fetch_names,
+        fn = self._step_fn(program, tuple(sorted(feeds)), fetch_ext,
                            state_names)
         return fn, state, feeds, fetch_names
 
     @staticmethod
     def _finish(scope, new_state, fetch_names, fetches, return_numpy):
+        """Persistables to the scope; fetches out, a ragged one as a
+        packed LoDTensor of its real rows."""
         for n, val in new_state.items():
             scope.set(n, val)
-        for n, val in zip(fetch_names, fetches):
+        n_names = len(fetch_names)
+        out = []
+        for n, val, lens in zip(fetch_names, fetches[:n_names],
+                                fetches[n_names:]):
             if val is None:
                 raise KeyError("fetch %r: no op of the program wrote it"
                                % n)
-        if return_numpy:
-            return [as_numpy(f) for f in fetches]
-        return list(fetches)
+            if lens is not None:
+                out.append(unpad_to_lod_tensor(as_numpy(val),
+                                               as_numpy(lens)))
+            elif return_numpy:
+                out.append(as_numpy(val))
+            else:
+                out.append(val)
+        return out
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):

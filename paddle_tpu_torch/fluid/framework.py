@@ -254,6 +254,15 @@ class Block:
             registry.infer_shape(op, self)
         return op
 
+    def _prepend_op(self, type=None, inputs=None, outputs=None, attrs=None):
+        """An op at the head of the block, with no shape inference (the
+        LR schedules' step counter)."""
+        op = Operator(self, type=type, inputs=inputs, outputs=outputs,
+                      attrs=attrs)
+        self.ops.insert(0, op)
+        self.program._bump_version()
+        return op
+
     def _serialize(self):
         return {
             "idx": self.idx, "parent_idx": self.parent_idx,

@@ -20,6 +20,15 @@ interprets it eagerly, in one of two forms:
     the backward.
 
 `run_loop` is the JAX package's `jit_loop` as a plain loop of the step.
+
+Ragged (LoD) vars are padded [B, T, ...] tensors in the env, each with a
+`<name>@LOD_LEN` int32 [B] lengths companion (fluid/lod.py).  An op sees
+the companions of its inputs as `<slot>@LOD_LEN` input slots
+(ExecContext.lod_len); a lowering may write `<slot>@LOD_LEN` outputs,
+and every other op's outputs inherit its first ragged input's lengths
+(`_propagate_lod`), except the ops of `_LOD_DROP_OPS`, which reduce over
+time.  A companion lives as long as its var, and is an integer input
+that autograd never differentiates.
 """
 
 import functools
@@ -31,7 +40,28 @@ from ..ops import registry
 from .framework import GRAD_VAR_SUFFIX as GRAD_SUFFIX, grad_var_name
 
 __all__ = ["persistable_names", "run_block", "build_step_fn",
-           "build_whole_graph_step_fn", "run_loop", "flags_ad_config"]
+           "build_whole_graph_step_fn", "run_loop", "flags_ad_config",
+           "LOD_LEN_SUFFIX"]
+
+# the companion of a ragged var: its int32 [B] sequence lengths
+LOD_LEN_SUFFIX = "@LOD_LEN"
+
+# ops whose outputs leave the ragged domain (they reduce over time, or
+# are not row views of their inputs): their outputs inherit no lengths.
+# The JAX package's set, kept whole so both packages agree as ops land.
+_LOD_DROP_OPS = frozenset([
+    "sequence_pool", "sequence_first_step", "sequence_last_step",
+    "sequence_length", "kmax_seq_score", "lambda_rank",
+    "sequence_mask", "mean", "reduce_sum", "reduce_mean", "reduce_max",
+    "shape", "accuracy", "top_k",
+    "linear_chain_crf", "warpctc", "edit_distance", "chunk_eval", "auc",
+    "mean_iou", "precision_recall",
+    "bipartite_match", "target_assign", "mine_hard_examples",
+    "multiclass_nms", "generate_proposals",
+    "sequence_scatter",
+    "detection_map", "generate_proposal_labels", "lod_rank_table",
+    "while_grad_dynamic",
+])
 
 
 def persistable_names(program):
@@ -58,17 +88,49 @@ def _is_generic_grad(op):
 
 
 def _gather_inputs(op, env):
-    return {slot: [env.get(n) if n else None for n in names]
-            for slot, names in op.inputs.items()}
+    """{slot: [values]}, plus `<slot>@LOD_LEN` for a slot with a ragged
+    input."""
+    vals = {}
+    for slot, names in op.inputs.items():
+        vals[slot] = [env.get(n) if n else None for n in names]
+        lens = [env.get(n + LOD_LEN_SUFFIX) if n else None for n in names]
+        if any(n is not None for n in lens):
+            vals[slot + LOD_LEN_SUFFIX] = lens
+    return vals
 
 
 def _write_outputs(op, outs, env):
+    """Write a lowering's outputs; an `<slot>@LOD_LEN` output is the
+    companion of that slot's vars."""
     for slot, vals in outs.items():
         if not isinstance(vals, (list, tuple)):
             vals = [vals]
-        for name, val in zip(op.outputs.get(slot, []), vals):
+        suffix = LOD_LEN_SUFFIX if slot.endswith(LOD_LEN_SUFFIX) else ""
+        names = op.outputs.get(slot[:len(slot) - len(suffix)], [])
+        for name, val in zip(names, vals):
             if name and val is not None:
-                env[name] = val
+                env[name + suffix] = val
+
+
+def _propagate_lod(op, env):
+    """A LoD-oblivious op (elementwise, fc, activations, ...) keeps the
+    ragged structure: its outputs that got no companion from the
+    lowering take the first ragged input's lengths."""
+    if op.type in _LOD_DROP_OPS:
+        return
+    src = next((env[n + LOD_LEN_SUFFIX] for names in op.inputs.values()
+                for n in names if n and n + LOD_LEN_SUFFIX in env), None)
+    if src is None:
+        return
+    for names in op.outputs.values():
+        for n in names:
+            if n and n + LOD_LEN_SUFFIX not in env:
+                env[n + LOD_LEN_SUFFIX] = src
+
+
+def _with_companions(names, env):
+    """`names` and the companions that env holds for them."""
+    return [m for n in names for m in (n, n + LOD_LEN_SUFFIX) if m in env]
 
 
 def _run_grad_op(op, env, vjp_cache):
@@ -122,7 +184,7 @@ def _drop_plan(ops, keep):
     plan = [[] for _ in ops]
     for n, i in last.items():
         if n not in keep:
-            plan[i].append(n)
+            plan[i] += [n, n + LOD_LEN_SUFFIX]
     return plan
 
 
@@ -146,6 +208,7 @@ def _interpret_ops(ops, env, step=0, seed=0, device=None, drops=None):
             else:
                 outs = registry.call_lower(od, ctx)
             _write_outputs(op, outs, env)
+            _propagate_lod(op, env)
         if drops is not None:
             for n in drops[i]:
                 env.pop(n, None)
@@ -373,7 +436,7 @@ def _run_segment(ops, drops, out_names, step, seed, device, env_in):
     env = dict(env_in)
     _interpret_ops(ops, env, step=step, seed=seed, device=device,
                    drops=drops)
-    return {n: env[n] for n in out_names if n in env}
+    return {n: env[n] for n in _with_companions(out_names, env)}
 
 
 def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
@@ -422,7 +485,9 @@ def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
     downstream = set(fetch_names) | set(state_names)
     for op in update_ops:
         downstream |= _reads(op)
-    aux_names = tuple(sorted((downstream & forward_writes) | {loss_name}))
+    aux_names = tuple(sorted(
+        m for n in (downstream & forward_writes) | {loss_name}
+        for m in (n, n + LOD_LEN_SUFFIX)))
 
     segments = [forward_ops] if policy is None else \
         _segments(forward_ops, policy.segment_tags)
@@ -445,7 +510,7 @@ def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
 
     def forward(env, step):
         for seg, drops, ins, outs in plan:
-            env_in = {n: env[n] for n in ins if n in env}
+            env_in = {n: env[n] for n in _with_companions(ins, env)}
             if policy is None:
                 env.update(_run_segment(seg, drops, outs, step, seed,
                                         device, env_in))

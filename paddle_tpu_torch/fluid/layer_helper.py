@@ -1,6 +1,5 @@
 """LayerHelper — shared parameter/op plumbing for layer functions, a copy of
-paddle_tpu/fluid/layer_helper.py (without the LoD-level propagation:
-ragged sequences are not ported)."""
+paddle_tpu/fluid/layer_helper.py."""
 
 from . import unique_name
 from .framework import default_main_program, default_startup_program, \
@@ -31,7 +30,29 @@ class LayerHelper:
         return default_startup_program()
 
     def append_op(self, *args, **kwargs):
-        return self.main_program.current_block().append_op(*args, **kwargs)
+        op = self.main_program.current_block().append_op(*args, **kwargs)
+        self._propagate_build_lod_level(kwargs)
+        return op
+
+    @staticmethod
+    def _propagate_build_lod_level(kwargs):
+        """The build-time side of the runtime companion propagation: a
+        LoD-oblivious op's outputs inherit the largest input lod_level."""
+        from .functionalizer import _LOD_DROP_OPS
+        if kwargs.get("type") in _LOD_DROP_OPS:
+            return
+        level = 0
+        for names in (kwargs.get("inputs") or {}).values():
+            vs = names if isinstance(names, (list, tuple)) else [names]
+            for v in vs:
+                if isinstance(v, Variable):
+                    level = max(level, v.lod_level or 0)
+        if level:
+            for names in (kwargs.get("outputs") or {}).values():
+                vs = names if isinstance(names, (list, tuple)) else [names]
+                for v in vs:
+                    if isinstance(v, Variable) and not v.lod_level:
+                        v.lod_level = level
 
     # ---- inputs ----
     def multiple_input(self, input_param_name="input"):

@@ -1,5 +1,6 @@
 """Data-input layers, after paddle_tpu/fluid/layers/io.py: `data` declares
-a feed variable (the reader pipeline is not ported)."""
+a feed variable, dense or ragged (lod_level=1: fed as a LoDTensor); the
+reader pipeline is not ported."""
 
 from ..layer_helper import LayerHelper
 
@@ -8,10 +9,11 @@ __all__ = ["data"]
 
 def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
          stop_gradient=True):
-    if lod_level:
+    if lod_level > 1:
         raise NotImplementedError(
-            "data(lod_level=%d): LoD (ragged) feeds are not ported to "
-            "paddle_tpu_torch yet" % lod_level)
+            "data(lod_level=%d): nested LoD feeds (the @LOD_SEG companion) "
+            "are not ported to paddle_tpu_torch yet (ROADMAP.md, queue 1 "
+            "item 13)" % lod_level)
     helper = LayerHelper("data", name=name)
     shape = list(shape)
     if append_batch_size:

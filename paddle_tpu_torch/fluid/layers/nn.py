@@ -1,6 +1,6 @@
 """NN layer functions building ops into the current program, after
 paddle_tpu/fluid/layers/nn.py: the same signatures, parameter names, op
-types and attrs for the layers the transformer and ResNet call."""
+types and attrs for the layers the port's models call."""
 
 import numpy as np
 
@@ -12,7 +12,7 @@ __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "dropout", "softmax", "relu", "cross_entropy",
     "softmax_with_cross_entropy", "accuracy", "topk", "elementwise_add",
-    "mean", "scale", "reshape", "slice", "cumsum", "remat_checkpoint",
+    "elementwise_mul", "where", "mean", "scale", "reshape", "slice", "cumsum", "remat_checkpoint",
     "flash_attention",
 ]
 
@@ -50,7 +50,12 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
         helper.append_op(type="sum", inputs={"X": mul_results},
                          outputs={"Out": pre_bias})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
-    return helper.append_activation(pre_act)
+    out = helper.append_activation(pre_act)
+    # ShareLoD: a row-wise fc keeps the ragged structure
+    first_in = helper.multiple_input()[0]
+    if first_in.lod_level > 0:
+        out.lod_level = first_in.lod_level
+    return out
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
@@ -72,6 +77,7 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         outputs={"Out": tmp},
         attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
                "padding_idx": padding_idx})
+    tmp.lod_level = input.lod_level  # ShareLoD
     return tmp
 
 
@@ -292,12 +298,29 @@ def topk(input, k, name=None):
     return values, indices
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", act=act, name=name)
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(type="elementwise_add", inputs={"X": x, "Y": y},
+    helper.append_op(type=op_type, inputs={"X": x, "Y": y},
                      outputs={"Out": out}, attrs={"axis": axis})
     return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def where(condition, x=None, y=None):
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="where",
+                     inputs={"Condition": condition, "X": x, "Y": y},
+                     outputs={"Out": out})
+    return out
 
 
 def mean(x, name=None):

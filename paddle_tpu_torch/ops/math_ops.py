@@ -1,9 +1,14 @@
 """Math / elementwise / reduction / activation op lowerings, after
-paddle_tpu/ops/math_ops.py: gelu, elementwise_add with fluid's `axis`
-broadcasting, mul (fc's matmul), matmul, sum, scale, mean, cumsum, relu,
-sign, softmax and top_k.  The matmuls are plain torch.matmul (TF32 off; bf16
-summed in fp32 and rounded once), as the JAX package leaves them to
-XLA."""
+paddle_tpu/ops/math_ops.py: gelu, sigmoid, tanh, elementwise_add and
+elementwise_mul with fluid's `axis` broadcasting, less_than, mul (fc's
+matmul), matmul, sum, scale, mean, cumsum, relu, sign, increment, softmax
+and top_k.  The matmuls are plain torch.matmul (TF32 off; bf16 summed in
+fp32 and rounded once), as the JAX package leaves them to XLA.
+
+On a ragged (LoD) X, padded [B, T, ...] at run time where the program's
+shapes are the packed [rows, ...] ones, `mul` flattens one more leading
+dim, the elementwise ops shift an `axis` >= 1 by one, and `mean`
+averages over the real rows only, as the JAX lowerings do."""
 
 import numpy as np
 import torch
@@ -47,10 +52,38 @@ def _promote(x, y):
     return x, y
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx):
+@register_op("sigmoid")
+def _sigmoid(ctx):
+    return {"Out": torch.sigmoid(ctx.input("X"))}
+
+
+@register_op("tanh")
+def _tanh(ctx):
+    return {"Out": torch.tanh(ctx.input("X"))}
+
+
+def _register_elementwise(name, fn):
+    """X (op) Y with Y broadcast from `axis`; on a ragged X an axis >= 1
+    moves one right, past the padded layout's time dim."""
+    def lower(ctx):
+        x, y = _promote(ctx.input("X"), ctx.input("Y"))
+        axis = ctx.attr("axis", -1)
+        if ctx.lod_len("X") is not None and axis is not None and axis >= 1:
+            axis += 1
+        return {"Out": fn(x, _broadcast_y(x, y, axis))}
+    register_op(name)(lower)
+
+
+_register_elementwise("elementwise_add", torch.add)
+_register_elementwise("elementwise_mul", torch.mul)
+
+
+@register_op("less_than")
+def _less_than(ctx):
     x, y = _promote(ctx.input("X"), ctx.input("Y"))
-    return {"Out": x + _broadcast_y(x, y, ctx.attr("axis", -1))}
+    if x.dim() != y.dim():
+        y = _broadcast_y(x, y, ctx.attr("axis", -1))
+    return {"Out": torch.lt(x, y)}
 
 
 def _flatten2d(x, num_col_dims):
@@ -63,6 +96,8 @@ def _mul(ctx):
     x, y = ctx.input("X"), ctx.input("Y")
     xd = ctx.attr("x_num_col_dims", 1)
     yd = ctx.attr("y_num_col_dims", 1)
+    if ctx.lod_len("X") is not None:
+        xd += 1  # the padded [B, T, ...] layout has one more leading dim
     out = torch.matmul(_flatten2d(x, xd), _flatten2d(y, yd))
     return {"Out": torch.reshape(out, tuple(x.shape[:xd])
                                  + tuple(y.shape[yd:]))}
@@ -100,9 +135,25 @@ def _scale(ctx):
     return {"Out": (x + b) * s}
 
 
+def seq_mask(lens, T, dtype):
+    """[B] lengths -> [B, T] 0/1 mask of the real positions."""
+    return (torch.arange(T, device=lens.device)[None, :]
+            < lens[:, None]).to(dtype)
+
+
 @register_op("mean")
 def _mean(ctx):
-    return {"Out": torch.mean(ctx.input("X"))}
+    """The mean; over a ragged X, over its real rows only (padding out of
+    the sum and the count), in x's dtype as the JAX lowering."""
+    x = ctx.input("X")
+    lens = ctx.lod_len("X")
+    if lens is None:
+        return {"Out": torch.mean(x)}
+    B, T = x.shape[0], x.shape[1]
+    m = seq_mask(lens, T, x.dtype).reshape((B, T) + (1,) * (x.dim() - 2))
+    per_step = int(np.prod(x.shape[2:])) if x.dim() > 2 else 1
+    count = torch.clamp_min(lens.sum().to(x.dtype) * per_step, 1)
+    return {"Out": torch.sum(x * m) / count}
 
 
 @register_op("cumsum")
@@ -130,6 +181,14 @@ def _sign(ctx):
     jnp.sign; L1Decay's op."""
     x = ctx.input("X")
     return {"Out": torch.where(torch.isnan(x), x, torch.sign(x))}
+
+
+@register_op("increment")
+def _increment(ctx):
+    """X + step in X's dtype (the LR schedules' step counter)."""
+    x = ctx.input("X")
+    return {"Out": x + torch.as_tensor(ctx.attr("step", 1.0),
+                                       dtype=x.dtype)}
 
 
 @register_op("softmax")

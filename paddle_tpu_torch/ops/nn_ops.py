@@ -71,18 +71,27 @@ def _ceil_extra_pad(extent, k, s, p):
     return max((out_ceil - 1) * s + k - (extent + 2 * p), 0)
 
 
-def _window_sum(x, ksize, strides):
-    """Sums over every (kh, kw) window of an NCHW tensor, no padding.  A
-    16-bit float tensor sums as XLA's reduce_window does in that dtype
-    (the JAX lowering's bf16 avg pool): the window's elements are added
-    one at a time in row-major order, each partial sum rounded to the
-    dtype — one elementwise add per window element."""
-    if x.dtype not in (torch.bfloat16, torch.float16):
-        return x.unfold(2, ksize[0], strides[0]).unfold(
-            3, ksize[1], strides[1]).sum(dim=(-2, -1))
+def _unfold_sum(x, ksize, strides):
+    return x.unfold(2, ksize[0], strides[0]).unfold(
+        3, ksize[1], strides[1]).sum(dim=(-2, -1))
+
+
+def _sequential_window_sum(x, ksize, strides):
+    """The window sums with each window's elements added one at a time in
+    row-major order, every partial sum rounded to x's dtype: one
+    elementwise add per window element."""
     (kh, kw), (sh, sw) = ksize, strides
     Ho = (x.shape[2] - kh) // sh + 1
     Wo = (x.shape[3] - kw) // sw + 1
+    if (Ho, Wo) == (1, 1):
+        # one window: its taps as the leading dim, each a cheap select
+        # ([N, C] rows in the same row-major order)
+        taps = x[:, :, :kh, :kw].permute(2, 3, 0, 1).reshape(
+            kh * kw, x.shape[0], x.shape[1])
+        acc = taps[0]
+        for k in range(1, kh * kw):
+            acc = acc + taps[k]
+        return acc[:, :, None, None]
     acc = None
     for i in range(kh):
         for j in range(kw):
@@ -90,6 +99,40 @@ def _window_sum(x, ksize, strides):
                     j:j + sw * (Wo - 1) + 1:sw]
             acc = tap if acc is None else acc + tap
     return acc
+
+
+class _SequentialWindowSum(torch.autograd.Function):
+    """_sequential_window_sum's values with the window sum's gradient
+    (every element of a window gets the window's cotangent), computed in
+    one pass: differentiating the adds one by one would materialize a
+    full-size gradient per window element (3136 of them for a 56 x 56
+    global pool)."""
+
+    @staticmethod
+    def forward(ctx, x, ksize, strides):
+        ctx.shape, ctx.ksize, ctx.strides = x.shape, ksize, strides
+        ctx.dtype, ctx.device = x.dtype, x.device
+        return _sequential_window_sum(x, ksize, strides)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            z = torch.zeros(ctx.shape, dtype=ctx.dtype, device=ctx.device,
+                            requires_grad=True)
+            gx, = torch.autograd.grad(
+                _unfold_sum(z, ctx.ksize, ctx.strides), z, g)
+        return gx, None, None
+
+
+def _window_sum(x, ksize, strides):
+    """Sums over every (kh, kw) window of an NCHW tensor, no padding.  A
+    16-bit float tensor sums as XLA's reduce_window does in that dtype
+    (the JAX lowering's bf16 avg pool): the window's elements are added
+    one at a time in row-major order, each partial sum rounded to the
+    dtype (_SequentialWindowSum)."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return _unfold_sum(x, ksize, strides)
+    return _SequentialWindowSum.apply(x, tuple(ksize), tuple(strides))
 
 
 @register_op("pool2d")

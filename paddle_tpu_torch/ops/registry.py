@@ -40,9 +40,14 @@ _MASK64 = (1 << 64) - 1
 
 
 class OpDef:
-    def __init__(self, type, lower):
+    def __init__(self, type, lower, infer_shape=None):
         self.type = type
         self.lower = lower
+        # shape inference of its own, for an op whose lowering cannot
+        # run on the build-time shapes (a ragged op sees the packed
+        # [rows, ...] layout there, the padded [B, T, ...] one at run
+        # time)
+        self.custom_infer_shape = infer_shape
 
 
 def _mix_seed(*vals):
@@ -88,6 +93,18 @@ class ExecContext:
     def has_input(self, slot):
         return bool(self._inputs.get(slot))
 
+    def lod_len(self, slot):
+        """The int32 [B] sequence lengths of a ragged (LoD) input, or
+        None for a dense one (fluid/functionalizer.py LOD_LEN_SUFFIX)."""
+        vs = self._inputs.get(slot + "@LOD_LEN")
+        return vs[0] if vs else None
+
+    def lod_lens(self, slot):
+        """The lengths of EVERY input of a multi-input slot, aligned with
+        inputs(slot); None entries for dense inputs."""
+        vs = self._inputs.get(slot + "@LOD_LEN")
+        return vs if vs else [None] * len(self._inputs.get(slot, []))
+
     def generator(self):
         """A torch.Generator on the context's device, seeded from the
         op's `seed` attr, the program's random seed, the op's uid and the
@@ -101,10 +118,11 @@ class ExecContext:
         return g
 
 
-def register_op(type):
-    """Register an op's lowering: @register_op("relu")."""
+def register_op(type, infer_shape=None):
+    """Register an op's lowering: @register_op("relu"); `infer_shape(op,
+    block)` replaces the meta-tensor shape inference."""
     def deco(fn):
-        _REGISTRY[type] = OpDef(type, fn)
+        _REGISTRY[type] = OpDef(type, fn, infer_shape=infer_shape)
         return fn
     return deco
 
@@ -162,6 +180,9 @@ def infer_shape(op, block):
     Executor still produces the right runtime shapes)."""
     od = _REGISTRY.get(op.type)
     if od is None:
+        return
+    if od.custom_infer_shape is not None:
+        od.custom_infer_shape(op, block)
         return
     from ..fluid import core as fcore
 

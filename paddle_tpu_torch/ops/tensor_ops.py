@@ -1,10 +1,11 @@
 """Tensor creation / manipulation / RNG op lowerings, after
 paddle_tpu/ops/tensor_ops.py: fill_constant, assign, remat_tag,
-uniform_random, gaussian_random, reshape2 and slice."""
+uniform_random, gaussian_random, reshape2, slice and where."""
 
 import numpy as np
 import torch
 
+from .math_ops import _promote
 from .registry import register_op
 
 
@@ -59,10 +60,19 @@ def _target_shape(x, shape):
     return tuple(shape)
 
 
+def _ragged_target(ctx, x, shape):
+    """A ragged X's program shapes are the packed [rows, ...] ones and its
+    run-time layout the padded [B, T, ...]: a leading -1 maps to
+    [B, T]."""
+    if ctx.lod_len("X") is not None and shape and shape[0] == -1:
+        return tuple(x.shape[:2]) + tuple(int(d) for d in shape[1:])
+    return _target_shape(x, shape)
+
+
 @register_op("reshape2")
 def _reshape2(ctx):
     x = ctx.input("X")
-    out = torch.reshape(x, _target_shape(x, ctx.attr("shape")))
+    out = torch.reshape(x, _ragged_target(ctx, x, ctx.attr("shape")))
     return {"Out": out, "XShape": x.new_zeros((0,) + tuple(x.shape))}
 
 
@@ -88,3 +98,11 @@ def _gaussian_random(ctx):
                       device=ctx.device)
     out.normal_(generator=ctx.generator())
     return {"Out": out * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0)}
+
+
+@register_op("where")
+def _where(ctx):
+    """X where Condition, else Y; float operands promoted by dtype, as
+    jnp.where."""
+    x, y = _promote(ctx.input("X"), ctx.input("Y"))
+    return {"Out": torch.where(ctx.input("Condition"), x, y)}

@@ -199,7 +199,7 @@ def test_unported_features_raise():
         with pytest.raises(NotImplementedError):
             tfluid.layers.embedding(ids, size=[5, 2], is_sparse=True)
         with pytest.raises(NotImplementedError):
-            tfluid.layers.data("seq", shape=[1], lod_level=1)
+            tfluid.layers.data("seq", shape=[1], lod_level=2)
         x = tfluid.layers.data("x", shape=[3], dtype="float32")
         loss = tfluid.layers.mean(tfluid.layers.fc(
             x, size=2, param_attr=tfluid.ParamAttr(gradient_clip=object())))

@@ -32,6 +32,11 @@ def _i(high, *shape):
     return ("i", high, shape)
 
 
+def _len(*lengths):
+    """A ragged input's `<slot>@LOD_LEN` companion: int32 [B]."""
+    return ("len", lengths)
+
+
 # (case id, op type, {slot: [input spec]}, attrs)
 _CASES = [
     ("fill_constant", "fill_constant", {},
@@ -184,7 +189,109 @@ _CASES = [
     ("accuracy", "accuracy",
      {"Out": [_f(6, 3)], "Indices": [_i(5, 6, 3)], "Label": [_i(5, 6, 1)]},
      {}),
+    # the LSTM over pre-projected gates [B, T, 4H] (H = 4), with the
+    # lengths companion: peepholes or not, reversed, lengths 1, T, mixed
+    ("lstm_peepholes_mixed", "lstm",
+     {"Input": [_f(3, 5, 16)], "Weight": [_f(4, 16)], "Bias": [_f(1, 28)],
+      "Input@LOD_LEN": [_len(2, 5, 1)]},
+     {"use_peepholes": True, "is_reverse": False}),
+    ("lstm_no_peepholes", "lstm",
+     {"Input": [_f(3, 5, 16)], "Weight": [_f(4, 16)], "Bias": [_f(1, 16)],
+      "Input@LOD_LEN": [_len(5, 3, 4)]},
+     {"use_peepholes": False, "is_reverse": False}),
+    ("lstm_reverse", "lstm",
+     {"Input": [_f(3, 5, 16)], "Weight": [_f(4, 16)], "Bias": [_f(1, 28)],
+      "Input@LOD_LEN": [_len(3, 5, 1)]},
+     {"use_peepholes": True, "is_reverse": True}),
+    ("lstm_lengths_1", "lstm",
+     {"Input": [_f(3, 4, 16)], "Weight": [_f(4, 16)], "Bias": [_f(1, 28)],
+      "Input@LOD_LEN": [_len(1, 1, 1)]},
+     {"use_peepholes": True, "is_reverse": True}),
+    ("lstm_lengths_T", "lstm",
+     {"Input": [_f(2, 6, 16)], "Weight": [_f(4, 16)], "Bias": [_f(1, 28)],
+      "Input@LOD_LEN": [_len(6, 6)]},
+     {"use_peepholes": True, "is_reverse": False}),
+    ("lstm_h0_c0", "lstm",
+     {"Input": [_f(3, 5, 16)], "Weight": [_f(4, 16)], "Bias": [_f(1, 28)],
+      "H0": [_f(3, 4)], "C0": [_f(3, 4)], "Input@LOD_LEN": [_len(4, 2, 5)]},
+     {"use_peepholes": True, "is_reverse": False}),
+    ("lstm_dense", "lstm",
+     {"Input": [_f(2, 4, 16)], "Weight": [_f(4, 16)], "Bias": [_f(1, 16)]},
+     {"use_peepholes": True, "is_reverse": False}),
+    # every pool type over [B, T, 3] with an empty sequence among them
+    ] + [
+    ("sequence_pool_" + ptype.lower(), "sequence_pool",
+     {"X": [_f(4, 6, 3)], "X@LOD_LEN": [_len(3, 0, 6, 1)]},
+     {"pooltype": ptype})
+    for ptype in ("AVERAGE", "SUM", "SQRT", "MAX", "LAST", "FIRST")] + [
+    ("sequence_pool_max_ties", "sequence_pool",
+     {"X": [("ties", (4, 6, 3))], "X@LOD_LEN": [_len(3, 2, 6, 4)]},
+     {"pooltype": "MAX"}),
+    ("sequence_pool_dense_average", "sequence_pool", {"X": [_f(2, 5, 3)]},
+     {"pooltype": "AVERAGE"}),
+    ("sigmoid", "sigmoid", {"X": [_f(3, 4)]}, {}),
+    ("tanh", "tanh", {"X": [_f(3, 4)]}, {}),
+    ("elementwise_mul", "elementwise_mul",
+     {"X": [_f(2, 3, 4)], "Y": [_f(2, 3, 4)]}, {"axis": -1}),
+    ("elementwise_mul_axis", "elementwise_mul",
+     {"X": [_f(2, 3, 4)], "Y": [_f(3)]}, {"axis": 1}),
+    # SE-ResNeXt's excitation: [N, H, W, C] times [N, 1, 1, C]
+    ("elementwise_mul_excitation", "elementwise_mul",
+     {"X": [_f(2, 3, 3, 4)], "Y": [_f(2, 1, 1, 4)]}, {"axis": -1}),
+    # a ragged X: axis 1 of the packed [rows, 4] is axis 2 of [B, T, 4]
+    ("elementwise_mul_ragged_axis", "elementwise_mul",
+     {"X": [_f(3, 5, 4)], "Y": [_f(4)], "X@LOD_LEN": [_len(2, 5, 3)]},
+     {"axis": 1}),
+    ("elementwise_add_ragged_axis", "elementwise_add",
+     {"X": [_f(3, 5, 4)], "Y": [_f(4)], "X@LOD_LEN": [_len(2, 5, 3)]},
+     {"axis": 1}),
+    ("increment", "increment", {"X": [_f(1)]}, {"step": 1.0}),
+    ("increment_step", "increment", {"X": [_f(2, 3)]}, {"step": -2.5}),
+    ("less_than", "less_than", {"X": [_f(1)], "Y": [_f(1)]}, {"axis": -1}),
+    ("less_than_broadcast", "less_than", {"X": [_f(3, 4)], "Y": [_f(4)]},
+     {"axis": -1}),
+    ("where", "where", {"Condition": [("bool", (3, 4))], "X": [_f(3, 4)],
+                        "Y": [_f(3, 4)]}, {}),
+    ("mul_ragged", "mul",
+     {"X": [_f(3, 5, 6)], "Y": [_f(6, 7)], "X@LOD_LEN": [_len(2, 5, 1)]},
+     {"x_num_col_dims": 1, "y_num_col_dims": 1}),
+    ("mean_ragged", "mean",
+     {"X": [_f(3, 5, 2)], "X@LOD_LEN": [_len(2, 5, 0)]}, {}),
+    ("reshape2_ragged", "reshape2",
+     {"X": [_f(3, 5, 6)], "X@LOD_LEN": [_len(2, 5, 1)]},
+     {"shape": [-1, 2, 3]}),
+    ("cross_entropy_ragged", "cross_entropy",
+     {"X": [("pos", (3, 5, 6))], "Label": [_i(6, 3, 5, 1)],
+      "X@LOD_LEN": [_len(2, 5, 1)], "Label@LOD_LEN": [_len(2, 5, 1)]},
+     {"soft_label": False}),
+    ("lookup_table_ragged", "lookup_table",
+     {"W": [_f(10, 4)], "Ids": [_i(10, 3, 5, 1)],
+      "Ids@LOD_LEN": [_len(2, 5, 1)]}, {"padding_idx": -1}),
 ]
+
+# the cases above again with their float inputs in bf16 ("X" slots), or
+# only the listed slots (the LSTM under AMP: its gates arrive in bf16 from
+# the white-listed fc, its weights stay fp32 masters): the JAX lowering's
+# dtypes, and its values to one bf16 ulp
+_BF16_CASES = {
+    "lstm_peepholes_mixed": ("Input",),
+    "lstm_reverse": ("Input",),
+    "lstm_no_peepholes": ("Input",),
+    "sequence_pool_average": None, "sequence_pool_sum": None,
+    "sequence_pool_sqrt": None, "sequence_pool_max": None,
+    "sequence_pool_last": None, "sequence_pool_first": None,
+    "sequence_pool_max_ties": None,
+    "sigmoid": None, "tanh": None,
+    "elementwise_mul": None, "elementwise_mul_axis": None,
+    "elementwise_mul_excitation": ("X",),
+    "elementwise_mul_ragged_axis": None,
+    "elementwise_add_ragged_axis": None,
+    "increment": None, "less_than": None, "where": None,
+    "mul_ragged": None, "mean_ragged": None, "reshape2_ragged": None,
+    # the AMP path's bf16 average pools (SE-ResNeXt's squeeze is a global
+    # one): summed one element at a time in bf16, the window sum's grad
+    "pool2d_global_avg_nhwc": None, "pool2d_avg_exclusive_ceil": None,
+}
 
 # registered ops whose parity with the JAX package runs outside _CASES:
 # the random ops (test_*_random below), and the inference-only ops, which
@@ -203,6 +310,10 @@ def _make(spec, rng):
         return rng.randint(0, spec[1], size=spec[2]).astype(np.int64)
     if kind == "pos":
         return rng.rand(*spec[1]).astype(np.float32) + 0.1
+    if kind == "len":
+        return np.asarray(spec[1], np.int32)
+    if kind == "bool":
+        return rng.rand(*spec[1]) < 0.5
     if kind == "ties":   # few distinct values, zeros of both signs
         x = rng.randint(-2, 3, size=spec[1]).astype(np.float32)
         return np.where(x == 0, np.copysign(x, rng.randn(*spec[1])), x)
@@ -278,6 +389,121 @@ def _assert_parity(op_type, attrs, inputs, rng):
             np.testing.assert_allclose(tg.numpy(), np.asarray(jg),
                                        rtol=RTOL, atol=ATOL,
                                        err_msg="grad " + slot)
+
+
+_CASE_BY_ID = {c[0]: c for c in _CASES}
+BF16 = jnp.bfloat16
+# one bf16 ulp, relative to each array's largest magnitude (both sides
+# round once from fp32 values summed in other orders)
+ULP = 2.0 ** -7
+
+
+def _to_torch(a):
+    if a.dtype == BF16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _to_numpy(t):
+    if t.dtype == torch.bfloat16:
+        return t.detach().view(torch.int16).numpy().view(BF16)
+    return t.detach().numpy()
+
+
+def _ulp_close(got, want, what):
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    if want.dtype.kind in "biu":
+        np.testing.assert_array_equal(got, want, err_msg=what)
+        return
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    scale = float(np.abs(w).max()) if w.size else 0.0
+    np.testing.assert_allclose(g, w, rtol=ULP, atol=ULP * scale,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("case", sorted(_BF16_CASES))
+def test_lowering_matches_jax_bf16(case):
+    """The bf16 form of a case: its float inputs (or the listed slots) in
+    bf16, the forward outputs and the input grads (bf16 cotangents on
+    bf16 outputs) against the JAX lowering's, dtype for dtype, to one
+    bf16 ulp."""
+    name, op_type, specs, attrs = _CASE_BY_ID[case]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    inputs = {s: [_make(sp, rng) for sp in v] for s, v in specs.items()}
+    cast = _BF16_CASES[case]
+    for slot, vals in inputs.items():
+        if cast is None or slot in cast:
+            inputs[slot] = [a.astype(BF16) if a.dtype.kind == "f" else a
+                            for a in vals]
+    op = _op(op_type, attrs, inputs)
+    jouts, jvjp = jreg.make_forward_and_vjp(
+        op, jreg.get_op_def(op_type), jreg.ExecContext(
+            op, {s: [jnp.asarray(a) for a in v] for s, v in inputs.items()}))
+    touts, tvjp = treg.make_forward_and_vjp(
+        op, treg.get_op_def(op_type), treg.ExecContext(
+            op, {s: [_to_torch(a) for a in v] for s, v in inputs.items()},
+            device="cpu"))
+    assert sorted(jouts) == sorted(touts)
+    cts = {}
+    for slot in jouts:
+        cts[slot] = []
+        for jv, tv in zip(jouts[slot], touts[slot]):
+            jv = np.asarray(jv)
+            got = _to_numpy(tv)
+            if jv.dtype.kind in "iu":   # x64 off: int64 comes back int32
+                got = got.astype(jv.dtype)
+            _ulp_close(got, jv, slot)
+            cts[slot].append(np.asarray(rng.randn(*jv.shape)).astype(
+                jv.dtype) if jv.dtype.kind == "f" or jv.dtype == BF16
+                else None)
+    jgrads = jvjp({s: [_jax_cotangent(v, c) for v, c in zip(jouts[s], cs)]
+                   for s, cs in cts.items()})
+    tgrads = tvjp({s: [None if c is None else _to_torch(c) for c in cs]
+                   for s, cs in cts.items()})
+    for slot, vals in inputs.items():
+        for i, a in enumerate(vals):
+            if a.dtype.kind != "f" and a.dtype != BF16:
+                assert tgrads[slot][i] is None, slot
+                continue
+            _ulp_close(_to_numpy(tgrads[slot][i]),
+                       np.asarray(jgrads[slot][i]), "grad " + slot)
+
+
+_SEQUENCE_CASES = sorted(c[0] for c in _CASES
+                         if c[1] in ("lstm", "sequence_pool"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _SEQUENCE_CASES)
+def test_cuda_sequence_lowerings_match_cpu(case):
+    """lstm and sequence_pool on the card against the CPU, forward and
+    vjp, fp32 at the fp32 tolerances (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    name, op_type, specs, attrs = _CASE_BY_ID[case]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    inputs = {s: [_make(sp, rng) for sp in v] for s, v in specs.items()}
+    op = _op(op_type, attrs, inputs)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        outs, vjp = treg.make_forward_and_vjp(
+            op, treg.get_op_def(op_type), treg.ExecContext(
+                op, {s: [torch.from_numpy(a).to(dev) for a in v]
+                     for s, v in inputs.items()}, device=dev))
+        crng = np.random.RandomState(1)
+        cts = {s: [torch.from_numpy(crng.randn(*v.shape).astype(
+            np.float32)).to(dev) if v.is_floating_point() else None
+            for v in vals] for s, vals in outs.items()}
+        res[dev] = (outs, vjp(cts))
+    for part in (0, 1):
+        for slot, vals in res["cpu"][part].items():
+            for a, b in zip(vals, res["cuda"][part][slot]):
+                if a is None:
+                    assert b is None, slot
+                    continue
+                np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
+                                           rtol=RTOL, atol=ATOL,
+                                           err_msg="%s %s" % (part, slot))
 
 
 def _top_k_both(x, k, dtype, device):
