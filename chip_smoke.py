@@ -146,6 +146,21 @@ Phases, in order; any failure exits non-zero:
                state: first losses on the card and on the CPU within
                1e-4; the small LSTM's 3 losses and persistables within
                1e-5.
+ 13. parallel — data-parallel ResNet-50 training (full width, 224 x 224,
+               32 images a card, fp32, Momentum 0.01 + L2Decay; startup
+               seed 7) through the collective DistributeTranspiler and the
+               ParallelExecutor: one NCCL rank per visible card (this
+               script re-run as `--parallel-rank DIR` by
+               paddle_tpu_torch.parallel.mesh.launch; a world of one on a
+               one-card machine, said on its first line), 3 steps.  Gates:
+               every rank exits 0 on its own card; finite losses, equal
+               on every rank; every rank's moving statistics equal; 53
+               sync-BN all-reduces a step each way; the losses within
+               1e-5 (first step) and 2e-2 (all three) of the single-card
+               Executor's on the same global batch (deterministic cuDNN).
+               Prints the world, the gradient buckets and bytes, the
+               gradient all-reduce's ms a step and the collectives a step
+               by kind.  A failed rank fails the script.
 Phase 2 also holds K5 (dequant_matmul) and K6 (fused_bottleneck) against
 their plain versions: K5 at the int8 lane's fc shape (bf16 x and fp32 x)
 and four others, K6
@@ -3369,6 +3384,204 @@ def phase_zoo_gpu_vs_cpu(torch, fluid):
         torch.backends.cudnn.deterministic = False
 
 
+# ---------------------------------------------------------------------------
+# 13. data parallelism: one NCCL rank per visible card
+# ---------------------------------------------------------------------------
+
+# ResNet-50 at full width (every block, 224 x 224, 1000 classes, NHWC,
+# fp32, per op, Momentum + L2Decay): images per card, steps, and a
+# learning rate below the bench's 0.1 (tuned for batch 256), which
+# saturates the softmax within two steps at a few images
+PAR_BATCH = 32
+PAR_STEPS = 3
+PAR_SEED = 7
+PAR_LR = 0.01
+# the losses of the ranks' global step against the single-card Executor
+# on the same global batch: the first step's at PAR_RTOL0, which a
+# per-rank-statistics step misses by far; all at PAR_RTOL, since the
+# later steps carry the batch-norm sums' other order through the updates
+# of a 50-layer net, which is chaotic at a few images (on the CPU at 4
+# images, one ulp of the first batch moved the second loss by 0.14% and
+# the third by 0.94%)
+PAR_RTOL0 = 1e-5
+PAR_RTOL = 2e-2
+PAR_BN = 53  # ResNet-50's batch norms
+PAR_TIMEOUT_S = 600
+
+
+def _par_shard(step, rank):
+    """Rank `rank`'s images and labels of step `step` (the global batch
+    is the ranks' shards in rank order)."""
+    rng = np.random.RandomState(1000 * step + rank)
+    images = rng.uniform(-1, 1, (PAR_BATCH, 224, 224, 3)).astype(np.float32)
+    labels = rng.randint(0, 1000, (PAR_BATCH, 1)).astype(np.int64)
+    return images, labels
+
+
+def _par_model(fluid, world):
+    from paddle_tpu_torch.models import resnet
+    with fluid.unique_name.guard():
+        main, startup, _, loss, _, _ = resnet.get_model(
+            batch_size=PAR_BATCH * world, lr=PAR_LR, is_train=True,
+            layout="NHWC")
+    startup.random_seed = PAR_SEED
+    return main, startup, loss
+
+
+def parallel_rank(outdir):
+    """One rank of phase_parallel (`chip_smoke.py --parallel-rank DIR`,
+    started by parallel.mesh.launch): the collective transpiler, the
+    startup program (joins the NCCL world on the rank's card), a
+    ParallelExecutor and PAR_STEPS steps on the rank's shards, the
+    gradient all-reduce timed; writes rank<id>.json and rank<id>.npz
+    (the moving statistics), and rank 0 init.npz (the broadcast state)."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import functionalizer
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    tid = int(os.environ["PADDLE_TRAINER_ID"])
+    world = int(os.environ["PADDLE_TRAINERS"])
+    main, startup, loss = _par_model(fluid, world)
+    cfg = fluid.DistributeTranspilerConfig()
+    cfg.mode = "collective"
+    fluid.DistributeTranspiler(cfg).transpile(
+        tid, program=main, trainers=world, startup_program=startup)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    pe = fluid.ParallelExecutor(True, loss.name, main_program=main,
+                                num_trainers=world, trainer_id=tid,
+                                scope=scope)
+    names = functionalizer.persistable_names(main)
+    if tid == 0:
+        np.savez(os.path.join(outdir, "init.npz"),
+                 **{n: fluid.as_numpy(scope.get(n)) for n in names
+                    if scope.get(n) is not None})
+    group = pe.group
+    group.reset_counts()
+    group.time_grads = True
+    losses = []
+    for step in range(PAR_STEPS):
+        images, labels = _par_shard(step, tid)
+        out, = pe.run([loss.name], feed={"data": images, "label": labels})
+        losses.append(float(np.asarray(out).ravel()[0]))
+    grads = [scope.get(p.name) for p in main.global_block().all_parameters()]
+    buckets = functionalizer._grad_buckets(
+        grads, functionalizer.GRAD_BUCKET_BYTES)
+    stats = {n: fluid.as_numpy(scope.get(n)) for n in names
+             if n.endswith(("mean_0", "var_0"))}
+    np.savez(os.path.join(outdir, "rank%d.npz" % tid), **stats)
+    with open(os.path.join(outdir, "rank%d.json" % tid), "w") as f:
+        json.dump({"rank": tid, "world": world, "losses": losses,
+                   "card": torch.cuda.current_device(),
+                   "backend": torch.distributed.get_backend(),
+                   "counts": dict(group.counts),
+                   "nbytes": dict(group.nbytes), "grad_ms": group.grad_ms,
+                   "buckets": len(buckets),
+                   "grad_bytes": sum(g.numel() * 4 for g in grads)}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_parallel(torch, fluid):
+    """Data-parallel ResNet-50 training through the collective transpiler
+    and the ParallelExecutor, one NCCL rank per visible card (a world of
+    one on a one-card machine: its collectives still run through NCCL).
+    Gates: every rank exits 0 on its own card; finite losses, the same on
+    every rank; every rank's moving statistics equal; 53 sync-BN
+    all-reduces a step forward and 53 backward; the losses against the
+    single-card Executor on the same global batch (deterministic cuDNN)."""
+    from paddle_tpu_torch.parallel import mesh
+    n = torch.cuda.device_count()
+    log("parallel: one NCCL rank per visible card: a world of %d%s" % (
+        n, " (one card on this machine: the phase runs a world of one, "
+        "whose collectives still go through NCCL)" if n == 1 else ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        results = mesh.launch([os.path.abspath(__file__), "--parallel-rank",
+                               tmp], n, use_cuda=True, capture=True,
+                              timeout=PAR_TIMEOUT_S)
+        for rank, (rc, out, err) in enumerate(results):
+            if rc != 0:
+                log("parallel: rank %d stderr:\n%s" % (rank, err[-4000:]))
+            check(rc == 0, "parallel: rank %d exited %d" % (rank, rc))
+        log("parallel: %d rank(s) trained %d steps in %.1f s (processes "
+            "included)" % (n, PAR_STEPS, time.time() - t0))
+        recs, stats = [], []
+        for rank in range(n):
+            with open(os.path.join(tmp, "rank%d.json" % rank)) as f:
+                recs.append(json.load(f))
+            with np.load(os.path.join(tmp, "rank%d.npz" % rank)) as z:
+                stats.append({k: z[k] for k in z.files})
+        with np.load(os.path.join(tmp, "init.npz")) as z:
+            init = {k: z[k] for k in z.files}
+    losses = recs[0]["losses"]
+    check(all(np.isfinite(losses)), "parallel: losses %s" % losses)
+    check([r["card"] for r in recs] == list(range(n)),
+          "parallel: the ranks ran on cards %s" % [r["card"] for r in recs])
+    check(all(r["backend"] == "nccl" for r in recs),
+          "parallel: backends %s" % [r["backend"] for r in recs])
+    for r, st in zip(recs[1:], stats[1:]):
+        check(r["losses"] == losses, "parallel: rank %d's losses %s differ "
+              "from rank 0's %s" % (r["rank"], r["losses"], losses))
+        check(sorted(st) == sorted(stats[0]) and all(
+            np.array_equal(st[k], stats[0][k]) for k in st),
+              "parallel: rank %d's moving statistics differ from rank 0's"
+              % r["rank"])
+    check(len(stats[0]) == 2 * PAR_BN, "parallel: %d moving statistics"
+          % len(stats[0]))
+    counts = recs[0]["counts"]
+    bn = counts.get("batch_norm", 0) / PAR_STEPS
+    bn_grad = counts.get("batch_norm_grad", 0) / PAR_STEPS
+    check(bn == PAR_BN and bn_grad == PAR_BN,
+          "parallel: %s sync-BN all-reduces a step forward, %s backward"
+          % (bn, bn_grad))
+    # the single-card Executor on the same global batch, from the state
+    # the ranks started from
+    fluid.set_amp(False)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        main, _, loss = _par_model(fluid, n)
+        scope = fluid.scope_from_jax(init, fluid.Scope(),
+                                     fluid.CUDAPlace(0))
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        ref = []
+        with fluid.scope_guard(scope):
+            for step in range(PAR_STEPS):
+                shards = [_par_shard(step, r) for r in range(n)]
+                feed = {"data": np.concatenate([s[0] for s in shards]),
+                        "label": np.concatenate([s[1] for s in shards])}
+                out, = exe.run(main, feed=feed, fetch_list=[loss])
+                ref.append(float(np.asarray(out).ravel()[0]))
+        del scope, exe
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    log("parallel: losses %s, the single-card Executor's on the global "
+        "batch %s, relative differences %s"
+        % (losses, ref, ["%.3g" % x for x in rel]))
+    check(rel[0] <= PAR_RTOL0 and max(rel) <= PAR_RTOL,
+          "parallel: the global step left the Executor's trajectory: %s"
+          % rel)
+    grad_ms = [float(np.median([r["grad_ms"][s] for r in recs]))
+               for s in range(PAR_STEPS)]
+    per_step = {k: v / PAR_STEPS for k, v in sorted(counts.items())}
+    log("parallel: world %d, gradient buckets %d holding %d bytes (%.1f MB) "
+        "a step; gradient all-reduce %s ms a step (median over the ranks, "
+        "the card synchronized around it); sync-BN all-reduces a step: %d "
+        "forward + %d backward; collectives a step by kind: %s"
+        % (n, recs[0]["buckets"], recs[0]["grad_bytes"],
+           recs[0]["grad_bytes"] / 1e6, ["%.3f" % x for x in grad_ms],
+           bn, bn_grad, per_step))
+    return {"world": n, "losses": losses, "executor_losses": ref,
+            "grad_ms": grad_ms, "buckets": recs[0]["buckets"],
+            "grad_bytes": recs[0]["grad_bytes"], "collectives": per_step}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3497,7 +3710,11 @@ def main():
     phase_zoo_train(torch, pk, fluid)
     torch.cuda.empty_cache()
     phase_zoo_gpu_vs_cpu(torch, fluid)
-    log("zoo phases: %.1f s; the whole script %.1f s"
+    log("zoo phases: %.1f s" % (time.time() - t_phase))
+    # 13. data-parallel ResNet-50 training, one NCCL rank per card
+    t_phase = time.time()
+    phase_parallel(torch, fluid)
+    log("parallel phase: %.1f s; the whole script %.1f s"
         % (time.time() - t_phase, time.time() - t_main))
     log(smi)
     log(json.dumps({"kernels": [entry] + flash_entries + flash_bf16_entries
@@ -3510,4 +3727,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(sys.argv[2]))
     sys.exit(main())

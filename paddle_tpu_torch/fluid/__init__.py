@@ -20,11 +20,16 @@ if one is set.  `fluid.set_amp(True)` runs the following programs in
 bf16 mixed precision (ops/registry.py's AMP lists), as the JAX
 package's does.  Ragged sequences go in as `fluid.LoDTensor` feeds
 (`fluid.create_lod_tensor`) of `layers.data(..., lod_level=1)` vars.
+`fluid.ParallelExecutor` trains data-parallel over torch.distributed,
+one process per card, computing the single-device step of the global
+batch (fluid/parallel_executor.py; the collective-mode
+`DistributeTranspiler` bootstraps the world).
 """
 
 from . import (backward, core, data_feeder, executor, framework,
                functionalizer, initializer, io, ir_passes, layers, lod, nets,
-               optimizer, regularizer, transpiler, unique_name)
+               optimizer, parallel_executor, regularizer, transpiler,
+               unique_name)
 from .backward import append_backward
 from .core import CPUPlace, CUDAPlace
 from .data_feeder import DataFeeder
@@ -36,14 +41,18 @@ from .framework import (Operator, Parameter, Program, Variable,
 from .io import (load_inference_model, load_params, load_persistables,
                  load_vars, save_inference_model, save_params,
                  save_persistables, save_vars, scope_from_jax, scope_to_jax)
+from .parallel_executor import (BuildStrategy, ExecutionStrategy,
+                                ParallelExecutor)
 from .param_attr import ParamAttr
-from .transpiler import InferenceTranspiler
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
+                         InferenceTranspiler)
 from ..ops.registry import amp_enabled, set_amp
 
 __all__ = [
     "backward", "core", "data_feeder", "executor", "framework",
     "functionalizer", "initializer", "io", "ir_passes", "layers", "lod",
-    "nets", "optimizer", "regularizer", "transpiler", "unique_name",
+    "nets", "optimizer", "parallel_executor", "regularizer", "transpiler",
+    "unique_name",
     "append_backward", "CPUPlace", "DataFeeder", "LoDTensor",
     "create_lod_tensor", "create_random_int_lodtensor",
     "CUDAPlace", "Executor", "Scope", "as_numpy", "global_scope",
@@ -52,5 +61,7 @@ __all__ = [
     "scope_from_jax", "scope_to_jax", "ParamAttr", "save_vars",
     "save_params", "save_persistables", "load_vars", "load_params",
     "load_persistables", "save_inference_model", "load_inference_model",
-    "InferenceTranspiler", "set_amp", "amp_enabled",
+    "InferenceTranspiler", "set_amp", "amp_enabled", "ParallelExecutor",
+    "ExecutionStrategy", "BuildStrategy", "DistributeTranspiler",
+    "DistributeTranspilerConfig",
 ]

@@ -1,15 +1,23 @@
 """Places and dtype tables, after paddle_tpu/fluid/core.py.
 
 A Place names a torch.device: `CUDAPlace(i)` is `cuda:i` and `CPUPlace()`
-the CPU.  The VarType enum values are the JAX package's (and the
-reference's framework.proto), so programs and persistables carry across
-by name and dtype tag.
+the CPU.  In a data-parallel rank (parallel/mesh.py) `CUDAPlace(i)` is the
+rank's i-th selected card, as Fluid's `FLAGS_selected_gpus` makes it: the
+launcher sets that variable, or parallel/mesh.py init_collective picks
+the card from the rank when the process joins its world, so
+`Executor(CUDAPlace(0))` in every rank lands on that rank's own card
+while every card stays visible.  The VarType enum values are the JAX
+package's (and the reference's framework.proto), so programs and
+persistables carry across by name and dtype tag.
 """
+
+import os
 
 import numpy as np
 import torch
 
-__all__ = ["CPUPlace", "CUDAPlace", "VarDesc", "convert_np_dtype_to_dtype_",
+__all__ = ["CPUPlace", "CUDAPlace", "VarDesc", "selected_gpus",
+           "select_gpus", "convert_np_dtype_to_dtype_",
            "convert_dtype_to_np", "convert_dtype_to_torch",
            "convert_torch_dtype_to_dtype_"]
 
@@ -25,7 +33,13 @@ class Place:
     def torch_device(self):
         if self._type == "cpu":
             return torch.device("cpu")
-        return torch.device(self._type, self.device_id)
+        sel = selected_gpus()
+        if not sel:
+            return torch.device(self._type, self.device_id)
+        if self.device_id >= len(sel):
+            raise ValueError("CUDAPlace(%d): this process has the selected "
+                             "cards %s" % (self.device_id, sel))
+        return torch.device(self._type, sel[self.device_id])
 
     def __eq__(self, other):
         return type(self) is type(other) and self.device_id == other.device_id
@@ -35,6 +49,25 @@ class Place:
 
     def __repr__(self):
         return "%s(%d)" % (type(self).__name__, self.device_id)
+
+
+_SELECTED = []
+
+
+def selected_gpus():
+    """The cards CUDAPlace(0), CUDAPlace(1), ... name in this process:
+    `select_gpus`'s pick, else `FLAGS_selected_gpus` ("0,1"),
+    else [] (CUDAPlace(i) is cuda:i)."""
+    if _SELECTED:
+        return list(_SELECTED)
+    env = os.environ.get("FLAGS_selected_gpus", "").strip()
+    return [int(i) for i in env.split(",")] if env else []
+
+
+def select_gpus(cards):
+    """Make CUDAPlace(i) name `cards[i]` in this process (a rank's card,
+    chosen by parallel/mesh.py init_collective)."""
+    _SELECTED[:] = [int(c) for c in cards]
 
 
 class CPUPlace(Place):

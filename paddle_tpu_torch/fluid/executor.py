@@ -130,15 +130,28 @@ class Executor:
     (`cuda`), and a host without CUDA raises; `fluid.CPUPlace()` runs on
     the CPU, where each kernel's wrapper runs its plain version."""
 
+    # the data-parallel group (parallel/mesh.py) the step reduces over:
+    # set by the ParallelExecutor's rank executor, None for the whole step
+    _group = None
+
     def __init__(self, place=None):
         self.place = place
-        self.device = resolve_device(
-            None if place is None else place.torch_device())
+        # a host without CUDA raises here already
+        resolve_device(None if place is None else place.torch_device())
         self._step_counters = {}  # id(program) -> steps run
         self._cache = {}  # step-fn key -> step fn
 
+    @property
+    def device(self):
+        """The place's torch.device, resolved at each use: in a
+        data-parallel rank CUDAPlace(0) names the rank's card once the
+        rank has chosen it (fluid/core.py selected_gpus)."""
+        return resolve_device(
+            None if self.place is None else self.place.torch_device())
+
     def _prepare_feeds(self, program, feed):
         gb = program.global_block()
+        device = self.device
         feeds = {}
         for name, value in feed.items():
             v = gb._find_var_recursive(name)
@@ -150,7 +163,7 @@ class Executor:
                         "ported to paddle_tpu_torch yet (ROADMAP.md, queue "
                         "1 item 13)" % name)
                 feeds[name + LOD_LEN_SUFFIX] = torch.from_numpy(lens).to(
-                    self.device)
+                    device)
             t = value if isinstance(value, torch.Tensor) \
                 else as_tensor(value)
             if v is not None and v.dtype is not None:
@@ -159,7 +172,7 @@ class Executor:
                     not want.is_floating_point
                 if t.dtype != want and not both_int:
                     t = t.to(want)
-            feeds[name] = t.to(self.device)
+            feeds[name] = t.to(device)
         return feeds
 
     def _step_fn(self, program, feed_names, fetch_names, state_names):
@@ -167,13 +180,15 @@ class Executor:
         version, feeds, fetches, state, AMP, AD flags), as the JAX
         Executor's _get_jitted."""
         wga, remat = functionalizer.flags_ad_config()
+        device = self.device
         key = (id(program), program._version, feed_names, fetch_names,
-               state_names, registry.amp_enabled(), wga, remat)
+               state_names, registry.amp_enabled(), wga, remat, device)
         fn = self._cache.get(key)
         if fn is None:
             fn = functionalizer.build_step_fn(
                 program, feed_names, fetch_names, state_names,
-                whole_graph_ad=wga, remat_policy=remat, device=self.device)
+                whole_graph_ad=wga, remat_policy=remat, device=device,
+                group=self._group)
             self._cache[key] = fn
         return fn
 
@@ -189,20 +204,18 @@ class Executor:
                                         for n in fetch_names)
         feeds = self._prepare_feeds(program, feed or {})
         state_names = tuple(persistable_names(program))
+        device = self.device
         state = {}
         for n in state_names:
             val = scope.get(n)
             if val is not None:
-                state[n] = val if val.device == self.device \
-                    else val.to(self.device)
+                state[n] = val if val.device == device else val.to(device)
         fn = self._step_fn(program, tuple(sorted(feeds)), fetch_ext,
                            state_names)
         return fn, state, feeds, fetch_names
 
-    @staticmethod
-    def _finish(scope, new_state, fetch_names, fetches, return_numpy):
-        """Persistables to the scope; fetches out, a ragged one as a
-        packed LoDTensor of its real rows."""
+    def _finish(self, scope, new_state, fetch_names, fetches, return_numpy):
+        """Persistables to the scope; fetches out (`_fetch_out`)."""
         for n, val in new_state.items():
             scope.set(n, val)
         n_names = len(fetch_names)
@@ -212,14 +225,15 @@ class Executor:
             if val is None:
                 raise KeyError("fetch %r: no op of the program wrote it"
                                % n)
-            if lens is not None:
-                out.append(unpad_to_lod_tensor(as_numpy(val),
-                                               as_numpy(lens)))
-            elif return_numpy:
-                out.append(as_numpy(val))
-            else:
-                out.append(val)
+            out.append(self._fetch_out(n, val, lens, return_numpy))
         return out
+
+    def _fetch_out(self, name, val, lens, return_numpy):
+        """One fetch as the caller gets it: a ragged one as a packed
+        LoDTensor of its real rows."""
+        if lens is not None:
+            return unpad_to_lod_tensor(as_numpy(val), as_numpy(lens))
+        return as_numpy(val) if return_numpy else val
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):

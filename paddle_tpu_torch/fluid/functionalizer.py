@@ -21,6 +21,17 @@ interprets it eagerly, in one of two forms:
 
 `run_loop` is the JAX package's `jit_loop` as a plain loop of the step.
 
+Data parallelism (fluid/parallel_executor.py): a step built with a
+`group` (parallel/mesh.py DataParallelGroup) is one rank's part of the
+global step.  Every lowering sees the group (ExecContext.group) and makes
+its batch reductions global; and at the boundary of the update region
+(`_backward_region`: after the backward, before any regularizer or
+optimizer op) the gradients of the replicated state are averaged over
+the ranks in flat fp32 buckets (`all_reduce_grads`), on both forms.  The
+whole-graph form seeds its backward with the seed op's value, as the
+per-op form does, so a loss-grad scale set there (GradientScaleStrategy.
+One) holds on both.
+
 Ragged (LoD) vars are padded [B, T, ...] tensors in the env, each with a
 `<name>@LOD_LEN` int32 [B] lengths companion (fluid/lod.py).  An op sees
 the companions of its inputs as `<slot>@LOD_LEN` input slots
@@ -32,16 +43,18 @@ that autograd never differentiates.
 """
 
 import functools
+import time
 
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from ..ops import registry
+from ..parallel import mesh
 from .framework import GRAD_VAR_SUFFIX as GRAD_SUFFIX, grad_var_name
 
 __all__ = ["persistable_names", "run_block", "build_step_fn",
            "build_whole_graph_step_fn", "run_loop", "flags_ad_config",
-           "LOD_LEN_SUFFIX"]
+           "all_reduce_grads", "LOD_LEN_SUFFIX", "GRAD_BUCKET_BYTES"]
 
 # the companion of a ragged var: its int32 [B] sequence lengths
 LOD_LEN_SUFFIX = "@LOD_LEN"
@@ -188,11 +201,13 @@ def _drop_plan(ops, keep):
     return plan
 
 
-def _interpret_ops(ops, env, step=0, seed=0, device=None, drops=None):
+def _interpret_ops(ops, env, step=0, seed=0, device=None, drops=None,
+                   group=None):
     """Run `ops` in order, mutating env.  An op whose generic grad is
     among `ops` runs under autograd and stashes its vjp; every other op
     runs its lowering in the caller's grad mode.  `drops` (a _drop_plan)
-    removes dead names as the ops run."""
+    removes dead names as the ops run; `group` is the data-parallel
+    group the lowerings see."""
     needed_vjp = {op.attrs["fwd_uid"] for op in ops if _is_generic_grad(op)}
     vjp_cache = {}
     for i, op in enumerate(ops):
@@ -201,7 +216,8 @@ def _interpret_ops(ops, env, step=0, seed=0, device=None, drops=None):
         else:
             od = registry.get_op_def(op.type)
             ctx = registry.ExecContext(op, _gather_inputs(op, env),
-                                       step=step, seed=seed, device=device)
+                                       step=step, seed=seed, device=device,
+                                       group=group)
             if op.uid in needed_vjp:
                 outs, vjp_fn = registry.make_forward_and_vjp(op, od, ctx)
                 vjp_cache[op.uid] = (vjp_fn, outs)
@@ -224,14 +240,88 @@ def run_block(block, env, step=0, seed=0, device=None):
 
 
 # ---------------------------------------------------------------------------
+# the gradient all-reduce of data parallelism
+# ---------------------------------------------------------------------------
+
+# the gradient all-reduce's flat fp32 buckets hold at most this many
+# bytes each (a tensor larger than that is a bucket of its own)
+GRAD_BUCKET_BYTES = 25 << 20
+
+
+def _grad_buckets(tensors, cap):
+    """Consecutive index runs of `tensors` whose fp32 bytes stay within
+    `cap` (at least one tensor a run)."""
+    buckets, cur, size = [], [], 0
+    for i, t in enumerate(tensors):
+        nbytes = t.numel() * 4
+        if cur and size + nbytes > cap:
+            buckets.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += nbytes
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def all_reduce_grads(grads, group):
+    """{name: grad} -> {name: the grad averaged over the group's ranks}:
+    flattened in name order (the same on every rank) into fp32 buckets,
+    one all_reduce each, then scaled by 1 / world size and cast back.
+    With `group.time_grads` the wall time is appended to group.grad_ms
+    (a card is synchronized around it).  A group of one without a
+    process group returns `grads` as they are."""
+    if not group.active or not grads:
+        return grads
+    names = sorted(grads)
+    tensors = [grads[n] for n in names]
+    timed = group.time_grads
+    if timed:
+        if tensors[0].is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+    inv = 1.0 / group.world_size
+    out = {}
+    with mesh.profiled("grad buckets"):
+        for idx in _grad_buckets(tensors, GRAD_BUCKET_BYTES):
+            flat = torch.cat([tensors[i].reshape(-1).float() for i in idx])
+            group.all_reduce_(flat, "grad")
+            if inv != 1.0:
+                flat.mul_(inv)
+            off = 0
+            for i in idx:
+                t = tensors[i]
+                out[names[i]] = flat[off:off + t.numel()].view(
+                    t.shape).to(t.dtype)
+                off += t.numel()
+    if timed:
+        if tensors[0].is_cuda:
+            torch.cuda.synchronize()
+        group.grad_ms.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _reduce_state_grads(env, state_names, group):
+    """Average, over the ranks, the grads in env of the replicated state
+    (the persistables: parameters); a per-sample grad (of a feed or an
+    activation) stays the rank's own."""
+    names = [grad_var_name(n) for n in state_names]
+    grads = {g: env[g] for g in names
+             if g in env and isinstance(env[g], torch.Tensor)
+             and env[g].is_floating_point()}
+    env.update(all_reduce_grads(grads, group))
+
+
+# ---------------------------------------------------------------------------
 # step functions
 # ---------------------------------------------------------------------------
 
 def build_step_fn(program, feed_names, fetch_names, state_names,
                   block_idx=0, whole_graph_ad=False, remat_policy=None,
-                  device=None):
+                  device=None, group=None):
     """Return pure fn(state_dict, feed_dict, step) -> (fetches,
-    new_state); a fetch no op wrote is None.
+    new_state); a fetch no op wrote is None.  With a data-parallel
+    `group` it is this rank's part of the global step.
 
     With whole_graph_ad the backward region is served by ONE
     torch.autograd.grad over the forward region
@@ -241,7 +331,8 @@ def build_step_fn(program, feed_names, fetch_names, state_names,
     if whole_graph_ad:
         fn = build_whole_graph_step_fn(
             program, feed_names, fetch_names, state_names,
-            block_idx=block_idx, remat_policy=remat_policy, device=device)
+            block_idx=block_idx, remat_policy=remat_policy, device=device,
+            group=group)
         if fn is not None:
             return fn
         has_backward = any(_is_generic_grad(op)
@@ -256,13 +347,30 @@ def build_step_fn(program, feed_names, fetch_names, state_names,
     state_names = tuple(state_names)
     fetch_names = tuple(fetch_names)
     drops = _drop_plan(ops, set(state_names) | set(fetch_names))
+    # with a group the step pauses at the update region's boundary for
+    # the gradient all-reduce
+    cut = len(ops)
+    if group is not None:
+        region = _backward_region(ops)
+        if region is not None:
+            cut = region[1]
+            if any(op.type.endswith("_grad") for op in ops[cut:]):
+                raise NotImplementedError(
+                    "data parallelism: a grad op after the update region "
+                    "begins; the gradient all-reduce needs every grad op "
+                    "in one backward region")
 
     def step_fn(state, feeds, step):
         env = dict(state)
         env.update(feeds)
         with torch.no_grad():
-            _interpret_ops(ops, env, step=step, seed=seed, device=device,
-                           drops=drops)
+            _interpret_ops(ops[:cut], env, step=step, seed=seed,
+                           device=device, drops=drops[:cut], group=group)
+            if cut < len(ops):
+                _reduce_state_grads(env, state_names, group)
+                _interpret_ops(ops[cut:], env, step=step, seed=seed,
+                               device=device, drops=drops[cut:],
+                               group=group)
         fetches = [env.get(n) for n in fetch_names]
         new_state = {n: env[n] for n in state_names if n in env}
         return fetches, new_state
@@ -291,17 +399,18 @@ def _writes(op):
     return {n for names in op.outputs.values() for n in names if n}
 
 
-def _partition_whole_graph(block):
-    """Split block.ops into (forward_ops, update_ops, loss_name) for
-    whole-graph AD, or None when the program is ineligible (control-flow
-    sub-blocks, custom grad lowerings, several grad seeds, grad-writing
-    ops outside the backward region).
+def _is_bwd_helper(op):
+    # fan-in accumulation / canonical rebinding emitted by backward.py
+    return (op.type in ("sum", "assign")
+            and all(GRAD_SUFFIX in n for n in _writes(op)))
 
-    The backward region (the seed fill_constant, the generic
-    `<type>_grad` ops and their fan-in sum/assign ops) is DROPPED:
-    autograd serves it.  Everything after it (regularizers, optimizer
-    ops) is the update region and still interprets op by op."""
-    ops = list(block.ops)
+
+def _backward_region(ops):
+    """(seed_idx, end) of the backward region of `ops`: from the seed
+    fill_constant (the first op that writes only grads) through the grad
+    ops and backward.py's fan-in sum/assign ops that follow it; ops[end:]
+    is the update region (regularizers, optimizer ops).  None without a
+    seed."""
     seed_idx = None
     for i, op in enumerate(ops):
         outs = _writes(op)
@@ -311,25 +420,35 @@ def _partition_whole_graph(block):
             break
     if seed_idx is None:
         return None
+    end = seed_idx + 1
+    while end < len(ops) and (ops[end].type.endswith("_grad")
+                              or _is_bwd_helper(ops[end])):
+        end += 1
+    return seed_idx, end
+
+
+def _partition_whole_graph(block):
+    """Split block.ops into (forward_ops, update_ops, loss_name) for
+    whole-graph AD, or None when the program is ineligible (control-flow
+    sub-blocks, custom grad lowerings, several grad seeds, grad-writing
+    ops outside the backward region).
+
+    The backward region (`_backward_region`: the seed fill_constant,
+    the generic `<type>_grad` ops and their fan-in sum/assign ops) is
+    DROPPED: autograd serves it.  Everything after it (regularizers,
+    optimizer ops) is the update region and still interprets op by op."""
+    ops = list(block.ops)
+    region = _backward_region(ops)
+    if region is None:
+        return None
+    seed_idx, end = region
     seed_outs = sorted(_writes(ops[seed_idx]))
     if len(seed_outs) != 1:
         return None
     loss_name = seed_outs[0][:-len(GRAD_SUFFIX)]
-
-    def _is_bwd_helper(op):
-        # fan-in accumulation / canonical rebinding emitted by backward.py
-        return (op.type in ("sum", "assign")
-                and all(GRAD_SUFFIX in n for n in _writes(op)))
-
-    end = seed_idx + 1
-    while end < len(ops):
-        op = ops[end]
-        if _is_generic_grad(op) or _is_bwd_helper(op):
-            end += 1
-            continue
-        if op.type.endswith("_grad"):
-            return None  # a custom grad lowering needs per-op semantics
-        break
+    if not all(_is_generic_grad(op) or _is_bwd_helper(op)
+               for op in ops[seed_idx + 1:end]):
+        return None  # a custom grad lowering needs per-op semantics
     forward_ops, update_ops = ops[:seed_idx], ops[end:]
     for op in forward_ops:
         if op.attrs.get("sub_block") is not None or any(
@@ -429,18 +548,19 @@ def _reads(op):
     return {n for names in op.inputs.values() for n in names if n}
 
 
-def _run_segment(ops, drops, out_names, step, seed, device, env_in):
+def _run_segment(ops, drops, out_names, step, seed, device, group, env_in):
     """One segment of the forward region: a fresh env from `env_in`
     (never mutated, so a recomputation sees the first run's inputs);
     returns the written values that later code reads."""
     env = dict(env_in)
     _interpret_ops(ops, env, step=step, seed=seed, device=device,
-                   drops=drops)
+                   drops=drops, group=group)
     return {n: env[n] for n in _with_companions(out_names, env)}
 
 
 def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
-                              block_idx=0, remat_policy=None, device=None):
+                              block_idx=0, remat_policy=None, device=None,
+                              group=None):
     """The whole-graph AD step: fn(state, feeds, step) -> (fetches,
     new_state), with the program's backward region served by one
     torch.autograd.grad over the forward region.
@@ -452,7 +572,9 @@ def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
     segment runs in torch.utils.checkpoint.  What the region writes and
     later code reads (moving statistics, the loss, fetches) is taken,
     detached, from that first run, so a recomputation changes nothing.
-    The update region runs op by op under no_grad.
+    The update region runs op by op under no_grad, after the gradient
+    all-reduce when there is a data-parallel `group`.  The backward is
+    seeded with the seed op's `value`.
 
     Returns None when the program is ineligible (see
     _partition_whole_graph, and grads of intermediate vars)."""
@@ -461,6 +583,8 @@ def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
     if part is None:
         return None
     forward_ops, update_ops, loss_name = part
+    seed_op = block.ops[_backward_region(block.ops)[0]]
+    seed_value = float(seed_op.attrs.get("value", 1.0))
     seed = program.random_seed
     state_names = tuple(state_names)
     fetch_names = tuple(fetch_names)
@@ -513,10 +637,11 @@ def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
             env_in = {n: env[n] for n in _with_companions(ins, env)}
             if policy is None:
                 env.update(_run_segment(seg, drops, outs, step, seed,
-                                        device, env_in))
+                                        device, group, env_in))
                 continue
             env.update(torch_checkpoint.checkpoint(
-                _run_segment, seg, drops, outs, step, seed, device, env_in,
+                _run_segment, seg, drops, outs, step, seed, device, group,
+                env_in,
                 use_reentrant=False,
                 # the random ops draw from generators seeded per (seed,
                 # op, step): a recomputation draws the same values
@@ -538,7 +663,8 @@ def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
             env = forward(env, step)
             loss = env[loss_name]
             grads = torch.autograd.grad(
-                [loss], leaves, [torch.ones_like(loss)], allow_unused=True)
+                [loss], leaves, [torch.full_like(loss, seed_value)],
+                allow_unused=True)
         aux = {n: env[n].detach() for n in aux_names if n in env}
         del env, loss
         env = dict(env0)
@@ -547,8 +673,10 @@ def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
             env[grad_var_name(n)] = torch.zeros_like(leaf) if g is None \
                 else g
         with torch.no_grad():
+            if group is not None:
+                _reduce_state_grads(env, state_names, group)
             _interpret_ops(update_ops, env, step=step, seed=seed,
-                           device=device, drops=update_drops)
+                           device=device, drops=update_drops, group=group)
         fetches = [env.get(n) for n in fetch_names]
         new_state = {n: env[n] for n in state_names if n in env}
         return fetches, new_state

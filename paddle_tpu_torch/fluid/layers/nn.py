@@ -10,7 +10,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-    "dropout", "softmax", "relu", "cross_entropy",
+    "dropout", "softmax", "relu", "cross_entropy", "square_error_cost",
     "softmax_with_cross_entropy", "accuracy", "topk", "elementwise_add",
     "elementwise_mul", "where", "mean", "scale", "reshape", "slice", "cumsum", "remat_checkpoint",
     "flash_attention",
@@ -245,6 +245,16 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
                      outputs={"Y": out},
                      attrs={"soft_label": soft_label,
                             "ignore_index": ignore_index})
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label) ** 2, elementwise."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": input, "Y": label},
+                     outputs={"Out": out})
     return out
 
 

@@ -8,11 +8,14 @@ fp32 and rounded once), as the JAX package leaves them to XLA.
 On a ragged (LoD) X, padded [B, T, ...] at run time where the program's
 shapes are the packed [rows, ...] ones, `mul` flattens one more leading
 dim, the elementwise ops shift an `axis` >= 1 by one, and `mean`
-averages over the real rows only, as the JAX lowerings do."""
+averages over the real rows only, as the JAX lowerings do.  Under a
+data-parallel group (ExecContext.group) `mean` is the global batch's:
+its sum and its count are each summed over the ranks."""
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_sum
 from .registry import register_op
 
 
@@ -147,13 +150,30 @@ def _mean(ctx):
     the sum and the count), in x's dtype as the JAX lowering."""
     x = ctx.input("X")
     lens = ctx.lod_len("X")
-    if lens is None:
+    if lens is None and ctx.group is None:
         return {"Out": torch.mean(x)}
-    B, T = x.shape[0], x.shape[1]
-    m = seq_mask(lens, T, x.dtype).reshape((B, T) + (1,) * (x.dim() - 2))
-    per_step = int(np.prod(x.shape[2:])) if x.dim() > 2 else 1
-    count = torch.clamp_min(lens.sum().to(x.dtype) * per_step, 1)
-    return {"Out": torch.sum(x * m) / count}
+    if lens is None:
+        total = x.sum(dtype=_acc_dtype(x))
+        count = total.new_tensor(float(x.numel()))
+    else:
+        B, T = x.shape[0], x.shape[1]
+        m = seq_mask(lens, T, x.dtype).reshape(
+            (B, T) + (1,) * (x.dim() - 2))
+        per_step = int(np.prod(x.shape[2:])) if x.dim() > 2 else 1
+        if ctx.group is None:
+            count = torch.clamp_min(lens.sum().to(x.dtype) * per_step, 1)
+            return {"Out": torch.sum(x * m) / count}
+        total = torch.sum(x * m, dtype=_acc_dtype(x))
+        count = (lens.sum() * per_step).to(total.dtype)
+    # the global batch's mean: sum and count summed over the ranks
+    # separately (ragged ranks hold different numbers of real rows)
+    tot = all_reduce_sum(torch.stack([total, count]), ctx.group, "mean")
+    return {"Out": (tot[0] / torch.clamp_min(tot[1], 1)).to(x.dtype)}
+
+
+def _acc_dtype(x):
+    """fp32 accumulation below fp32, as jnp.mean sums bf16."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 @register_op("cumsum")

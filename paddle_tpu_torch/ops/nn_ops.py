@@ -1,12 +1,17 @@
 """NN op lowerings, after paddle_tpu/ops/nn_ops.py: conv2d, pool2d,
 batch_norm, layer_norm, dropout, lookup_table (embedding),
-softmax_with_cross_entropy, cross_entropy and accuracy.
+softmax_with_cross_entropy, cross_entropy, square_error_cost and
+accuracy.
 
 Image ops take NCHW or NHWC activations (the `data_format` /
 `data_layout` attr) with OIHW filters in either layout, as the JAX
 package.  torch's convolutions and pools are NCHW: an NHWC tensor goes
 in as its permuted view (on the card a channels-last NCHW tensor, which
 cuDNN reads in place) and comes back permuted to NHWC.
+
+Under a data-parallel group (ExecContext.group) batch_norm's training
+statistics and accuracy's counts are those of the global batch, summed
+over the ranks, as the JAX package's SPMD step computes them.
 """
 
 import math
@@ -14,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_sum
 from .registry import register_op
 
 
@@ -200,9 +206,15 @@ def _batch_norm(ctx):
     else:
         xf = x.float()
         n = float(math.prod(x.shape[i] for i in axes))
-        use_mean = xf.sum(dim=axes) / n
-        use_var = torch.clamp_min(
-            torch.square(xf).sum(dim=axes) / n - torch.square(use_mean), 0.0)
+        s1, s2 = xf.sum(dim=axes), torch.square(xf).sum(dim=axes)
+        if ctx.group is not None:
+            # the global batch's statistics: the [2, C] sums and the row
+            # count summed over the ranks in one all-reduce
+            tot = all_reduce_sum(torch.cat([s1, s2, s1.new_full((1,), n)]),
+                                 ctx.group, "batch_norm")
+            s1, s2, n = tot[:s1.numel()], tot[s1.numel():-1], tot[-1]
+        use_mean = s1 / n
+        use_var = torch.clamp_min(s2 / n - torch.square(use_mean), 0.0)
         mean_out = mean * momentum + use_mean * (1.0 - momentum)
         var_out = var * momentum + use_var * (1.0 - momentum)
         saved_mean = use_mean
@@ -321,6 +333,11 @@ def _cross_entropy(ctx):
     return {"Y": loss}
 
 
+@register_op("square_error_cost")
+def _square_error_cost(ctx):
+    return {"Out": torch.square(ctx.input("X") - ctx.input("Y"))}
+
+
 @register_op("accuracy")
 def _accuracy(ctx):
     """Share of rows whose label is among the top-k Indices."""
@@ -331,6 +348,14 @@ def _accuracy(ctx):
     correct = (pred_idx == label[:, None].to(pred_idx.dtype)).any(dim=1)
     num_correct = correct.to(torch.float32).sum()
     total = pred_idx.shape[0]
+    if ctx.group is not None:
+        # over the global batch: Correct and Total summed over the ranks
+        tot = ctx.group.all_reduce_(
+            torch.stack([num_correct, num_correct.new_tensor(total)]),
+            "accuracy")
+        return {"Accuracy": (tot[0] / tot[1]).reshape((1,)),
+                "Correct": tot[0].to(torch.int32).reshape((1,)),
+                "Total": tot[1].to(torch.int32).reshape((1,))}
     return {"Accuracy": (num_correct / float(total)).reshape((1,)),
             "Correct": num_correct.to(torch.int32).reshape((1,)),
             "Total": torch.full((1,), total, dtype=torch.int32,

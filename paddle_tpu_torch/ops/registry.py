@@ -64,11 +64,15 @@ def _mix_seed(*vals):
 
 class ExecContext:
     """What a lowering sees: attrs, resolved input tensors, the step, the
-    program's random seed and the device it computes on."""
+    program's random seed, the device it computes on and the
+    data-parallel group (parallel/mesh.py DataParallelGroup, as the JAX
+    context carries its mesh): None on one device; under a group a
+    lowering that reduces over the batch axis sums over the ranks."""
 
-    __slots__ = ("op", "attrs", "_inputs", "step", "seed", "device")
+    __slots__ = ("op", "attrs", "_inputs", "step", "seed", "device",
+                 "group")
 
-    def __init__(self, op, inputs, step=0, seed=0, device=None):
+    def __init__(self, op, inputs, step=0, seed=0, device=None, group=None):
         self.op = op
         self.attrs = op.attrs
         self._inputs = inputs  # slot -> [values]
@@ -76,6 +80,7 @@ class ExecContext:
         self.seed = seed
         self.device = torch.device("cpu") if device is None \
             else torch.device(device)
+        self.group = group
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
@@ -109,12 +114,19 @@ class ExecContext:
         """A torch.Generator on the context's device, seeded from the
         op's `seed` attr, the program's random seed, the op's uid and the
         step: two identically built programs draw the same values, and
-        every step draws anew.  None on the meta device (no data)."""
+        every step draws anew.  In a world of several ranks the rank is
+        mixed in too, so the ranks' rows get independent draws (not the
+        JAX package's bits for the global batch: its masks change with
+        the sharding as well).  None on the meta device (no data)."""
         if self.device.type == "meta":
             return None
         g = torch.Generator(device=self.device)
-        g.manual_seed(_mix_seed(self.attr("seed", 0) or 0, self.seed or 0,
-                                self.op.uid, self.step))
+        vals = [self.attr("seed", 0) or 0, self.seed or 0, self.op.uid,
+                self.step]
+        if self.group is not None and self.group.world_size > 1:
+            # each rank draws for its own rows
+            vals.append(self.group.rank)
+        g.manual_seed(_mix_seed(*vals))
         return g
 
 
@@ -260,7 +272,8 @@ def make_forward_and_vjp(op, od, ctx):
             d[slot] = flat[k:k + n]
             k += n
         outs = _normalize(call_lower(od, ExecContext(
-            op, d, step=ctx.step, seed=ctx.seed, device=ctx.device)))
+            op, d, step=ctx.step, seed=ctx.seed, device=ctx.device,
+            group=ctx.group)))
 
     def vjp_to_slots(cotangents):
         ys, gs = [], []
@@ -356,7 +369,7 @@ def _amp_context(od, ctx):
               else _amp_cast(vals, to)
               for slot, vals in ctx._inputs.items()}
     return ExecContext(ctx.op, inputs, step=ctx.step, seed=ctx.seed,
-                       device=ctx.device)
+                       device=ctx.device, group=ctx.group)
 
 
 class OpError(RuntimeError):

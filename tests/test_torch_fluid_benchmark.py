@@ -4,7 +4,10 @@ the JAX package's tools/fluid_benchmark.py, on the CPU (`--device CPU`,
 holds the JAX tool's keys and says cpu; its synthetic batches are the
 JAX tool's for the same seed (ragged ids included); each flag and model
 that needs parts not ported yet raises NotImplementedError; without
-`--device CPU` on a host without CUDA it raises rather than fall back."""
+`--device CPU` on a host without CUDA it raises rather than fall back.
+`--parallel` on the CPU starts CPU_NUM gloo trainers and trainer 0 prints
+the record; a failed trainer fails the run; benchmark() outside a
+trainer's environment raises for --parallel and --update_method nccl2."""
 
 import importlib.util
 import json
@@ -127,8 +130,11 @@ def _check_lengths(batch, seq_len):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--parallel",), ("--update_method", "pserver"),
-    ("--update_method", "nccl2"), ("--prefetch_depth", "2"),
+    # --parallel and nccl2 are ported: what still raises beside them
+    ("--parallel", "--update_method", "pserver"),
+    ("--update_method", "pserver"),
+    ("--update_method", "nccl2", "--async_depth", "2"),
+    ("--prefetch_depth", "2"),
     ("--async_depth", "2"), ("--staged_feed", "2"), ("--profile",),
     ("--model", "machine_translation")],
     ids=["parallel", "pserver", "nccl2", "prefetch_depth", "async_depth",
@@ -136,6 +142,78 @@ def _check_lengths(batch, seq_len):
 def test_unported_flags_and_models_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fb.benchmark(fb.parse_args(_cpu("mnist") + list(extra)))
+
+
+@pytest.mark.parametrize("extra", [("--parallel",),
+                                   ("--update_method", "nccl2")],
+                         ids=["parallel", "nccl2"])
+def test_data_parallel_runs_need_a_trainers_environment(extra, monkeypatch):
+    """benchmark() is one trainer's part: outside a launcher's
+    environment it raises, naming what to set; the module's `--parallel`
+    starts the trainers itself."""
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS", "PADDLE_COORDINATOR"):
+        monkeypatch.delenv(k, raising=False)
+    args = fb.parse_args(_cpu("mnist") + list(extra))
+    with pytest.raises(RuntimeError, match="PADDLE_COORDINATOR"):
+        fb.benchmark(args)
+    if extra == ("--update_method", "nccl2"):
+        with pytest.raises(RuntimeError, match="PADDLE_TRAINER_ID"):
+            fb.main(_cpu("mnist") + list(extra))
+
+
+def test_parallel_trains_on_cpu_num_trainers():
+    """`--parallel --device CPU` with CPU_NUM=2: two gloo trainers, each
+    on half of the global batch of 4; only trainer 0 prints its record,
+    which says so.  `--trace_steps` adds the staged steps and trainer
+    0's profile, with the host time inside the collectives' ranges."""
+    env = dict(os.environ, PYTHONPATH=REPO, CPU_NUM="2")
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS", "PADDLE_COORDINATOR"):
+        env.pop(k, None)
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.fluid_benchmark",
+         "--model", "stacked_dynamic_lstm", "--device", "CPU",
+         "--batch_size", "4", "--iterations", "2", "--parallel",
+         "--trace_steps", "1"],
+        capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "starts 2 trainers" in out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 1
+    record = json.loads(lines[0])
+    assert JAX_KEYS <= set(record)
+    assert record["parallel"] is True and record["world"] == 2
+    assert record["batch_size"] == 4 and np.isfinite(record["last_loss"])
+    # a step's collectives: the gradient buckets, the loss mean and its
+    # grad, accuracy's counts
+    calls = {k: v["calls"] for k, v in record["collectives"].items()}
+    # ~31 MB of fp32 gradients: two 25 MiB buckets
+    assert calls == {"grad": 2.0, "mean": 1.0, "mean_grad": 1.0,
+                     "accuracy": 1.0}
+    assert record["grad_allreduce"]["buckets"] == 2
+    assert record["staged"]["steps"] == 1
+    assert record["staged"]["step_ms"] > 0
+    trace = record["trace"]
+    assert trace["busy_share"] is None and trace["groups_ms"] == {}
+    assert {"grad buckets", "allreduce grad", "allreduce mean",
+            "allreduce accuracy"} <= set(trace["host_ms"])
+    assert trace["host_ms"]["grad buckets"] >= \
+        trace["host_ms"]["allreduce grad"] > 0
+
+
+def test_a_failed_trainer_fails_the_run():
+    """A global batch that does not split over the trainers fails every
+    trainer; the run exits non-zero and prints no record."""
+    env = dict(os.environ, PYTHONPATH=REPO, CPU_NUM="2")
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS", "PADDLE_COORDINATOR"):
+        env.pop(k, None)
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.fluid_benchmark",
+         "--model", "mnist", "--device", "CPU", "--batch_size", "3",
+         "--iterations", "1", "--parallel"],
+        capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 1
+    assert "does not split over 2 trainers" in out.stderr
+    assert "trainers failed" in out.stderr and out.stdout.strip() == ""
 
 
 def test_the_card_is_the_default_and_never_falls_back():

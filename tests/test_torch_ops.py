@@ -73,6 +73,10 @@ _CASES = [
     ("scale_bias_first", "scale", {"X": [_f(3, 4)]},
      {"scale": 0.5, "bias": 0.1, "bias_after_scale": False}),
     ("mean", "mean", {"X": [_f(3, 4, 2)]}, {}),
+    ("square_error_cost", "square_error_cost",
+     {"X": [_f(5, 1)], "Y": [_f(5, 1)]}, {}),
+    ("gen_collective_id", "gen_collective_id", {},
+     {"trainer_id": 3, "num_trainers": 1}),
     ("cumsum_exclusive", "cumsum", {"X": [_f(2, 5)]},
      {"axis": 1, "exclusive": True}),
     ("cumsum_reverse", "cumsum", {"X": [_f(2, 5)]},
