@@ -106,6 +106,29 @@ Phases, in order; any failure exits non-zero:
   8. resnet gpu/cpu — a ResNet-50 artifact at 32 x 32 input: the fused
                Predictor on the card and on the CPU agree; and its bf16
                route on the card and on the CPU agree.
+     serving — the serving front end over the wire: the port's
+               InferenceServer on 127.0.0.1:0 with its models on cuda:0,
+               driven by its ServingClient through bench_serving's
+               open-loop functions.  Models: `resnet50`, the phase-7
+               artifact loaded at FLAGS.fuse_bottleneck_max_width = 128
+               with buckets (1, 8, 32), and its int8 PTQ twin as the
+               `precision` lane; `lm` (fp32 KV) and `lm8` (int8 KV), the
+               decode artifact rebuilt at the slice's full width, 8
+               slots, fuse_steps 8.  Open-loop Poisson image points at
+               25, 100 and 200 QPS (3 s each) and an int8-lane point at
+               25 QPS, driven by a load generator in a process of its
+               own (no client thread shares the server's interpreter
+               lock), then the slice's 16 seeded streams on each of `lm`
+               and `lm8`, then a 100-QPS image point under
+               torch.profiler.  Gates: no error and no expired deadline
+               at any image point, no shed either at the 25-QPS points;
+               K6, K5, K3 and K4 each launched through the server; every
+               stream token-identical to the earlier phases' streams;
+               image replies bit-equal to a direct Predictor.run at the
+               same bucket (fp32 and int8).  Prints served and offered
+               QPS, p50/p95/p99 ms and the server's mean stage ms per point,
+               decode tokens/s and TTFT, the device busy share of the
+               profiled point, the phase's seconds.
   9. resnet train — ResNet-50 training through the user's entry points
                at the bench's shapes (paddle_tpu_torch/bench.py:
                get_model(is_train=True, layout="NHWC"), 224 x 224, batch
@@ -2302,6 +2325,231 @@ def phase_resnet(torch, pk, fluid, resnet, inference, tmp):
             {b: lanes["unfused"][b][1] for b in RESNET_BATCHES})
 
 
+# the serving phase's image points, (target QPS, seconds) open-loop: the
+# fp32 points, the int8 lane's point and the profiled point.  A load
+# generator in a process of its own drives them, so that no client thread
+# shares the server's interpreter lock; it runs one point per line of its
+# standard input (run_point's keywords as JSON) and prints its record.
+SERVE_BUCKETS = (1, 8, 32)
+SERVE_POINTS = ((25.0, 3.0), (100.0, 3.0), (200.0, 3.0))
+SERVE_INT8_POINT = (25.0, 2.0)
+SERVE_PROFILE_POINT = (100.0, 1.5)
+_SERVE_CLIENT = """
+import json, sys
+from paddle_tpu_torch import bench_serving
+for line in iter(sys.stdin.readline, ""):
+    rec = bench_serving.run_point(sys.argv[1], **json.loads(line))
+    print(json.dumps(rec), flush=True)
+"""
+SERVE_DEADLINE_MS = 5000.0
+SERVE_HW = 224
+
+
+def phase_serving(torch, pk, inference, decode, tmp, plain, int8_outs):
+    """The serving front end through the wire on the card (the docstring's
+    `serving` phase).  Returns the hand kernels' launches through the
+    server: {kernel name: launches}, counted from zero just before the
+    points are driven and read just after."""
+    from paddle_tpu_torch import bench_serving
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.obs import registry as obs_registry
+    from paddle_tpu_torch.serving import InferenceServer, ServingClient
+    t_phase = time.time()
+    art = os.path.join(tmp, "resnet50")
+    art8 = art + "_int8"
+    lm = os.path.join(tmp, "lm_serve")
+    decode.build_tiny_decode_model(lm, **FULL_WIDTH)
+    prompts, budgets = plain["prompts"], plain["budgets"]
+    srv = InferenceServer("127.0.0.1:0", replicas="cuda:0").start()
+    cli = ServingClient(srv.endpoint)
+    client = None
+    try:
+        t0 = time.time()
+        FLAGS.fuse_bottleneck_max_width = FUSE_GATE
+        try:
+            rep = cli.load_model("resnet50", art, buckets=SERVE_BUCKETS)
+        finally:
+            FLAGS.fuse_bottleneck_max_width = 0
+        rep8 = cli.load_model("resnet50", art8, buckets=SERVE_BUCKETS)
+        loads = {"resnet50": rep, "resnet50@int8": rep8}
+        for name, kv in (("lm", "float32"), ("lm8", "int8")):
+            loads[name] = cli.load_model(name, lm, decode_slots=N_SLOTS,
+                                         fuse_steps=FUSE_STEPS,
+                                         kv_cache_dtype=kv)
+        check(all(r["devices"] == ["cuda:0"] for r in loads.values()),
+              "a served model is not on cuda:0: %s"
+              % {k: r["devices"] for k, r in loads.items()})
+        check((rep["precision"], rep8["precision"]) == ("fp32", "int8"),
+              "resnet50 lanes %s / %s" % (rep["precision"],
+                                          rep8["precision"]))
+        log("serving: server on %s; 4 loads (each replica warmed) in "
+            "%.2f s" % (srv.endpoint, time.time() - t0))
+
+        client = subprocess.Popen(
+            [sys.executable, "-c", _SERVE_CLIENT, srv.endpoint],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__))))
+
+        def image_point(qps, secs, seed, precision=None):
+            """One open-loop resnet50 point from the client process, and
+            the server's mean stage ms over it."""
+            before = obs_registry.default().span_totals(kind="serving")
+            client.stdin.write(json.dumps(dict(
+                model="resnet50", feed_name="data",
+                sample_shape=[SERVE_HW, SERVE_HW, 3], dtype="float32",
+                target_qps=qps, duration=secs, req_batch=1,
+                deadline_ms=SERVE_DEADLINE_MS, seed=seed,
+                precision=precision)) + "\n")
+            client.stdin.flush()
+            line = client.stdout.readline()
+            check(line, "serving: the load generator process died (exit "
+                  "%s)" % client.poll())
+            return json.loads(line), _stage_means(
+                obs_registry.default().span_totals(kind="serving"), before)
+
+        pk.reset_launch_counts()
+        points, stages = [], []
+        for i, (qps, secs) in enumerate(SERVE_POINTS):
+            rec, st = image_point(qps, secs, seed=i)
+            points.append(rec)
+            stages.append(st)
+        int8_point, int8_stages = image_point(*SERVE_INT8_POINT, seed=7,
+                                              precision="int8")
+        decode_points = {}
+        for name, want in (("lm", plain["outs"]), ("lm8", int8_outs)):
+            got = {}
+            decode_points[name] = bench_serving.run_decode_point(
+                srv.endpoint, name, FULL_WIDTH["vocab_size"],
+                target_qps=16.0, duration=0.0, deadline_ms=120000.0,
+                requests=lambda i: (prompts[i], budgets[i]),
+                n_requests=N_REQUESTS, streams=got)
+            for i in range(N_REQUESTS):
+                check(got.get(i) == want[i],
+                      "serving %s: stream %d differs from the earlier "
+                      "phase's direct stream" % (name, i))
+        counts = dict(pk.launch_counts)
+        served = {k: counts[k] for k in ("fused_bottleneck",
+                                         "dequant_matmul",
+                                         "decode_attention",
+                                         "decode_attention_int8")}
+        check(all(n > 0 for n in served.values()),
+              "a hand kernel did not launch through the server: %s"
+              % served)
+        for name, rec in decode_points.items():
+            check(rec["ok"] == N_REQUESTS and rec["errors"] == 0,
+                  "serving %s: %s" % (name, rec))
+
+        # one more point under torch.profiler: the device's busy share
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prof_point, prof_stages = image_point(*SERVE_PROFILE_POINT,
+                                                  seed=11)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device_ms, rows = profile_rows(torch, prof, 1)
+        busy = device_ms / wall_ms if rows else None
+        client.stdin.close()
+        check(client.wait(timeout=60) == 0, "serving: the load generator "
+              "process exited %s" % client.returncode)
+
+        # every image point: no error and no expired deadline; no shed
+        # either at the lowest rate (the first fp32 point, the int8 point)
+        for rec, lowest in [(r, i == 0) for i, r in enumerate(points)] + [
+                (int8_point, True), (prof_point, False)]:
+            check(rec["sent"] > 0 and rec["errors"] == 0
+                  and rec["deadline_rate"] == 0.0
+                  and (not lowest or (rec["shed_rate"] == 0.0
+                                      and rec["ok"] == rec["sent"])),
+                  "serving: failures at a point: %s" % rec)
+
+        # image replies bit-equal to a direct Predictor.run at the same
+        # bucket: one request at a time, so each dispatch is that request
+        # alone, padded to its bucket as the direct run pads it
+        directs = {}
+        FLAGS.fuse_bottleneck_max_width = FUSE_GATE
+        try:
+            for lane, path in (("fp32", art), ("int8", art8)):
+                cfg = inference.AnalysisConfig(model_dir=path)
+                cfg.batch_size_buckets = SERVE_BUCKETS
+                directs[lane] = inference.create_paddle_predictor(cfg)
+        finally:
+            FLAGS.fuse_bottleneck_max_width = 0
+        for lane, pred in directs.items():
+            for b in (1, 5, 8, 20):
+                images = _images(b, 300 + b, hw=SERVE_HW)
+                got = cli.infer("resnet50", {"data": images},
+                                precision=lane)[0]
+                check(np.array_equal(got, pred.run([images])[0]),
+                      "serving resnet50 %s b=%d: the reply is not "
+                      "bit-equal to a direct Predictor.run" % (lane, b))
+        del directs
+        stats = cli.stats()["stats"]["models"]
+        health = cli.health()
+    finally:
+        if client is not None and client.poll() is None:
+            client.kill()
+            client.wait()
+        cli.close()
+        srv.shutdown()
+        torch.cuda.empty_cache()
+    for lane, (qps, _), rec, st in (
+            [("fp32", p, r, st) for p, r, st in zip(SERVE_POINTS, points,
+                                                    stages)]
+            + [("int8", SERVE_INT8_POINT, int8_point, int8_stages),
+               ("fp32, profiled", SERVE_PROFILE_POINT, prof_point,
+                prof_stages)]):
+        log("serving resnet50 %s @ %.0f QPS: served %.2f QPS (offered "
+            "%.2f), p50 %s p95 %s p99 %s ms, sheds %.4f, errors %d; server "
+            "stages, mean ms: %s"
+            % (lane, qps, rec["served_qps"], rec["achieved_qps"],
+               rec["p50_ms"], rec["p95_ms"], rec["p99_ms"],
+               rec["shed_rate"], rec["errors"], st))
+    for name, rec in decode_points.items():
+        log("serving %s: %d streams, %.1f tokens/s, TTFT p50 %s p95 %s p99 "
+            "%s ms; streams identical to the direct ones"
+            % (name, rec["ok"], rec["tokens_per_sec"], rec["ttft_p50_ms"],
+               rec["ttft_p95_ms"], rec["ttft_p99_ms"]))
+    if busy is None:
+        log("serving: torch.profiler saw no device time; busy share not "
+            "measured")
+    else:
+        log("serving: a %.0f-QPS point under torch.profiler: device busy "
+            "%.1f ms of %.1f ms wall = %.1f%% (%d ok)"
+            % (SERVE_PROFILE_POINT[0], device_ms, wall_ms, 100 * busy,
+               prof_point["ok"]))
+    log("serving: launches through the server: %s; phase %.1f s"
+        % (served, time.time() - t_phase))
+    log(json.dumps({"serving": {
+        "points": points, "stages_ms": stages, "int8_point": int8_point,
+        "int8_stages_ms": int8_stages,
+        "decode": decode_points, "profiled_point": prof_point,
+        "profiled_stages_ms": prof_stages,
+        "device_busy_share": busy, "launches": served,
+        "batch_fill": stats.get("resnet50", {}).get("batch_fill"),
+        "slo_monitor": bool(health.get("slo_monitor")),
+        "phase_s": time.time() - t_phase}}))
+    return served
+
+
+def _stage_means(after, before):
+    """Mean ms of each serving span between two span_totals() readings
+    (queue_wait, coalesce, lane_wait, dispatch, compute, scatter and the
+    whole request, server side; rpc is the handler's span)."""
+    out = {}
+    for (kind, name), v in sorted(after.items()):
+        b = before.get((kind, name), {"count": 0, "total_ms": 0.0})
+        n = v["count"] - b["count"]
+        if n > 0 and name.split("/")[-1] in (
+                "queue_wait", "coalesce", "lane_wait", "dispatch",
+                "compute", "scatter", "request", "rpc"):
+            out[name.split("/")[-1]] = round(
+                (v["total_ms"] - b["total_ms"]) / n, 3)
+    return out
+
+
 def _lane_launches(lane):
     return int(sum(lane[b][0]["kernel_launches_per_run"] * lane[b][0]["runs"]
                    for b in RESNET_BATCHES))
@@ -3697,7 +3945,18 @@ def main():
         torch.cuda.empty_cache()
         phase_resnet_gpu_vs_cpu(torch, fluid, resnet, inference, tmp)
         phase_resnet_bf16_gpu_vs_cpu(torch, fluid, tmp)
-    log("resnet phases: %.1f s" % (time.time() - t_phase))
+        log("resnet phases: %.1f s" % (time.time() - t_phase))
+        # 8b. the serving front end over the wire, on this phase's
+        # artifacts
+        served = phase_serving(torch, pk, inference, decode, tmp, plain,
+                               int8_outs)
+    for e in ([entry] + flash_entries + flash_bf16_entries
+              + [k5_entry, k6_entry, k6_bf16_entry, k4_entry, k4hs_entry]):
+        e["server_launches"] = 0
+    entry["server_launches"] = served["decode_attention"]
+    k4_entry["server_launches"] = served["decode_attention_int8"]
+    k5_entry["server_launches"] = served["dequant_matmul"]
+    k6_entry["server_launches"] = served["fused_bottleneck"]
     # 9. ResNet-50 training at the bench's shapes, four lanes and remat;
     # 10. a small bottleneck ResNet's training steps on the card vs the CPU
     t_phase = time.time()

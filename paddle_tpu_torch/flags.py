@@ -1,29 +1,74 @@
 """The flags the port reads, with paddle_tpu/flags.py's names and
 defaults.  A plain module-level object: set an attribute to override
-(`FLAGS.serving_decode_slots = 4`); environment parsing comes with the
-serving front end.  Setting `use_bf16_amp` calls `ops.registry.set_amp`,
-as the JAX flag's on_change hook does."""
+(`FLAGS.serving_decode_slots = 4`).  At import an environment variable
+`FLAGS_<name>` overrides a default, parsed to the default's type (a bool
+from 1/true/yes/on or 0/false/no/off/"").  Setting `use_bf16_amp` calls
+`ops.registry.set_amp`, and the tracing and event-log flags reconfigure
+`obs/`, as the JAX flags' on_change hooks do."""
 
+import os
 import types
 
-__all__ = ["FLAGS"]
+__all__ = ["FLAGS", "parse_flag"]
+
+_TRUE = frozenset(["1", "true", "yes", "on"])
+_FALSE = frozenset(["0", "false", "no", "off", ""])
+
+
+def _on_change(name, value):
+    if name == "use_bf16_amp":
+        from .ops import registry
+        registry.set_amp(value)
+    elif name == "trace":
+        from .obs import tracing
+        tracing.configure(enabled=value)
+    elif name == "trace_buffer_events":
+        from .obs import tracing
+        tracing.configure(capacity=value)
+    elif name == "event_log":
+        from .obs import events
+        events.configure(path=value)
+    elif name == "event_log_max_kb":
+        from .obs import events
+        events.configure(max_kb=value)
 
 
 class _Flags(types.SimpleNamespace):
     def __setattr__(self, name, value):
         super().__setattr__(name, value)
-        if name == "use_bf16_amp":
-            from .ops import registry
-            registry.set_amp(value)
+        _on_change(name, value)
 
 
-FLAGS = _Flags(
+def parse_flag(name, raw, default):
+    """`raw` (an environment string) as the type of `default`."""
+    if isinstance(default, bool):
+        v = str(raw).strip().lower()
+        if v in _TRUE:
+            return True
+        if v in _FALSE:
+            return False
+        raise ValueError("flag %s: cannot parse %r as bool" % (name, raw))
+    return type(default)(raw)
+
+
+_DEFAULTS = dict(
     # slot-table size of each replica's decode lane: the per-replica cap
     # on concurrently generating requests
     serving_decode_slots=8,
     # admission bound per model: a submit past it is shed
     # (ServerOverloaded), never parked on an unbounded backlog
     serving_max_queue=256,
+    # the DynamicBatcher's coalescing window: the router holds the head
+    # request this long for compatible stragglers
+    serving_batch_deadline_ms=5.0,
+    # dispatch worker threads per replica lane
+    serving_workers=1,
+    # coalesced groups a replica lane may queue before the router holds
+    # back (sticky back-pressure: overload sheds at admission)
+    serving_lane_depth=1,
+    # default placement spec of a load: N replicas, 'auto' (one per
+    # card) or a device list ('cuda:0,cuda:1')
+    serving_replicas="1",
     # default and ceiling of a streaming request's generation budget
     serving_max_new_tokens=128,
     # a stream flushes a token chunk every this many generated tokens
@@ -38,6 +83,35 @@ FLAGS = _Flags(
     # the draft proposes this many tokens and the target verifies all
     # k + 1 positions in one step; < 1 disables speculation
     serving_spec_k=4,
+    # default draft artifact of a decode load ('' = none)
+    serving_spec_draft="",
+    # span tracing of the serving path (obs/tracing.py); off makes the
+    # tracer a no-op, counters keep working
+    trace=True,
+    # capacity of the span ring
+    trace_buffer_events=4096,
+    # a request slower than this many ms also lands a 'slow' event
+    # (0 disables the slow log)
+    trace_slow_ms=0.0,
+    # JSONL path of the structured event log ('' = memory ring only)
+    event_log="",
+    # rotation threshold of the event log file, KiB
+    event_log_max_kb=1024,
+    # run the SLO monitor thread on every InferenceServer
+    slo_monitor=True,
+    # SLO monitor sampling interval, ms
+    slo_eval_interval_ms=1000.0,
+    # declared SLOs: '[model:]key=val,...;...' (obs/slo.py)
+    serving_slo="",
+    # the client's socket timeout, seconds
+    rpc_deadline=180.0,
+    # attempts and base delay of the jittered-backoff retry policy
+    rpc_retry_times=5,
+    rpc_retry_backoff=0.05,
+    # the fleet controller and federation are not ported (ROADMAP.md
+    # queue 1): a server started with either set raises
+    fleet_controller=False,
+    federation_frontend="",
     # FuseBottleneckPass fuses only bottlenecks whose width F (the 3x3
     # conv's channel count) is <= this; 0 disables the pass (opt-in, as
     # in the JAX package)
@@ -60,3 +134,11 @@ FLAGS = _Flags(
     # outputs, recompute their interiors), 'dots' or 'nothing'
     remat_policy="",
 )
+
+FLAGS = _Flags(**{
+    name: (parse_flag(name, os.environ["FLAGS_" + name], default)
+           if "FLAGS_" + name in os.environ else default)
+    for name, default in _DEFAULTS.items()})
+if FLAGS.use_bf16_amp:
+    # an environment override takes effect as a set attribute would
+    _on_change("use_bf16_amp", True)

@@ -3,13 +3,16 @@ paddle_tpu/fluid/parallel_executor.py.
 
 The JAX ParallelExecutor is ONE SPMD step over the global batch: feeds
 sharded on the batch axis, parameters replicated, XLA's gradient
-all-reduce, and every reduction over the batch axis (batch-norm
-statistics, the loss `mean`, `accuracy`) global.  The port computes the
+all-reduce, and every op that mixes rows of the batch axis (batch-norm
+statistics, the loss `mean`, `accuracy`, `cumsum` and `slice` along it)
+global.  The port computes the
 same step with one process per card (parallel/mesh.py): each rank feeds
 its local share of the global batch, the lowerings that reduce over the
 batch sum over the ranks, and the gradients of the replicated state are
 averaged over the ranks at the update region's boundary
-(fluid/functionalizer.py).  So with batch norm kept the ranks follow the
+(fluid/functionalizer.py).  An op whose lowering is not global and that
+mixes rows (a reshape2 that folds the batch axis away, a matmul or mul
+contracting over it) raises NotImplementedError at construction.  So with batch norm kept the ranks follow the
 single-device Executor's trajectory on the global batch.
 
     t = fluid.DistributeTranspiler(config)        # config.mode = "collective"
@@ -170,6 +173,81 @@ class _RankExecutor(Executor):
         return g
 
 
+def _batch_var(block, name):
+    """The var when it is a batch-axis activation (shape[0] == -1)."""
+    v = block._find_var_recursive(name)
+    if v is None or v.persistable or not v.shape or \
+            not (v.shape[0] is None or v.shape[0] < 0):
+        return None
+    return v
+
+
+def _known_prod(dims):
+    """The product of `dims`, or None when one is unknown (-1)."""
+    n = 1
+    for d in dims:
+        if d is None or d < 0:
+            return None
+        n *= int(d)
+    return n
+
+
+def _row_mixing(op, block):
+    """The batch-axis var `op` mixes rows of, or None.  A reshape2 whose
+    target does not keep the batch axis leading, or that merges rows
+    into one; a matmul or mul that contracts over the batch axis.
+    cumsum, slice, mean, batch_norm and accuracy are global lowerings
+    and never come here."""
+    if op.type == "reshape2":
+        v = _batch_var(block, op.input("X")[0])
+        if v is None:
+            return None
+        shape = [int(d) for d in op.attrs.get("shape", [])]
+        if not shape or shape[0] not in (-1, 0):
+            return v.name
+        if shape[0] == -1:
+            have = _known_prod(v.shape[1:])
+            want = _known_prod(shape[1:])
+            if have is not None and want is not None and want > have:
+                return v.name
+        return None
+    if op.type == "matmul":
+        x = _batch_var(block, op.input("X")[0])
+        y = _batch_var(block, op.input("Y")[0])
+        if x is not None and len(x.shape) == 2 and \
+                op.attrs.get("transpose_X", False):
+            return x.name
+        if y is not None and len(y.shape) == 2 and \
+                not op.attrs.get("transpose_Y", False):
+            return y.name
+        return None
+    if op.type == "mul":
+        x = _batch_var(block, op.input("X")[0])
+        y = _batch_var(block, op.input("Y")[0])
+        if x is not None and int(op.attrs.get("x_num_col_dims", 1)) < 1:
+            return x.name
+        if y is not None:
+            return y.name
+    return None
+
+
+def _check_row_mixing(program):
+    """Raise for an op the port cannot make global under the data-parallel
+    world: it would compute over the rank's share of the batch where the
+    JAX ParallelExecutor computes over the global batch."""
+    for block in program.blocks:
+        for op in block.ops:
+            name = _row_mixing(op, block)
+            if name is not None:
+                raise NotImplementedError(
+                    "ParallelExecutor: op %r mixes rows of the batch axis "
+                    "of var %r, and its lowering is not global under the "
+                    "data-parallel world (only batch_norm, mean, accuracy, "
+                    "cumsum and slice are); each rank would compute over "
+                    "its share of the batch.  Keep the batch axis leading, "
+                    "or run the program on one Executor" % (op.type, name))
+
+
 class ParallelExecutor:
     """reference parallel_executor.py:32.  `use_cuda` runs on the rank's
     card (CUDAPlace(0) in the rank), else on the CPU; a host without
@@ -231,6 +309,8 @@ class ParallelExecutor:
                     "of one" % (n, "cards" if use_cuda else "CPU_NUM slots",
                                 "FLAGS_selected_gpus=<card>" if use_cuda
                                 else "CPU_NUM=1"))
+        if self._group.world_size > 1:
+            _check_row_mixing(self._main_program)
         self._apply_gradient_scale_strategy()
         self._broadcast_state()
 

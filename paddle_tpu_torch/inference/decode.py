@@ -49,6 +49,7 @@ lengths stay int32, as in the JAX package (x64 off).
 
 import os
 import threading
+import time
 import warnings
 
 import numpy as np
@@ -688,7 +689,11 @@ class GenerativePredictor:
     reopen); every session this predictor vends then quantizes its cache
     writes and attends through K4."""
 
+    # the serving registry fronts a decode artifact with a DecodeBatcher
+    is_decode = True
+
     def __init__(self, dirname, device=None, kv_cache_dtype=None):
+        self._dirname = dirname
         self._device = resolve_device(device)
         with open(os.path.join(dirname, DECODE_META), "rb") as f:
             self.meta = wire.decode(f.read())
@@ -733,6 +738,11 @@ class GenerativePredictor:
 
     def prefill_buckets(self):
         return tuple(int(b) for b in self.meta["prefill_buckets"])
+
+    def batch_buckets(self):
+        """The serving introspection of a Predictor: a decode model's
+        buckets are its prompt-length prefill buckets."""
+        return self.prefill_buckets()
 
     def prompt_bucket(self, prompt_len):
         """Smallest prefill bucket >= prompt_len (a pure function of the
@@ -837,6 +847,13 @@ class GenerativePredictor:
 
     def new_session(self, n_slots):
         return DecodeSession(self, n_slots)
+
+    def clone_to(self, device):
+        """A replica of this artifact on `device` with the same cache
+        numerics (its int8 scales are a function of the artifact alone,
+        so every replica's are equal)."""
+        return GenerativePredictor(self._dirname, device=device,
+                                   kv_cache_dtype=self._kv_dtype)
 
 
 class DecodeSession:
@@ -1116,6 +1133,8 @@ class SpeculativeDecodeSession:
         self.proposed = 0        # draft tokens offered to verify
         self.accepted = 0        # draft tokens accepted
         self._window = None      # the fused round's CUDA graph
+        self.last_spec = False   # did the latest round verify?
+        self.last_draft_end = None   # monotonic draft -> verify boundary
 
     # -- DecodeSession surface (the batcher's contract) -----------------
 
@@ -1172,7 +1191,7 @@ class SpeculativeDecodeSession:
 
     # -- the speculative round ------------------------------------------
 
-    def _draft_catchup(self, mask, pins):
+    def _draft_catchup(self, mask, pins, draft_delay=0.0):
         """Advance the draft one step for the `mask` slots (consuming
         their pending token, landing its K/V row) and re-pin their
         pending tokens to the committed stream's (`pins` [N])."""
@@ -1180,6 +1199,8 @@ class SpeculativeDecodeSession:
         saved = ds.active
         try:
             _check_draft_poison()
+            if draft_delay:
+                time.sleep(draft_delay)
             ds.active = mask
             ds.decode()
         except KernelError:
@@ -1192,7 +1213,7 @@ class SpeculativeDecodeSession:
         for s in np.nonzero(mask)[0]:
             ds.last_tokens[s] = np.int32(pins[s])
 
-    def step(self, fused=False):
+    def step(self, fused=False, step_delay=0.0, draft_delay=0.0):
         """One round over the slot table.  Returns (tokens [N, k+1]
         int32, counts [N] int32): slot s committed `counts[s]` tokens
         this round, `tokens[s, :counts[s]]` in stream order (0 for
@@ -1212,8 +1233,15 @@ class SpeculativeDecodeSession:
         committed stream is bit-identical either way.  The draft-poison
         chaos check still fires k times, on the host before the
         dispatch, so a poisoned draft degrades the round to the plain
-        round as in the host-driven one."""
-        return self._round(fused, graph=True)
+        round as in the host-driven one.
+
+        `step_delay` / `draft_delay` are the serving batcher's stand-ins
+        for device cost (`serving.batcher.set_dispatch_delay` /
+        `set_draft_delay`): sleeps before the verify (or plain) step and
+        before each draft step.  `last_spec` says whether the round
+        verified, and `last_draft_end` is its draft -> verify instant."""
+        return self._round(fused, graph=True, step_delay=step_delay,
+                           draft_delay=draft_delay)
 
     def step_fused_plain(self):
         """`step(fused=True)` with the fused round's math run eagerly:
@@ -1261,7 +1289,7 @@ class SpeculativeDecodeSession:
         self.accepted += int(m[occupied].sum())
         return g, np.where(active, m + 1, 0).astype(np.int32)
 
-    def _round(self, fused, graph):
+    def _round(self, fused, graph, step_delay=0.0, draft_delay=0.0):
         ts = self.session
         k = self.spec_k
         C = k + 1
@@ -1270,6 +1298,7 @@ class SpeculativeDecodeSession:
         occupied = np.nonzero(active)[0]
         spec_ok = (not self._degraded and occupied.size > 0
                    and all(ts.room(int(s)) >= C for s in occupied))
+        self.last_spec = False
         if spec_ok and fused:
             # the poison counter advances once per logical draft step,
             # before the dispatch: a poisoned draft degrades this round
@@ -1277,18 +1306,27 @@ class SpeculativeDecodeSession:
             try:
                 for _ in range(k):
                     _check_draft_poison()
+                    if draft_delay:
+                        time.sleep(draft_delay)
             except KernelError:
                 raise
             except Exception as e:
                 self._degrade(e)
                 spec_ok = False
             if spec_ok:
-                return self._fused_round(active, occupied, graph)
+                self.last_draft_end = time.monotonic()
+                if step_delay:
+                    time.sleep(step_delay)
+                out = self._fused_round(active, occupied, graph)
+                self.last_spec = True
+                return out
         drafts = []
         if spec_ok:
             try:
                 for _ in range(k):
                     _check_draft_poison()
+                    if draft_delay:
+                        time.sleep(draft_delay)
                     drafts.append(self.draft_session.decode())
             except KernelError:
                 raise
@@ -1298,6 +1336,9 @@ class SpeculativeDecodeSession:
                 self._degrade(e)
                 spec_ok = False
         if spec_ok:
+            self.last_draft_end = time.monotonic()
+            if step_delay:
+                time.sleep(step_delay)
             chunk = np.zeros((N, C), np.int32)
             chunk[:, 0] = ts.last_tokens
             for j, d in enumerate(drafts):
@@ -1320,17 +1361,20 @@ class SpeculativeDecodeSession:
                         s, k - 1 - int(m[s]), last_token=int(g[s, m[s]]))
             full = active & (m == k)
             if full.any():
-                self._draft_catchup(full, g[:, k])
+                self._draft_catchup(full, g[:, k], draft_delay=draft_delay)
             self.rounds += 1
             self.proposed += k * occupied.size
             self.accepted += int(m[occupied].sum())
+            self.last_spec = True
             return g, counts
         # the plain round: one target step, every occupied slot advances
         # exactly one token (the degraded session lives here)
+        if step_delay:
+            time.sleep(step_delay)
         toks = ts.decode()
         self.plain_steps += 1
         if not self._degraded and active.any():
-            self._draft_catchup(active, toks)
+            self._draft_catchup(active, toks, draft_delay=draft_delay)
         out = np.zeros((N, C), np.int32)
         out[:, 0] = toks
         return out, active.astype(np.int32)

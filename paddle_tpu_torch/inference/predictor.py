@@ -11,9 +11,12 @@ next configured size, so a serving card sees a few fixed shapes, and
 only batch-major fetches are un-padded.
 
 `device` defaults to the card (`NativeConfig.device` 0 is `cuda:0`);
-`device="cpu"` runs every kernel's plain version.  Not ported yet: AOT
-artifacts (`save_aot`, `AotPredictor`), mesh replicas, `clone_to` and
-the resource report.
+`device="cpu"` runs every kernel's plain version.  The serving front end
+reads the same introspection as from the JAX Predictor (`batch_buckets`,
+`feed_specs`, `batched_feed_names`, `fetch_batched_flags`) and places
+replicas with `clone_to(device)`.  Not ported yet: AOT artifacts
+(`save_aot`, `AotPredictor`, ROADMAP.md queue 1 item 11), mesh replicas
+and the resource report.
 """
 
 import threading
@@ -69,6 +72,15 @@ def _torch_device(device):
     if isinstance(device, int):
         return resolve_device(torch.device("cuda", device))
     return resolve_device(device)
+
+
+def _device_label(device):
+    """Stable wire-encodable device id ('cuda:0', 'cpu:0') for metrics and
+    the per-replica stats of the serving layer; 'default' for None."""
+    if device is None:
+        return "default"
+    device = torch.device(device)
+    return "%s:%d" % (device.type, device.index or 0)
 
 
 def _place(device):
@@ -191,6 +203,18 @@ class Predictor:
 
     Run = run
 
+    def clone_to(self, device):
+        """A replica on `device`: it shares this predictor's loaded and
+        rewritten program and holds its own copy of the parameters there
+        (how the serving registry places N replicas from one load)."""
+        p = object.__new__(Predictor)
+        p.__dict__.update(self.__dict__)
+        p._device = _torch_device(device)
+        p._state = {n: t.to(p._device) for n, t in self._state.items()}
+        p._lock = threading.Lock()
+        p._overflow_warned = set()
+        return p
+
     @property
     def device(self):
         """The torch.device this predictor computes on."""
@@ -212,6 +236,25 @@ class Predictor:
         if isinstance(self._config, AnalysisConfig):
             return tuple(sorted(self._config.batch_size_buckets))
         return ()
+
+    def feed_specs(self):
+        """name -> (shape list with -1 dynamic dims, dtype str)."""
+        gb = self._program.global_block()
+        out = {}
+        for name in self._feed_names:
+            v = gb._find_var_recursive(name)
+            out[name] = ([int(d) for d in v.shape],
+                         str(np.dtype(v.np_dtype)))
+        return out
+
+    def batched_feed_names(self):
+        """The feeds whose leading dim is the batch axis."""
+        return frozenset(n for n in self._feed_names
+                         if self._batched_feed.get(n, False))
+
+    def fetch_batched_flags(self):
+        """Per fetch, in fetch order: does it lead with the batch axis."""
+        return list(self._fetch_batched)
 
 
 def create_paddle_predictor(config):

@@ -10,12 +10,13 @@ shapes are the packed [rows, ...] ones, `mul` flattens one more leading
 dim, the elementwise ops shift an `axis` >= 1 by one, and `mean`
 averages over the real rows only, as the JAX lowerings do.  Under a
 data-parallel group (ExecContext.group) `mean` is the global batch's:
-its sum and its count are each summed over the ranks."""
+its sum and its count are each summed over the ranks; `cumsum` along a
+batch-sharded axis 0 adds the lower ranks' totals."""
 
 import numpy as np
 import torch
 
-from ..parallel.mesh import all_reduce_sum
+from ..parallel.mesh import all_reduce_sum, gather_rows
 from .registry import register_op
 
 
@@ -178,6 +179,10 @@ def _acc_dtype(x):
 
 @register_op("cumsum")
 def _cumsum(ctx):
+    """Along a batch-sharded X's axis 0 under a data-parallel group, the
+    global batch's: the rank's own prefix plus the totals of the ranks
+    before it (after it, reversed), from one gather of every rank's
+    column totals."""
     x = ctx.input("X")
     axis = ctx.attr("axis", -1)
     reverse = ctx.attr("reverse", False)
@@ -187,6 +192,11 @@ def _cumsum(ctx):
         out = out - y  # exclusive prefix = inclusive - self
     if reverse:
         out = torch.flip(out, (axis,))
+    if axis % x.dim() == 0 and ctx.batch_sharded(ctx.op.inputs["X"][0]):
+        tot = gather_rows(x.sum(dim=0, keepdim=True), ctx.group, "cumsum")
+        r = ctx.group.rank
+        before = tot[r + 1:] if reverse else tot[:r]
+        out = out + before.sum(dim=0).to(x.dtype)
     return {"Out": out}
 
 

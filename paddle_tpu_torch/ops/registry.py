@@ -98,6 +98,17 @@ class ExecContext:
     def has_input(self, slot):
         return bool(self._inputs.get(slot))
 
+    def batch_sharded(self, name):
+        """True when var `name` holds this rank's share of the global
+        batch: a world of several ranks, and a non-persistable var whose
+        program shape leads with the batch axis (-1)."""
+        if self.group is None or self.group.world_size < 2:
+            return False
+        v = self.op.block._find_var_recursive(name)
+        return bool(v is not None and not v.persistable
+                    and v.shape is not None and len(v.shape) > 0
+                    and (v.shape[0] is None or v.shape[0] < 0))
+
     def lod_len(self, slot):
         """The int32 [B] sequence lengths of a ragged (LoD) input, or
         None for a dense one (fluid/functionalizer.py LOD_LEN_SUFFIX)."""

@@ -5,6 +5,7 @@ uniform_random, gaussian_random, reshape2, slice and where."""
 import numpy as np
 import torch
 
+from ..parallel.mesh import gather_rows, row_counts
 from .math_ops import _promote
 from .registry import register_op
 
@@ -78,13 +79,34 @@ def _reshape2(ctx):
 
 @register_op("slice")
 def _slice(ctx):
+    """Under a data-parallel group a slice of a batch-sharded input's
+    axis 0 names global rows.  Where the output is replicated, the ranks'
+    rows are gathered and sliced.  Where it stays batch-sharded, each
+    rank keeps the rows of the slice that it holds itself, so the output
+    is split as the input is and lines up with the rank's other
+    batch-sharded vars (the fetch gathers it back in rank order)."""
     x = ctx.input("Input")
+    off, own, total = 0, None, None
+    if any(a % x.dim() == 0 for a in ctx.attr("axes")) and \
+            ctx.batch_sharded(ctx.op.inputs["Input"][0]):
+        if ctx.batch_sharded(ctx.op.outputs["Out"][0]):
+            sizes = row_counts(x, ctx.group)
+            off, own = sum(sizes[:ctx.group.rank]), x.shape[0]
+            total = sum(sizes)
+        else:
+            x = gather_rows(x, ctx.group, "slice")
     idx = [slice(None)] * x.dim()
     for a, s, e in zip(ctx.attr("axes"), ctx.attr("starts"),
                        ctx.attr("ends")):
-        dim = x.shape[a]
+        mine = own is not None and a % x.dim() == 0
+        dim = total if mine else x.shape[a]
         s = max(s + dim, 0) if s < 0 else min(s, dim)
         e = max(e + dim, 0) if e < 0 else min(e, dim)
+        if mine:
+            # global rows [s, e) that lie in this rank's [off, off + own)
+            s = min(max(s, off), off + own)
+            e = max(min(e, off + own), s)
+            s, e = s - off, e - off
         idx[a] = slice(s, e)
     return {"Out": x[tuple(idx)]}
 

@@ -36,7 +36,7 @@ import torch
 
 __all__ = ["DATA_AXIS", "local_device_count", "rank_card", "init_collective",
            "DataParallelGroup", "data_parallel_group", "all_reduce_sum",
-           "launch", "profiled", "COLLECTIVE_TIMEOUT_S"]
+           "row_counts", "gather_rows", "launch", "profiled", "COLLECTIVE_TIMEOUT_S"]
 
 DATA_AXIS = "data"
 
@@ -229,6 +229,33 @@ def all_reduce_sum(x, group, kind):
     if group is None:
         return x
     return _AllReduceSum.apply(x, group, kind)
+
+
+def row_counts(x, group):
+    """Every rank's row count of `x` (its axis-0 extent), in rank order."""
+    return group.all_gather_rows(torch.tensor(
+        [x.shape[0]], dtype=torch.int64, device=x.device)).tolist()
+
+
+def gather_rows(x, group, kind):
+    """Every rank's rows of `x` concatenated on axis 0 in rank order,
+    differentiably: each rank places its rows in its own block of a
+    zero buffer and the buffers are summed with `all_reduce_sum`, so the
+    backward sums the cotangents over the ranks as every global
+    reduction here does.  The ranks' row counts may differ."""
+    if group is None or group.world_size < 2:
+        return x
+    sizes = row_counts(x, group)
+    pad = max(sizes)
+    if x.shape[0] < pad:
+        x = torch.cat([x, x.new_zeros((pad - x.shape[0],)
+                                      + tuple(x.shape[1:]))])
+    zero = torch.zeros_like(x)
+    placed = torch.cat([x if r == group.rank else zero
+                        for r in range(group.world_size)])
+    summed = all_reduce_sum(placed, group, kind)
+    return torch.cat([summed[r * pad:r * pad + n]
+                      for r, n in enumerate(sizes)])
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,8 @@ ACC_RTOL = 1e-2
 # time out before it
 SPAWN_TIMEOUT_S = 240
 LANES = {2: ["coeff", "wg", "remat", "one", "one_wg", "loop", "loop_runs",
-             "lstm", "ragged"],
+             "lstm", "ragged", "cumsum", "slice", "slice_keep", "softmax",
+             "reshape"],
          4: ["coeff", "lstm", "ragged"]}
 
 
@@ -139,6 +140,10 @@ def _nets():
                    lambda: W.ragged_mean_net(tfluid),
                    lambda pkg: W.ragged_batches(pkg.LoDTensor, steps=3,
                                                 labels=False)),
+        **{"rowmix_" + op: (lambda op=op: W.rowmix_net(jfluid, op),
+                            lambda op=op: W.rowmix_net(tfluid, op),
+                            lambda pkg: W.rowmix_batches())
+           for op in ("cumsum", "slice", "slice_keep", "softmax")},
     }
 
 
@@ -235,6 +240,8 @@ def references(inits):
         if name == "resnet":
             main, _, _, acc, predict = tbuild()
             extra = (acc.name,) + W.accuracy_counts(main) + (predict.name,)
+        elif name.startswith("rowmix_"):
+            extra = (tbuild()[3].name,)
         out[name] = _executor_run(tbuild, init[name], feeds(tfluid), extra)
     return out
 
@@ -597,3 +604,37 @@ def test_random_ops_draw_per_rank():
     r0, r1 = (draw(mesh.DataParallelGroup(2, r)) for r in (0, 1))
     assert not torch.equal(r0, r1) and not torch.equal(r0, alone)
     assert torch.equal(draw(mesh.DataParallelGroup(2, 1)), r1)
+
+
+@pytest.mark.parametrize("op", ["cumsum", "slice", "slice_keep",
+                                "softmax"])
+def test_row_mixing_ops_match_the_global_step(world2, inits, references, op):
+    """cumsum along the batch axis and a slice of global rows compute the
+    JAX ParallelExecutor's global step (and the port's Executor's on the
+    global batch), not the rank's share; a slice whose output keeps the
+    batch axis stays split across the ranks as its input is; softmax
+    over the last axis is the control that mixes no rows.  Each rank fetches the op's output as
+    the global array."""
+    n, arrays = world2
+    name = "rowmix_" + op
+    jbuild, tbuild = _nets()[name][:2]
+    if op == "slice_keep":  # the output keeps the batch axis
+        assert tuple(tbuild()[3].shape) == (-1, 2)
+    jlosses, _ = _jax_pe_run(jbuild, inits[1][name], W.rowmix_batches(), n)
+    elosses, efetched, _ = references[name]
+    _close(np.asarray(elosses), np.asarray(jlosses), what="executor vs jax")
+    for rank, a in enumerate(arrays):
+        _close(a[op + "/losses"], np.asarray(jlosses),
+               what="rank %d vs the JAX PE" % rank)
+        _close(a[op + "/losses"], np.asarray(elosses),
+               what="rank %d vs the executor" % rank)
+        for step, f in enumerate(efetched):
+            _close(a[op + "/r"][step], f[1],
+                   what="rank %d step %d fetch" % (rank, step))
+
+
+def test_a_reshape_folding_the_batch_axis_raises_at_construction(world2):
+    n, arrays = world2
+    for a in arrays:
+        err = str(a["reshape/error"])
+        assert "reshape2" in err and "batch axis" in err, err

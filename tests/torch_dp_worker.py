@@ -142,6 +142,40 @@ def ragged_batches(LoDTensor, steps=STEPS, global_bs=GLOBAL_BATCH,
     return out
 
 
+def rowmix_net(pkg, op):
+    """fc 4 -> 3, then an op that mixes rows of the batch axis, then the
+    loss mean(r * r); SGD 0.1.  `op`: "cumsum" (along axis 0), "slice"
+    (global rows 0:2), "slice_keep" (rows 0 to past the batch and columns
+    1:3: the output keeps the batch axis and stays batch-sharded),
+    "softmax" (over the last axis: the control, which mixes none) or
+    "reshape" ([1, -1], folding the batch axis away, then softmax).
+    (main, startup, loss, r)."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        x = pkg.layers.data("x", shape=[4], dtype="float32")
+        h = pkg.layers.fc(x, size=3)
+        if op == "cumsum":
+            r = pkg.layers.cumsum(h, axis=0)
+        elif op == "slice":
+            r = pkg.layers.slice(h, axes=[0], starts=[0], ends=[2])
+        elif op == "slice_keep":
+            r = pkg.layers.slice(h, axes=[0, 1], starts=[0, 1],
+                                 ends=[1 << 30, 3])
+        elif op == "softmax":
+            r = pkg.layers.softmax(h)
+        else:
+            r = pkg.layers.softmax(pkg.layers.reshape(h, [1, -1]))
+        loss = pkg.layers.mean(pkg.layers.elementwise_mul(r, r))
+        pkg.optimizer.SGD(0.1).minimize(loss)
+    return main, startup, loss, r
+
+
+def rowmix_batches(steps=3, global_bs=GLOBAL_BATCH):
+    rng = np.random.RandomState(5)
+    return [{"x": rng.randn(global_bs, 4).astype(np.float32)}
+            for _ in range(steps)]
+
+
 def shard(feed, rank, world, LoDTensor):
     """Rank `rank`'s share of a global feed: rows of a dense array,
     whole sequences of a LoDTensor."""
@@ -284,7 +318,12 @@ def scenario_train(tid, world, workdir, lanes):
       one_wg  — the same under whole-graph AD;
       loop    — run_loop(3) on the first batch; loop_runs — 3 run()s of it;
       lstm    — the small stacked_dynamic_lstm, 3 steps, ragged feeds;
-      ragged  — ragged_mean_net, 3 steps (the ragged mean)."""
+      ragged  — ragged_mean_net, 3 steps (the ragged mean);
+      cumsum, slice, slice_keep, softmax — rowmix_net with that op,
+                3 steps;
+                fetches the op's output;
+      reshape — rowmix_net's reshape case: the ParallelExecutor's
+                NotImplementedError at construction."""
     import torch
 
     import paddle_tpu_torch.fluid as fluid
@@ -333,6 +372,25 @@ def scenario_train(tid, world, workdir, lanes):
                     fluid, lambda: small_lstm(fluid, stacked_dynamic_lstm),
                     os.path.join(workdir, "init_lstm.npz"),
                     ragged_batches(fluid.LoDTensor, steps=3), tid, world)
+            elif lane in ("cumsum", "slice", "slice_keep", "softmax"):
+                init = os.path.join(workdir, "init_rowmix_%s.npz" % lane)
+                r = rowmix_net(fluid, lane)[3]
+                losses, fetched, state = _train_lane(
+                    fluid, lambda: rowmix_net(fluid, lane), init,
+                    rowmix_batches(), tid, world, fetch_extra=(r.name,))
+                arrays[lane + "/r"] = np.stack([f[1] for f in fetched])
+            elif lane == "reshape":
+                main, _, loss, _ = rowmix_net(fluid, "reshape")
+                try:
+                    fluid.ParallelExecutor(
+                        use_cuda=CUDA, loss_name=loss.name,
+                        main_program=main, num_trainers=world,
+                        trainer_id=tid, scope=fluid.Scope())
+                    err = ""
+                except NotImplementedError as e:
+                    err = str(e)
+                arrays[lane + "/error"] = np.asarray(err)
+                continue
             elif lane == "ragged":
                 hidden = ragged_mean_net(fluid)[3]
                 losses, fetched, state = _train_lane(
