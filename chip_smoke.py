@@ -83,6 +83,21 @@ Phases, in order; any failure exits non-zero:
   6. train gpu/cpu — a small transformer (2 layers, d_model 128, 2 heads
                of 64, seq 96, dropout 0) from one startup scope carried
                across: 2 steps on the card and on the CPU, losses agree.
+  6b. trainer — the Fluid training runtime: fluid.contrib.Trainer trains
+               the full-width transformer (the network get_model builds,
+               fp32, batch 8 x 512) one epoch of 8 seeded host batches,
+               sync (depth 0) and async (FLAGS.async_dispatch_depth 2,
+               FLAGS.reader_prefetch_depth 2), each in a new Trainer from
+               the same startup state.  Gates: bit-identical losses and
+               state; fp32 K1, K2-dq and K2-dkv 6 x 8 launches each in the
+               async run; every async dispatch passes under
+               torch.cuda.set_sync_debug_mode("error"); a run stopped
+               after 4 steps with a CheckpointConfig and resumed in a new
+               Trainer gives the uninterrupted losses; the anomaly
+               sentinel's skip of a NaN batch (a fed loss scale, dropout
+               0) with 2 steps in flight leaves the state bit-equal to a
+               run without that batch.  Prints steps/s and the device
+               busy share (profiled again) of the sync and async runs.
   7. resnet  — ResNet-50 inference through the user's entry points
                (models.resnet.get_model(is_train=False, layout="NHWC"),
                224 x 224, 1000 classes; startup seed 7, seeded batch-norm
@@ -169,6 +184,12 @@ Phases, in order; any failure exits non-zero:
                state: first losses on the card and on the CPU within
                1e-4; the small LSTM's 3 losses and persistables within
                1e-5.
+ 12b. pipeline — python -m paddle_tpu_torch.fluid_benchmark --model
+               resnet (whole-graph AMP, NHWC, batch 32, 20 iterations)
+               with --host_stall_ms 20, once with --prefetch_depth 2
+               --async_depth 2 and once without: finite losses; prints
+               images/s, the busy share and whether the stall was
+               hidden.
  13. parallel — data-parallel ResNet-50 training (full width, 224 x 224,
                32 images a card, fp32, Momentum 0.01 + L2Decay; startup
                seed 7) through the collective DistributeTranspiler and the
@@ -2001,6 +2022,340 @@ def phase_train_gpu_vs_cpu(torch, fluid, transformer):
     log("train gpu/cpu: losses gpu %s cpu %s, max rel err %.3g (tolerance "
         "1e-4)" % (losses["gpu"], losses["cpu"], err))
 
+
+
+# the training width of phase_train (transformer.get_model's defaults)
+TR_WIDTH = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
+                d_ff=2048)
+TR_STEPS = 8
+TR_RESUME_AT = 4
+TR_POISON = 2
+TR_SEED = 11
+TR_DEPTH = 2
+TR_PREFETCH = 2
+
+
+def _trainer_funcs(fluid, transformer, width, loss_scale=False):
+    """(train_func, optimizer_func) of the network `get_model` builds at
+    `width` (batch 8 x seq 512); with `loss_scale`, the mean loss is
+    multiplied by a fed [1] float (1.0 leaves every value as it is; NaN
+    poisons the step)."""
+    seq = 512
+
+    def train_func():
+        tokens = fluid.layers.data("tokens", shape=[seq], dtype="int64")
+        labels = fluid.layers.data("labels", shape=[seq], dtype="int64")
+        logits = transformer.build(tokens, width["vocab_size"], seq,
+                                   width["d_model"], width["n_heads"],
+                                   width["n_layers"], width["d_ff"])
+        flat = fluid.layers.reshape(logits, [-1, width["vocab_size"]])
+        flat_l = fluid.layers.reshape(labels, [-1, 1])
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(flat, flat_l))
+        if loss_scale:
+            scale = fluid.layers.data("loss_scale", shape=[1],
+                                      dtype="float32",
+                                      append_batch_size=False)
+            loss = fluid.layers.elementwise_mul(loss, scale)
+        return loss
+
+    return train_func, (lambda: fluid.optimizer.Adam(learning_rate=1e-3))
+
+
+def _train_once(torch, fluid, FLAGS, tf, of, reader, depth=0, prefetch=0,
+                cfg=None, stop_after=None, dropout=True, sentinel=False,
+                on_dispatch=None, profiler=None):
+    """One Trainer on the card in a fresh scope, trained one epoch of
+    `reader`: (losses in EndStepEvent order, wall stamps of the events,
+    final persistables, the Trainer, warnings)."""
+    import warnings
+    FLAGS.async_dispatch_depth = depth
+    FLAGS.reader_prefetch_depth = prefetch
+    FLAGS.sentinel_nan_check = sentinel
+    FLAGS.sentinel_policy = "skip"
+    FLAGS.sentinel_max_bad_steps = 3
+    try:
+        with fluid.scope_guard(fluid.Scope()) as scope:
+            tr = fluid.contrib.Trainer(tf, of, place=fluid.CUDAPlace(0),
+                                       checkpoint_config=cfg)
+            if not dropout:
+                for op in tr.train_program.global_block().ops:
+                    if op.type == "dropout":
+                        op.attrs["dropout_prob"] = 0.0
+            if on_dispatch is not None:
+                run = tr.exe.run
+                tr.exe.run = lambda *a, **kw: on_dispatch(run, *a, **kw)
+            losses, stamps = [], []
+
+            def handler(ev):
+                if isinstance(ev, fluid.contrib.EndStepEvent):
+                    losses.append(np.asarray(ev.metrics[0]).copy())
+                    stamps.append(time.perf_counter())
+                    if stop_after is not None and len(losses) >= stop_after:
+                        tr.stop()
+
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                if profiler is not None:
+                    with profiler:
+                        tr.train(1, handler, reader=reader)
+                        torch.cuda.synchronize()
+                else:
+                    tr.train(1, handler, reader=reader)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            state = {n: scope.get(n) for n in scope.keys()
+                     if scope.get(n) is not None}
+            return {"losses": losses, "stamps": stamps, "state": state,
+                    "trainer": tr, "wall": wall,
+                    "warnings": [str(w.message) for w in caught]}
+    finally:
+        FLAGS.async_dispatch_depth = 0
+        FLAGS.reader_prefetch_depth = 0
+        FLAGS.sentinel_nan_check = False
+
+
+def _steps_per_s(run):
+    """Steps a second over the run's EndStepEvents after the first."""
+    st = run["stamps"]
+    return (len(st) - 1) / (st[-1] - st[0]) if len(st) > 1 else None
+
+
+def phase_trainer(torch, pk, fluid, transformer):
+    """The Fluid training runtime on the card: `fluid.contrib.Trainer`
+    training the full-width transformer (the network `get_model` builds:
+    vocab 32000, d_model 512, 8 heads, 6 layers, d_ff 2048, batch 8 x
+    512, fp32, Adam 1e-3) from a host reader of TR_STEPS seeded batches.
+    Gates: a sync run (depth 0) and an async run (async depth 2, prefetch
+    depth 2) from the same startup state give bit-identical losses; the
+    async run launches K1, K2-dq and K2-dkv 6 x TR_STEPS times each; its
+    every dispatch passes under torch.cuda.set_sync_debug_mode("error");
+    a run stopped after TR_RESUME_AT steps with a CheckpointConfig and
+    resumed in a new Trainer gives the uninterrupted losses; a sentinel
+    skip of a NaN batch at depth 2 (dropout 0) leaves the state bit-equal
+    to a run that never saw the batch.  Prints steps/s and the device
+    busy share of the sync and async runs."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.fluid import checkpoint as ckpt
+    rng = np.random.RandomState(TR_SEED)
+    data = [_batch(rng, 8, 512, TR_WIDTH["vocab_size"])
+            for _ in range(TR_STEPS)]
+
+    def reader():
+        for d in data:
+            yield d
+
+    tf, of = _trainer_funcs(fluid, transformer, TR_WIDTH)
+    names = [pk._count_name(n, torch.float32) for n in FLASH_KERNELS]
+    n_layers = TR_WIDTH["n_layers"]
+
+    # 1. sync and async from the same startup state
+    t0 = time.time()
+    sync = _train_once(torch, fluid, FLAGS, tf, of, reader)
+    log("trainer: sync run, %d steps: losses %s (%.1f s with the Trainer's "
+        "build and startup)" % (TR_STEPS, ["%.5f" % float(x) for x in
+                                          sync["losses"]], time.time() - t0))
+    dispatches = {"n": 0, "error": None}
+
+    def no_sync_dispatch(run, *a, **kw):
+        if not kw.get("as_future"):
+            return run(*a, **kw)
+        dispatches["n"] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(*a, **kw)
+        except RuntimeError as e:
+            import traceback
+            dispatches["error"] = traceback.format_exc()
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    pk.reset_launch_counts()
+    t0 = time.time()
+    try:
+        asy = _train_once(torch, fluid, FLAGS, tf, of, reader,
+                          depth=TR_DEPTH, prefetch=TR_PREFETCH,
+                          on_dispatch=no_sync_dispatch)
+    except Exception:
+        if dispatches["error"]:
+            log("trainer: a dispatch synchronized the host:\n%s"
+                % dispatches["error"])
+        raise
+    counts = dict(pk.launch_counts)
+    log("trainer: async run (depth %d, prefetch %d), %d steps: losses %s "
+        "(%.1f s)" % (TR_DEPTH, TR_PREFETCH, TR_STEPS,
+                      ["%.5f" % float(x) for x in asy["losses"]],
+                      time.time() - t0))
+    check(len(sync["losses"]) == len(asy["losses"]) == TR_STEPS,
+          "trainer: %d sync and %d async steps" % (len(sync["losses"]),
+                                                   len(asy["losses"])))
+    check(all(np.isfinite(float(x)) for x in sync["losses"]),
+          "trainer: non-finite sync loss")
+    check(all(np.array_equal(a, b) for a, b in zip(sync["losses"],
+                                                    asy["losses"])),
+          "trainer: async losses are not the sync ones bit for bit")
+    check(all(torch.equal(sync["state"][n], asy["state"][n])
+              for n in sync["state"]),
+          "trainer: the async run's state differs from the sync run's")
+    for name in names:
+        check(counts[name] == n_layers * TR_STEPS,
+              "trainer: %s launched %d times in %d async steps x %d layers"
+              % (name, counts[name], TR_STEPS, n_layers))
+    check(dispatches["n"] == TR_STEPS,
+          "trainer: %d dispatches under sync debug mode, %d steps"
+          % (dispatches["n"], TR_STEPS))
+    log("trainer: async = sync bit for bit (losses and all %d persistables); "
+        "launches %s; %d dispatches passed set_sync_debug_mode('error')"
+        % (len(sync["state"]), {n: counts[n] for n in names},
+           dispatches["n"]))
+
+    # 2. busy share: the same two runs under torch.profiler
+    stats = {}
+    for label, run, kw in (("sync", sync, {}),
+                           ("async", asy, {"depth": TR_DEPTH,
+                                           "prefetch": TR_PREFETCH})):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        _train_once(torch, fluid, FLAGS, tf, of, reader, profiler=prof,
+                    **kw)
+        device_ms, rows = profile_rows(torch, prof, TR_STEPS)
+        sps = _steps_per_s(run)
+        step_ms = 1e3 / sps
+        busy = device_ms / step_ms if rows else None
+        stats[label] = {"steps_per_s": sps, "step_ms": step_ms,
+                        "device_ms_per_step": device_ms if rows else None,
+                        "busy_share": busy}
+        log("trainer %s: %.3f steps/s (%.3f ms a step over EndStepEvents "
+            "2..%d, unprofiled); device %s ms a step (profiled run) -> "
+            "busy share %s" % (label, sps, step_ms, TR_STEPS,
+                               "%.3f" % device_ms if rows else "not measured",
+                               "%.1f%%" % (100 * busy) if rows
+                               else "not measured"))
+    del sync["trainer"], asy["trainer"]
+    sync_losses = sync["losses"]
+    del sync, asy
+    torch.cuda.empty_cache()
+
+    # 3. stopped after TR_RESUME_AT steps, resumed in a new Trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        vault = os.path.join(tmp, "vault")
+        t0 = time.time()
+        first = _train_once(
+            torch, fluid, FLAGS, tf, of, reader, stop_after=TR_RESUME_AT,
+            cfg=fluid.contrib.CheckpointConfig(
+                checkpoint_dir=vault, step_interval=TR_RESUME_AT))
+        latest = ckpt.latest_checkpoint(vault)
+        check(latest is not None, "trainer: no checkpoint committed")
+        manifest = ckpt.verify_checkpoint_dir(latest)
+        nbytes = sum(e["nbytes"] for e in manifest["arrays"].values())
+        t_save = time.time() - t0
+        t0 = time.time()
+        rest = _train_once(
+            torch, fluid, FLAGS, tf, of, reader,
+            cfg=fluid.contrib.CheckpointConfig(
+                checkpoint_dir=vault, step_interval=10 ** 6))
+        t_resume = time.time() - t0
+        del first["trainer"], rest["trainer"]
+    resumed = first["losses"] + rest["losses"]
+    log("trainer resume: stopped after %d steps, checkpoint %s (%d arrays, "
+        "%.1f MB, CRC-verified, meta %s) in %.1f s; resumed %d steps in %.1f "
+        "s: losses %s" % (TR_RESUME_AT, os.path.basename(latest),
+                          len(manifest["arrays"]), nbytes / 1e6,
+                          manifest["meta"], t_save, len(rest["losses"]),
+                          t_resume, ["%.5f" % float(x) for x in resumed]))
+    check(len(resumed) == TR_STEPS and all(
+        np.array_equal(a, b) for a, b in zip(resumed, sync_losses)),
+          "trainer: the resumed run's losses differ from the "
+          "uninterrupted run's")
+    del first, rest
+    torch.cuda.empty_cache()
+
+    # 4. the sentinel skips a NaN batch with two steps in flight
+    tfs, ofs = _trainer_funcs(fluid, transformer, TR_WIDTH,
+                              loss_scale=True)
+    one = np.ones(1, np.float32)
+    nan = np.full(1, np.nan, np.float32)
+    poisoned = [dict(d, loss_scale=nan if i == TR_POISON else one)
+                for i, d in enumerate(data)]
+    clean = [dict(d, loss_scale=one) for i, d in enumerate(data)
+             if i != TR_POISON]
+    t0 = time.time()
+    hit = _train_once(torch, fluid, FLAGS, tfs, ofs,
+                      lambda: iter(poisoned), depth=TR_DEPTH,
+                      prefetch=TR_PREFETCH, dropout=False, sentinel=True)
+    ref = _train_once(torch, fluid, FLAGS, tfs, ofs, lambda: iter(clean),
+                      dropout=False)
+    reverted = [w for w in hit["warnings"] if "reverted" in w]
+    log("trainer sentinel: NaN batch at step %d, depth %d: %s; %d steps "
+        "observed, losses %s; clean run of %d batches: %s (%.1f s)"
+        % (TR_POISON, TR_DEPTH, reverted, len(hit["losses"]),
+           ["%.5f" % float(x) for x in hit["losses"]], len(clean),
+           ["%.5f" % float(x) for x in ref["losses"]], time.time() - t0))
+    check(reverted and any("re-dispatched" in w for w in reverted),
+          "trainer: the sentinel did not revert and redispatch: %s"
+          % hit["warnings"])
+    check(sorted(hit["state"]) == sorted(ref["state"]) and all(
+        torch.equal(hit["state"][n], ref["state"][n]) for n in ref["state"]),
+          "trainer: the state after the sentinel's skip differs from the "
+          "run that never saw the batch: %s" % [
+              n for n in ref["state"]
+              if not torch.equal(hit["state"][n], ref["state"][n])][:5])
+    log("trainer sentinel: state bit-equal to the clean run (%d "
+        "persistables)" % len(ref["state"]))
+    del hit, ref
+    torch.cuda.empty_cache()
+    log(json.dumps({"trainer": stats}))
+    return stats
+
+
+PIPE_STALL_MS = 20.0
+PIPE_ITERS = 20
+
+
+def phase_pipeline_bench(torch, fluid):
+    """`fluid_benchmark --model resnet` on the card, whole-graph AMP,
+    NHWC, batch 32, with `--host_stall_ms 20` on the feed path: once with
+    `--prefetch_depth 2 --async_depth 2`, once with neither.  Gate: both
+    finish with finite losses (benchmark raises otherwise).  Prints
+    images/s and the busy share (device ms a step from the trace of
+    staged steps over the pipelined loop's ms a step), and whether the
+    stall was hidden."""
+    from paddle_tpu_torch import fluid_benchmark as fb
+    out = {}
+    for label, extra in (("pipelined", ["--prefetch_depth", "2",
+                                        "--async_depth", "2"]),
+                         ("serial", [])):
+        argv = ["--model", "resnet", "--layout", "NHWC", "--whole_graph_ad",
+                "--batch_size", "32", "--iterations", str(PIPE_ITERS),
+                "--host_stall_ms", str(PIPE_STALL_MS), "--trace_steps",
+                "3"] + extra
+        t0 = time.time()
+        rec, _ = fb.benchmark(fb.parse_args(argv))
+        torch.cuda.empty_cache()
+        check(np.isfinite(rec["last_loss"]),
+              "pipeline %s: loss %r" % (label, rec["last_loss"]))
+        dev = rec["trace"]["device_ms"]
+        busy = dev / rec["ms_per_step"] if rec["trace"]["busy_share"] \
+            is not None else None
+        out[label] = {"examples_per_sec": rec["examples_per_sec"],
+                      "ms_per_step": rec["ms_per_step"],
+                      "device_ms_per_step": dev, "busy_share": busy,
+                      "last_loss": rec["last_loss"]}
+        log("pipeline %s (%s): %.1f images/s, %.3f ms a step, device %.3f "
+            "ms a step -> busy share %.1f%%, last loss %.5f (%.1f s)"
+            % (label, " ".join(extra) or "no prefetch, no async",
+               rec["examples_per_sec"], rec["ms_per_step"], dev,
+               100 * busy, rec["last_loss"], time.time() - t0))
+    saved = out["serial"]["ms_per_step"] - out["pipelined"]["ms_per_step"]
+    log("pipeline: the %.0f ms host stall was %s (the pipelined step is "
+        "%.3f ms shorter)" % (PIPE_STALL_MS, "hidden" if saved >=
+                              0.5 * PIPE_STALL_MS else "not hidden", saved))
+    log(json.dumps({"pipeline": out}))
+    return out
 
 RESNET_SEED = 7
 RESNET_BATCHES = (1, 8, 64)
@@ -3933,6 +4288,11 @@ def main():
     phase_train_gpu_vs_cpu(torch, fluid, transformer)
     torch.cuda.empty_cache()
     log("training phases: %.1f s" % (time.time() - t_phase))
+    # 6b. the Fluid training runtime: the Trainer, sync and in flight
+    t_phase = time.time()
+    phase_trainer(torch, pk, fluid, transformer)
+    torch.cuda.empty_cache()
+    log("trainer phase: %.1f s" % (time.time() - t_phase))
     t_phase = time.time()
     # 7. ResNet-50 inference: fp32 fused / unfused and int8, 7b. bf16
     # fused / unfused, 8. gpu vs cpu in fp32 and bf16
@@ -3970,6 +4330,11 @@ def main():
     torch.cuda.empty_cache()
     phase_zoo_gpu_vs_cpu(torch, fluid)
     log("zoo phases: %.1f s" % (time.time() - t_phase))
+    # 12b. fluid_benchmark's ResNet-50 with a host stall, pipelined or not
+    t_phase = time.time()
+    phase_pipeline_bench(torch, fluid)
+    torch.cuda.empty_cache()
+    log("pipeline phase: %.1f s" % (time.time() - t_phase))
     # 13. data-parallel ResNet-50 training, one NCCL rank per card
     t_phase = time.time()
     phase_parallel(torch, fluid)

@@ -17,11 +17,18 @@ Environment (the JAX bench's knobs and defaults):
   BENCH_REMAT        1: rematerialize under BENCH_REMAT_POLICY (conv_out)
   BENCH_DEVICE       unset: the card, and no card is an error; cpu: the
                      plain PyTorch path, 5 timed steps, at BENCH_BATCH
-  BENCH_PREFETCH     not ported (needs reader.prefetch_to_device): raises
+  BENCH_PREFETCH     <depth>: feed the loop through the device prefetch
+                     queue (reader.prefetch_to_device): every batch is
+                     freshly made on the host and copied to the card by
+                     the background thread, so the number includes the
+                     per-step feed path with the pipeline hiding it
+                     (default 0: the four batches staged on the card)
 
 Prints ONE JSON line: {"metric": "resnet50_train_images_per_sec", "value",
 "unit": "images/sec", "card", "power_limit", "device", "amp", "layout",
-"batch", "whole_graph"} (+ "remat_policy" under BENCH_REMAT).  There is no
+"batch", "whole_graph"} (+ "remat_policy" under BENCH_REMAT, + "feed":
+"prefetch(depth=N)" under BENCH_PREFETCH: staged and prefetched numbers
+are never compared unlabelled).  There is no
 `vs_baseline`: the JAX bench divides by a per-TPU-chip share of a GPU
 cluster, which says nothing about one H100.
 """
@@ -111,14 +118,36 @@ def staged_batches(batch, layout, device, n=N_BATCHES, seed=0):
     return [{"data": x, "label": y} for x, y in zip(images, labels)]
 
 
+def prefetched_batches(batch, layout, device, depth, n, seed=0):
+    """`n` seeded (image, label) feeds made on the host one at a time and
+    staged by `reader.prefetch_to_device` at queue depth `depth`: a
+    function i -> the next feed."""
+    from paddle_tpu_torch import reader
+    rng = np.random.RandomState(seed)
+    shape = (batch, 3, IMAGE_HW, IMAGE_HW) if layout == "NCHW" \
+        else (batch, IMAGE_HW, IMAGE_HW, 3)
+
+    def host_batches():
+        for _ in range(n):
+            yield {"data": rng.randn(*shape).astype(np.float32),
+                   "label": rng.randint(0, CLASSES, (batch, 1))
+                   .astype(np.int64)}
+
+    it = reader.prefetch_to_device(host_batches, depth, device=device)()
+    return lambda i: next(it)
+
+
 def run_steps(step, state, batches, step0, n):
-    """`n` steps on the rotating batches from step `step0`, fenced at the
-    end by a host read of the last loss: (state, the n losses as device
-    scalars, seconds, host seconds between step returns)."""
+    """`n` steps on the rotating batches (a list, or a function i -> the
+    feed of step i) from step `step0`, fenced at the end by a host read
+    of the last loss: (state, the n losses as device scalars, seconds,
+    host seconds between step returns)."""
     t0 = last = time.perf_counter()
     gaps, losses = [], []
     for i in range(step0, step0 + n):
-        fetches, state = step(state, batches[i % len(batches)], i)
+        feed = batches(i) if callable(batches) \
+            else batches[i % len(batches)]
+        fetches, state = step(state, feed, i)
         losses.append(fetches[0].reshape(-1)[0])
         now = time.perf_counter()
         gaps.append(now - last)
@@ -135,11 +164,12 @@ def _env_flag(name, default):
 
 def main():
     import torch
-    if os.environ.get("BENCH_PREFETCH"):
-        raise NotImplementedError(
-            "BENCH_PREFETCH: the device prefetch queue "
-            "(reader.prefetch_to_device) is not ported to paddle_tpu_torch "
-            "yet (ROADMAP.md, queue 1 item 9)")
+    prefetch = os.environ.get("BENCH_PREFETCH", "0")
+    if not prefetch.isdigit():
+        print("bench: BENCH_PREFETCH must be a queue depth (an integer "
+              ">= 0), got %r" % prefetch, file=sys.stderr)
+        return 2
+    prefetch = int(prefetch)
     device = os.environ.get("BENCH_DEVICE", "cuda")
     if device not in ("cuda", "cpu"):
         print("bench: BENCH_DEVICE must be unset (the card) or 'cpu', got %r"
@@ -169,7 +199,11 @@ def main():
         step, whole_graph = make_step(main_prog, loss, whole_graph,
                                       remat_policy, device)
         state = {n: scope.get(n) for n in scope.keys()}
-        batches = staged_batches(batch, layout, exe.device)
+        if prefetch > 0:
+            batches = prefetched_batches(batch, layout, exe.device, prefetch,
+                                         WARMUP + iters)
+        else:
+            batches = staged_batches(batch, layout, exe.device)
         state, losses, _, _ = run_steps(step, state, batches, 0, WARMUP)
         if not np.isfinite(float(losses[-1])):
             raise FloatingPointError("bench: warm-up loss %r"
@@ -189,6 +223,8 @@ def main():
               "whole_graph": whole_graph}
     if remat_policy:
         result["remat_policy"] = remat_policy
+    if prefetch > 0:
+        result["feed"] = "prefetch(depth=%d)" % prefetch
     print(json.dumps(result), flush=True)
     return 0
 

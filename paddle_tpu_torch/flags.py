@@ -31,6 +31,9 @@ def _on_change(name, value):
     elif name == "event_log_max_kb":
         from .obs import events
         events.configure(max_kb=value)
+    elif name in ("flight_dir", "flight_keep", "flight_cooldown_s"):
+        from .obs import flightrec
+        flightrec.configure()
 
 
 class _Flags(types.SimpleNamespace):
@@ -133,6 +136,42 @@ _DEFAULTS = dict(
     # norm and activation tails), 'block_out' (keep the residual blocks'
     # outputs, recompute their interiors), 'dots' or 'nothing'
     remat_policy="",
+    # re-check every fetch and persistable for NaN/Inf after each
+    # Executor step and name the non-finite ones (a debugging mode: the
+    # check is a per-step host sync)
+    check_nan_inf=False,
+    # synchronize the card after every Executor step, so wall-clock
+    # timing around run() is honest
+    benchmark=False,
+    # the Trainer's anomaly sentinel: screen each step's fetched losses
+    # (and every persistable with sentinel_check_params) for NaN/Inf; a
+    # bad step is reverted, and after sentinel_max_bad_steps consecutive
+    # bad steps the policy decides: 'skip' raises SentinelError,
+    # 'rollback' reloads the last-good checkpoint
+    sentinel_nan_check=False,
+    sentinel_policy="skip",
+    sentinel_max_bad_steps=3,
+    sentinel_check_params=False,
+    # wall-clock watchdog on each Executor step (the drain of an
+    # in-flight one): a step past this many seconds raises
+    # StepWatchdogTimeout instead of blocking forever; 0 disables
+    step_watchdog_secs=0.0,
+    # in-flight dispatch: the Trainer keeps up to this many steps'
+    # fetches on the card (Executor.run(as_future=True)) and resolves
+    # each at the pipeline tail; 0 resolves every step before the next
+    async_dispatch_depth=0,
+    # the Trainer's device prefetch queue (reader.prefetch_to_device):
+    # a background thread prepares and copies the next batches to the
+    # card while the current step computes; 0 feeds on the main thread
+    reader_prefetch_depth=0,
+    # flight-recorder bundle root (obs/flightrec.py): a trigger
+    # (watchdog_fire, sentinel giveup/rollback, slo_breach, the server's
+    # `flight` verb) commits a post-mortem bundle there; '' disables it
+    flight_dir="",
+    # keep-N rotation of the flight-recorder bundles
+    flight_keep=8,
+    # per-trigger-reason cooldown of the flight recorder, seconds
+    flight_cooldown_s=30.0,
 )
 
 FLAGS = _Flags(**{

@@ -23,36 +23,46 @@ package's does.  Ragged sequences go in as `fluid.LoDTensor` feeds
 `fluid.ParallelExecutor` trains data-parallel over torch.distributed,
 one process per card, computing the single-device step of the global
 batch (fluid/parallel_executor.py; the collective-mode
-`DistributeTranspiler` bootstraps the world).
+`DistributeTranspiler` bootstraps the world).  `fluid.contrib.Trainer`
+is the training entry point: events, checkpoints in the vault
+(fluid/checkpoint.py), the anomaly sentinel (fluid/sentinel.py), and the
+async pipeline of in-flight dispatch (`Executor.run(as_future=True)`,
+fluid/pipeline.py) fed by the device prefetch queue
+(`reader.prefetch_to_device`).
 """
 
-from . import (backward, core, data_feeder, executor, framework,
+from . import (backward, checkpoint, core, data_feeder, executor, framework,
                functionalizer, initializer, io, ir_passes, layers, lod, nets,
-               optimizer, parallel_executor, regularizer, transpiler,
-               unique_name)
+               optimizer, parallel_executor, pipeline, regularizer, sentinel,
+               transpiler, unique_name)
 from .backward import append_backward
 from .core import CPUPlace, CUDAPlace
 from .data_feeder import DataFeeder
 from .lod import LoDTensor, create_lod_tensor, create_random_int_lodtensor
-from .executor import Executor, Scope, as_numpy, global_scope, scope_guard
+from .executor import (Executor, FetchFuture, Scope, StepWatchdogTimeout,
+                       as_numpy, global_scope, scope_guard)
 from .framework import (Operator, Parameter, Program, Variable,
                         default_main_program, default_startup_program,
                         program_guard)
 from .io import (load_inference_model, load_params, load_persistables,
-                 load_vars, save_inference_model, save_params,
-                 save_persistables, save_vars, scope_from_jax, scope_to_jax)
+                 load_vars, load_checkpoint, save_checkpoint,
+                 save_inference_model, save_params, save_persistables,
+                 save_vars, scope_from_jax, scope_to_jax)
 from .parallel_executor import (BuildStrategy, ExecutionStrategy,
                                 ParallelExecutor)
 from .param_attr import ParamAttr
 from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
                          InferenceTranspiler)
 from ..ops.registry import amp_enabled, set_amp
+from . import contrib  # noqa: E402  (the Trainer needs the whole package)
 
 __all__ = [
-    "backward", "core", "data_feeder", "executor", "framework",
-    "functionalizer", "initializer", "io", "ir_passes", "layers", "lod",
-    "nets", "optimizer", "parallel_executor", "regularizer", "transpiler",
-    "unique_name",
+    "backward", "checkpoint", "contrib", "core", "data_feeder", "executor",
+    "framework", "functionalizer", "initializer", "io", "ir_passes",
+    "layers", "lod", "nets", "optimizer", "parallel_executor", "pipeline",
+    "regularizer", "sentinel", "transpiler", "unique_name",
+    "FetchFuture", "StepWatchdogTimeout", "save_checkpoint",
+    "load_checkpoint",
     "append_backward", "CPUPlace", "DataFeeder", "LoDTensor",
     "create_lod_tensor", "create_random_int_lodtensor",
     "CUDAPlace", "Executor", "Scope", "as_numpy", "global_scope",

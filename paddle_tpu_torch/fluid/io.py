@@ -1,7 +1,9 @@
 """Model save/load, after paddle_tpu/fluid/io.py: save/load_vars, _params
 and _persistables (one .npy per var with "/" -> "__", or one .npz when
-`filename` is given), save/load_inference_model, and carrying a scope
-across packages.
+`filename` is given), save/load_inference_model, save/load_checkpoint
+over the checkpoint vault (fluid/checkpoint.py: its layout is the JAX
+package's, so a checkpoint of either package loads in the other), and
+carrying a scope across packages.
 
 The inference artifact is the contract between the two packages: a JSON
 `__model__` ({"program", "feed_names", "fetch_names"}, the program in
@@ -25,7 +27,8 @@ from .framework import Parameter, Program, Variable, default_main_program
 __all__ = [
     "save_vars", "save_params", "save_persistables", "load_vars",
     "load_params", "load_persistables", "save_inference_model",
-    "load_inference_model", "scope_from_jax", "scope_to_jax",
+    "load_inference_model", "save_checkpoint", "load_checkpoint",
+    "scope_from_jax", "scope_to_jax",
 ]
 
 
@@ -173,6 +176,81 @@ def load_inference_model(dirname, executor, model_filename=None,
     fetch_vars = [program.global_block().var(n)
                   for n in meta["fetch_names"]]
     return program, meta["feed_names"], fetch_vars
+
+
+def _persistable_arrays(main_program, scope):
+    if main_program is None:
+        main_program = default_main_program()
+    arrays = {}
+    for v in _var_list(main_program, is_persistable):
+        val = scope.get(v.name)
+        if val is not None:
+            arrays[v.name] = val
+    return arrays
+
+
+def save_checkpoint(executor, dirname, main_program=None, step=None,
+                    epoch=None, epoch_step=None, max_num_checkpoints=None,
+                    async_save=False):
+    """Commit the program's persistables as `checkpoint_<step>/` under the
+    vault root `dirname`, with the `latest` pointer and keep-N rotation
+    (fluid/checkpoint.py).  `step` is the int global step or a legacy
+    {"epoch", "step"} dict; `epoch`/`epoch_step` extend the meta.  With
+    `async_save` the commit happens on the background saver
+    (checkpoint.wait_for_async_saves joins).  Returns the meta written."""
+    from . import checkpoint as ckpt
+    meta = ckpt.normalize_meta(step)
+    if epoch is not None:
+        meta["epoch"] = int(epoch)
+    if epoch_step is not None:
+        meta["epoch_step"] = int(epoch_step)
+    arrays = _persistable_arrays(main_program, global_scope())
+    if async_save:
+        ckpt.async_saver().submit(dirname, arrays, meta,
+                                  max_num_checkpoints=max_num_checkpoints)
+    else:
+        ckpt.save_checkpoint_dir(dirname, arrays, meta,
+                                 max_num_checkpoints=max_num_checkpoints)
+    return meta
+
+
+def load_checkpoint(executor, dirname, main_program=None):
+    """Load the newest committed checkpoint under `dirname` (or `dirname`
+    itself when it is one checkpoint_<n> dir, or a legacy flat
+    `__checkpoint__.npz` layout) into the global scope on the executor's
+    device, CRC-verifying every array.  Returns the {"epoch", "step",
+    ...} meta.  Raises FileNotFoundError when nothing is there and
+    CheckpointCorruptionError when an array fails verification."""
+    from . import checkpoint as ckpt
+    if main_program is None:
+        main_program = default_main_program()
+    if os.path.exists(os.path.join(dirname, ckpt.MANIFEST_NAME)):
+        target = dirname
+    else:
+        target = ckpt.latest_checkpoint(dirname)
+    if target is None:
+        legacy = os.path.join(dirname, "__checkpoint__.npz")
+        if not os.path.exists(legacy):
+            raise FileNotFoundError(
+                "no checkpoint under %s (no 'latest' pointer, no "
+                "checkpoint_<step>/ dir, no legacy __checkpoint__.npz)"
+                % dirname)
+        load_persistables(executor, dirname, main_program,
+                          filename="__checkpoint__.npz")
+        meta_path = os.path.join(dirname, "__meta__.json")
+        raw = None
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                raw = json.load(f).get("step")
+        return ckpt.normalize_meta(raw)
+    scope = global_scope()
+    wanted = frozenset(
+        v.name for v in _var_list(main_program, is_persistable))
+    arrays, meta = ckpt.load_checkpoint_dir(target, names=wanted)
+    device = _load_device(executor)
+    for name, arr in arrays.items():
+        scope.set(name, as_tensor(arr).to(device))
+    return meta
 
 
 def scope_from_jax(np_dict, scope=None, place=None):

@@ -34,6 +34,14 @@ Without a torch.distributed world the ParallelExecutor runs a world of
 one, the Executor's step, where the host has one device (one card, one
 selected card, or CPU_NUM=1); with more it raises rather than train on
 one of them (the JAX one takes them all).
+
+`run(..., as_future=True)` dispatches the rank's step without a host
+sync and returns a FetchFuture (fluid/pipeline.py), as Executor.run
+does; a batch-axis fetch is gathered over the ranks when the future is
+resolved (every rank resolves its futures in dispatch order).  A feed
+whose tensors already lie on the rank's card (a batch of
+`reader.prefetch_to_device(..., group=pe.group)`) is taken as it is,
+without a second copy.
 """
 
 import numpy as np
@@ -98,14 +106,20 @@ def _local_feed(feed):
 
 def _merge_device_feeds(feeds):
     """A list of per-device feed dicts as one dict: arrays concatenated on
-    the batch axis, LoDTensors with their sequence lengths concatenated
-    per level (the JAX ParallelExecutor's merge)."""
+    the batch axis (tensors on their device), LoDTensors with their
+    sequence lengths concatenated per level (the JAX ParallelExecutor's
+    merge)."""
     merged = {}
     for k in feeds[0]:
         vals = [d[k] for d in feeds]
         ragged = [isinstance(v, LoDTensor) and bool(v.lod()) for v in vals]
         if not any(ragged):
-            merged[k] = np.concatenate([np.asarray(v) for v in vals], axis=0)
+            if all(isinstance(v, torch.Tensor) for v in vals):
+                merged[k] = torch.cat(vals, dim=0)
+            else:
+                merged[k] = np.concatenate(
+                    [as_numpy(v) if isinstance(v, torch.Tensor)
+                     else np.asarray(v) for v in vals], axis=0)
             continue
         if not all(ragged):
             raise ValueError("feed '%s': mixed LoDTensor and dense entries "
@@ -157,7 +171,8 @@ class _RankExecutor(Executor):
             return self._gather_lod(
                 super()._fetch_out(name, val, lens, return_numpy))
         if self._has_batch_axis(name):
-            val = g.all_gather_rows(val)
+            # a resolved future hands the host copy: gather on the card
+            val = g.all_gather_rows(val.to(g.device))
         return super()._fetch_out(name, val, None, return_numpy)
 
     def _gather_lod(self, t):
@@ -372,16 +387,13 @@ class ParallelExecutor:
             as_future=False):
         """reference parallel_executor.py:169: one step of the global
         batch.  `feed` (or `feed_dict`) is this rank's share of it: one
-        dict, or a list of per-device dicts that are concatenated."""
-        if as_future:
-            raise NotImplementedError(
-                "ParallelExecutor.run(as_future=True): in-flight step "
-                "dispatch is not ported to paddle_tpu_torch yet (ROADMAP.md, "
-                "queue 1 item 9)")
+        dict, or a list of per-device dicts that are concatenated.  With
+        `as_future=True` the step is dispatched without a host sync and
+        a FetchFuture comes back (module docstring)."""
         return self._exe.run(self._main_program, feed=_local_feed(
             feed if feed is not None else feed_dict),
             fetch_list=fetch_list, scope=self._scope,
-            return_numpy=return_numpy)
+            return_numpy=return_numpy, as_future=as_future)
 
     def run_loop(self, fetch_list, feed=None, steps=1, return_numpy=True):
         """`steps` global steps on one feed, as `steps` run() calls (each

@@ -20,9 +20,22 @@ stays off, as the JAX tool keeps it off off its accelerator); a host
 without CUDA raises.  A ragged feed (stacked_dynamic_lstm's `words`) is
 a LoDTensor with lengths drawn from randint(3, 12), or from
 randint(S // 4, S + 1) with `--seq_len S`.  The flags that need parts
-not ported yet (--update_method pserver, --prefetch_depth,
---async_depth, --staged_feed, --profile) and the model
+not ported yet (--update_method pserver, --profile) and the model
 machine_translation raise NotImplementedError.
+
+The training pipeline (the JAX tool's flags and semantics):
+`--prefetch_depth N` feeds the loop through `reader.prefetch_to_device`
+(batch synthesis, `prepare_feeds` and the pinned, non-blocking copy to
+the card of the next batches on a background thread); `--async_depth N`
+keeps N steps in flight (`run(as_future=True)`), each loss read at the
+pipeline tail; `--fetch_every N` fetches the loss (the host sync) only
+every Nth step and on the last; `--staged_feed K` stages K batches on
+the card before the timed loop and cycles through them (exclusive with
+`--prefetch_depth`); `--host_stall_ms T` sleeps T ms on the feed path
+per batch, a stand-in for host preprocessing that the prefetch thread
+hides and the main thread serializes with every step.  The record then
+says `prefetch_depth`, `async_depth`, `host_stall_ms`, `staged_feed`
+and `staged_transfer`.
 
 Data parallelism (fluid/parallel_executor.py): `--parallel` without the
 launcher's environment starts one trainer process per local device
@@ -68,11 +81,6 @@ MODELS = ["mnist", "resnet", "vgg", "stacked_dynamic_lstm",
 _WAITS = {
     "update_method": "pserver mode and the RPC layer (ROADMAP.md, queue 1 "
                      "item 12)",
-    "prefetch_depth": "reader.prefetch_to_device (ROADMAP.md, queue 1 "
-                      "item 9)",
-    "async_depth": "in-flight step dispatch, run(as_future=True) "
-                   "(ROADMAP.md, queue 1 item 9)",
-    "staged_feed": "staged device feeds (ROADMAP.md, queue 1 item 9)",
     "profile": "fluid.profiler (ROADMAP.md, queue 1 item 13)",
     "machine_translation": "control-flow sub-blocks and the beam-search "
                            "ops (ROADMAP.md, queue 1 item 13)",
@@ -108,9 +116,26 @@ def parse_args(argv=None):
     p.add_argument("--device_loop", type=int, default=0,
                    help="run N steps per Executor.run_loop call on one "
                         "batch; 0 = one Executor.run per step")
-    p.add_argument("--prefetch_depth", type=int, default=0)
-    p.add_argument("--async_depth", type=int, default=0)
-    p.add_argument("--staged_feed", type=int, default=0)
+    p.add_argument("--fetch_every", type=int, default=1,
+                   help="fetch the loss (a host sync) every N steps and on "
+                        "the last; 1 = every step")
+    p.add_argument("--prefetch_depth", type=int, default=0,
+                   help="feed through reader.prefetch_to_device with this "
+                        "queue depth: the next batches are made and "
+                        "copied to the card on a background thread")
+    p.add_argument("--async_depth", type=int, default=0,
+                   help="keep up to N steps in flight "
+                        "(run(as_future=True)), each loss read at the "
+                        "pipeline tail; 0 = read every step's loss "
+                        "before the next dispatch")
+    p.add_argument("--host_stall_ms", type=float, default=0.0,
+                   help="sleep this long on the feed path per batch (a "
+                        "stand-in for host preprocessing); on the "
+                        "prefetch thread with --prefetch_depth")
+    p.add_argument("--staged_feed", type=int, default=0,
+                   help="stage K batches on the card before the timed "
+                        "loop and cycle through them (exclusive with "
+                        "--prefetch_depth)")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--use_fake_data", action="store_true", default=True)
     p.add_argument("--trace_steps", type=int, default=0,
@@ -129,9 +154,6 @@ def check_ported(args):
     """Raise NotImplementedError for an option or model that needs parts
     not ported yet: none is ignored quietly."""
     unported = [("update_method", args.update_method == "pserver"),
-                ("prefetch_depth", args.prefetch_depth > 0),
-                ("async_depth", args.async_depth > 0),
-                ("staged_feed", args.staged_feed > 0),
                 ("profile", args.profile),
                 ("machine_translation",
                  args.model == "machine_translation")]
@@ -283,15 +305,6 @@ def _grad_allreduce_timing(torch, main_prog, scope, group, on_card, reps=10):
                              if R > 1 else None)}
 
 
-def _on_device(torch, feed, device):
-    """A feed with its dense arrays moved to `device` once (a LoDTensor
-    stays on the host: the Executor pads it)."""
-    from .fluid.lod import LoDTensor
-    return {k: v if isinstance(v, LoDTensor)
-            else torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in feed.items()}
-
-
 def _trace(torch, run_step, steps, on_card):
     """`steps` steps under torch.profiler: wall ms and device ms a step,
     the busy share, device ms a step by group (the collectives'
@@ -345,10 +358,17 @@ def benchmark(args, after=None):
     and the batch maker.  A data-parallel run is one trainer's part: it
     needs a trainer's environment (`trainer_env`)."""
     check_ported(args)
+    if args.prefetch_depth > 0 and args.staged_feed > 0:
+        raise SystemExit(
+            "--prefetch_depth and --staged_feed are mutually exclusive "
+            "feed paths (staging already amortizes the transfer the "
+            "prefetch queue overlaps)")
     import torch
 
     from . import fluid
+    from . import reader as reader_mod
     from .flags import FLAGS
+    from .fluid.executor import prepare_feeds
     dp = _trainer(args) if data_parallel(args) else None
     on_card = args.device == "GPU"
     place = fluid.CUDAPlace(0) if on_card else fluid.CPUPlace()
@@ -398,40 +418,110 @@ def benchmark(args, after=None):
             return synth_feed(feeds, local, rng, program=main_prog,
                               lengths=lengths)
 
-        def run_step(feed):
+        def stalled_batch():
+            # --host_stall_ms: host preprocessing cost; on the prefetch
+            # thread it overlaps the step, on the main thread it
+            # serializes with it
+            if args.host_stall_ms > 0:
+                time.sleep(args.host_stall_ms / 1000.0)
+            return make_batch()
+
+        def run_step(feed, fetch_list=fetch, as_future=False):
             if pe is not None:
                 if args.device_loop > 0:
-                    return pe.run_loop(fetch, feed=feed,
+                    return pe.run_loop(fetch_list, feed=feed,
                                        steps=args.device_loop)
-                return pe.run(fetch, feed=feed)
+                return pe.run(fetch_list, feed=feed, as_future=as_future)
             if args.device_loop > 0:
-                return exe.run_loop(main_prog, feed=feed, fetch_list=fetch,
+                return exe.run_loop(main_prog, feed=feed,
+                                    fetch_list=fetch_list,
                                     steps=args.device_loop)
-            return exe.run(main_prog, feed=feed, fetch_list=fetch)
+            return exe.run(main_prog, feed=feed, fetch_list=fetch_list,
+                           as_future=as_future)
 
         n_warm = args.skip_batch_num
         n_timed = args.iterations * max(args.pass_num, 1)
         per_call = max(args.device_loop, 1)
+        device = pe.group.device if pe is not None else exe.device
+        staged = None
+        if args.staged_feed > 0:
+            # K batches on the card before the timed loop (the
+            # ParallelExecutor takes them on the rank's card as they are)
+            staged = [prepare_feeds(main_prog, make_batch(), device)
+                      for _ in range(args.staged_feed)]
+            if on_card:
+                torch.cuda.synchronize()
+        feeds_it = None
+        if args.prefetch_depth > 0:
+            total = n_warm + n_timed
+
+            def batch_source():
+                for _ in range(total):
+                    yield stalled_batch()
+
+            feeds_it = reader_mod.prefetch_to_device(
+                batch_source, args.prefetch_depth,
+                prepare=lambda d: prepare_feeds(main_prog, d),
+                device=device, group=pe.group if pe is not None else None)()
         losses, step_s = [], []
+        pending = []
         examples = 0
         last = None
+
+        def read_loss(outs):
+            # the loss read back is a host sync
+            loss = float(np.asarray(outs[0]).ravel()[0])
+            losses.append(loss)
+            return loss
+
+        def drain_oldest():
+            return read_loss(pending.pop(0).result(
+                watchdog_scale=len(pending) + 2))
+
         t0 = time.perf_counter()
         with fluid.scope_guard(scope):
             for i in range(n_warm + n_timed):
                 if i == n_warm:
+                    # warm-up dispatches resolve before the clock starts
+                    while pending:
+                        last = drain_oldest()
                     if on_card:
                         torch.cuda.synchronize()
                     if pe is not None:
                         pe.group.reset_counts()
                     t0 = time.perf_counter()
                 t_step = time.perf_counter()
-                outs = run_step(make_batch())
-                # the loss read back is the step's host sync
-                last = float(np.asarray(outs[0]).ravel()[0])
-                losses.append(last)
+                feed = (staged[i % len(staged)] if staged
+                        else next(feeds_it) if feeds_it is not None
+                        else stalled_batch())
+                if args.async_depth > 0 and args.device_loop <= 0:
+                    pending.append(run_step(feed, as_future=True))
+                    while len(pending) > args.async_depth:
+                        last = drain_oldest()
+                else:
+                    # --fetch_every N: the first warm step takes the
+                    # no-fetch step function, so both are built before
+                    # the clock starts
+                    if args.fetch_every <= 1 or args.device_loop > 0:
+                        do_fetch = True
+                    elif i < n_warm:
+                        do_fetch = not (i == 0 and n_warm >= 2)
+                    else:
+                        do_fetch = ((i + 1) % args.fetch_every == 0
+                                    or i == n_warm + n_timed - 1)
+                    outs = run_step(feed, fetch if do_fetch else [])
+                    if do_fetch:
+                        last = read_loss(outs)
                 if i >= n_warm:
                     examples += batch * per_call
                     step_s.append(time.perf_counter() - t_step)
+            # the timed window holds every timed step's compute
+            while pending:
+                last = drain_oldest()
+            if on_card and args.fetch_every > 1:
+                torch.cuda.synchronize()
+        if feeds_it is not None:
+            feeds_it.close()
         dt = time.perf_counter() - t0
         collectives = None
         extra = {}
@@ -445,7 +535,7 @@ def benchmark(args, after=None):
         if args.trace_steps > 0:
             # one batch, on the device before the window: the steps
             # alone, timed, then again under the profiler (trainer 0)
-            feed = _on_device(torch, make_batch(), place.torch_device())
+            feed = prepare_feeds(main_prog, make_batch(), device)
             step = lambda: run_step(feed)  # noqa: E731
             n = args.trace_steps
             with fluid.scope_guard(scope):
@@ -500,6 +590,14 @@ def benchmark(args, after=None):
     record.update(extra)
     if args.device_loop > 0:
         record["device_loop"] = args.device_loop
+    if args.staged_feed > 0:
+        # the ParallelExecutor takes a batch on the rank's card as it is,
+        # so staging amortizes the transfer on either executor
+        record["staged_feed"] = args.staged_feed
+        record["staged_transfer"] = True
+    for key in ("prefetch_depth", "async_depth", "host_stall_ms"):
+        if getattr(args, key) > 0:
+            record[key] = getattr(args, key)
     if args.model in ("resnet", "se_resnext"):
         record["layout"] = args.layout
     return record, detail

@@ -11,9 +11,11 @@ paddle_tpu/obs (pure Python, the port's own copy):
   the attached ServingMetrics, SLO monitors and span aggregates, served
   by the ``metrics`` verb;
 * ``slo`` — declared per-model SLOs with multi-window burn rates and the
-  ok/degraded/breach state the ``health`` verb renders.
+  ok/degraded/breach state the ``health`` verb renders;
+* ``flightrec`` — the flight recorder: a post-mortem bundle on a
+  watchdog fire, a sentinel rollback or giveup, an SLO breach or the
+  server's ``flight`` verb (no-op while ``FLAGS.flight_dir`` is unset).
 
-The flight recorder (``obs/flightrec.py``) waits (ROADMAP.md queue 1).
 Importing this package installs the default registry as the span ring's
 listener, so per-stage aggregates accumulate from the first span.
 """
@@ -27,10 +29,11 @@ from .registry import MetricsRegistry  # noqa: F401
 from .registry import default as default_registry  # noqa: F401
 from . import slo  # noqa: F401
 from .slo import SLO, SLOMonitor  # noqa: F401
+from . import flightrec  # noqa: F401
 
 __all__ = ["tracing", "events", "registry", "trace", "Span",
            "new_trace_id", "recent_spans", "spans_for_trace", "emit",
            "recent_events", "MetricsRegistry", "default_registry",
-           "slo", "SLO", "SLOMonitor"]
+           "slo", "SLO", "SLOMonitor", "flightrec"]
 
 default_registry()

@@ -15,8 +15,10 @@ families, labels and text).
 ``prometheus_text()`` renders it (``# TYPE`` headers, ``name{label="v"}
 value`` samples) for the server's ``metrics`` verb.  The metric names
 keep the JAX package's ``paddle_tpu_`` prefix, so one scraper reads
-either server.  The compile-cache, fleet, federation and flight-recorder
-families wait with those subsystems (ROADMAP.md queue 1).
+either server.  The compile-cache, fleet and federation families wait
+with those subsystems (ROADMAP.md queue 1); the flight recorder's
+counters are read through its `stats()`, which the `health` verb
+carries.
 """
 
 import threading

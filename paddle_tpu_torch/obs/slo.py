@@ -9,8 +9,9 @@ driving a per-model health state machine (``ok`` -> ``degraded`` ->
 ``breach``, with hysteresis on both edges).  Transitions emit
 ``slo_degraded`` / ``slo_breach`` / ``slo_recovered`` events and the
 monitor exports burn-rate / compliance / state gauges; the server's
-``health`` verb renders its state.  (The JAX monitor also arms the
-flight recorder on a breach; the recorder waits, ROADMAP.md queue 1.)
+``health`` verb renders its state, and a breach fires the flight
+recorder (obs/flightrec.py), whose bundle carries the monitor's
+timeline.
 
 Burn-rate model:
 
@@ -169,6 +170,21 @@ class _Sample(object):
     __slots__ = ("ts", "mono", "requests", "responses", "errors",
                  "shed", "deadline_expired", "p95_ms", "ttft_p95_ms",
                  "draft_tokens", "accepted_tokens", "bad")
+
+    def to_dict(self):
+        d = {"ts": self.ts, "requests": self.requests,
+             "responses": self.responses, "errors": self.errors,
+             "shed": self.shed,
+             "deadline_expired": self.deadline_expired,
+             "draft_tokens": self.draft_tokens,
+             "accepted_tokens": self.accepted_tokens}
+        if self.p95_ms is not None:
+            d["p95_ms"] = round(self.p95_ms, 3)
+        if self.ttft_p95_ms is not None:
+            d["ttft_p95_ms"] = round(self.ttft_p95_ms, 3)
+        if self.bad:
+            d["bad"] = {k: round(v, 4) for k, v in self.bad.items()}
+        return d
 
 class SLOMonitor(object):
     """Samples one ``ServingMetrics`` registry on a fixed interval,
@@ -378,8 +394,13 @@ class SLOMonitor(object):
                 burns = self._burns(ring, slo)
                 emitted.extend(self._evaluate_locked(key, slo, burns))
         # emit OUTSIDE the lock
+        # emit (and fire the flight recorder) outside the lock: the
+        # recorder's providers may read this monitor back
         for kind, fields in emitted:
             obs_events.emit(kind, monitor=self.name, **fields)
+            if kind == "slo_breach":
+                from . import flightrec
+                flightrec.trigger("slo_breach", **fields)
         return emitted
 
     # -- thread lifecycle ----------------------------------------------
@@ -450,6 +471,20 @@ class SLOMonitor(object):
                     if burns:
                         info["burn"] = burns
                 out[key] = info
+            return out
+
+    def timeline(self, model=None, n=None):
+        """The bounded time-series ring (the flight-recorder bundle's
+        timeline): {lane key: [sample dicts, oldest first]}."""
+        with self._lock:
+            out = {}
+            for key, ring in self._rings.items():
+                if model is not None and key != model:
+                    continue
+                samples = list(ring)
+                if n is not None:
+                    samples = samples[-int(n):]
+                out[key] = [s.to_dict() for s in samples]
             return out
 
     def export(self):

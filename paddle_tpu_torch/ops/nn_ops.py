@@ -269,17 +269,21 @@ def _dropout(ctx):
 @register_op("lookup_table")
 def _lookup_table(ctx):
     """Rows of W for the ids (a trailing size-1 ids dim is squeezed); ids
-    at padding_idx read zeros.  Ids outside [0, rows) raise ValueError,
-    where the JAX gather clamps: on the card an out-of-range gather
-    would fault the CUDA context."""
+    at padding_idx read zeros.  Out-of-range ids read as `jnp.take` reads
+    them: an id in [-rows, 0) wraps, any other reads a NaN row (a zero
+    row for an integer W) that passes no gradient.  Decided on the
+    device, with no host sync (the step can stay in flight); the gather
+    itself reads clamped ids, so a bad id never faults the card."""
     w, ids = ctx.input("W"), ctx.input("Ids")
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     ids = ids.long()
-    if ids.device.type != "meta" and ids.numel() and bool(
-            ((ids < 0) | (ids >= w.shape[0])).any()):
-        raise ValueError("lookup_table: ids outside [0, %d)" % w.shape[0])
-    out = torch.nn.functional.embedding(ids, w)
+    rows = w.shape[0]
+    ids = torch.where(ids < 0, ids + rows, ids)
+    valid = (ids >= 0) & (ids < rows)
+    out = torch.nn.functional.embedding(ids.clamp(0, rows - 1), w)
+    fill = float("nan") if out.is_floating_point() else 0
+    out = torch.where(valid[..., None], out, out.new_full((), fill))
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx)[..., None].to(out.dtype)

@@ -21,10 +21,15 @@ package's, so either package's client talks to either server:
   shutdown      graceful drain, then the server stops accepting
   exit          close this connection and stop the accept loop
 
-The verbs `fleet`, `flight`, `page_model`, `resize_model` and
-`fault_model` answer a typed `bad_request` naming the ROADMAP.md item
-that ports them, and a server asked for federation or the fleet
-controller raises at construction.
+  flight        {"reason"?,"force"?} -> commit a flight-recorder bundle
+                (obs/flightrec.py; {"bundle": None} while
+                FLAGS.flight_dir is unset)
+
+The verbs `fleet`, `page_model`, `resize_model` and `fault_model`
+answer a typed `bad_request` naming the ROADMAP.md item that ports them,
+and a server asked for federation or the fleet controller raises at
+construction.  While it runs, a server is a flight-recorder provider:
+every bundle carries its stats, models, health and SLO timeline.
 
 Admission control is the batcher's bounded queue: a request past
 `FLAGS.serving_max_queue` is answered at once with "overloaded".  The
@@ -43,6 +48,7 @@ import numpy as np
 from ..distributed.rpc import _recv_msg, _send_msg
 from ..flags import FLAGS
 from ..native.wire import WireError
+from ..obs import flightrec
 from ..obs import registry as obs_registry
 from ..obs import tracing as obs_tracing
 from .batcher import BatcherClosed, DeadlineExceeded, ServerOverloaded
@@ -57,7 +63,6 @@ _CLOSE = object()
 # verbs of the JAX server whose subsystems are not ported yet
 _WAITING_VERBS = {
     "fleet": "the fleet controller (serving/fleet.py)",
-    "flight": "the flight recorder (obs/flightrec.py)",
     "page_model": "paging (with the fleet controller)",
     "resize_model": "resize (with the fleet controller)",
     "fault_model": "fault-in (with the fleet controller)",
@@ -197,6 +202,9 @@ class InferenceServer:
             self.slo.name = self.endpoint
             self.slo.start()
             self._obs_registry.attach_slo(self.slo)
+        self._flight_provider = "serving_%s" % \
+            self.endpoint.replace(":", "_").replace(".", "-")
+        flightrec.add_provider(self._flight_provider, self._flight_snapshot)
         if background:
             self._thread = threading.Thread(
                 target=self._serve, daemon=True,
@@ -232,6 +240,9 @@ class InferenceServer:
             if self.slo is not None:
                 self.slo.stop()
                 self._obs_registry.detach_slo(self.slo)
+            if getattr(self, "_flight_provider", None) is not None:
+                flightrec.remove_provider(self._flight_provider)
+                self._flight_provider = None
             self._obs_registry.detach_serving(self.metrics)
             t, self._thread = self._thread, None
         if t is not None and t is not threading.current_thread():
@@ -249,7 +260,21 @@ class InferenceServer:
             h["slo"] = self.slo.state()
             h["slo_monitor"] = {"running": self.slo.running,
                                 "interval_s": self.slo.interval_s}
+        rec = flightrec.get_recorder()
+        if rec is not None:
+            h["flight"] = rec.stats()
         return h
+
+    def _flight_snapshot(self):
+        """Flight-recorder provider: this server at dump time (the
+        bundle's serving_<endpoint>.json)."""
+        snap = {"endpoint": self.endpoint,
+                "stats": self.metrics.snapshot(),
+                "describe": self.registry.describe(),
+                "health": self._health_snapshot()}
+        if self.slo is not None:
+            snap["slo_timeline"] = self.slo.timeline()
+        return snap
 
     def _dispatch(self, msg):
         cmd = msg.get("cmd")
@@ -260,6 +285,14 @@ class InferenceServer:
                     "models": self.registry.describe()}
         if cmd == "health":
             return {"ok": True, "health": self._health_snapshot()}
+        if cmd == "flight":
+            # a bundle now (cooldown bypassed unless the caller asks
+            # otherwise); None while the recorder is disabled
+            path = flightrec.trigger(
+                str(msg.get("reason") or "manual_rpc"),
+                force=bool(msg.get("force", True)), endpoint=self.endpoint)
+            return {"ok": True, "bundle": path,
+                    "enabled": flightrec.get_recorder() is not None}
         if cmd == "metrics":
             return {"ok": True,
                     "text": self._obs_registry.prometheus_text()}
@@ -706,6 +739,12 @@ class ServingClient:
         """The `health` verb's payload: {"draining", "accepting",
         "models": {...}, "slo": {...}, ...}."""
         return self._call({"cmd": "health"})["health"]
+
+    def flight(self, reason="manual_rpc", force=True):
+        """Commit a flight-recorder bundle on the server; returns its
+        path, or None while the server's FLAGS.flight_dir is unset."""
+        return self._call({"cmd": "flight", "reason": str(reason),
+                           "force": bool(force)}).get("bundle")
 
     def metrics_text(self):
         """The server's Prometheus-style exposition."""

@@ -3,7 +3,10 @@ benchmark: on the CPU (BENCH_DEVICE=cpu, batch 2) it prints one
 well-formed JSON line that says cpu, and its knobs (fp32, NCHW, per-op,
 remat) land in that line (run in process at 32 x 32 images: a CPU test
 worker cannot afford 224 x 224); run as `python -m` without CUDA and
-without BENCH_DEVICE it exits non-zero and prints no result; BENCH_PREFETCH raises; importing the module runs nothing.  The
+without BENCH_DEVICE it exits non-zero and prints no result;
+BENCH_PREFETCH=<depth> feeds fresh host batches through
+reader.prefetch_to_device and says `feed` in the line, and a depth that
+is not an integer is refused; importing the module runs nothing.  The
 card case runs it at batch 8."""
 
 import importlib
@@ -66,8 +69,10 @@ def _check_line(stdout, want):
      {"amp": True, "whole_graph": True, "remat_policy": "block_out"}),
     ({"BENCH_REMAT": "1", "BENCH_WHOLEGRAPH": "0"},
      {"whole_graph": True, "remat_policy": "conv_out"}),
+    ({"BENCH_PREFETCH": "2", "BENCH_AMP": "0"},
+     {"feed": "prefetch(depth=2)", "amp": False}),
 ], ids=["defaults", "fp32-nchw-per-op", "remat-block-out",
-        "remat-default-policy"])
+        "remat-default-policy", "prefetch"])
 def test_cpu_run_prints_one_json_line(knobs, want, monkeypatch, capsys):
     from paddle_tpu_torch import bench
     monkeypatch.setattr(bench, "IMAGE_HW", 32)
@@ -84,8 +89,8 @@ def test_cpu_run_prints_one_json_line(knobs, want, monkeypatch, capsys):
     ({}, "CUDA is not available"),
     ({"BENCH_DEVICE": "cpu"}, "needs BENCH_BATCH"),
     ({"BENCH_DEVICE": "tpu", "BENCH_BATCH": "1"}, "BENCH_DEVICE"),
-    ({"BENCH_PREFETCH": "2", "BENCH_DEVICE": "cpu", "BENCH_BATCH": "1"},
-     "prefetch_to_device"),
+    ({"BENCH_PREFETCH": "two", "BENCH_DEVICE": "cpu", "BENCH_BATCH": "1"},
+     "BENCH_PREFETCH must be a queue depth"),
 ], ids=["no-card", "cpu-without-batch", "unknown-device", "prefetch"])
 def test_refuses_without_a_card_or_a_batch(env, stderr):
     proc = _bench(dict(env, CUDA_VISIBLE_DEVICES=""), timeout=120)

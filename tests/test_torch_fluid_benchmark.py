@@ -2,8 +2,11 @@
 the JAX package's tools/fluid_benchmark.py, on the CPU (`--device CPU`,
 2 timed iterations, a tiny batch) for every ported model: its record
 holds the JAX tool's keys and says cpu; its synthetic batches are the
-JAX tool's for the same seed (ragged ids included); each flag and model
-that needs parts not ported yet raises NotImplementedError; without
+JAX tool's for the same seed (ragged ids included); the pipeline flags
+(--prefetch_depth, --async_depth, --staged_feed, --fetch_every,
+--host_stall_ms) keep the plain run's losses and say themselves in the
+record; each flag and model that needs parts not ported yet raises
+NotImplementedError; without
 `--device CPU` on a host without CUDA it raises rather than fall back.
 `--parallel` on the CPU starts CPU_NUM gloo trainers and trainer 0 prints
 the record; a failed trainer fails the run; benchmark() outside a
@@ -130,18 +133,59 @@ def _check_lengths(batch, seq_len):
 
 
 @pytest.mark.parametrize("extra", [
-    # --parallel and nccl2 are ported: what still raises beside them
+    # --parallel, nccl2 and the pipeline flags are ported: what still
+    # raises beside them
     ("--parallel", "--update_method", "pserver"),
-    ("--update_method", "pserver"),
-    ("--update_method", "nccl2", "--async_depth", "2"),
-    ("--prefetch_depth", "2"),
-    ("--async_depth", "2"), ("--staged_feed", "2"), ("--profile",),
+    ("--update_method", "pserver"), ("--profile",),
     ("--model", "machine_translation")],
-    ids=["parallel", "pserver", "nccl2", "prefetch_depth", "async_depth",
-         "staged_feed", "profile", "machine_translation"])
+    ids=["parallel", "pserver", "profile", "machine_translation"])
 def test_unported_flags_and_models_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fb.benchmark(fb.parse_args(_cpu("mnist") + list(extra)))
+
+
+@pytest.mark.parametrize("extra,keys", [
+    (("--prefetch_depth", "2"), {"prefetch_depth": 2}),
+    (("--async_depth", "2"), {"async_depth": 2}),
+    (("--staged_feed", "2"), {"staged_feed": 2, "staged_transfer": True}),
+    (("--prefetch_depth", "2", "--async_depth", "2", "--host_stall_ms",
+      "1"), {"prefetch_depth": 2, "async_depth": 2, "host_stall_ms": 1.0}),
+    (("--fetch_every", "2"), {})],
+    ids=["prefetch_depth", "async_depth", "staged_feed", "pipelined",
+         "fetch_every"])
+def test_pipeline_flags_train_the_sync_trajectory(extra, keys):
+    """The JAX tool's pipeline flags: the record says them, and the
+    steps are the plain run's bit for bit (the same batches, the same
+    order on one stream; staged batches repeat, so only their first
+    loss is the plain run's)."""
+    argv = _cpu("mnist") + ["--iterations", "3"]
+    base, bd = fb.benchmark(fb.parse_args(argv))
+    rec, d = fb.benchmark(fb.parse_args(argv + list(extra)))
+    for k, v in keys.items():
+        assert rec[k] == v, k
+    assert set(keys) == set(rec) - set(base)
+    if "--staged_feed" in extra:
+        np.testing.assert_array_equal(d["losses"][0], bd["losses"][0])
+    elif "--fetch_every" in extra:
+        # one warm-up step, 3 timed: fetched at 0, 1 and the last, 3
+        assert d["losses"] == [bd["losses"][i] for i in (0, 1, 3)]
+    else:
+        assert d["losses"] == bd["losses"]
+        assert rec["last_loss"] == base["last_loss"]
+
+
+def test_prefetch_and_staged_feed_are_exclusive():
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        fb.benchmark(fb.parse_args(_cpu("mnist") + [
+            "--prefetch_depth", "2", "--staged_feed", "2"]))
+
+
+def test_nccl2_with_async_depth_needs_a_trainer():
+    """--update_method nccl2 with --async_depth is ported too: outside a
+    launcher's environment it raises as nccl2 alone does."""
+    with pytest.raises(RuntimeError, match="trainer process"):
+        fb.benchmark(fb.parse_args(_cpu("mnist") + [
+            "--update_method", "nccl2", "--async_depth", "2"]))
 
 
 @pytest.mark.parametrize("extra", [("--parallel",),

@@ -710,10 +710,25 @@ def test_dropout_mask_statistics_and_output(imp):
 
 
 def test_lookup_table_rejects_out_of_range_ids():
-    w = np.zeros((5, 2), np.float32)
-    with pytest.raises(ValueError, match="outside"):
-        _rng_op("lookup_table", {"padding_idx": -1},
-                {"W": [w], "Ids": [np.array([[1, 5]], np.int64)]})
+    """An id outside [-rows, rows) reads a NaN row, as the JAX lowering's
+    jnp.take reads it (an id in [-rows, 0) wraps), decided on the device
+    with no host sync, and passes no gradient to any row; the gather
+    never reads out of bounds."""
+    w = np.random.RandomState(0).randn(5, 2).astype(np.float32)
+    ids = np.array([[1, 5, -1, -6, 4]], np.int64)
+    op = _op("lookup_table", {"padding_idx": -1}, {"W": [0], "Ids": [0]})
+    want = np.asarray(jreg.get_op_def("lookup_table").lower(
+        jreg.ExecContext(op, {"W": [jnp.asarray(w)],
+                              "Ids": [jnp.asarray(ids)]}))["Out"])
+    wt = torch.from_numpy(w).requires_grad_()
+    ctx = treg.ExecContext(op, {"W": [wt], "Ids": [torch.from_numpy(ids)]},
+                           device="cpu")
+    out = treg.get_op_def("lookup_table").lower(ctx)["Out"]
+    np.testing.assert_array_equal(out.detach().numpy(), want)
+    assert np.isnan(want[0, [1, 3]]).all() and \
+        np.array_equal(want[0, 2], w[4])
+    torch.nan_to_num(out).sum().backward()
+    np.testing.assert_array_equal(wt.grad.numpy()[:, 0], [0, 1, 0, 0, 2])
 
 
 def test_meta_shape_inference_runs_the_lowerings():

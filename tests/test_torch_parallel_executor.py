@@ -446,10 +446,22 @@ def test_strategies_and_unported_knobs(monkeypatch):
             tfluid.ParallelExecutor(use_cuda=False, loss_name=loss.name,
                                     main_program=main, build_strategy=s,
                                     scope=tfluid.Scope())
-    pe = tfluid.ParallelExecutor(use_cuda=False, loss_name=loss.name,
-                                 main_program=main, scope=tfluid.Scope())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pe.run([loss.name], feed=W.mlp_batches()[0], as_future=True)
+    # run(as_future=True) is ported: a FetchFuture of the sync fetches
+    main, startup, loss = W.mlp(tfluid)[:3]
+    outs = []
+    for as_future in (False, True):
+        scope = tfluid.Scope()
+        with tfluid.scope_guard(scope):
+            tfluid.Executor(tfluid.CPUPlace()).run(startup)
+        pe = tfluid.ParallelExecutor(use_cuda=False, loss_name=loss.name,
+                                     main_program=main, scope=scope)
+        out = pe.run([loss.name], feed=W.mlp_batches()[0],
+                     as_future=as_future)
+        if as_future:
+            assert isinstance(out, tfluid.FetchFuture)
+            out = out.result()
+        outs.append(out[0])
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def test_num_trainers_without_a_world_raises():

@@ -430,7 +430,12 @@ def test_server_verbs_and_reply_keys_match_jax(arts):
         with pytest.raises(tserving.ServerOverloaded):
             cli.infer("m", {"x": x})
         cli.drain(resume=True)
-        for verb in ("fleet", "flight", "page_model", "resize_model",
+        # the flight verb is ported: no bundle while FLAGS.flight_dir
+        # is unset
+        assert cli.flight() is None
+        assert cli.call({"cmd": "flight"}) == {
+            "ok": True, "bundle": None, "enabled": False}
+        for verb in ("fleet", "page_model", "resize_model",
                      "fault_model", "bogus"):
             with pytest.raises(tserving.ServingError) as ei:
                 cli.call({"cmd": verb, "name": "m"})
@@ -508,3 +513,31 @@ def test_waiting_subsystems_refuse_at_construction():
             tserving.InferenceServer()
     finally:
         FLAGS.fleet_controller = False
+
+
+def test_flight_verb_commits_a_bundle_with_the_server_snapshot(tmp_path):
+    """With FLAGS.flight_dir set, the `flight` verb commits a bundle the
+    JAX package's validate_bundle accepts, carrying the server's
+    snapshot; `health` reports the recorder."""
+    import json
+    import os
+    from paddle_tpu.obs import flightrec as jflightrec
+    saved = FLAGS.flight_dir
+    FLAGS.flight_dir = str(tmp_path)
+    srv = _server()
+    cli = tserving.ServingClient(srv.endpoint)
+    try:
+        path = cli.flight(reason="probe")
+        assert path is not None and jflightrec.validate_bundle(path) == []
+        assert jflightrec.read_manifest(path)["reason"] == "probe"
+        name = "serving_%s.json" % srv.endpoint.replace(
+            ":", "_").replace(".", "-")
+        with open(os.path.join(path, name)) as f:
+            snap = json.load(f)
+        assert snap["endpoint"] == srv.endpoint
+        assert {"stats", "describe", "health"} <= set(snap)
+        assert cli.health()["flight"]["dumps"] == 1
+    finally:
+        cli.close()
+        srv.shutdown()
+        FLAGS.flight_dir = saved

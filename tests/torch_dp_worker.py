@@ -413,7 +413,62 @@ def scenario_train(tid, world, workdir, lanes):
     return arrays, msgs
 
 
-SCENARIOS = {"mlp": scenario_mlp, "train": scenario_train}
+def scenario_pipeline(tid, world, workdir, lanes):
+    """The MLP's ParallelExecutor from the parent's startup state, three
+    ways over the same 3 global batches: sync run(), run(as_future=True)
+    with every future resolved after the last dispatch, and sync run()
+    on batches staged by reader.prefetch_to_device(group=pe.group) (this
+    rank's share given as a list of two per-device dicts, which the
+    worker merges).  Losses and the gathered predictions of each, and
+    whether the ParallelExecutor took the staged tensors as they are."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import reader
+    main, startup, loss, pred = mlp(fluid)
+    _collective_world(fluid, main, startup, tid, world)
+    init = os.path.join(workdir, "init_mlp.npz")
+    feeds = [shard(f, tid, world, fluid.LoDTensor)
+             for f in mlp_batches(steps=3)]
+    arrays, msgs = {}, {}
+
+    def new_pe():
+        return fluid.ParallelExecutor(
+            use_cuda=CUDA, loss_name=loss.name, main_program=main,
+            num_trainers=world, trainer_id=tid,
+            scope=_scope_from(fluid, init))
+
+    fetch = [loss.name, pred.name]
+    pe = new_pe()
+    outs = [pe.run(fetch, feed=f) for f in feeds]
+    pe = new_pe()
+    futures = [pe.run(fetch, feed=f, as_future=True) for f in feeds]
+    msgs["future_type"] = type(futures[0]).__name__
+    outs_future = [f.result() for f in futures]
+    pe = new_pe()
+
+    def halves():
+        for f in feeds:
+            n = f["x"].shape[0] // 2
+            yield [{k: v[:n] for k, v in f.items()},
+                   {k: v[n:] for k, v in f.items()}]
+
+    staged = list(reader.prefetch_to_device(halves, 2, group=pe.group)())
+    msgs["staged_device"] = str(staged[0]["x"].device)
+    msgs["group_device"] = str(pe.group.device)
+    msgs["taken_as_is"] = all(
+        pe._exe._prepare_feeds(main, f)[k] is f[k]
+        for f in staged for k in f)
+    outs_staged = [pe.run(fetch, feed=f) for f in staged]
+    for label, rows in (("sync", outs), ("future", outs_future),
+                        ("prefetch", outs_staged)):
+        arrays["losses_" + label] = np.asarray(
+            [np.asarray(r[0]).ravel()[0] for r in rows])
+        arrays["preds_" + label] = np.stack([np.asarray(r[1])
+                                             for r in rows])
+    return arrays, msgs
+
+
+SCENARIOS = {"mlp": scenario_mlp, "train": scenario_train,
+             "pipeline": scenario_pipeline}
 
 
 def main():
