@@ -205,6 +205,40 @@ Phases, in order; any failure exits non-zero:
                Prints the world, the gradient buckets and bytes, the
                gradient all-reduce's ms a step and the collectives a step
                by kind.  A failed rank fails the script.
+ 14. control flow — small programs with sub-blocks (a while running an
+               fc through 3 trips, a StaticRNN, a ragged DynamicRNN and
+               an IfElse, each with its backward) from one startup state
+               on the card and on the CPU: the loss within 1e-5 and every
+               parameter's gradient within 1e-4 of its largest magnitude.
+ 15. mt train — fluid_benchmark --model machine_translation at the JAX
+               tool's cell (embedding, encoder and decoder 512, dict
+               30000, Adam 2e-4, batch 32, lengths 3-11: T 16), per-op
+               fp32 and AMP, 2 + 10 steps each: examples/s, median step
+               ms, ops and launches a step, busy share, peak memory.
+               Gates: finite losses; 8 steps on one batch lower the loss;
+               one step dispatched under set_sync_debug_mode("warn")
+               syncs nowhere inside `recurrent` (the decoder's step loop)
+               or its grad; the small model (widths 32) 3 Adam steps on
+               the card and on the CPU: losses within 1e-4, every
+               parameter within 1e-5 of its array's largest magnitude
+               (the spread one embedding ulp makes on the CPU logged
+               beside it).
+     mt generate — beam search from that trained scope at batch 32 x
+               beam 3, max length 8, full width: ids in range, beams
+               ranked, each source alone equal to the batched run (or a
+               tie of scores within 1e-5); the small model's generation
+               on the card equal to the CPU's (ids; scores within 1e-5).
+Phase 2 also holds the coverage cases against their plain versions,
+at the shapes the coverage paths of 6c give the kernels: K1/K2 at head
+dims 32 and 96 (fp32 and bf16, zero-padded along D to 64 / 128; batch
+4 x seq 256, 16 and 8 heads, q/k/v sliced from one fused qkv), K3/K4
+at head dims 48, 50 and 96 (a runtime D in the 64 / 128 template,
+caches read in place; 4 slots x 128 positions, 8 heads), K6-bf16 at
+C/F/C4 60/20/84 (padded to multiples of 8); each is a kernels-line row
+of its own.  6c drives the user paths at those head dims — the
+transformer's training (fp32 and AMP) at head dims 32 and 96 and decode
+serving (fp32 and int8 KV, tokens equal to the CPU's) at 48, 50 and 96
+— and their launches are the coverage rows'.
 Phase 2 also holds K5 (dequant_matmul) and K6 (fused_bottleneck) against
 their plain versions: K5 at the int8 lane's fc shape (bf16 x and fp32 x)
 and four others, K6
@@ -247,6 +281,22 @@ FUSED_PAIRS = 3
 # ~1 ms at the H100's ~1.98 GHz boost clock: longer than the host takes
 # to enqueue any timed function here
 SPIN_CYCLES = 2_000_000
+# The coverage shapes: head dims and channel edges off the kernels'
+# instantiated widths, as the user paths of phase 6c hand them over.  The
+# transformer's training at batch x seq COVER_TRAIN_BS, (D, d_model,
+# heads): K1/K2 run zero-padded along D to 64 / 128, scaled by the
+# original D
+COVER_TRAIN_BS = (4, 256)
+COVER_TRAIN = ((32, 512, 16), (96, 768, 8))
+# decode serving on COVER_SLOTS slots of COVER_SEQ positions, (D,
+# d_model, heads): K3/K4 take a runtime D beside the template's and read
+# the caches in place (D 50 is not a multiple of their 4- and 16-element
+# loads)
+COVER_SLOTS, COVER_SEQ = 4, 128
+COVER_SERVE = ((48, 384, 8), (50, 400, 8), (96, 768, 8))
+# K6-bf16 at a channel edge that is not a multiple of 8 (C, F and C4
+# zero-padded to 64, 24 and 88): N, H, W, C, F, C4, stride, branch
+COVER_K6 = (8, 28, 28, 60, 20, 84, 2, True)
 
 
 def log(msg):
@@ -306,25 +356,46 @@ def decode_attention_bound(lengths, S, H, D, elem=4, q_per_slot=1,
                                  else "operations"), nbytes
 
 
-def phase_kernels(torch, pk):
+def _cover_row(entry, row, count, path, err):
+    """`entry` as a coverage row of the kernels line: its name suffixed
+    by `row`, its own max abs error; `count` (its launch counter) and
+    `path` (the coverage path of phase 6c that launches it, or None)
+    fill in its `launches` once the paths have run."""
+    entry.update(name=count + row, max_abs_err=err, count=count, path=path)
+    return entry
+
+
+def _cover_decode_cases():
+    """K3/K4 cases at the coverage serving path's shapes: (name, N, S, H,
+    D, lengths, the kernels-line row's suffix)."""
+    S = COVER_SEQ
+    return [("cover D %d" % D, COVER_SLOTS, S, heads, D,
+             [0, 1, S // 2 + 13, S], " [D %d]" % D)
+            for D, _, heads in COVER_SERVE]
+
+
+def phase_kernels(torch, pk, cover):
     """K3 against its plain version at the decode shapes and at lengths
     around the edges of its blocks' shares (K3 splits each row's
     positions over a cluster of blocks: the plan is logged per case),
-    each row bit for bit against the same row launched alone; at "main
-    full" also K3 at every split a cluster allows (the ones its plan
-    chose among), timed; then the verify step's pseudo-slots."""
+    each row bit for bit against the same row launched alone, each case
+    timed; then the verify step's pseudo-slots.  The coverage cases (the
+    serving path's slots, positions and heads at COVER_SERVE's head dims)
+    append their kernels-line rows to `cover`."""
     import torch.nn.functional as F
     rng = np.random.RandomState(0)
     N, S, H, D = N_SLOTS, 512, 8, 64
     share = pk.decode_attention_f32_plan(S, D)["share"]
+    # the last field: None, a check; "", the kernels line's row; else a
+    # coverage row's suffix
     cases = [
         ("main mixed", N, S, H, D,
-         [0, 1, 511, 512] + list(rng.randint(2, 511, size=N - 4))),
-        ("main full", N, S, H, D, [S] * N),
-        ("ragged", 3, 80, 2, 64, [0, 80, 41]),
+         [0, 1, 511, 512] + list(rng.randint(2, 511, size=N - 4)), None),
+        ("main full", N, S, H, D, [S] * N, ""),
+        ("ragged", 3, 80, 2, 64, [0, 80, 41], None),
         ("boundaries", N, S, H, D,
-         [0, 1, share - 1, share, share + 1, S - 1, S, S // 2 + 1]),
-    ]
+         [0, 1, share - 1, share, share + 1, S - 1, S, S // 2 + 1], None),
+    ] + _cover_decode_cases()
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     # the floor of every kernel time below: one launch that does nothing
@@ -334,7 +405,7 @@ def phase_kernels(torch, pk):
         % median_ms(torch, one.zero_, flush))
     max_err = 0.0
     entry = None
-    for name, n, s, h, d, lens in cases:
+    for name, n, s, h, d, lens, row in cases:
         q = torch.randn(n, h, d, device="cuda")
         k = torch.randn(n, s, h, d, device="cuda")
         v = torch.randn(n, s, h, d, device="cuda")
@@ -348,7 +419,8 @@ def phase_kernels(torch, pk):
         ok = bool(((out - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
         check(ok, "decode_attention %s disagrees with the plain version "
               "(max abs err %.3g, rtol 1e-5 atol 1e-5)" % (name, err))
-        max_err = max(max_err, err)
+        if not row:
+            max_err = max(max_err, err)
         plan = pk.decode_attention_f32_plan(s, d)
         alone = all(torch.equal(pk.decode_attention(
             q[i:i + 1].clone(), k[i:i + 1].clone(), v[i:i + 1].clone(),
@@ -376,13 +448,18 @@ def phase_kernels(torch, pk):
             % (name, n, s, h, d, err, ms, plain_ms, lib_ms, bound_ms,
                bound_by, nbytes, 100.0 * bound_ms / ms, plan["cluster"],
                plan["share"], alone))
-        if name != "main full":
+        if row is None:
             continue
-        entry = {"name": "decode_attention", "route": "cuda",
-                 "source": "paddle_tpu_torch/ops/csrc/decode_attention.cu",
-                 "replaces": "paddle_tpu/ops/pallas_kernels.py:570",
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": lib_ms}
+        e = {"name": "decode_attention", "route": "cuda",
+             "source": "paddle_tpu_torch/ops/csrc/decode_attention.cu",
+             "replaces": "paddle_tpu/ops/pallas_kernels.py:570",
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms}
+        if row:
+            cover.append(_cover_row(e, row, "decode_attention",
+                                    ("serve", d), err))
+        else:
+            entry = e
     # the speculative verify step: C = SPEC_K + 1 chunk positions of each
     # slot attend as pseudo-slots over that slot's cache, read in place
     C = SPEC_K + 1
@@ -437,7 +514,7 @@ def _int8_caches(torch, g, n, s, h, d):
     return k8, v8, sc
 
 
-def phase_int8_kernels(torch, pk):
+def phase_int8_kernels(torch, pk, cover):
     """K4 against its plain version at the decode shapes and at lengths
     around the edges of its blocks' shares (K4 splits each row's
     positions over a cluster of blocks: the plan is logged per case),
@@ -446,7 +523,8 @@ def phase_int8_kernels(torch, pk):
     and, bit for bit, against the full-table K4 (head blocks at every
     offset, concatenated).  The library yardstick is SDPA over an fp32
     cache holding the same dequantized values (no PyTorch call computes
-    attention over an int8 cache)."""
+    attention over an int8 cache).  The coverage cases (as phase_kernels
+    has them) append their K4 rows to `cover`."""
     import torch.nn.functional as F
     rng = np.random.RandomState(1)
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -454,17 +532,17 @@ def phase_int8_kernels(torch, pk):
     share = pk.decode_attention_int8_plan(S, D)["share"]
     cases = [
         ("main mixed", N, S, H, D,
-         [0, 1, 511, 512] + list(rng.randint(2, 511, size=N - 4))),
-        ("main full", N, S, H, D, [S] * N),
-        ("ragged", 3, 80, 2, 64, [0, 80, 41]),
+         [0, 1, 511, 512] + list(rng.randint(2, 511, size=N - 4)), None),
+        ("main full", N, S, H, D, [S] * N, ""),
+        ("ragged", 3, 80, 2, 64, [0, 80, 41], None),
         ("boundaries", N, S, H, D,
-         [0, 1, share - 1, share, share + 1, S - 1, S, S // 2 + 1]),
-    ]
+         [0, 1, share - 1, share, share + 1, S - 1, S, S // 2 + 1], None),
+    ] + _cover_decode_cases()
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     errs = {"k4": 0.0, "hs": 0.0}
     entries = {}
-    for name, n, s, h, d, lens in cases:
+    for name, n, s, h, d, lens, row in cases:
         q = torch.randn(n, h, d, device="cuda", generator=g)
         k8, v8, sc = _int8_caches(torch, g, n, s, h, d)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -481,7 +559,8 @@ def phase_int8_kernels(torch, pk):
               "decode_attention int8 %s disagrees with the plain version "
               "(max abs err %.3g, rtol 1e-5, atol 1e-5 max|ref| = %.3g)"
               % (name, err, atol))
-        errs["k4"] = max(errs["k4"], err)
+        if not row:
+            errs["k4"] = max(errs["k4"], err)
         plan = pk.decode_attention_int8_plan(s, d)
         alone = all(torch.equal(pk.decode_attention(
             q[i:i + 1].clone(), k8[i:i + 1].clone(), v8[i:i + 1].clone(),
@@ -539,14 +618,18 @@ def phase_int8_kernels(torch, pk):
             % (name, n, s, h, d, err, ms, plain_ms, lib_ms, bound_ms,
                bound_by, nbytes, 100.0 * bound_ms / ms, plan["cluster"],
                plan["share"], alone, exact))
-        if name != "main full":
+        if row is None:
             continue
-        entries["k4"] = {
-            "name": "decode_attention_int8", "route": "cuda",
-            "source": "paddle_tpu_torch/ops/csrc/decode_attention.cu",
-            "replaces": "paddle_tpu/ops/pallas_kernels.py:570",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms}
+        e = {"name": "decode_attention_int8", "route": "cuda",
+             "source": "paddle_tpu_torch/ops/csrc/decode_attention.cu",
+             "replaces": "paddle_tpu/ops/pallas_kernels.py:570",
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms}
+        if row:
+            cover.append(_cover_row(e, row, "decode_attention_int8",
+                                    ("serve", d), err))
+            continue
+        entries["k4"] = e
         # the head-slice entry at one TP member's shape: 4 of 8 heads at
         # offset 4, the whole [2, 8] scale table passed in
         n_local, off = 4, 4
@@ -662,25 +745,45 @@ def phase_sass(build):
                   "%s only" % (stem, fn, c, want or "none"))
 
 
-def phase_flash_kernels(torch, pk, dtype=None):
+_FLASH_SOURCES = {
+    "fwd": ("flash_attention_fwd",
+            "paddle_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+            "paddle_tpu/ops/pallas_kernels.py:243"),
+    "dq": ("flash_attention_bwd_dq",
+           "paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+           "paddle_tpu/ops/pallas_kernels.py:362"),
+    "dkv": ("flash_attention_bwd_dkv",
+            "paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "paddle_tpu/ops/pallas_kernels.py:414")}
+
+
+def phase_flash_kernels(torch, pk, cover, dtype=None):
     """K1 and both K2 kernels against their plain versions at the training
     slice's shape (q/k/v as column slices of one fused qkv tensor, as the
-    program hands them over), a non-causal and a ragged shape; then
-    device times at the slice's shape.  `dtype` torch.bfloat16 runs the
-    bf16 variants (AMP training) against the bf16 plain versions."""
+    program hands them over), a non-causal and a ragged shape, and the
+    coverage training path's shapes (COVER_TRAIN: head dims 32 and 96,
+    zero-padded to 64 / 128); then device times at the slice's shape and
+    the coverage shapes, whose kernels-line rows are appended to `cover`.
+    `dtype` torch.bfloat16 runs the bf16 variants (AMP training) against
+    the bf16 plain versions."""
     import torch.nn.functional as F
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
     tag = " bf16" if bf16 else ""
-    cases = [("slice", 8, 512, 8, 64, True),
-             ("non-causal", 4, 256, 4, 64, False),
-             ("ragged", 2, 200, 2, 128, True)]
+    # the last field: None, a check; "", the kernels line's rows; else
+    # coverage rows' suffix
+    cases = [("slice", 8, 512, 8, 64, True, ""),
+             ("non-causal", 4, 256, 4, 64, False, None),
+             ("ragged", 2, 200, 2, 128, True, None)]
+    cases += [("cover D %d" % D, *COVER_TRAIN_BS, heads, D, True,
+               " [D %d]" % D) for D, _, heads in COVER_TRAIN]
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     entries = {}
     g = torch.Generator(device="cuda").manual_seed(5)
-    for name, B, S, H, D, causal in cases:
+    for name, B, S, H, D, causal, row in cases:
+        case_errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
         qkv = torch.randn(B, S, 3 * H * D, device="cuda",
                           generator=g).to(dtype)
         q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, S, H, D)
@@ -708,7 +811,7 @@ def phase_flash_kernels(torch, pk, dtype=None):
             check(ok, "flash%s %s %s disagrees with the plain version (max "
                   "abs err %.3g, rtol %.3g atol %.3g)"
                   % (tag, name, what, err, rtol, atol))
-            errs["fwd"] = max(errs["fwd"], err)
+            case_errs["fwd"] = max(case_errs["fwd"], err)
         # the gradients sum over S in another order: atol scaled by size
         # (bf16: one ulp, as above)
         gtol = BF16_RTOL if bf16 else 1e-4
@@ -720,7 +823,7 @@ def phase_flash_kernels(torch, pk, dtype=None):
             check(ok, "flash%s %s %s disagrees with the plain version (max "
                   "abs err %.3g, atol %.3g = %.3g max|%s|, rtol %.3g)"
                   % (tag, name, what, err, atol, gtol, what, gtol))
-            errs[kind] = max(errs[kind], err)
+            case_errs[kind] = max(case_errs[kind], err)
         # end to end: autograd through K1 + K2 against autograd through
         # the plain forward (fp32), or against the plain K2 versions
         # (bf16: autograd would treat p's and ds's roundings as the
@@ -743,17 +846,20 @@ def phase_flash_kernels(torch, pk, dtype=None):
                   "version (max abs err %.3g, atol %.3g, rtol %.3g)"
                   % (tag, name, what, err, atol, gtol))
             auto_err = max(auto_err, err)
-        log("kernel flash_attention%s [%s] B=%d S=%d H=%d D=%d causal=%s: "
-            "max abs err o %.3g lse %.3g dq %.3g dk %.3g dv %.3g; "
-            "autograd K1+K2 vs plain %.3g"
-            % (tag, name, B, S, H, D, causal, _close(o, ro, 0, 0)[0],
-               _close(lse, rlse, 0, 0)[0], _close(dq, rdq, 0, 0)[0],
-               _close(dk, rdk, 0, 0)[0], _close(dv, rdv, 0, 0)[0],
-               auto_err))
-        if name != "slice":
+        log("kernel flash_attention%s [%s] B=%d S=%d H=%d D=%d (run at "
+            "%d) causal=%s: max abs err o %.3g lse %.3g dq %.3g dk %.3g dv "
+            "%.3g; autograd K1+K2 vs plain %.3g"
+            % (tag, name, B, S, H, D, pk._flash_width(D), causal,
+               _close(o, ro, 0, 0)[0], _close(lse, rlse, 0, 0)[0],
+               _close(dq, rdq, 0, 0)[0], _close(dk, rdk, 0, 0)[0],
+               _close(dv, rdv, 0, 0)[0], auto_err))
+        if not row:
+            errs = {k: max(v, case_errs[k]) for k, v in errs.items()}
+        if row is None:
             continue
-        # timings at the slice's shape; the yardstick is SDPA in the
-        # same dtype (timed here only; the port never calls it)
+        # timings at the slice's and the coverage shapes; the yardstick
+        # is SDPA in the same dtype (timed here only; the port never
+        # calls it)
         ms = {"fwd": median_ms(torch, lambda: pk.flash_attention_fwd(
                   q, k, v, causal), flush),
               "dq": median_ms(torch, lambda: pk.flash_attention_bwd_dq(
@@ -779,38 +885,36 @@ def phase_flash_kernels(torch, pk, dtype=None):
         sdpa_bwd = median_ms(torch, lambda: torch.autograd.grad(
             so, (qs, ks, vs), sdo, retain_graph=True), flush)
         sdpa_err = _close(so.detach().transpose(1, 2), ro, 0, 0)[0]
-        log("kernel flash_attention%s [slice]: SDPA %s forward %.4f ms, "
+        log("kernel flash_attention%s [%s]: SDPA %s forward %.4f ms, "
             "backward %.4f ms (dq, dk, dv in one call), forward+backward "
             "%.4f ms; SDPA vs plain o max abs err %.3g"
-            % (tag, str(dtype)[6:], sdpa_fwd, sdpa_bwd, sdpa_fwd + sdpa_bwd,
-               sdpa_err))
-        names = {"fwd": ("flash_attention_fwd",
-                         "paddle_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-                         "paddle_tpu/ops/pallas_kernels.py:243", sdpa_fwd),
-                 "dq": ("flash_attention_bwd_dq",
-                        "paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-                        "paddle_tpu/ops/pallas_kernels.py:362", sdpa_bwd),
-                 "dkv": ("flash_attention_bwd_dkv",
-                         "paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-                         "paddle_tpu/ops/pallas_kernels.py:414", sdpa_bwd)}
-        for kind, (kname, src, rep, lib_ms) in names.items():
+            % (tag, name, str(dtype)[6:], sdpa_fwd, sdpa_bwd,
+               sdpa_fwd + sdpa_bwd, sdpa_err))
+        for kind, (kname, src, rep) in _FLASH_SOURCES.items():
             kname = pk._count_name(kname, dtype)
+            lib_ms = sdpa_fwd if kind == "fwd" else sdpa_bwd
             bound_ms, bound_by, nbytes, flops = flash_bound(
                 kind, B, S, H, D, causal, elem=q.element_size(),
                 rate=BF16_FLOP_PER_S if bf16 else FP32_ACCURATE_FLOP_PER_S)
-            log("kernel %s [slice] B=%d S=%d H=%d D=%d causal (%s): "
-                "kernel %.4f ms, plain %.4f ms, SDPA %.4f ms, bound %.4f ms "
-                "(%s; %d bytes, %d flops) -> %.1f%% of bound, %.1f "
-                "TFLOP/s%s"
-                % (kname, B, S, H, D, "tensor cores (bf16)" if bf16
+            log("kernel %s [%s] B=%d S=%d H=%d D=%d (run at %d) causal "
+                "(%s): kernel %.4f ms, plain %.4f ms, SDPA %.4f ms, bound "
+                "%.4f ms (%s; %d bytes, %d flops at D %d) -> %.1f%% of "
+                "bound, %.1f TFLOP/s%s"
+                % (kname, name, B, S, H, D, pk._flash_width(D),
+                   "tensor cores (bf16)" if bf16
                    else "tensor cores (tf32 x3)", ms[kind], plain[kind],
-                   lib_ms, bound_ms, bound_by, nbytes, flops,
+                   lib_ms, bound_ms, bound_by, nbytes, flops, D,
                    100.0 * bound_ms / ms[kind], flops / ms[kind] / 1e9,
                    "" if bf16 else simt_bound_note(flops, nbytes)))
-            entries[kind] = {"name": kname, "route": "cuda", "source": src,
-                             "replaces": rep, "ms": ms[kind],
-                             "plain_ms": plain[kind], "bound_ms": bound_ms,
-                             "bound_by": bound_by, "library_ms": lib_ms}
+            e = {"name": kname, "route": "cuda", "source": src,
+                 "replaces": rep, "ms": ms[kind], "plain_ms": plain[kind],
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": lib_ms}
+            if row:
+                cover.append(_cover_row(e, row, kname, ("train", D),
+                                        case_errs[kind]))
+            else:
+                entries[kind] = e
     del flush
     for kind, e in entries.items():
         e["max_abs_err"] = errs[kind]
@@ -890,15 +994,18 @@ def _bottleneck_inputs(torch, g, N, H, W, C, F, C4, branch):
     return p
 
 
-def phase_bottleneck_kernel(torch, pk, dtype=None):
+def phase_bottleneck_kernel(torch, pk, cover, dtype=None):
     """K6 against its plain version (cuDNN convolutions, which are also
     the fp32 library yardstick): ResNet-50's four stage geometries at
     batch 32, projection (stride 2 where the stage has it) and identity,
     two odd-size shapes, and the fused path's four geometries at batch
     64, whose times summed with their multiplicities are K6's device time
-    per fused run.  `dtype` torch.bfloat16 runs K6-bf16 against the bf16
-    plain version (fp32 convolutions of the bf16 values, rounded where
-    the TPU kernel rounds); its yardstick is the cuDNN bf16 chain."""
+    per fused run; each case launches the kernel once.  `dtype`
+    torch.bfloat16 runs K6-bf16 against the bf16 plain version (fp32
+    convolutions of the bf16 values, rounded where the TPU kernel
+    rounds); its yardstick is the cuDNN bf16 chain.  K6-bf16 also runs
+    COVER_K6's ragged channel edge (zero-padded to multiples of 8), whose
+    kernels-line row is appended to `cover`."""
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
     name_of = pk._count_name("fused_bottleneck", dtype)
@@ -917,6 +1024,8 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
     for H, C, F, C4, s, branch, count in FUSED_PATH_BLOCKS:
         cases.append(("path b64 H%d C%d F%d s%d" % (H, C, F, s), 64, H, H,
                       C, F, C4, s, branch, count))
+    if bf16:
+        cases.append(("ragged edge", *COVER_K6, 1))
     rate = BF16_FLOP_PER_S if bf16 else FP32_ACCURATE_FLOP_PER_S
     plan = pk.fused_bottleneck_bf16_plan if bf16 \
         else pk.fused_bottleneck_fp32_plan
@@ -928,9 +1037,12 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
              _bottleneck_inputs(torch, g, N, H, W, C, F, C4, branch).items()}
         args = (p["x"], p["w0"], p["b0"], p["w1"], p["b1"], p["w2"],
                 p["b2"], p["ws"], p["bs"], s)
+        before = pk.launch_counts[name_of]
         out = pk.fused_bottleneck(*args)
         ref = pk.bottleneck_reference(*args)
         torch.cuda.synchronize()
+        check(pk.launch_counts[name_of] == before + 1,
+              "%s %s: the kernel did not launch" % (name_of, name))
         check(tuple(out.shape) == tuple(ref.shape) and out.dtype == dtype,
               "%s %s: %s %s vs %s" % (name_of, name, out.dtype, out.shape,
                                       ref.shape))
@@ -945,7 +1057,6 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
         check(ok, "%s %s disagrees with the plain version (max abs err "
               "%.3g, rtol %.3g atol %.3g)" % (name_of, name, err, rtol,
                                              atol))
-        max_err = max(max_err, err)
         ms = median_ms(torch, lambda: pk.fused_bottleneck(*args), flush,
                        reps=30)
         plain_ms = median_ms(torch, lambda: pk.bottleneck_reference(*args),
@@ -955,10 +1066,13 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
         bound_ms, bound_by, flops, nbytes = bottleneck_bound(
             N, H, W, C, F, C4, s, branch, elem=out.element_size(),
             rate=rate)
-        # the kernel's launch geometry for this shape
+        # the kernel's launch geometry for this shape (bf16: at the
+        # widths it runs padded to)
+        up = pk._up8 if bf16 else int
         geom = ("; R %(R)d, %(tile_rows)d-row tiles, %(blocks)d blocks, "
                 "%(smem_bytes)d B dynamic smem, %(blocks_per_sm)d blocks/SM, "
-                "%(regs)d registers" % plan(N, H, W, C, F, C4, s, branch))
+                "%(regs)d registers" % plan(N, H, W, up(C), up(F), up(C4), s,
+                                            branch))
         if not bf16:
             geom += simt_bound_note(flops, nbytes)
         log("kernel %s [%s] N=%d H=%d W=%d C=%d F=%d C4=%d s=%d %s: max abs "
@@ -970,6 +1084,16 @@ def phase_bottleneck_kernel(torch, pk, dtype=None):
                float(ref.float().abs().max()), ms, plain_ms,
                str(dtype)[6:], lib_ms, bound_ms, bound_by, flops, nbytes,
                100.0 * bound_ms / ms, flops / ms / 1e9, geom))
+        if name == "ragged edge":
+            cover.append(_cover_row(
+                {"name": name_of, "route": "cuda",
+                 "source": "paddle_tpu_torch/ops/csrc/fused_bottleneck.cu",
+                 "replaces": "paddle_tpu/ops/pallas_kernels.py:1010",
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": lib_ms},
+                " [C %d F %d C4 %d]" % (C, F, C4), name_of, None, err))
+            continue
+        max_err = max(max_err, err)
         if name.startswith("path"):
             run["ms"] += count * ms
             run["plain_ms"] += count * plain_ms
@@ -3584,20 +3708,21 @@ def _zoo_args(fb, argv, amp, whole_graph, iters=ZOO_ITERS, skip=ZOO_SKIP,
 
 
 def _zoo_lane(torch, pk, registry, functionalizer, fb, model, argv, amp,
-              whole_graph):
+              whole_graph, iters=ZOO_ITERS, skip=ZOO_SKIP,
+              label_fn=_zoo_label):
     """One lane of phase_zoo_train through fluid_benchmark.benchmark:
-    ZOO_SKIP + ZOO_ITERS steps on fresh synthetic batches, then (with the
+    `skip` + `iters` steps on fresh synthetic batches, then (with the
     lane's flags still set) one profiled step and the lane's checks.
     Launch counts are zeroed just before and read just after."""
     from torch.profiler import ProfilerActivity, profile
     label = "%s %s %s" % (model, "whole-graph" if whole_graph else "per-op",
                           "amp" if amp else "fp32")
-    args = _zoo_args(fb, argv, amp, whole_graph)
+    args = _zoo_args(fb, argv, amp, whole_graph, iters=iters, skip=skip)
     seen = {}
 
     def after(d):
         feed = d["make_batch"]()
-        with _op_ranges(registry, _zoo_label), profile(
+        with _op_ranges(registry, label_fn), profile(
                 activities=[ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3679,7 +3804,7 @@ def _zoo_lane(torch, pk, registry, functionalizer, fb, model, argv, amp,
         log("zoo %s: %.1f examples/s, median step %.2f ms (%d timed steps), "
             "%d ops and %.0f launches a step, device busy %.2f ms = %.1f%% "
             "of the step, peak memory %.2f GiB, %.1f s in all"
-            % (label, record["examples_per_sec"], step_ms, ZOO_ITERS,
+            % (label, record["examples_per_sec"], step_ms, iters,
                seen["ops"], out["launches_per_step"], device_ms,
                100 * device_ms / step_ms, peak / 2 ** 30, wall))
         for g, us in sorted(groups.items(), key=lambda x: -x[1])[:6]:
@@ -4185,6 +4310,583 @@ def phase_parallel(torch, fluid):
             "grad_bytes": recs[0]["grad_bytes"], "collectives": per_step}
 
 
+# ---------------------------------------------------------------------------
+# 6c. coverage: the user paths at head dims and channel edges off the
+# kernels' instantiated widths (their kernel cases are in phase 2)
+# ---------------------------------------------------------------------------
+
+def phase_coverage_paths(torch, pk, fluid, transformer, decode, tmp):
+    """The user paths that reach the coverage shapes (phase 2 holds their
+    kernels against the plain versions at these shapes), each with the
+    launch counts zeroed just before and read just after:
+      * the transformer's training program (models.transformer.get_model,
+        2 layers, batch x seq COVER_TRAIN_BS) at COVER_TRAIN's head dims
+        (32: d_model 512, 16 heads; 96: d_model 768, 8 heads), 3 Adam
+        steps fp32 and 3 under AMP: the losses finite, K1, K2-dq and
+        K2-dkv 2 x 3 launches each in the lane's dtype;
+      * decode serving on models of COVER_SERVE's head dims (48, 50 and
+        96), 2 layers, COVER_SEQ positions: greedy decode of 4 prompts on
+        COVER_SLOTS slots, up to 8 tokens each, with fp32 and int8 KV
+        caches, K3 / K4 2 launches a decode step; the tokens equal the
+        CPU predictor's with the same KV cache type.
+    Returns {(path, D): {counter: launches}}."""
+    out = {}
+    feed_rng = np.random.RandomState(5)
+    B, S = COVER_TRAIN_BS
+    for D, width, heads in COVER_TRAIN:
+        counts = {}
+        for amp in (False, True):
+            main, startup, _, avg_loss, _, _ = transformer.get_model(
+                batch_size=B, seq_len=S, d_model=width, n_heads=heads,
+                n_layers=2)
+            startup.random_seed = TRAIN_SEED
+            feed = _batch(feed_rng, B, S, 32000)
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            scope = fluid.Scope()
+            fluid.set_amp(amp)
+            try:
+                with fluid.scope_guard(scope):
+                    exe.run(startup)
+                    pk.reset_launch_counts()
+                    losses = [float(exe.run(main, feed=feed,
+                                            fetch_list=[avg_loss])[0])
+                              for _ in range(3)]
+                    torch.cuda.synchronize()
+            finally:
+                fluid.set_amp(False)
+            check(all(np.isfinite(losses)), "coverage train D %d amp %s: "
+                  "losses %s" % (D, amp, losses))
+            dtype = torch.bfloat16 if amp else torch.float32
+            for name in FLASH_KERNELS:
+                c = pk.launch_counts[pk._count_name(name, dtype)]
+                check(c == 2 * 3, "coverage train D %d amp %s: %s launched "
+                      "%d times in 3 steps x 2 layers" % (D, amp, name, c))
+            counts.update({k: v for k, v in pk.launch_counts.items() if v})
+            log("coverage path train D %d (d_model %d, %d heads) %s: losses "
+                "%s; launches %s" % (D, width, heads,
+                                     "amp" if amp else "fp32",
+                                     ["%.4f" % x for x in losses],
+                                     {k: v for k, v in
+                                      pk.launch_counts.items() if v}))
+        out[("train", D)] = counts
+        torch.cuda.empty_cache()
+    for D, width, heads in COVER_SERVE:
+        art = os.path.join(tmp, "cover_lm_%d" % D)
+        decode.build_tiny_decode_model(art, vocab_size=1000, d_model=width,
+                                       n_heads=heads, n_layers=2,
+                                       max_seq_len=COVER_SEQ)
+        rng = np.random.RandomState(D)
+        prompts = [[int(t) for t in rng.randint(0, 1000, size=n)]
+                   for n in (5, 17, 40, 64)]
+        counts = {}
+        for kv in (None, "int8"):
+            pred = decode.load_decode_predictor(art, kv_cache_dtype=kv)
+            check(pred.device.type == "cuda", "coverage predictor not on "
+                  "the card")
+            pk.reset_launch_counts()
+            toks = [decode.greedy_decode(pred, p, 8, n_slots=COVER_SLOTS)[0]
+                    for p in prompts]
+            torch.cuda.synchronize()
+            name = "decode_attention_int8" if kv else "decode_attention"
+            c = pk.launch_counts[name]
+            # the prefill gives each first token, each later one a step
+            steps = sum(len(t) - 1 for t in toks)
+            check(steps > 0 and c == 2 * steps,
+                  "coverage serve D %d %s: %s launched %d times for %d "
+                  "decode steps x 2 layers" % (D, kv or "fp32", name, c,
+                                               steps))
+            check(all(1 <= len(t) <= 8 and all(0 <= x < 1000 for x in t)
+                      for t in toks), "coverage serve D %d: bad tokens %s"
+                  % (D, toks))
+            cpu = decode.load_decode_predictor(art, device="cpu",
+                                               kv_cache_dtype=kv)
+            want = [decode.greedy_decode(cpu, p, 8, n_slots=COVER_SLOTS)[0]
+                    for p in prompts]
+            check(toks == want, "coverage serve D %d %s KV: card tokens %s, "
+                  "CPU %s" % (D, kv or "fp32", toks, want))
+            counts[name] = c
+            log("coverage path serve D %d (d_model %d, %d heads) %s KV: "
+                "%d launches of %s; tokens %s (= the CPU predictor's)"
+                % (D, width, heads, kv or "fp32", c, name, toks[0]))
+            del pred
+        out[("serve", D)] = counts
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 14. control flow (sub-blocks): while, StaticRNN, DynamicRNN, IfElse
+# ---------------------------------------------------------------------------
+
+def _cf_programs(fluid):
+    """The small control-flow programs, each with its backward: (name,
+    main, startup, loss, params, feed)."""
+    L = fluid.layers
+    out = []
+    rng = np.random.RandomState(3)
+
+    def build(name, body):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            loss, feed = body()
+            pg = fluid.backward.append_backward(loss)
+        out.append((name, main, startup, loss, pg, feed))
+
+    def while_net():
+        x = L.data("x", shape=[16], dtype="float32")
+        h = L.assign(x)
+        i = L.fill_constant([1], "int64", 0)
+        n = L.fill_constant([1], "int64", 3)
+        cond = L.less_than(i, n)
+        w = L.While(cond)
+        with w.block():
+            L.assign(L.fc(h, size=16, act="tanh", bias_attr=False,
+                          param_attr=fluid.ParamAttr(name="loop_w")), h)
+            L.increment(i, 1.0, in_place=True)
+            L.less_than(i, n, cond=cond)
+        return L.mean(L.square(h)), {
+            "x": rng.randn(8, 16).astype(np.float32)}
+
+    def static_rnn_net():
+        T, B, D, H = 6, 8, 12, 16
+        x = L.data("x", shape=[T, B, D], dtype="float32",
+                   append_batch_size=False)
+        label = L.data("label", shape=[B, 1], dtype="int64",
+                       append_batch_size=False)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            mem = rnn.memory(shape=[B, H], batch_ref=x)
+            h = L.fc(input=[xt, mem], size=H, act="tanh")
+            rnn.update_memory(mem, h)
+            rnn.step_output(h)
+        last = L.squeeze(L.slice(rnn(), axes=[0], starts=[T - 1], ends=[T]),
+                         axes=[0])
+        loss = L.mean(L.cross_entropy(L.fc(last, size=3, act="softmax"),
+                                      label))
+        return loss, {"x": rng.randn(T, B, D).astype(np.float32),
+                      "label": rng.randint(0, 3, (B, 1)).astype(np.int64)}
+
+    def dynamic_rnn_net():
+        x = L.data("x", shape=[12], dtype="float32", lod_level=1)
+        init = L.data("init", shape=[16], dtype="float32")
+        label = L.data("label", shape=[1], dtype="int64")
+        rnn = L.DynamicRNN()
+        with rnn.block():
+            xt = rnn.step_input(x)
+            mem = rnn.memory(init=init)
+            h = L.fc(input=[xt, mem], size=16, act="tanh")
+            rnn.update_memory(mem, h)
+            rnn.output(h)
+        pred = L.fc(L.sequence_pool(rnn(), "last"), size=2, act="softmax")
+        lens = [2, 7, 1, 5, 4, 3]
+        return L.mean(L.cross_entropy(pred, label)), {
+            "x": fluid.create_lod_tensor(
+                rng.randn(sum(lens), 12).astype(np.float32), [lens], None),
+            "init": rng.randn(len(lens), 16).astype(np.float32),
+            "label": rng.randint(0, 2, (len(lens), 1)).astype(np.int64)}
+
+    def ifelse_net():
+        x = L.data("x", shape=[8], dtype="float32")
+        cond = L.less_than(L.slice(x, axes=[1], starts=[0], ends=[1]),
+                           L.fill_constant([1], "float32", 0.0))
+        ie = L.IfElse(cond)
+        with ie.true_block():
+            ie.output(L.fc(ie.input(x), size=4,
+                           param_attr=fluid.ParamAttr(name="t_w")))
+        with ie.false_block():
+            ie.output(L.fc(ie.input(x), size=4,
+                           param_attr=fluid.ParamAttr(name="f_w")))
+        return L.mean(L.square(ie()[0])), {
+            "x": rng.randn(10, 8).astype(np.float32)}
+
+    build("while", while_net)
+    build("static_rnn", static_rnn_net)
+    build("dynamic_rnn", dynamic_rnn_net)
+    build("ifelse", ifelse_net)
+    return out
+
+
+def phase_control_flow(torch, fluid):
+    """The small while (an fc through 3 trips), StaticRNN, DynamicRNN
+    (ragged) and IfElse programs from one startup state (run on the CPU,
+    carried to the card): the loss and every parameter's gradient on the
+    card against the CPU, within 1e-5 relative (the loss) and 1e-4 of
+    each gradient's largest magnitude."""
+    cpu, gpu = fluid.CPUPlace(), fluid.CUDAPlace(0)
+    for name, main, startup, loss, pg, feed in _cf_programs(fluid):
+        scope0 = fluid.Scope()
+        fluid.Executor(cpu).run(startup, scope=scope0)
+        init = {n: scope0.get(n).numpy() for n in scope0.keys()}
+        fetch = [loss] + [g for _, g in pg]
+        res = {}
+        for dev, place in (("gpu", gpu), ("cpu", cpu)):
+            scope = fluid.scope_from_jax(init, fluid.Scope(), place)
+            exe = fluid.Executor(place)
+            check(exe.device.type == ("cuda" if dev == "gpu" else "cpu"),
+                  "control flow %s: executor on %s" % (name, exe.device))
+            res[dev] = [np.asarray(v) for v in exe.run(
+                main, feed=feed, fetch_list=fetch, scope=scope)]
+        (lg, *gg), (lc, *gc) = res["gpu"], res["cpu"]
+        lerr = float(abs(lg.ravel()[0] - lc.ravel()[0]) / abs(lc.ravel()[0]))
+        check(lerr <= 1e-5, "control flow %s: loss card %s CPU %s (rel err "
+              "%.3g > 1e-5)" % (name, lg.ravel(), lc.ravel(), lerr))
+        worst = (0.0, "")
+        for (p, _), a, b in zip(pg, gg, gc):
+            e = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                 1e-30)
+            worst = max(worst, (e, p.name))
+        check(worst[0] <= 1e-4, "control flow %s: grad of %s on the card "
+              "lies %.3g of its largest magnitude from the CPU's"
+              % (name, worst[1], worst[0]))
+        subs = [op.type for op in main.global_block().ops
+                if op.attrs.get("sub_block") is not None]
+        log("control flow %s: %d blocks, sub-block ops %s; loss card %.6f "
+            "CPU %.6f (rel err %.3g); %d parameter grads, worst %s at %.3g "
+            "of its largest magnitude (tolerance 1e-4)"
+            % (name, len(main.blocks), subs, float(lg.ravel()[0]),
+               float(lc.ravel()[0]), lerr, len(pg), worst[1], worst[0]))
+
+
+# ---------------------------------------------------------------------------
+# 15. the seq2seq machine-translation model: training, then generation
+# ---------------------------------------------------------------------------
+
+MT_ITERS = 10
+MT_SKIP = 2
+MT_ARGV = ["--model", "machine_translation", "--batch_size", "32"]
+MT_FALL_STEPS = 8
+MT_BEAM = 3
+MT_MAX_LEN = 8
+MT_DICT = 30000
+
+
+def _mt_label(op):
+    if op.type == "recurrent":
+        return "recurrent decoder step loop fwd"
+    if op.type == "lstm":
+        return "lstm encoder step loop fwd"
+    return _zoo_label(op)
+
+
+def _sync_watch(torch, registry, functionalizer):
+    """A context that records, under torch.cuda.set_sync_debug_mode
+    ("warn"), every host sync and the outermost op (forward lowering or
+    grad op) it happened in: {op type: [messages]}."""
+    import contextlib
+    import warnings
+
+    @contextlib.contextmanager
+    def watch():
+        stack, seen = [], {}
+        orig_lower, orig_grad = registry.call_lower, \
+            functionalizer._run_grad_op
+
+        def note(w):
+            where = stack[0] if stack else "(between ops)"
+            seen.setdefault(where, []).append(str(w.message)[:120])
+
+        def lower(od, ctx):
+            stack.append(od.type)
+            try:
+                with warnings.catch_warnings(record=True) as ws:
+                    warnings.simplefilter("always")
+                    r = orig_lower(od, ctx)
+                for w in ws:
+                    note(w)
+                return r
+            finally:
+                stack.pop()
+
+        def grad(op, env, cache):
+            stack.append(op.type)
+            try:
+                with warnings.catch_warnings(record=True) as ws:
+                    warnings.simplefilter("always")
+                    orig_grad(op, env, cache)
+                for w in ws:
+                    note(w)
+            finally:
+                stack.pop()
+
+        registry.call_lower = lower
+        functionalizer._run_grad_op = grad
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as outer:
+                warnings.simplefilter("always")
+                yield seen
+            for w in outer:
+                if "synchroniz" in str(w.message):
+                    note(w)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            registry.call_lower = orig_lower
+            functionalizer._run_grad_op = orig_grad
+    return watch()
+
+
+def _mt_small(fluid, mt, generating):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = mt.seq_to_seq_net(32, 32, 32, 100, 100,
+                                is_generating=generating, beam_size=3,
+                                max_length=6)
+        if not generating:
+            fluid.optimizer.Adam(learning_rate=1e-3).minimize(out[0])
+    return main, startup, out
+
+
+def _mt_small_feed(fluid, step, lens=(3, 9, 5, 7)):
+    rng = np.random.RandomState(100 + step)
+    out = {}
+    for name, ln in (("source_sequence", lens),
+                     ("target_sequence", lens[::-1]),
+                     ("label_sequence", lens[::-1])):
+        out[name] = fluid.create_lod_tensor(
+            rng.randint(2, 100, (sum(ln), 1)).astype(np.int64), [list(ln)],
+            None)
+    return out
+
+
+def _mt_gpu_vs_cpu(torch, fluid, mt):
+    """The small model (widths 32, dict 100, batch 4) 3 Adam steps on the
+    card and on the CPU from one startup state: the losses within 1e-4
+    relative; every parameter within 1e-5 of its array's largest
+    magnitude.  Beside it, the spread that one ulp of the source
+    embedding makes on the CPU: how far rounding alone carries the
+    parameters in 3 steps."""
+    main, startup, (loss, _, _) = _mt_small(fluid, mt, False)
+    cpu, gpu = fluid.CPUPlace(), fluid.CUDAPlace(0)
+    scope0 = fluid.Scope()
+    fluid.Executor(cpu).run(startup, scope=scope0)
+    init = {n: scope0.get(n).numpy() for n in scope0.keys()}
+    nudged = dict(init)
+    nudged["embedding_0.w_0"] = np.nextafter(init["embedding_0.w_0"],
+                                             np.float32(np.inf))
+    params = [p.name for p in main.all_parameters()]
+    res = {}
+    for dev, place, state in (("gpu", gpu, init), ("cpu", cpu, init),
+                              ("cpu nudged", cpu, nudged)):
+        scope = fluid.scope_from_jax(state, fluid.Scope(), place)
+        exe = fluid.Executor(place)
+        losses = [float(np.asarray(exe.run(
+            main, feed=_mt_small_feed(fluid, s), fetch_list=[loss],
+            scope=scope)[0]).ravel()[0]) for s in range(3)]
+        res[dev] = (losses, {n: scope.get(n).cpu().numpy() for n in params})
+    (lg, pg), (lc, pc) = res["gpu"], res["cpu"]
+    check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lg, lc)),
+          "mt gpu/cpu: losses card %s CPU %s (tolerance 1e-4)" % (lg, lc))
+    free = _worst_spread(pg, pc)
+    nudge = _worst_spread(res["cpu nudged"][1], pc)
+    check(free[0] <= 1e-5,
+          "mt gpu/cpu: %s on the card lies %.3g of its largest magnitude "
+          "from the CPU's after 3 steps (tolerance 1e-5); one embedding ulp "
+          "moves the CPU's %s by %.3g" % (free[1], free[0], nudge[1],
+                                          nudge[0]))
+    log("mt gpu/cpu (widths 32, dict 100, batch 4, 3 Adam steps): losses "
+        "card %s CPU %s (tolerance 1e-4); parameters: worst %s at %.3g of "
+        "its largest magnitude (tolerance 1e-5); one embedding ulp moves "
+        "the CPU's %s by %.3g"
+        % (lg, lc, free[1], free[0], nudge[1], nudge[0]))
+    return init
+
+
+def phase_mt_train(torch, pk, fluid):
+    """fluid_benchmark --model machine_translation at the JAX tool's cell
+    (get_model's defaults: embedding, encoder and decoder 512, dict
+    30000, Adam 2e-4; batch 32; lengths 3-11, T 16 padded): per-op fp32
+    and the tool's AMP lane, 2 warm-up and 10 timed steps each (examples/s,
+    median step, ops and launches a step, busy share, peak memory; the
+    card's name and power limit are in the record); then the loss on one
+    repeated batch at full width (it must fall), one full-width step
+    dispatched under torch.cuda.set_sync_debug_mode with no host sync
+    inside `recurrent` (its forward or its grad), and the small model
+    on the card against the CPU.  Returns the trained scope and its
+    program, for generation."""
+    from paddle_tpu_torch import fluid_benchmark as fb
+    from paddle_tpu_torch.fluid import functionalizer
+    from paddle_tpu_torch.models import machine_translation as mt
+    from paddle_tpu_torch.ops import registry
+    lanes = {}
+    for amp in (False, True):
+        lanes[amp] = _zoo_lane(torch, pk, registry, functionalizer, fb,
+                               "mt", MT_ARGV, amp, False, iters=MT_ITERS,
+                               skip=MT_SKIP, label_fn=_mt_label)
+    args = fb.parse_args(MT_ARGV + ["--no_amp"])
+    with fluid.unique_name.guard():
+        main, startup, feeds, loss, _, _ = fb.build_model(args)
+    rec = next(op for op in main.global_block().ops
+               if op.type == "recurrent")
+    sub_ops = len(rec.attrs["sub_block"].ops)
+    for amp in (False, True):
+        o = lanes[amp]
+        log("mt %s: %.1f examples/s, median step %.2f ms; %d block-0 ops a "
+            "step + %d decoder-step ops x T trips; %s launches a step, busy "
+            "%s; peak %.2f GiB; %s, %s"
+            % ("amp" if amp else "fp32", o["examples_per_s"],
+               o["median_step_ms"], o["ops_per_step"], sub_ops,
+               "%.0f" % o["launches_per_step"] if "launches_per_step" in o
+               else "not measured",
+               "%.1f%%" % (100 * o["busy_share"]) if "busy_share" in o
+               else "not measured", o["peak_mem_bytes"] / 2 ** 30,
+               o["record"]["card"], o["record"]["power_limit"]))
+    # the loss on one repeated batch, fp32, full width
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    rng = np.random.RandomState(3)
+    batch = fb.synth_feed(feeds, 32, rng, program=main,
+                          lengths=fb.lod_lengths(args),
+                          same_lengths=fb._SAME_LENGTHS[args.model])
+    check(batch["label_sequence"].recursive_sequence_lengths()
+          == batch["target_sequence"].recursive_sequence_lengths(),
+          "mt: the label's lengths are not the target's")
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        losses = [float(np.asarray(exe.run(main, feed=batch,
+                                           fetch_list=[loss])[0]).ravel()[0])
+                  for _ in range(MT_FALL_STEPS)]
+        check(all(np.isfinite(losses)), "mt: non-finite loss %s" % losses)
+        check(losses[-1] < losses[0] and min(losses[-3:]) < losses[0],
+              "mt: the loss did not fall over %d steps on one batch: %s"
+              % (MT_FALL_STEPS, losses))
+        log("mt one batch, %d steps: losses %s"
+            % (MT_FALL_STEPS, ["%.4f" % x for x in losses]))
+        # one step dispatched under the sync debug mode, its feeds on the
+        # card before it
+        staged = exe._prepare_feeds(main, batch)
+        torch.cuda.synchronize()
+        with _sync_watch(torch, registry, functionalizer) as seen:
+            fut = exe.run(main, feed=staged, fetch_list=[loss],
+                          as_future=True)
+            # the positive control: a read back between ops is seen
+            torch.zeros(1, device="cuda").item()
+        last = float(np.asarray(fut.result()[0]).ravel()[0])
+    check(np.isfinite(last), "mt: the watched step's loss is %s" % last)
+    check(seen.pop("(between ops)", None) is not None,
+          "mt: the sync watch missed the control's read back")
+    in_rec = {k: v for k, v in seen.items() if k.startswith("recurrent")}
+    check(not in_rec, "mt: host syncs inside recurrent: %s" % in_rec)
+    log("mt sync watch: one full-width step dispatched under "
+        "set_sync_debug_mode('warn') (the control's read back after it "
+        "seen): no host sync inside recurrent or recurrent_grad (T %d "
+        "trips from the feed's padded shape); syncs elsewhere in the "
+        "step, by op: %s"
+        % (int(staged["target_sequence"].shape[1]),
+           {k: len(v) for k, v in seen.items()} or "none"))
+    for k, v in seen.items():
+        log("mt sync watch:   %s: %s" % (k, v[0]))
+    _mt_gpu_vs_cpu(torch, fluid, mt)
+    return scope
+
+
+def _hyps(ids, scores):
+    """Per hypothesis (token tuple, score)."""
+    lens = ids.recursive_sequence_lengths()[0]
+    flat = np.asarray(ids).ravel()
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    sc = (scores.detach().float().cpu().numpy() if hasattr(scores, "detach")
+          else np.asarray(scores)).ravel()
+    return [(tuple(int(t) for t in flat[offs[i]:offs[i + 1]]), float(sc[i]))
+            for i in range(len(lens))]
+
+
+def phase_mt_generate(torch, fluid, scope):
+    """Beam search from the trained scope at batch 32 x beam 3, max
+    length 8, full width (the generation program shares the training
+    parameters by name): ids in range, lengths 1-8, each source's beams
+    ranked, and each source's hypotheses run alone equal to the batched
+    run's (ids equal; where they differ, the scores tie to 1e-5: a tie
+    of candidates broken by rounding); then the small model's generation
+    on the card against the CPU from one seeded scope: ids identical,
+    scores within 1e-5."""
+    from paddle_tpu_torch.models import machine_translation as mt
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids_v, scores_v, _ = mt.seq_to_seq_net(
+            512, 512, 512, MT_DICT, MT_DICT, is_generating=True,
+            beam_size=MT_BEAM, max_length=MT_MAX_LEN)
+    missing = [p.name for p in main.all_parameters()
+               if scope.get(p.name) is None]
+    check(not missing, "mt generate: parameters not in the trained scope: "
+          "%s" % missing)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    rng = np.random.RandomState(17)
+    lens = [int(n) for n in rng.randint(3, 12, size=32)]
+    rows = rng.randint(2, MT_DICT, (sum(lens), 1)).astype(np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+
+    def generate(r, ln):
+        ids, scores = exe.run(main, feed={
+            "source_sequence": fluid.create_lod_tensor(r, [ln], None)},
+            fetch_list=[ids_v, scores_v], scope=scope, return_numpy=False)
+        return _hyps(ids, scores)
+
+    generate(rows, lens)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = generate(rows, lens)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    check(len(batched) == 32 * MT_BEAM, "mt generate: %d hypotheses"
+          % len(batched))
+    for i, (toks, sc) in enumerate(batched):
+        check(1 <= len(toks) <= MT_MAX_LEN and all(0 <= t < MT_DICT
+                                                   for t in toks)
+              and np.isfinite(sc), "mt generate: hypothesis %d %s %s"
+              % (i, toks, sc))
+    for b in range(32):
+        sc = [batched[MT_BEAM * b + j][1] for j in range(MT_BEAM)]
+        check(all(x >= y for x, y in zip(sc, sc[1:])),
+              "mt generate: source %d beams not ranked: %s" % (b, sc))
+    exact, tied = 0, 0
+    for b in range(32):
+        alone = generate(rows[offs[b]:offs[b + 1]], [lens[b]])
+        mine = batched[MT_BEAM * b:MT_BEAM * (b + 1)]
+        if alone == mine or [t for t, _ in alone] == [t for t, _ in mine]:
+            exact += 1
+            check(all(abs(x - y) <= 1e-5 * abs(y) for (_, x), (_, y) in
+                      zip(alone, mine)),
+                  "mt generate: source %d scores alone %s, batched %s"
+                  % (b, alone, mine))
+            continue
+        sa = sorted(s for _, s in alone)
+        sm = sorted(s for _, s in mine)
+        check(all(abs(x - y) <= 1e-5 * abs(y) for x, y in zip(sa, sm)),
+              "mt generate: source %d alone %s differs from batched %s "
+              "beyond a tie" % (b, alone, mine))
+        tied += 1
+    log("mt generate: batch 32 x beam %d, max length %d, full width: %.1f "
+        "ms a batch (%d program ops); %d hypotheses, lengths %s...; %d of "
+        "32 sources alone equal the batched run, %d differ only by a tie "
+        "of scores (within 1e-5)"
+        % (MT_BEAM, MT_MAX_LEN, gen_ms, len(main.global_block().ops),
+           len(batched), [len(t) for t, _ in batched[:9]], exact, tied))
+    # the small model on the card against the CPU
+    gmain, gstart, (gids, gscores, _) = _mt_small(fluid, mt, True)
+    scope0 = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(gstart, scope=scope0)
+    srng = np.random.RandomState(5)
+    state = {n: (srng.randn(*scope0.get(n).shape) * 0.5).astype(np.float32)
+             for n in scope0.keys()}
+    feed = _mt_small_feed(fluid, 0)["source_sequence"]
+    res = {}
+    for dev, place in (("gpu", fluid.CUDAPlace(0)), ("cpu", fluid.CPUPlace())):
+        sc = fluid.scope_from_jax(state, fluid.Scope(), place)
+        ids, scores = fluid.Executor(place).run(
+            gmain, feed={"source_sequence": feed},
+            fetch_list=[gids, gscores], scope=sc, return_numpy=False)
+        res[dev] = _hyps(ids, scores)
+    check([t for t, _ in res["gpu"]] == [t for t, _ in res["cpu"]],
+          "mt generate small: card ids %s, CPU %s" % (res["gpu"], res["cpu"]))
+    check(all(abs(a - b) <= 1e-5 * abs(b) for (_, a), (_, b) in
+              zip(res["gpu"], res["cpu"])),
+          "mt generate small: scores card %s CPU %s" % (res["gpu"],
+                                                        res["cpu"]))
+    log("mt generate small (widths 32, dict 100, beam 3, max length 6): "
+        "card ids equal the CPU's for all %d hypotheses, scores within "
+        "1e-5" % len(res["gpu"]))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4216,15 +4918,20 @@ def main():
         check=True, timeout=60).stdout.strip()
     log(smi)
     phase_sass(_build)
-    # 2. kernels against their plain versions
+    # 2. kernels against their plain versions, with the coverage cases
+    # (head dims and channel edges off the instantiated widths, each a
+    # row of its own)
     t_phase = time.time()
-    entry = phase_kernels(torch, pk)
-    k4_entry, k4hs_entry = phase_int8_kernels(torch, pk)
-    flash_entries = phase_flash_kernels(torch, pk)
-    flash_bf16_entries = phase_flash_kernels(torch, pk, torch.bfloat16)
+    cover_entries = []
+    entry = phase_kernels(torch, pk, cover_entries)
+    k4_entry, k4hs_entry = phase_int8_kernels(torch, pk, cover_entries)
+    flash_entries = phase_flash_kernels(torch, pk, cover_entries)
+    flash_bf16_entries = phase_flash_kernels(torch, pk, cover_entries,
+                                             torch.bfloat16)
     k5_entry = phase_dequant_kernel(torch, pk)
-    k6_entry = phase_bottleneck_kernel(torch, pk)
-    k6_bf16_entry = phase_bottleneck_kernel(torch, pk, torch.bfloat16)
+    k6_entry = phase_bottleneck_kernel(torch, pk, cover_entries)
+    k6_bf16_entry = phase_bottleneck_kernel(torch, pk, cover_entries,
+                                            torch.bfloat16)
     torch.cuda.empty_cache()
     log("kernel phases: %.1f s" % (time.time() - t_phase))
     # 3. the decode-serving slice at full width
@@ -4293,6 +5000,13 @@ def main():
     phase_trainer(torch, pk, fluid, transformer)
     torch.cuda.empty_cache()
     log("trainer phase: %.1f s" % (time.time() - t_phase))
+    # 6c. the user paths at the coverage head dims
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        cover_launches = phase_coverage_paths(torch, pk, fluid, transformer,
+                                              decode, tmp)
+    torch.cuda.empty_cache()
+    log("coverage paths phase: %.1f s" % (time.time() - t_phase))
     t_phase = time.time()
     # 7. ResNet-50 inference: fp32 fused / unfused and int8, 7b. bf16
     # fused / unfused, 8. gpu vs cpu in fp32 and bf16
@@ -4335,15 +5049,34 @@ def main():
     phase_pipeline_bench(torch, fluid)
     torch.cuda.empty_cache()
     log("pipeline phase: %.1f s" % (time.time() - t_phase))
+    # 14. control flow on the card against the CPU
+    t_phase = time.time()
+    phase_control_flow(torch, fluid)
+    log("control flow phase: %.1f s" % (time.time() - t_phase))
+    # 15. machine translation: training at the tool's cell, generation
+    t_phase = time.time()
+    mt_scope = phase_mt_train(torch, pk, fluid)
+    log("mt train phase: %.1f s" % (time.time() - t_phase))
+    t_phase = time.time()
+    phase_mt_generate(torch, fluid, mt_scope)
+    del mt_scope
+    torch.cuda.empty_cache()
+    log("mt generate phase: %.1f s" % (time.time() - t_phase))
     # 13. data-parallel ResNet-50 training, one NCCL rank per card
     t_phase = time.time()
     phase_parallel(torch, fluid)
     log("parallel phase: %.1f s; the whole script %.1f s"
         % (time.time() - t_phase, time.time() - t_main))
+    # the coverage cases' launches: the count of its kernel on the path
+    # at its head dim (no path runs K6-bf16 at a ragged channel edge)
+    for e in cover_entries:
+        path, count = e.pop("path"), e.pop("count")
+        e["launches"] = cover_launches.get(path, {}).get(count, 0)
+        e["server_launches"] = 0
     log(smi)
     log(json.dumps({"kernels": [entry] + flash_entries + flash_bf16_entries
                     + [k5_entry, k6_entry, k6_bf16_entry, k4_entry,
-                       k4hs_entry]}))
+                       k4hs_entry] + cover_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

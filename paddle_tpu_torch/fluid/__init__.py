@@ -50,6 +50,7 @@ from .io import (load_inference_model, load_params, load_persistables,
                  save_vars, scope_from_jax, scope_to_jax)
 from .parallel_executor import (BuildStrategy, ExecutionStrategy,
                                 ParallelExecutor)
+from .layer_helper import LayerHelper
 from .param_attr import ParamAttr
 from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
                          InferenceTranspiler)
@@ -73,5 +74,5 @@ __all__ = [
     "load_persistables", "save_inference_model", "load_inference_model",
     "InferenceTranspiler", "set_amp", "amp_enabled", "ParallelExecutor",
     "ExecutionStrategy", "BuildStrategy", "DistributeTranspiler",
-    "DistributeTranspilerConfig",
+    "DistributeTranspilerConfig", "LayerHelper",
 ]

@@ -6,13 +6,17 @@ generic grad op `<type>_grad` carrying `fwd_uid`; the Executor runs the
 forward op under autograd and hands its vjp closure to the grad op
 (ops/registry.py).  The program structure — grad vars named `X@GRAD`,
 `sum` ops merging fan-in, fill_constant(1) seeding the loss grad — is the
-JAX package's, op for op.  Custom grad makers, control-flow carries and
-error clipping are not ported.
+JAX package's, op for op.  An op with its own grad maker (OpDef.
+grad_maker: the `while`'s, ops/control_flow_ops.py) emits its grad ops
+itself or declines to the generic one; it joins the fan-in protocol
+through `bw_ctx` (the pending consumer counts and the partial grads).
+A `while` carry is read and written by the loop, which is therefore not
+counted as its consumer.  Error clipping is not ported.
 """
 
 from .framework import Variable, grad_var_name
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "calc_gradient", "gradients"]
 
 
 def _create_grad_var(block, ref_var, grad_name):
@@ -80,9 +84,30 @@ def _append_grad_ops(block, path_ops, grad_map, no_grad_set):
                             outputs={"Out": gname}, infer_shape=False)
         grad_map[name] = gname
 
+    from ..ops import registry
+
     for op in reversed(path_ops):
-        if not any(name in grad_map for name in op.output_arg_names):
+        # a while carry with a pre-loop consumer holds its post-loop
+        # contributions as partials (the pre-loop consumer is still owed):
+        # the while's grad maker finalizes them, so they count as grads
+        if not any(name in grad_map
+                   or (op.type == "while" and partials.get(name))
+                   for name in op.output_arg_names):
             continue
+
+        od = registry.get_op_def(op.type) if registry.has_op(op.type) \
+            else None
+        if od is not None and od.grad_maker is not None:
+            made = od.grad_maker(op, block, grad_map, no_grad_set,
+                                 {"pending": pending, "partials": partials})
+            if made is not None:
+                for name in set(op.input_arg_names) - \
+                        set(op.output_arg_names):
+                    if name in pending:
+                        pending[name] -= 1
+                        if pending[name] == 0 and name in partials:
+                            finalize_grad(name)
+                continue
 
         grad_inputs = {}
         for slot, names in op.inputs.items():
@@ -177,3 +202,39 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
             continue
         params_and_grads.append((block.var(pname), block.var(gname)))
     return params_and_grads
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Grads of `targets` (each seeded with 1, or its target gradient)
+    with respect to `inputs`: a list aligned with `inputs`, None where
+    no path leads."""
+    if not isinstance(targets, (list, tuple)):
+        targets = [targets]
+    if not isinstance(inputs, (list, tuple)):
+        inputs = [inputs]
+    block = targets[0].block
+    no_grad = set(no_grad_set or [])
+    grad_map = {}
+    for i, t in enumerate(targets):
+        gname = grad_var_name(t.name)
+        _create_grad_var(block, t, gname)
+        if target_gradients is not None and target_gradients[i] is not None:
+            block.append_op(type="assign",
+                            inputs={"X": target_gradients[i].name},
+                            outputs={"Out": gname}, infer_shape=False)
+        else:
+            block.append_op(
+                type="fill_constant", outputs={"Out": [gname]},
+                attrs={"shape": list(t.shape) if t.shape else [1],
+                       "value": 1.0, "dtype": t.dtype},
+                infer_shape=False)
+        grad_map[t.name] = gname
+    path = _op_path(block, [t.name for t in targets],
+                    [v.name for v in inputs], no_grad)
+    _append_grad_ops(block, path, grad_map, no_grad)
+    return [block.var(grad_map[v.name]) if v.name in grad_map
+            and block.has_var(grad_map[v.name]) else None for v in inputs]
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    return calc_gradient(targets, inputs, target_gradients, no_grad_set)

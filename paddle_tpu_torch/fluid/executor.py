@@ -292,10 +292,6 @@ class Executor:
     def _prepare_step(self, program, feed, fetch_list, scope):
         """(step fn, state, feeds, fetch names); the step fn also fetches
         each fetch's lengths companion (None for a dense var)."""
-        if len(program.blocks) != 1:
-            raise NotImplementedError(
-                "Executor.run: programs with sub-blocks (control flow) are "
-                "not ported to paddle_tpu_torch yet")
         fetch_names = tuple(_fetch_name(f) for f in (fetch_list or []))
         fetch_ext = fetch_names + tuple(n + LOD_LEN_SUFFIX
                                         for n in fetch_names)

@@ -1,6 +1,13 @@
 """Program/Block/Operator/Variable graph IR, a copy of
 paddle_tpu/fluid/framework.py.
 
+A control-flow layer builds its sub-block with `Program._create_block`
+(the new block becomes the current one, child of the block that was)
+and returns with `_rollback`; the op that runs it holds the block in
+its `sub_block` attr, which serializes as `{"__block__": idx}` (inside a
+container attr too), so clone, `serialize_to_string` and the inference
+artifacts keep sub-blocks.
+
 One in-memory graph object per program: the IR's job is program
 construction, autodiff and serialization; the Executor (executor.py)
 interprets a block op by op.  Shape and dtype inference is delegated to
@@ -57,6 +64,10 @@ class Variable:
         self.is_data = is_data
         self.error_clip = error_clip
         self.op = None  # generating op, set by Block.append_op
+
+    def astype(self, dtype):
+        from .layers import tensor as tensor_layers
+        return tensor_layers.cast(self, dtype)
 
     @property
     def grad_name(self):
@@ -306,6 +317,24 @@ class Program:
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    def block(self, idx):
+        return self.blocks[idx]
+
+    def _create_block(self, parent_idx=None):
+        """A new block, child of the current one (or of `parent_idx`),
+        made current: the control-flow layers build their sub-blocks
+        here."""
+        parent = self.current_block_idx if parent_idx is None \
+            else parent_idx
+        self.blocks.append(Block(self, len(self.blocks), parent))
+        self.current_block_idx = len(self.blocks) - 1
+        self._bump_version()
+        return self.current_block()
+
+    def _rollback(self):
+        """Back to the current block's parent."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def all_parameters(self):
         return self.global_block().all_parameters()
 
@@ -322,24 +351,26 @@ class Program:
 
     def _prune(self, feeds, fetches):
         """A clone holding only the ops that compute `fetches` from
-        `feeds`, and the vars they touch (save_inference_model)."""
+        `feeds`, and the vars they touch (save_inference_model).  An op
+        with a sub-block reads and writes what its block does (a
+        conditional_block declares no outputs); the sub-blocks stay."""
+        from .functionalizer import _op_tree_reads, _op_tree_writes
         p = self.clone()
         blk = p.global_block()
         feed_names = set(feeds)
         needed = set(fetches)
         keep = []
         for op in reversed(blk.ops):
-            if set(op.output_arg_names) & needed:
+            if _op_tree_writes(op) & needed:
                 keep.append(op)
-                needed.update(n for n in op.input_arg_names
+                needed.update(n for n in _op_tree_reads(op)
                               if n not in feed_names)
         keep.reverse()
         blk.ops = keep
         p._bump_version()
         used = set(feed_names) | set(fetches)
         for op in blk.ops:
-            used.update(op.input_arg_names)
-            used.update(op.output_arg_names)
+            used |= _op_tree_reads(op) | _op_tree_writes(op)
         blk.vars = collections.OrderedDict(
             (k, v) for k, v in blk.vars.items() if k in used)
         return p

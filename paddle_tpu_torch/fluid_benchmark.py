@@ -8,6 +8,7 @@ record with examples/s.
     python -m paddle_tpu_torch.fluid_benchmark --model se_resnext \\
         --batch_size 64 --layout NHWC --whole_graph_ad
     python -m paddle_tpu_torch.fluid_benchmark --model stacked_dynamic_lstm
+    python -m paddle_tpu_torch.fluid_benchmark --model machine_translation
     python -m paddle_tpu_torch.fluid_benchmark --model mnist --device CPU \\
         --batch_size 4 --iterations 2
     python -m paddle_tpu_torch.fluid_benchmark --model resnet --parallel \\
@@ -19,9 +20,11 @@ It runs on the card unless `--device CPU` asks for the CPU (where AMP
 stays off, as the JAX tool keeps it off off its accelerator); a host
 without CUDA raises.  A ragged feed (stacked_dynamic_lstm's `words`) is
 a LoDTensor with lengths drawn from randint(3, 12), or from
-randint(S // 4, S + 1) with `--seq_len S`.  The flags that need parts
-not ported yet (--update_method pserver, --profile) and the model
-machine_translation raise NotImplementedError.
+randint(S // 4, S + 1) with `--seq_len S`; machine_translation's
+target and label sequences share one draw of lengths (the label is the
+target shifted by one token in the reference's wmt14 reader), where the
+JAX tool draws them apart.  The flags that need parts not ported yet
+(--update_method pserver, --profile) raise NotImplementedError.
 
 The training pipeline (the JAX tool's flags and semantics):
 `--prefetch_depth N` feeds the loop through `reader.prefetch_to_device`
@@ -82,9 +85,12 @@ _WAITS = {
     "update_method": "pserver mode and the RPC layer (ROADMAP.md, queue 1 "
                      "item 12)",
     "profile": "fluid.profiler (ROADMAP.md, queue 1 item 13)",
-    "machine_translation": "control-flow sub-blocks and the beam-search "
-                           "ops (ROADMAP.md, queue 1 item 13)",
 }
+
+# ragged feeds that take another feed's lengths: (var, the var it
+# follows), per model
+_SAME_LENGTHS = {"machine_translation": {"label_sequence":
+                                         "target_sequence"}}
 
 
 def parse_args(argv=None):
@@ -154,9 +160,7 @@ def check_ported(args):
     """Raise NotImplementedError for an option or model that needs parts
     not ported yet: none is ignored quietly."""
     unported = [("update_method", args.update_method == "pserver"),
-                ("profile", args.profile),
-                ("machine_translation",
-                 args.model == "machine_translation")]
+                ("profile", args.profile)]
     for name, used in unported:
         if used:
             raise NotImplementedError(
@@ -190,13 +194,16 @@ def lod_lengths(args):
     return 3, 12
 
 
-def synth_feed(feeds, batch, rng, program=None, lengths=(3, 12)):
+def synth_feed(feeds, batch, rng, program=None, lengths=(3, 12),
+               same_lengths=None):
     """A synthetic batch for the model's feed vars: a LoDTensor with
     lengths from randint(*lengths) for a ragged var, else an array of
-    [batch] + the var's static dims (the JAX tool's synth_feed)."""
+    [batch] + the var's static dims (the JAX tool's synth_feed).
+    `same_lengths` {var: var before it} gives a ragged var the lengths
+    drawn for another."""
     from .fluid import core
     from .fluid.lod import LoDTensor
-    out = {}
+    out, drawn = {}, {}
     for v in feeds:
         if isinstance(v, str):
             v = program.global_block().var(v)
@@ -204,7 +211,10 @@ def synth_feed(feeds, batch, rng, program=None, lengths=(3, 12)):
         sample_shape = [d for d in v.shape[1:]
                         if isinstance(d, int) and d > 0]
         if v.lod_level and v.lod_level > 0:
-            lens = rng.randint(lengths[0], lengths[1], size=batch)
+            follow = (same_lengths or {}).get(v.name)
+            lens = drawn[follow] if follow in drawn else \
+                rng.randint(lengths[0], lengths[1], size=batch)
+            drawn[v.name] = lens
             flat = np.concatenate(
                 [_sample(dtype, [n] + sample_shape, rng) for n in lens])
             t = LoDTensor(flat)
@@ -416,7 +426,8 @@ def benchmark(args, after=None):
 
         def make_batch():
             return synth_feed(feeds, local, rng, program=main_prog,
-                              lengths=lengths)
+                              lengths=lengths,
+                              same_lengths=_SAME_LENGTHS.get(args.model))
 
         def stalled_batch():
             # --host_stall_ms: host preprocessing cost; on the prefetch

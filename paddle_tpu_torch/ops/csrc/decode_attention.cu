@@ -102,6 +102,17 @@
 //     still reaches the cluster barriers (an early return would deadlock
 //     the cluster); it holds m = -inf and l = 0, and weighs 0 in the
 //     merge.  Rank 0 always holds at least one position.
+//
+// Head dims.  The template's D is a power of two (4 ... 128); a head dim
+// DR between them runs the next wider template with DR as a runtime
+// argument (`kRagged`): a lane past DR loads nothing and holds zeros (q
+// and K alike, so its share of the dot product is 0), rows are DR
+// elements apart in q, the caches and out, a lane whose VEC elements
+// straddle DR (or whose rows are not VEC-aligned, DR % VEC != 0) loads
+// element by element, and only the first DR outputs are written.  The
+// caches are read in place, never padded.  The split plan is the
+// template width's.  The exact widths (kRagged false) compile to the
+// code above with no per-lane check.
 // Left for later: TMA, and a persistent split that reads the length
 // ahead of the rows.
 
@@ -163,6 +174,26 @@ __device__ __forceinline__ void load_vec(
   }
 }
 
+// the first `valid` (< VEC, or rows not VEC-aligned) of VEC cache
+// elements at p, element by element, as the words load_vec fills; the
+// rest zero
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec_masked(
+    const T* p, int valid, uint32_t (&u)[VEC * sizeof(T) / 4]) {
+  constexpr int W = VEC * sizeof(T) / 4;
+#pragma unroll
+  for (int i = 0; i < W; ++i) u[i] = 0u;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    if (j < valid) {
+      if constexpr (std::is_same<T, float>::value)
+        u[j] = __float_as_uint(__ldg(p + j));
+      else
+        u[j >> 2] |= (uint32_t)(uint8_t)__ldg(p + j) << (8 * (j & 3));
+    }
+  }
+}
+
 // element j of the loaded words, as fp32 (int8: widened, unscaled)
 template <typename T, int VEC>
 __device__ __forceinline__ float elem(
@@ -176,8 +207,9 @@ __device__ __forceinline__ float elem(
 // One cluster of `cs` blocks per (pseudo-slot, head); block `rank` of
 // the cluster reads positions [rank * share, (rank + 1) * share) of the
 // row's live ones, kUnroll positions a lane per round trip.  D / VEC
-// lanes per cached row.  kv_scales is read for int8 caches only.
-template <typename T, int D, int VEC>
+// lanes per cached row.  kv_scales is read for int8 caches only.  With
+// kRagged the head dim is dr < D (rows dr elements apart), else D.
+template <typename T, int D, int VEC, bool kRagged>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
@@ -185,7 +217,7 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ kv_scales,
                         float* __restrict__ out, int S, int H, int qps,
                         int h_total, int head_offset, float scale, int cs,
-                        int share) {
+                        int share, int dr) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   constexpr int LPR = D / VEC;
   constexpr int W = VEC * (int)sizeof(T) / 4;  // words a lane loads
@@ -217,15 +249,27 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
     k_scale = kv_scales[head_offset + h];
     v_scale = kv_scales[h_total + head_offset + h];
   }
-  const size_t qoff = ((size_t)p * H + h) * D;
+  const int DR = kRagged ? dr : D;  // the head dim
+  // elements of this lane's VEC below DR, and whether its rows take
+  // VEC-wide loads
+  const int valid = kRagged ? min(max(DR - lane * VEC, 0), VEC) : VEC;
+  const bool wide_ok = !kRagged || (valid == VEC && DR % VEC == 0);
+  const size_t qoff = ((size_t)p * H + h) * DR;
   float qv[VEC];
+  if constexpr (kRagged) {
 #pragma unroll
-  for (int i = 0; i < VEC / 4; ++i) {
-    const float4 f = reinterpret_cast<const float4*>(q + qoff + lane * VEC)[i];
-    qv[4 * i] = f.x;
-    qv[4 * i + 1] = f.y;
-    qv[4 * i + 2] = f.z;
-    qv[4 * i + 3] = f.w;
+    for (int j = 0; j < VEC; ++j)
+      qv[j] = j < valid ? q[qoff + lane * VEC + j] : 0.f;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i) {
+      const float4 f =
+          reinterpret_cast<const float4*>(q + qoff + lane * VEC)[i];
+      qv[4 * i] = f.x;
+      qv[4 * i + 1] = f.y;
+      qv[4 * i + 2] = f.z;
+      qv[4 * i + 3] = f.w;
+    }
   }
   const int live = min(max(len, 0), S);
   const bool all_masked = live == 0;
@@ -237,9 +281,9 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   // this block's partial: (mx, lb, o) for element threadIdx.x < D
   float mx = -INFINITY, lb = 0.f, o = 0.f;
   if (lo < hi) {  // uniform over the block
-    const size_t row = (size_t)H * D;  // elements between cached positions
-    const T* kb = k + (size_t)n * S * row + (size_t)h * D + lane * VEC;
-    const T* vb = v + (size_t)n * S * row + (size_t)h * D + lane * VEC;
+    const size_t row = (size_t)H * DR;  // elements between cached positions
+    const T* kb = k + (size_t)n * S * row + (size_t)h * DR + lane * VEC;
+    const T* vb = v + (size_t)n * S * row + (size_t)h * DR + lane * VEC;
     float m = -INFINITY, l = 0.f;
     float acc[VEC];
 #pragma unroll
@@ -251,9 +295,12 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int pos = p0 + g + u * G;
-        if (pos < hi) {
+        if (pos < hi && wide_ok) {
           load_vec<T, VEC>(kb + (size_t)pos * row, kr[u]);
           load_vec<T, VEC>(vb + (size_t)pos * row, vr[u]);
+        } else if (kRagged && pos < hi) {
+          load_vec_masked<T, VEC>(kb + (size_t)pos * row, valid, kr[u]);
+          load_vec_masked<T, VEC>(vb + (size_t)pos * row, valid, vr[u]);
         } else {
 #pragma unroll
           for (int i = 0; i < W; ++i) kr[u][i] = vr[u][i] = 0u;
@@ -335,7 +382,7 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
     }
   }
   cluster.sync();
-  if (rank == 0 && threadIdx.x < D) {
+  if (rank == 0 && threadIdx.x < DR) {
     float gm = all_m[0];  // rank 0 always holds a position
     for (int i = 1; i < cs; ++i) gm = fmaxf(gm, all_m[i]);
     float tot = 0.f, acc = 0.f;
@@ -352,12 +399,12 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int VEC>
+template <typename T, int D, int VEC, bool kRagged>
 cudaError_t launch_kernel(const float* q, const T* k, const T* v,
                           const int* lengths, const float* kv_scales,
                           float* out, int P, int S, int H, int qps,
                           int h_total, int head_offset, float scale, int cs,
-                          int share, cudaStream_t st) {
+                          int share, int dr, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(P * H * cs));
   cfg.blockDim = dim3(kThreads);
@@ -371,16 +418,20 @@ cudaError_t launch_kernel(const float* q, const T* k, const T* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_attention_kernel<T, D, VEC>, q, k, v, lengths, kv_scales,
-      out, S, H, qps, h_total, head_offset, scale, cs, share);
+      &cfg, decode_attention_kernel<T, D, VEC, kRagged>, q, k, v, lengths,
+      kv_scales, out, S, H, qps, h_total, head_offset, scale, cs, share, dr);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// What no plan takes, and a grid past CUDA's limits
-bool bad_dim(int S, int D) {
-  return S < 1 || (D != 4 && D != 8 && D != 16 && D != 32 && D != 64 &&
-                   D != 128);
+// the template width a head dim D (1 ... 128) runs at
+int padded_dim(int D) {
+  int w = 4;
+  while (w < D) w <<= 1;
+  return w;
 }
+
+// What no plan takes, and a grid past CUDA's limits
+bool bad_dim(int S, int D) { return S < 1 || D < 1 || D > 128; }
 
 bool bad_shape(int P, int S, int H, int D, int qps, int cs) {
   return bad_dim(S, D) || P <= 0 || H <= 0 || qps <= 0 || P % qps ||
@@ -391,14 +442,18 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        const int* lengths, float* out, int P, int S, int H,
                        int D, int qps, float scale, cudaStream_t st) {
   int cs = 0, share = 0;
-  if (!bad_dim(S, D)) f32_plan(S, D, cs, share);
+  const int DP = padded_dim(D);
+  if (!bad_dim(S, D)) f32_plan(S, DP, cs, share);
   if (bad_shape(P, S, H, D, qps, cs)) return cudaErrorInvalidValue;
-#define PADDLE_F32_CASE(DIM)                                               \
-  case DIM:                                                                \
-    return launch_kernel<float, DIM, 4>(q, k, v, lengths, nullptr, out, P, \
-                                        S, H, qps, H, 0, scale, cs, share, \
-                                        st);
-  switch (D) {
+#define PADDLE_F32_CASE(DIM)                                                 \
+  case DIM:                                                                  \
+    return D == DIM ? launch_kernel<float, DIM, 4, false>(                   \
+                          q, k, v, lengths, nullptr, out, P, S, H, qps, H,   \
+                          0, scale, cs, share, D, st)                        \
+                    : launch_kernel<float, DIM, 4, true>(                    \
+                          q, k, v, lengths, nullptr, out, P, S, H, qps, H,   \
+                          0, scale, cs, share, D, st);
+  switch (DP) {
     PADDLE_F32_CASE(4)
     PADDLE_F32_CASE(8)
     PADDLE_F32_CASE(16)
@@ -417,23 +472,28 @@ cudaError_t launch_i8(const float* q, const int8_t* k, const int8_t* v,
                       int P, int S, int H, int D, int qps, int h_total,
                       int head_offset, float scale, cudaStream_t st) {
   int cs = 0, share = 0;
-  if (!bad_dim(S, D)) i8_plan(S, D, cs, share);
+  const int DP = padded_dim(D);
+  if (!bad_dim(S, D)) i8_plan(S, DP, cs, share);
   if (bad_shape(P, S, H, D, qps, cs)) return cudaErrorInvalidValue;
   // 16-byte loads (min(16, D) bytes at small D) where both caches' bases
-  // allow them (every row then starts at a multiple of them), else 4
-  const int widest = D < 16 ? D : 16;
+  // allow them (every row then starts at a multiple of them), else 4; a
+  // ragged head dim reads 4 bytes a lane
+  const int widest = DP < 16 ? DP : 16;
   const bool wide =
       (uintptr_t)k % widest == 0 && (uintptr_t)v % widest == 0;
 #define PADDLE_I8_CASE(DIM)                                                   \
   case DIM:                                                                   \
-    return wide ? launch_kernel<int8_t, DIM, (DIM < 16 ? DIM : 16)>(          \
+    if (D != DIM)                                                             \
+      return launch_kernel<int8_t, DIM, 4, true>(                             \
+          q, k, v, lengths, kv_scales, out, P, S, H, qps, h_total,            \
+          head_offset, scale, cs, share, D, st);                              \
+    return wide ? launch_kernel<int8_t, DIM, (DIM < 16 ? DIM : 16), false>(   \
                       q, k, v, lengths, kv_scales, out, P, S, H, qps,         \
-                      h_total, head_offset, scale, cs, share, st)             \
-                : launch_kernel<int8_t, DIM, 4>(q, k, v, lengths, kv_scales, \
-                                                out, P, S, H, qps, h_total,   \
-                                                head_offset, scale, cs,       \
-                                                share, st);
-  switch (D) {
+                      h_total, head_offset, scale, cs, share, D, st)          \
+                : launch_kernel<int8_t, DIM, 4, false>(                       \
+                      q, k, v, lengths, kv_scales, out, P, S, H, qps,         \
+                      h_total, head_offset, scale, cs, share, D, st);
+  switch (DP) {
     PADDLE_I8_CASE(4)
     PADDLE_I8_CASE(8)
     PADDLE_I8_CASE(16)
@@ -451,8 +511,9 @@ cudaError_t launch_i8(const float* q, const int8_t* k, const int8_t* v,
 
 // Pointers are device pointers in the layouts above, contiguous; q and
 // out 16-byte aligned, fp32 caches 16-byte and int8 caches 4-byte
-// aligned (16-byte aligned int8 caches take K4's widest loads).  D must
-// be 4, 8, 16, 32, 64 or 128; P a multiple of qps >= 1.
+// aligned (16-byte aligned int8 caches take K4's widest loads).  D is 1
+// ... 128 (4, 8, 16, 32, 64 and 128 exactly, any other at the next of
+// them); P a multiple of qps >= 1.
 // Each launches on `st`, does not synchronise, and returns the launch's
 // cudaError_t (cudaSuccess = 0).
 
@@ -483,7 +544,7 @@ extern "C" cudaError_t paddle_decode_attention_f32_plan(int S, int D,
                                                         int* cluster,
                                                         int* share) {
   if (bad_dim(S, D)) return cudaErrorInvalidValue;
-  f32_plan(S, D, *cluster, *share);
+  f32_plan(S, padded_dim(D), *cluster, *share);
   return cudaSuccess;
 }
 
@@ -491,6 +552,6 @@ extern "C" cudaError_t paddle_decode_attention_i8_plan(int S, int D,
                                                        int* cluster,
                                                        int* share) {
   if (bad_dim(S, D)) return cudaErrorInvalidValue;
-  i8_plan(S, D, *cluster, *share);
+  i8_plan(S, padded_dim(D), *cluster, *share);
   return cudaSuccess;
 }

@@ -1,8 +1,9 @@
 """Math / elementwise / reduction / activation op lowerings, after
-paddle_tpu/ops/math_ops.py: gelu, sigmoid, tanh, elementwise_add and
-elementwise_mul with fluid's `axis` broadcasting, less_than, mul (fc's
-matmul), matmul, sum, scale, mean, cumsum, relu, sign, increment, softmax
-and top_k.  The matmuls are plain torch.matmul (TF32 off; bf16 summed in
+paddle_tpu/ops/math_ops.py: gelu, sigmoid, tanh, floor, log, square,
+logical_not, cast, elementwise_add, _sub, _mul and _min with fluid's
+`axis` broadcasting, less_than and equal, mul (fc's matmul), matmul,
+sum, scale, mean, reduce_sum, cumsum, relu, sign, increment, softmax and
+top_k.  The matmuls are plain torch.matmul (TF32 off; bf16 summed in
 fp32 and rounded once), as the JAX package leaves them to XLA.
 
 On a ragged (LoD) X, padded [B, T, ...] at run time where the program's
@@ -80,6 +81,48 @@ def _register_elementwise(name, fn):
 
 _register_elementwise("elementwise_add", torch.add)
 _register_elementwise("elementwise_mul", torch.mul)
+_register_elementwise("elementwise_sub", torch.sub)
+_register_elementwise("elementwise_min", torch.minimum)
+
+
+@register_op("equal")
+def _equal(ctx):
+    x, y = _promote(ctx.input("X"), ctx.input("Y"))
+    if x.dim() != y.dim():
+        y = _broadcast_y(x, y, ctx.attr("axis", -1))
+    return {"Out": torch.eq(x, y)}
+
+
+def _register_unary(name, fn):
+    register_op(name)(lambda ctx: {"Out": fn(ctx.input("X"))})
+
+
+_register_unary("floor", torch.floor)
+_register_unary("log", torch.log)
+_register_unary("square", torch.square)
+_register_unary("logical_not", torch.logical_not)
+
+
+@register_op("cast")
+def _cast(ctx):
+    from ..fluid import core as fcore
+    return {"Out": ctx.input("X").to(
+        fcore.convert_dtype_to_torch(ctx.attr("out_dtype")))}
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx):
+    """Over `dim` (every axis with `reduce_all`), in x's dtype as
+    jnp.sum (an int32 sum stays int32)."""
+    x = ctx.input("X")
+    if ctx.attr("reduce_all", False):
+        dim = tuple(range(x.dim()))
+    else:
+        dim = ctx.attr("dim", [0])
+        dim = tuple(d % x.dim() for d in
+                    ([dim] if isinstance(dim, int) else dim))
+    return {"Out": torch.sum(x, dim=dim, keepdim=ctx.attr("keep_dim", False),
+                             dtype=x.dtype)}
 
 
 @register_op("less_than")

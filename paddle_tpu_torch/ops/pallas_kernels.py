@@ -29,6 +29,7 @@ programs reach K1/K2 and K6, are registered here too.
 """
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -47,15 +48,18 @@ __all__ = ["decode_attention", "decode_attention_reference",
            "flash_attention_bwd_reference", "dequant_matmul",
            "dequant_matmul_reference", "fused_bottleneck",
            "fused_bottleneck_bf16_plan", "fused_bottleneck_fp32_plan",
-           "bottleneck_reference", "KernelError",
+           "bottleneck_reference", "pad_channels_call",
+           "pad_head_dim_call", "KernelError",
            "launch_counts", "reset_launch_counts"]
 
 # Finite mask value (not -inf), as in the TPU kernels: exp(_NEG_INF -
 # finite) underflows to an exact 0 and a fully masked row stays finite.
 _NEG_INF = -1e30
 _TINY = 1e-20
-# head dims the CUDA kernel takes: D / 4 lanes per cached row, a power
-# of two that divides a warp
+# head dims the decode kernel's templates are built for (D / 4 lanes per
+# cached row, a power of two that divides a warp); any D up to the
+# largest runs the next of them with the real D at run time, reading the
+# caches in place (csrc/decode_attention.cu, kRagged)
 _KERNEL_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 
 # kernel name -> launches of its CUDA kernel in this process (a call that
@@ -228,9 +232,9 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, kv_scales,
                              "%d-head scale table" % (head_offset,
                                                       head_offset + H,
                                                       h_total))
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError("decode_attention: head dim %d not in %s"
-                         % (D, _KERNEL_HEAD_DIMS))
+    if not 1 <= D <= _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError("decode_attention: head dim %d outside [1, %d]"
+                         % (D, _KERNEL_HEAD_DIMS[-1]))
     if not all(t.is_contiguous() for _, t in named + [("q", q)]):
         raise ValueError("decode_attention: inputs must be contiguous")
     out = torch.empty_like(q)
@@ -352,8 +356,44 @@ def decode_attention_head_slice(q, k_cache, v_cache, lengths, head_offset,
 # do) are fp32 or bf16, all alike; outputs are in their dtype.
 # ---------------------------------------------------------------------------
 
-# head dims the CUDA kernels are built for (fp32 and bf16 alike)
+# head dims the CUDA kernels are built for (fp32 and bf16 alike); a
+# smaller D runs zero-padded to the next of them (`_flash_width`)
 _FLASH_HEAD_DIMS = (64, 128)
+
+
+def _flash_width(D):
+    """The instantiated head dim a call of head dim D runs at."""
+    for w in _FLASH_HEAD_DIMS:
+        if D <= w:
+            return w
+    raise ValueError(
+        "flash_attention: head dim %d > %d is not taken on the card: the "
+        "kernels hold a 64-row tile of q, k and v, %d columns wide, in one "
+        "block's shared memory (ROADMAP.md queue 2, kernel work item 1)"
+        % (D, _FLASH_HEAD_DIMS[-1], _FLASH_HEAD_DIMS[-1]))
+
+
+def _pad_last(t, width):
+    """t zero-padded along its last axis to `width`."""
+    n = t.shape[-1]
+    return t if n == width else torch.nn.functional.pad(t, (0, width - n))
+
+
+def pad_head_dim_call(fn, width, tensors, *args):
+    """`fn(*tensors, *args)` with the [B, S, H, D] `tensors` zero-padded
+    along D to `width`, and fn's [B, S, H, width] outputs sliced back to
+    D (its [B, H, S] row statistics as they are).  The scale in `args`
+    is the original D's: the zero columns add nothing to q . k^T and
+    nothing to do . v, and they give zero columns of o, dq, dk and dv,
+    which the slice drops."""
+    D = tensors[0].shape[-1]
+    out = fn(*[_pad_last(t, width) for t in tensors], *args)
+
+    def back(t):
+        return t[..., :D].contiguous() if t.dim() == 4 else t
+
+    return tuple(back(t) for t in out) if isinstance(out, tuple) \
+        else back(out)
 
 
 class _T4(ctypes.Structure):
@@ -550,6 +590,10 @@ def _flash_launch(symbol, stem, args, device, count):
 def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, scale: float
                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    width = _flash_width(q.shape[-1])
+    if width != q.shape[-1]:
+        return pad_head_dim_call(_flash_fwd_cuda, width, (q, k, v), causal,
+                                 scale)
     shape = tuple(q.shape)
     B, S, H, D = _flash_check(q, [("q", q, shape), ("k", k, shape),
                                   ("v", v, shape)])
@@ -566,6 +610,11 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_bwd(kernel, q, k, v, do, lse, di, causal, scale, outs):
+    width = _flash_width(q.shape[-1])
+    if width != q.shape[-1]:
+        return list(pad_head_dim_call(
+            lambda *a: tuple(_flash_bwd(kernel, *a, outs)), width,
+            (q, k, v, do), lse, di, causal, scale))
     shape = tuple(q.shape)
     rows = (shape[0], shape[2], shape[1])
     B, S, H, D = _flash_check(q, [
@@ -907,8 +956,9 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
     W.  A CPU (or meta) tensor runs the plain version.  A CUDA tensor
     launches csrc/fused_bottleneck.cu on the current stream — its fp32
     kernel (3xTF32 tensor-core tiles at fp32 accuracy; any C, F and C4),
-    or its bf16 one (counted as `fused_bottleneck_bf16`; C, F and C4
-    multiples of 8, operands 16-byte aligned), every operand of x's
+    or its bf16 one (counted as `fused_bottleneck_bf16`; operands
+    16-byte aligned; C, F and C4 that are not multiples of 8 run
+    zero-padded to them, `pad_channels_call`), every operand of x's
     dtype — after checking device, dtypes,
     shapes and contiguity; it raises on anything the kernel does not
     take, and on a failed launch."""
@@ -953,11 +1003,11 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
             raise ValueError("fused_bottleneck: %s must be contiguous"
                              % name)
     if x.dtype == torch.bfloat16:
-        # the tensor-core kernel reads 16-byte rows of 8 channels
+        # the tensor-core kernel reads 16-byte rows of 8 channels: a
+        # ragged channel edge runs zero-padded to a multiple of 8
         if C % 8 or F % 8 or C4 % 8:
-            raise ValueError("fused_bottleneck: bf16 on the card takes C, F "
-                             "and C4 that are multiples of 8, got C %d, F "
-                             "%d, C4 %d" % (C, F, C4))
+            return pad_channels_call(fused_bottleneck, x, w0, b0, w1, b1,
+                                     w2, b2, ws, bs, s)
         for name, t, _ in named:
             if t.data_ptr() % 16:
                 raise ValueError("fused_bottleneck: bf16 %s must be 16-byte "
@@ -982,6 +1032,57 @@ def fused_bottleneck(x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
                           % (count, err))
     launch_counts[count] += 1
     return out
+
+
+# id(weight) -> (weakref to it, its version, its zero-padded copy): a
+# weight is padded once, and again only after an in-place change
+_PADDED_WEIGHTS = {}
+
+
+def _padded_once(t, shape):
+    """t zero-padded at the end of each axis to `shape`, made once per
+    weight tensor."""
+    if t is None or tuple(t.shape) == tuple(shape):
+        return t
+    try:
+        version = t._version
+    except RuntimeError:  # an inference tensor: never changed in place
+        version = None
+    key = id(t)
+    hit = _PADDED_WEIGHTS.get(key)
+    if hit is not None and hit[0]() is t and hit[1] == version \
+            and tuple(hit[2].shape) == tuple(shape):
+        return hit[2]
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    _PADDED_WEIGHTS[key] = (
+        weakref.ref(t, lambda _, k=key: _PADDED_WEIGHTS.pop(k, None)),
+        version, out)
+    return out
+
+
+def _up8(n):
+    return -(-n // 8) * 8
+
+
+def pad_channels_call(fn, x, w0, b0, w1, b1, w2, b2, ws=None, bs=None,
+                      stride=1):
+    """`fn` (fused_bottleneck or its plain version) on the bottleneck
+    with C, F and C4 zero-padded to multiples of 8: x's channels, the
+    folded filters and biases (each padded once, `_padded_once`) and the
+    shortcut; the output sliced back to C4 channels.  A zero input
+    channel meets zero filter taps and a zero bias, so every sum is
+    unchanged; the padded output channels are relu(0 + 0) = 0 and are
+    dropped."""
+    C, F, C4 = x.shape[-1], w0.shape[0], w2.shape[0]
+    Cp, Fp, C4p = _up8(C), _up8(F), _up8(C4)
+    xp = _pad_last(x, Cp).contiguous()
+    out = fn(xp, _padded_once(w0, (Fp, Cp, 1, 1)), _padded_once(b0, (Fp,)),
+             _padded_once(w1, (Fp, Fp, 3, 3)), _padded_once(b1, (Fp,)),
+             _padded_once(w2, (C4p, Fp, 1, 1)), _padded_once(b2, (C4p,)),
+             _padded_once(ws, (C4p, Cp, 1, 1)), _padded_once(bs, (C4p,)),
+             stride)
+    return out[..., :C4].contiguous()
 
 
 def _bottleneck_plan(kind, N, H, W, C, F, C4, stride, branch):

@@ -25,7 +25,7 @@ import torch
 import torch.utils.checkpoint
 
 __all__ = ["OpDef", "ExecContext", "OpError", "register_op", "get_op_def",
-           "has_op", "registered_ops", "infer_shape",
+           "has_op", "registered_ops", "infer_shape", "set_grad_maker",
            "make_forward_and_vjp", "call_lower", "set_amp", "amp_enabled",
            "AMP_WHITE", "AMP_BLACK"]
 
@@ -43,6 +43,10 @@ class OpDef:
     def __init__(self, type, lower, infer_shape=None):
         self.type = type
         self.lower = lower
+        # backward.py's hook: grad_maker(op, block, grad_map, no_grad_set,
+        # bw_ctx) emits the op's grad ops itself, or returns None to take
+        # the generic `<type>_grad`
+        self.grad_maker = None
         # shape inference of its own, for an op whose lowering cannot
         # run on the build-time shapes (a ragged op sees the packed
         # [rows, ...] layout there, the padded [B, T, ...] one at run
@@ -67,12 +71,16 @@ class ExecContext:
     program's random seed, the device it computes on and the
     data-parallel group (parallel/mesh.py DataParallelGroup, as the JAX
     context carries its mesh): None on one device; under a group a
-    lowering that reduces over the batch axis sums over the ranks."""
+    lowering that reduces over the batch axis sums over the ranks.  An
+    env op (fluid/functionalizer.py _ENV_OPS: conditional_block,
+    write_to_array) also sees the interpreter's env, which it reads and
+    writes by name."""
 
     __slots__ = ("op", "attrs", "_inputs", "step", "seed", "device",
-                 "group")
+                 "group", "env")
 
-    def __init__(self, op, inputs, step=0, seed=0, device=None, group=None):
+    def __init__(self, op, inputs, step=0, seed=0, device=None, group=None,
+                 env=None):
         self.op = op
         self.attrs = op.attrs
         self._inputs = inputs  # slot -> [values]
@@ -81,6 +89,7 @@ class ExecContext:
         self.device = torch.device("cpu") if device is None \
             else torch.device(device)
         self.group = group
+        self.env = env
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
@@ -161,6 +170,11 @@ def get_op_def(type):
 
 def has_op(type):
     return type in _REGISTRY
+
+
+def set_grad_maker(type, fn):
+    """Give a registered op its own grad maker (OpDef.grad_maker)."""
+    get_op_def(type).grad_maker = fn
 
 
 def registered_ops():
@@ -284,7 +298,7 @@ def make_forward_and_vjp(op, od, ctx):
             k += n
         outs = _normalize(call_lower(od, ExecContext(
             op, d, step=ctx.step, seed=ctx.seed, device=ctx.device,
-            group=ctx.group)))
+            group=ctx.group, env=ctx.env)))
 
     def vjp_to_slots(cotangents):
         ys, gs = [], []
@@ -380,7 +394,7 @@ def _amp_context(od, ctx):
               else _amp_cast(vals, to)
               for slot, vals in ctx._inputs.items()}
     return ExecContext(ctx.op, inputs, step=ctx.step, seed=ctx.seed,
-                       device=ctx.device, group=ctx.group)
+                       device=ctx.device, group=ctx.group, env=ctx.env)
 
 
 class OpError(RuntimeError):

@@ -1,5 +1,6 @@
 """Sequence (LoD) op lowerings, after paddle_tpu/ops/sequence_ops.py:
-sequence_pool and the dynamic LSTM (`lstm`).
+sequence_pool (and its first/last-step forms), sequence_softmax,
+sequence_expand, sequence_pad and the dynamic LSTM (`lstm`).
 
 A ragged var is a padded [B, T, ...] tensor plus its int32 [B] lengths
 (`ctx.lod_len`, fluid/functionalizer.py).  The JAX package runs the LSTM
@@ -167,3 +168,103 @@ def _lstm(ctx):
                                  ctx.attr("is_reverse", False))
     return {"Hidden": hidden, "Cell": cell,
             "Hidden@LOD_LEN": lens, "Cell@LOD_LEN": lens}
+
+
+def _pool_as(ctx, ptype):
+    ctx.attrs = dict(ctx.attrs, pooltype=ptype)
+    return _sequence_pool(ctx)
+
+
+@register_op("sequence_last_step", infer_shape=_infer_sequence_pool)
+def _sequence_last_step(ctx):
+    return _pool_as(ctx, "LAST")
+
+
+@register_op("sequence_first_step", infer_shape=_infer_sequence_pool)
+def _sequence_first_step(ctx):
+    return _pool_as(ctx, "FIRST")
+
+
+@register_op("sequence_softmax")
+def _sequence_softmax(ctx):
+    """Softmax over each sequence's real positions of X [B, T] (or [B, T,
+    1]); the padding scores -1e30 and outputs 0."""
+    x = ctx.input("X")
+    squeeze = x.dim() == 3 and x.shape[-1] == 1
+    xx = x[..., 0] if squeeze else x
+    B, T = xx.shape[0], xx.shape[1]
+    lens = _lens_or_full(ctx.lod_len("X"), B, T, x.device)
+    m = seq_mask(lens, T, xx.dtype)
+    logits = torch.where(m > 0, xx, torch.full_like(xx, -1e30))
+    out = torch.softmax(logits, dim=1) * m
+    return {"Out": out[..., None] if squeeze else out}
+
+
+def _conform(out, out_lens, Ty):
+    """The expanded [B, Tx, ...] padded or cut to Y's padded width Ty.  A
+    cut may only drop padding: a row whose length passes Ty is poisoned
+    with NaN (float outputs) rather than clipped, with no host read, as
+    the JAX lowering does under jit."""
+    if Ty >= out.shape[1]:
+        pad = [0, 0] * (out.dim() - 2) + [0, Ty - out.shape[1]]
+        return torch.nn.functional.pad(out, pad), out_lens
+    trimmed = out[:, :Ty]
+    if trimmed.is_floating_point():
+        bad = (out_lens > Ty).reshape((-1,) + (1,) * (out.dim() - 1))
+        trimmed = torch.where(bad, torch.full_like(trimmed, float("nan")),
+                              trimmed)
+    return trimmed, torch.clamp_max(out_lens, Ty)
+
+
+@register_op("sequence_expand")
+def _sequence_expand(ctx):
+    """A dense X [B, D...] tiled along ragged Y's time axis ([B, Ty, D...],
+    masked to Y's lengths, carrying them); a ragged X repeated k = By / Bx
+    times a row (Y's rows a static multiple of X's: the beam-style
+    case), keeping its own lengths, laid out at Y's padded width.  Y's
+    nested per-group counts (the @LOD_SEG path) are not ported."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    ylens = _lens_or_full(ctx.lod_len("Y"), y.shape[0], y.shape[1],
+                          y.device)
+    if x.dim() != y.dim():
+        T = y.shape[1]
+        out = x[:, None].expand((x.shape[0], T) + tuple(x.shape[1:]))
+        m = _expand_mask(seq_mask(ylens, T, x.dtype), out)
+        return {"Out": out * m, "Out@LOD_LEN": ylens}
+    Bx, By = x.shape[0], y.shape[0]
+    if By % Bx:
+        raise NotImplementedError(
+            "sequence_expand of a ragged X needs Y's rows to be a multiple "
+            "of X's (got %d and %d); nested Y counts (@LOD_SEG) are not "
+            "ported to paddle_tpu_torch yet (ROADMAP.md, queue 1 item 13)"
+            % (Bx, By))
+    k = By // Bx
+    xlens = ctx.lod_len("X")
+    out = torch.repeat_interleave(x, k, dim=0)
+    out_lens = torch.repeat_interleave(xlens, k, dim=0) \
+        if xlens is not None else torch.full(
+            (By,), x.shape[1], dtype=torch.int32, device=x.device)
+    out, out_lens = _conform(out, out_lens, y.shape[1])
+    m = _expand_mask(seq_mask(out_lens, out.shape[1], out.dtype), out)
+    return {"Out": out * m, "Out@LOD_LEN": out_lens}
+
+
+@register_op("sequence_pad")
+def _sequence_pad(ctx):
+    """The padded [B, T, ...] with PadValue past each length (T the
+    padded width, or `padded_length`), and the lengths as int64."""
+    x = ctx.input("X")
+    lens = _lens_or_full(ctx.lod_len("X"), x.shape[0], x.shape[1],
+                         x.device)
+    padded_length = ctx.attr("padded_length", -1)
+    T = x.shape[1] if padded_length in (None, -1, 0) else padded_length
+    out = x[:, :T]
+    if T > x.shape[1]:
+        out = torch.nn.functional.pad(
+            x, [0, 0] * (x.dim() - 2) + [0, T - x.shape[1]])
+    pad_value = ctx.input("PadValue")
+    if pad_value is not None:
+        m = _expand_mask(seq_mask(lens, T, x.dtype), out)
+        out = out * m + (1 - m) * pad_value.reshape(
+            (1, 1) + (1,) * (out.dim() - 2))
+    return {"Out": out, "Length": lens.to(torch.int64)}

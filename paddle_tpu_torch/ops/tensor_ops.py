@@ -1,6 +1,8 @@
 """Tensor creation / manipulation / RNG op lowerings, after
-paddle_tpu/ops/tensor_ops.py: fill_constant, assign, remat_tag,
-uniform_random, gaussian_random, reshape2, slice and where."""
+paddle_tpu/ops/tensor_ops.py: fill_constant,
+fill_constant_batch_size_like, fill_zeros_like, assign, remat_tag,
+uniform_random, gaussian_random, reshape2, slice, where, concat, gather,
+stack, unsqueeze(2), squeeze(2), expand, is_empty and print."""
 
 import numpy as np
 import torch
@@ -128,3 +130,113 @@ def _where(ctx):
     jnp.where."""
     x, y = _promote(ctx.input("X"), ctx.input("Y"))
     return {"Out": torch.where(ctx.input("Condition"), x, y)}
+
+
+@register_op("fill_constant_batch_size_like")
+def _fill_constant_bsl(ctx):
+    """`shape` with its output_dim_idx taken from Input's input_dim_idx
+    (the batch): a padded ragged Input gives its B."""
+    ref = ctx.input("Input")
+    shape = [int(d) for d in ctx.attr("shape")]
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        ref.shape[ctx.attr("input_dim_idx", 0)]
+    return {"Out": torch.full(tuple(shape), ctx.attr("value", 0.0),
+                              dtype=_torch_dtype(ctx.attr("dtype")),
+                              device=ref.device)}
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ctx):
+    return {"Out": torch.zeros_like(ctx.input("X"))}
+
+
+@register_op("concat")
+def _concat(ctx):
+    """Along `axis`; over ragged inputs an axis >= 1 moves past the
+    padded layout's time dim."""
+    axis = ctx.attr("axis", 0)
+    if axis >= 1 and any(n is not None for n in ctx.lod_lens("X")):
+        axis += 1
+    xs = ctx.inputs("X")
+    if any(x.is_floating_point() for x in xs):
+        dt = xs[0].dtype
+        for x in xs[1:]:
+            dt = torch.promote_types(dt, x.dtype)
+        xs = [x.to(dt) for x in xs]
+    return {"Out": torch.cat(xs, dim=axis)}
+
+
+@register_op("gather")
+def _gather(ctx):
+    """Rows of X at Index (an [N, 1] index is flattened)."""
+    x, idx = ctx.input("X"), ctx.input("Index")
+    if idx.dim() == 2 and idx.shape[1] == 1:
+        idx = idx.reshape(-1)
+    return {"Out": torch.index_select(x, 0, idx.to(torch.int64))}
+
+
+@register_op("stack")
+def _stack(ctx):
+    return {"Y": torch.stack(ctx.inputs("X"), dim=ctx.attr("axis", 0))}
+
+
+def _unsqueezed(x, axes):
+    for a in sorted(axes):
+        x = torch.unsqueeze(x, a)
+    return x
+
+
+def _squeezed(x, axes):
+    if not axes:
+        return torch.squeeze(x)
+    axes = tuple(a % x.dim() for a in axes if x.shape[a % x.dim()] == 1)
+    return torch.squeeze(x, axes) if axes else x
+
+
+@register_op("unsqueeze")
+def _unsqueeze(ctx):
+    return {"Out": _unsqueezed(ctx.input("X"), ctx.attr("axes"))}
+
+
+@register_op("unsqueeze2")
+def _unsqueeze2(ctx):
+    x = ctx.input("X")
+    return {"Out": _unsqueezed(x, ctx.attr("axes")),
+            "XShape": x.new_zeros((0,) + tuple(x.shape))}
+
+
+@register_op("squeeze")
+def _squeeze(ctx):
+    return {"Out": _squeezed(ctx.input("X"), ctx.attr("axes", []))}
+
+
+@register_op("squeeze2")
+def _squeeze2(ctx):
+    x = ctx.input("X")
+    return {"Out": _squeezed(x, ctx.attr("axes", [])),
+            "XShape": x.new_zeros((0,) + tuple(x.shape))}
+
+
+@register_op("expand")
+def _expand(ctx):
+    """X tiled `expand_times` along each axis (jnp.tile)."""
+    return {"Out": ctx.input("X").repeat(
+        tuple(int(t) for t in ctx.attr("expand_times")))}
+
+
+@register_op("is_empty")
+def _is_empty(ctx):
+    return {"Out": torch.tensor([ctx.input("X").numel() == 0],
+                                device=ctx.device)}
+
+
+@register_op("print")
+def _print(ctx):
+    """Prints `message` and the value in the forward phase; the
+    identity.  (A host read of the value, where the JAX package's
+    jax.debug.print is a device callback.)"""
+    x = ctx.input("In")
+    if x.device.type != "meta" and \
+            ctx.attr("print_phase", "both") in ("forward", "both"):
+        print((ctx.attr("message", "") or "") + " " + str(x))
+    return {"Out": x}

@@ -307,9 +307,10 @@ def test_cuda_autograd_and_torch_func_run_the_kernels():
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take():
     _need_cuda()
     q, k, v = _card_inputs(1, 64, 2, 64, seed=2, fused_qkv=False)
+    # a head dim below 128 runs zero-padded; past 128 it raises
+    wide = torch.randn(1, 64, 2, 160, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
-        torch_kernels.flash_attention_fwd(q[..., :32], k[..., :32],
-                                          v[..., :32])
+        torch_kernels.flash_attention_fwd(wide, wide, wide)
     with pytest.raises(TypeError, match="float32"):
         torch_kernels.flash_attention_fwd(q.double(), k.double(),
                                           v.double())

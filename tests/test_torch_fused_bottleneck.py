@@ -353,8 +353,9 @@ def test_cuda_bf16_kernel_matches_plain_version(N, H, W, C, F, stride,
 @pytest.mark.cuda
 def test_cuda_bf16_kernel_raises_on_channels_not_multiple_of_8():
     """The tensor-core K6-bf16 reads rows of 8 channels: a C, F or C4 that
-    is not a multiple of 8 raises ValueError naming the constraint (fp32
-    takes it)."""
+    is not a multiple of 8 no longer raises; it runs the bf16 kernel on
+    the channels zero-padded to multiples of 8 and matches the bf16 plain
+    version (fp32 takes any width as it is)."""
     _need_cuda()
     rng = np.random.RandomState(3)
     for C, F, C4, branch in ((12, 8, 32, True), (16, 12, 48, True),
@@ -366,8 +367,13 @@ def test_cuda_bf16_kernel_raises_on_channels_not_multiple_of_8():
         tkernels.fused_bottleneck(x, *args, stride=s)   # fp32: any width
         xb = x.to(torch.bfloat16)
         argsb = [None if t is None else t.to(torch.bfloat16) for t in args]
-        with pytest.raises(ValueError, match="multiples of 8"):
-            tkernels.fused_bottleneck(xb, *argsb, stride=s)
+        tkernels.reset_launch_counts()
+        out = tkernels.fused_bottleneck(xb, *argsb, stride=s)
+        assert tkernels.launch_counts["fused_bottleneck_bf16"] == 1
+        ref = tkernels.bottleneck_reference(xb, *argsb, s)
+        assert out.shape == ref.shape
+        _assert_bf16_close(out.float().cpu().numpy(),
+                           ref.float().cpu().numpy())
 
 
 @pytest.mark.cuda

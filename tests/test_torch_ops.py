@@ -271,6 +271,80 @@ _CASES = [
     ("lookup_table_ragged", "lookup_table",
      {"W": [_f(10, 4)], "Ids": [_i(10, 3, 5, 1)],
       "Ids@LOD_LEN": [_len(2, 5, 1)]}, {"padding_idx": -1}),
+    # the ops of control flow and machine translation
+    ("elementwise_sub", "elementwise_sub",
+     {"X": [_f(2, 3, 4)], "Y": [_f(3)]}, {"axis": 1}),
+    ("elementwise_min", "elementwise_min",
+     {"X": [("ties", (3, 4))], "Y": [_f(4)]}, {"axis": -1}),
+    ("equal", "equal", {"X": [_i(3, 3, 4)], "Y": [_i(3, 3, 4)]}, {}),
+    ("floor", "floor", {"X": [_f(3, 4)]}, {}),
+    ("log", "log", {"X": [("pos", (3, 4))]}, {}),
+    ("square", "square", {"X": [_f(3, 4)]}, {}),
+    ("logical_not", "logical_not", {"X": [("bool", (3, 4))]}, {}),
+    ("cast_to_int", "cast", {"X": [_f(3, 4)]},
+     {"in_dtype": FP32, "out_dtype": INT64}),
+    ("cast_to_float", "cast", {"X": [_i(9, 3, 4)]},
+     {"in_dtype": INT64, "out_dtype": FP32}),
+    ("reduce_sum_dim", "reduce_sum", {"X": [_f(2, 3, 4)]},
+     {"dim": [1], "keep_dim": False, "reduce_all": False}),
+    ("reduce_sum_all", "reduce_sum", {"X": [_f(2, 3, 4)]},
+     {"dim": [0], "keep_dim": True, "reduce_all": True}),
+    ("fill_constant_batch_size_like", "fill_constant_batch_size_like",
+     {"Input": [_f(5, 3)]}, {"shape": [-1, 2], "dtype": FP32, "value": 0.5}),
+    ("fill_zeros_like", "fill_zeros_like", {"X": [_f(3, 4)]}, {}),
+    ("concat", "concat", {"X": [_f(2, 3), _f(2, 5)]}, {"axis": 1}),
+    ("concat_ragged", "concat",
+     {"X": [_f(3, 5, 2), _f(3, 5, 4)], "X@LOD_LEN": [_len(2, 5, 1),
+                                                      _len(2, 5, 1)]},
+     {"axis": 1}),
+    ("gather", "gather", {"X": [_f(5, 3)], "Index": [_i(5, 4)]}, {}),
+    ("gather_column", "gather", {"X": [_f(5, 2, 3)], "Index": [_i(5, 4, 1)]},
+     {}),
+    ("stack", "stack", {"X": [_f(2, 3), _f(2, 3), _f(2, 3)]}, {"axis": 1}),
+    ("unsqueeze", "unsqueeze", {"X": [_f(2, 3)]}, {"axes": [0, 2]}),
+    ("unsqueeze2", "unsqueeze2", {"X": [_f(2, 3)]}, {"axes": [1]}),
+    ("squeeze", "squeeze", {"X": [_f(2, 1, 3, 1)]}, {"axes": [1, -1]}),
+    ("squeeze2", "squeeze2", {"X": [_f(2, 1, 3)]}, {"axes": [1]}),
+    ("expand", "expand", {"X": [_f(2, 1, 3)]}, {"expand_times": [1, 3, 2]}),
+    ("is_empty", "is_empty", {"X": [_f(2, 3)]}, {}),
+    ("print", "print", {"In": [_f(2, 3)]},
+     {"message": "parity", "print_phase": "forward"}),
+    ("sequence_first_step", "sequence_first_step",
+     {"X": [_f(3, 4, 2)], "X@LOD_LEN": [_len(2, 4, 1)]}, {}),
+    ("sequence_last_step", "sequence_last_step",
+     {"X": [_f(3, 4, 2)], "X@LOD_LEN": [_len(2, 4, 1)]}, {}),
+    ("sequence_softmax", "sequence_softmax",
+     {"X": [_f(3, 5, 1)], "X@LOD_LEN": [_len(2, 5, 1)]}, {}),
+    ("sequence_softmax_2d", "sequence_softmax",
+     {"X": [_f(3, 5)], "X@LOD_LEN": [_len(4, 1, 5)]}, {}),
+    ("sequence_expand_dense_x", "sequence_expand",
+     {"X": [_f(3, 4)], "Y": [_f(3, 5, 4)], "Y@LOD_LEN": [_len(2, 5, 1)]},
+     {"ref_level": -1}),
+    ("sequence_expand_ragged_x", "sequence_expand",
+     {"X": [_f(2, 3, 4)], "Y": [_f(4, 5, 4)],
+      "X@LOD_LEN": [_len(3, 1)], "Y@LOD_LEN": [_len(2, 5, 1, 3)]},
+     {"ref_level": -1}),
+    ("sequence_pad", "sequence_pad",
+     {"X": [_f(3, 5, 2)], "PadValue": [_f(1)],
+      "X@LOD_LEN": [_len(2, 5, 0)]}, {"padded_length": -1}),
+    ("lod_rank_table", "lod_rank_table",
+     {"X": [_f(5, 3, 2)], "X@LOD_LEN": [_len(2, 3, 1, 3, 3)]},
+     {"level": 0}),
+    ("reorder_lod_tensor_by_rank", "reorder_lod_tensor_by_rank",
+     {"X": [_f(4, 3, 2)], "RankTable": [_i(4, 4)],
+      "X@LOD_LEN": [_len(2, 3, 1, 3)]}, {}),
+    ("split_lod_tensor", "split_lod_tensor",
+     {"X": [_f(4, 3)], "Mask": [("bool", (4, 1))]}, {}),
+    ("merge_lod_tensor", "merge_lod_tensor",
+     {"InTrue": [_f(4, 3)], "InFalse": [_f(4, 3)],
+      "Mask": [("bool", (4, 1))], "X": [_f(4, 3)]}, {}),
+    ("beam_search", "beam_search",
+     {"pre_ids": [_i(4, 6, 1)], "pre_scores": [_f(6, 1)],
+      "scores": [_f(6, 5)]},
+     {"beam_size": 3, "end_id": 1, "level": 0, "is_accumulated": True}),
+    ("beam_search_decode", "beam_search_decode",
+     {"Ids": [_i(4, 5, 6)], "Scores": [_f(5, 6)],
+      "ParentIdx": [_i(6, 5, 6)]}, {"beam_size": 3, "end_id": 1}),
 ]
 
 # the cases above again with their float inputs in bf16 ("X" slots), or
@@ -303,7 +377,14 @@ _BF16_CASES = {
 # (test_torch_fused_bottleneck, test_torch_resnet_inference,
 # test_torch_dequant_matmul)
 _ELSEWHERE = {"uniform_random", "gaussian_random", "fused_bottleneck",
-              "dequant_mul", "dequant_conv2d", "dequant_lookup_table"}
+              "dequant_mul", "dequant_conv2d", "dequant_lookup_table",
+              # ops over sub-blocks and tensor arrays (the env and the
+              # interpreter), held in whole programs and on the arrays
+              # in test_torch_control_flow.py, test_torch_contrib_
+              # decoder.py and test_torch_machine_translation.py
+              "while", "conditional_block", "recurrent", "write_to_array",
+              "read_from_array", "array_length", "array_to_lod_tensor",
+              "lod_tensor_to_array", "max_sequence_len"}
 
 
 def _make(spec, rng):

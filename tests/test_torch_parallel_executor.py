@@ -40,11 +40,13 @@ import torch
 import paddle_tpu.fluid as jfluid
 import paddle_tpu_torch.fluid as tfluid
 import torch_dp_worker as W
+from paddle_tpu.models import machine_translation as jmt
 from paddle_tpu.models import resnet as jresnet
 from paddle_tpu.models import stacked_dynamic_lstm as jlstm
 from paddle_tpu.parallel.mesh import DATA_AXIS, make_mesh
 from paddle_tpu_torch.flags import FLAGS
 from paddle_tpu_torch.fluid import functionalizer
+from paddle_tpu_torch.models import machine_translation as tmt
 from paddle_tpu_torch.models import resnet as tresnet
 from paddle_tpu_torch.models import stacked_dynamic_lstm as tlstm
 from paddle_tpu_torch.parallel import mesh
@@ -60,7 +62,7 @@ ACC_RTOL = 1e-2
 SPAWN_TIMEOUT_S = 240
 LANES = {2: ["coeff", "wg", "remat", "one", "one_wg", "loop", "loop_runs",
              "lstm", "ragged", "cumsum", "slice", "slice_keep", "softmax",
-             "reshape"],
+             "reshape", "mt"],
          4: ["coeff", "lstm", "ragged"]}
 
 
@@ -140,6 +142,9 @@ def _nets():
                    lambda: W.ragged_mean_net(tfluid),
                    lambda pkg: W.ragged_batches(pkg.LoDTensor, steps=3,
                                                 labels=False)),
+        "mt": (lambda: W.small_mt(jfluid, jmt),
+               lambda: W.small_mt(tfluid, tmt),
+               lambda pkg: W.mt_batches(pkg.LoDTensor)),
         **{"rowmix_" + op: (lambda op=op: W.rowmix_net(jfluid, op),
                             lambda op=op: W.rowmix_net(tfluid, op),
                             lambda pkg: W.rowmix_batches())
@@ -650,3 +655,18 @@ def test_a_reshape_folding_the_batch_axis_raises_at_construction(world2):
     for a in arrays:
         err = str(a["reshape/error"])
         assert "reshape2" in err and "batch axis" in err, err
+
+
+def test_machine_translation_matches_the_executor_on_the_global_batch(
+        world2, references):
+    """The seq2seq model's DynamicRNN (a `recurrent` op over a sub-block)
+    under a 2-rank world: the ops inside the step are judged by the
+    row-mixing check like any other (a step's [B, D] slice is
+    batch-sharded as its sequence is, and none mixes rows), and each rank
+    computes the Executor's step on the global batch."""
+    n, arrays = world2
+    want, _, wstates = references["mt"]
+    for rank in range(n):
+        _close(arrays[rank]["mt/losses"], want, what="rank %d" % rank)
+    _close_state(_states(arrays[0], "mt"), wstates[-1], -1,
+                 what="executor")

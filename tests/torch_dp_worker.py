@@ -142,6 +142,37 @@ def ragged_batches(LoDTensor, steps=STEPS, global_bs=GLOBAL_BATCH,
     return out
 
 
+def small_mt(pkg, models):
+    """models.machine_translation's training program at widths of 16
+    (dict 30): the bi-LSTM encoder and the DynamicRNN attention decoder
+    (a `recurrent` op over a sub-block); Adam 0.01.  (main, startup,
+    loss)."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        loss = models.seq_to_seq_net(16, 16, 16, 30, 30)[0]
+        pkg.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    return main, startup, loss
+
+
+def mt_batches(LoDTensor, steps=3, global_bs=GLOBAL_BATCH):
+    """Per step the source, target and label sequences of `global_bs`
+    pairs, lengths 1-7, the label's the target's."""
+    rng = np.random.RandomState(13)
+    out = []
+    for _ in range(steps):
+        feed = {}
+        src, trg = (rng.randint(1, 8, size=global_bs) for _ in range(2))
+        for name, lens in (("source_sequence", src),
+                           ("target_sequence", trg),
+                           ("label_sequence", trg)):
+            t = LoDTensor(rng.randint(1, 30, size=(int(lens.sum()), 1))
+                          .astype(np.int64))
+            t.set_recursive_sequence_lengths([lens.tolist()])
+            feed[name] = t
+        out.append(feed)
+    return out
+
+
 def rowmix_net(pkg, op):
     """fc 4 -> 3, then an op that mixes rows of the batch axis, then the
     loss mean(r * r); SGD 0.1.  `op`: "cumsum" (along axis 0), "slice"
@@ -319,6 +350,8 @@ def scenario_train(tid, world, workdir, lanes):
       loop    — run_loop(3) on the first batch; loop_runs — 3 run()s of it;
       lstm    — the small stacked_dynamic_lstm, 3 steps, ragged feeds;
       ragged  — ragged_mean_net, 3 steps (the ragged mean);
+      mt      — small_mt, 3 steps: a `recurrent` sub-block and its
+                per-step [B, D] slices under the world;
       cumsum, slice, slice_keep, softmax — rowmix_net with that op,
                 3 steps;
                 fetches the op's output;
@@ -328,6 +361,7 @@ def scenario_train(tid, world, workdir, lanes):
 
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.models import machine_translation
     from paddle_tpu_torch.models import resnet
     from paddle_tpu_torch.models import stacked_dynamic_lstm
 
@@ -372,6 +406,11 @@ def scenario_train(tid, world, workdir, lanes):
                     fluid, lambda: small_lstm(fluid, stacked_dynamic_lstm),
                     os.path.join(workdir, "init_lstm.npz"),
                     ragged_batches(fluid.LoDTensor, steps=3), tid, world)
+            elif lane == "mt":
+                losses, _, state = _train_lane(
+                    fluid, lambda: small_mt(fluid, machine_translation),
+                    os.path.join(workdir, "init_mt.npz"),
+                    mt_batches(fluid.LoDTensor), tid, world)
             elif lane in ("cumsum", "slice", "slice_keep", "softmax"):
                 init = os.path.join(workdir, "init_rowmix_%s.npz" % lane)
                 r = rowmix_net(fluid, lane)[3]
