@@ -98,6 +98,24 @@ Phases, in order; any failure exits non-zero:
                0) with 2 steps in flight leaves the state bit-equal to a
                run without that batch.  Prints steps/s and the device
                busy share (profiled again) of the sync and async runs.
+  6d. update region — the full-width transformer (models.transformer.
+               build, fp32, batch 8 x 512, dropout 0) trained 5 steps on
+               one batch with noam_decay(512, 4000), Adam (0.9, 0.98,
+               1e-9) and set_gradient_clip(GradientClipByGlobalNorm(1.0),
+               program=main), then the same under AMP.  Gates: finite,
+               falling losses, the LR read back each step equal to the closed
+               form (1e-6), the clipped gradients' global norm at most
+               1 + 1e-5, K1/K2 6 x 5 launches each in the lane's dtype.
+               Prints steps/s, median step ms and the busy share.  Then
+               a bag-of-words classifier over a sparse 32000 x 512 table
+               (embedding(is_sparse=True): a SelectedRows grad), batch 8
+               x 512 ids, mean-pooled, fc, softmax cross entropy, 3 steps
+               under SGD, Momentum, Adam, Adam lazy, Adagrad, RMSProp,
+               Adamax, Adadelta, DecayedAdagrad, Ftrl and LarsMomentum on
+               the card and on the CPU from one startup state: losses
+               within 1e-5, every persistable within 1e-5 of its array's
+               largest magnitude; the sparse SGD program's state equal to
+               the dense program's on the card (1e-5).
   7. resnet  — ResNet-50 inference through the user's entry points
                (models.resnet.get_model(is_train=False, layout="NHWC"),
                224 x 224, 1000 classes; startup seed 7, seeded batch-norm
@@ -230,15 +248,17 @@ Phases, in order; any failure exits non-zero:
                on the card equal to the CPU's (ids; scores within 1e-5).
 Phase 2 also holds the coverage cases against their plain versions,
 at the shapes the coverage paths of 6c give the kernels: K1/K2 at head
-dims 32 and 96 (fp32 and bf16, zero-padded along D to 64 / 128; batch
-4 x seq 256, 16 and 8 heads, q/k/v sliced from one fused qkv), K3/K4
-at head dims 48, 50 and 96 (a runtime D in the 64 / 128 template,
-caches read in place; 4 slots x 128 positions, 8 heads), K6-bf16 at
-C/F/C4 60/20/84 (padded to multiples of 8); each is a kernels-line row
-of its own.  6c drives the user paths at those head dims — the
-transformer's training (fp32 and AMP) at head dims 32 and 96 and decode
-serving (fp32 and int8 KV, tokens equal to the CPU's) at 48, 50 and 96
-— and their launches are the coverage rows'.
+dims 32, 96, 192 and 256 (fp32 and bf16, zero-padded along D to 64 /
+128 / 256, 256 as it is in the 32-row-tile instantiation; batch 4 x seq
+256, 16, 8, 4 and 4 heads, q/k/v sliced from one fused qkv), K3/K4 at
+head dims 48, 50, 96, 192 and 256 (a runtime D in the 64 / 128 / 256
+template, caches read in place; 4 slots x 128 positions, 8 heads, 4 at
+192 and 256), K6-bf16 at C/F/C4 60/20/84 (padded to multiples of 8);
+each is a kernels-line row of its own.  6c drives the user paths at
+those head dims — the transformer's training (fp32 and AMP) at head
+dims 32, 96, 192 and 256 and decode serving (fp32 and int8 KV, tokens
+equal to the CPU's) at 48, 50, 96, 192 and 256 — and their launches
+are the coverage rows'.
 Phase 2 also holds K5 (dequant_matmul) and K6 (fused_bottleneck) against
 their plain versions: K5 at the int8 lane's fc shape (bf16 x and fp32 x)
 and four others, K6
@@ -284,16 +304,50 @@ SPIN_CYCLES = 2_000_000
 # The coverage shapes: head dims and channel edges off the kernels'
 # instantiated widths, as the user paths of phase 6c hand them over.  The
 # transformer's training at batch x seq COVER_TRAIN_BS, (D, d_model,
-# heads): K1/K2 run zero-padded along D to 64 / 128, scaled by the
-# original D
+# heads): K1/K2 run zero-padded along D to 64 / 128 / 256, scaled by the
+# original D (256 runs the 32-row-tile instantiation as it is)
 COVER_TRAIN_BS = (4, 256)
-COVER_TRAIN = ((32, 512, 16), (96, 768, 8))
+COVER_TRAIN = ((32, 512, 16), (96, 768, 8), (192, 768, 4), (256, 1024, 4))
 # decode serving on COVER_SLOTS slots of COVER_SEQ positions, (D,
 # d_model, heads): K3/K4 take a runtime D beside the template's and read
 # the caches in place (D 50 is not a multiple of their 4- and 16-element
-# loads)
+# loads; 192 runs in the 256 template, whose lanes load 8 elements)
 COVER_SLOTS, COVER_SEQ = 4, 128
-COVER_SERVE = ((48, 384, 8), (50, 400, 8), (96, 768, 8))
+COVER_SERVE = ((48, 384, 8), (50, 400, 8), (96, 768, 8), (192, 768, 4),
+               (256, 1024, 4))
+# The update region's slice (phase 6d): the full-width transformer
+# trained NOAM_STEPS steps with noam_decay(512, NOAM_WARMUP), Adam (0.9,
+# 0.98, 1e-9) and GradientClipByGlobalNorm(CLIP_NORM), fp32 then AMP;
+# then a bag-of-words classifier over a sparse SPARSE_VOCAB x SPARSE_DIM
+# table (the transformer's), batch SPARSE_BATCH x SPARSE_T ids, trained
+# SPARSE_STEPS steps under each optimizer of SPARSE_OPTIMIZERS
+NOAM_STEPS = 5
+NOAM_WARMUP = 4000
+CLIP_NORM = 1.0
+SPARSE_VOCAB, SPARSE_DIM = 32000, 512
+SPARSE_BATCH, SPARSE_T, SPARSE_CLASSES = 8, 512, 10
+SPARSE_STEPS = 3
+SPARSE_SEED = 13
+SPARSE_OPTIMIZERS = (
+    ("SGD", lambda o: o.SGD(0.5)),
+    ("Momentum", lambda o: o.Momentum(0.2, 0.9)),
+    # The epsilons that divide a step (Adam's, Adamax's, Adagrad's and
+    # DecayedAdagrad's) are set so that lr / epsilon is 1e4 or less: an
+    # element whose gradient is below epsilon steps by ~lr * g /
+    # epsilon, which turns the card's and the CPU's fp32 summation-order
+    # differences in g into differences of the table's elements.  At
+    # the defaults (Adam 0.01 / 1e-8, Adagrad 0.1 / 1e-6) those reached
+    # 1.06e-5 and 4.78e-5 of the table's largest magnitude, on the H100
+    ("Adam", lambda o: o.Adam(0.01, epsilon=1e-6)),
+    ("Adam lazy", lambda o: o.Adam(0.01, epsilon=1e-6, lazy_mode=True)),
+    ("Adagrad", lambda o: o.Adagrad(0.1, epsilon=1e-4)),
+    ("RMSProp", lambda o: o.RMSProp(0.01, momentum=0.5)),
+    ("Adamax", lambda o: o.Adamax(0.01, epsilon=1e-6)),
+    ("Adadelta", lambda o: o.Adadelta(1.0)),
+    ("DecayedAdagrad", lambda o: o.DecayedAdagrad(0.1, epsilon=1e-4)),
+    ("Ftrl", lambda o: o.Ftrl(0.1, l1=1e-4, l2=1e-4)),
+    ("LarsMomentum", lambda o: o.LarsMomentum(0.5, 0.9)),
+)
 # K6-bf16 at a channel edge that is not a multiple of 8 (C, F and C4
 # zero-padded to 64, 24 and 88): N, H, W, C, F, C4, stride, branch
 COVER_K6 = (8, 28, 28, 60, 20, 84, 2, True)
@@ -703,17 +757,17 @@ BF16_RTOL = 2.0 ** -7
 
 
 # (library stem, kernel tag, instances, the tensor-core input type its
-# machine code must hold: "bf16" or "tf32").  K1/K2 have a D = 64 and a
-# D = 128 instance; fp32 K6 one per tile height; K5 one per output dtype.
+# machine code must hold: "bf16" or "tf32").  K1/K2 have a D = 64, a
+# D = 128 and a D = 256 instance; fp32 K6 one per tile height; K5 one per output dtype.
 # The bf16 kernels run bf16 mma.sync, fp32 K1, K2 and K6 tf32 mma.sync
 # (3xTF32), fp32-x K5 tf32 mma.sync (two products)
-SASS_KERNELS = [("flash_attention_fwd", "flash_fwd_tc_kernel", 2, "bf16"),
-                ("flash_attention_fwd", "flash_fwd_kernel", 2, "tf32"),
-                ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 2, "bf16"),
-                ("flash_attention_bwd", "flash_bwd_dq_kernel", 2, "tf32"),
-                ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 2,
+SASS_KERNELS = [("flash_attention_fwd", "flash_fwd_tc_kernel", 3, "bf16"),
+                ("flash_attention_fwd", "flash_fwd_kernel", 3, "tf32"),
+                ("flash_attention_bwd", "flash_bwd_dq_tc_kernel", 3, "bf16"),
+                ("flash_attention_bwd", "flash_bwd_dq_kernel", 3, "tf32"),
+                ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel", 3,
                  "bf16"),
-                ("flash_attention_bwd", "flash_bwd_dkv_kernel", 2, "tf32"),
+                ("flash_attention_bwd", "flash_bwd_dkv_kernel", 3, "tf32"),
                 ("fused_bottleneck", "bottleneck_tc_kernel", 1, "bf16"),
                 ("fused_bottleneck", "bottleneck_kernel", 2, "tf32"),
                 ("dequant_matmul", "dequant_matmul_tc_kernel", 2, "bf16"),
@@ -761,8 +815,8 @@ def phase_flash_kernels(torch, pk, cover, dtype=None):
     """K1 and both K2 kernels against their plain versions at the training
     slice's shape (q/k/v as column slices of one fused qkv tensor, as the
     program hands them over), a non-causal and a ragged shape, and the
-    coverage training path's shapes (COVER_TRAIN: head dims 32 and 96,
-    zero-padded to 64 / 128); then device times at the slice's shape and
+    coverage training path's shapes (COVER_TRAIN: head dims 32, 96, 192
+    and 256, zero-padded to 64 / 128 / 256); then device times at the slice's shape and
     the coverage shapes, whose kernels-line rows are appended to `cover`.
     `dtype` torch.bfloat16 runs the bf16 variants (AMP training) against
     the bf16 plain versions."""
@@ -4321,11 +4375,12 @@ def phase_coverage_paths(torch, pk, fluid, transformer, decode, tmp):
     launch counts zeroed just before and read just after:
       * the transformer's training program (models.transformer.get_model,
         2 layers, batch x seq COVER_TRAIN_BS) at COVER_TRAIN's head dims
-        (32: d_model 512, 16 heads; 96: d_model 768, 8 heads), 3 Adam
-        steps fp32 and 3 under AMP: the losses finite, K1, K2-dq and
-        K2-dkv 2 x 3 launches each in the lane's dtype;
-      * decode serving on models of COVER_SERVE's head dims (48, 50 and
-        96), 2 layers, COVER_SEQ positions: greedy decode of 4 prompts on
+        (32: d_model 512, 16 heads; 96: d_model 768, 8 heads; 192: 768,
+        4; 256: 1024, 4), 3 Adam steps fp32 and 3 under AMP: the losses
+        finite, K1, K2-dq and K2-dkv 2 x 3 launches each in the lane's
+        dtype;
+      * decode serving on models of COVER_SERVE's head dims (48, 50, 96,
+        192 and 256), 2 layers, COVER_SEQ positions: greedy decode of 4 prompts on
         COVER_SLOTS slots, up to 8 tokens each, with fp32 and int8 KV
         caches, K3 / K4 2 launches a decode step; the tokens equal the
         CPU predictor's with the same KV cache type.
@@ -4411,6 +4466,266 @@ def phase_coverage_paths(torch, pk, fluid, transformer, decode, tmp):
             del pred
         out[("serve", D)] = counts
     return out
+
+
+# ---------------------------------------------------------------------------
+# 6d. the update region: noam + global-norm clipping at full width, and
+# sparse (SelectedRows) embedding gradients under every optimizer
+# ---------------------------------------------------------------------------
+
+def _noam_clip_program(fluid, transformer, B, S):
+    """The full-width transformer (models.transformer.build) with
+    noam_decay(512, NOAM_WARMUP), Adam (0.9, 0.98, 1e-9) and
+    GradientClipByGlobalNorm(CLIP_NORM) given to its program; dropout at
+    0 so one repeated batch sees one forward.  Returns (main, startup,
+    loss, lr, the gradients' global norm the clip computes, the clipped
+    gradients' global norm)."""
+    w = FULL_WIDTH
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = TRAIN_SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        layers = fluid.layers
+        tokens = layers.data("tokens", shape=[S], dtype="int64")
+        labels = layers.data("labels", shape=[S], dtype="int64")
+        logits = transformer.build(tokens, w["vocab_size"], S, w["d_model"],
+                                   w["n_heads"], w["n_layers"],
+                                   4 * w["d_model"])
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.reshape(logits, [-1, w["vocab_size"]]),
+            layers.reshape(labels, [-1, 1])))
+        lr = layers.noam_decay(w["d_model"], NOAM_WARMUP)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(CLIP_NORM), program=main)
+        _, params_grads = fluid.optimizer.Adam(
+            lr, beta1=0.9, beta2=0.98, epsilon=1e-9).minimize(loss)
+        norm = layers.sqrt(layers.sums(
+            [layers.reduce_sum(layers.square(g)) for _, g in params_grads]))
+    # the clip's own global norm: the first sqrt of the program
+    pre = next(op for op in main.global_block().ops
+               if op.type == "sqrt").output("Out")[0]
+    for op in main.global_block().ops:
+        if op.type == "dropout":
+            op.attrs["dropout_prob"] = 0.0
+    return main, startup, loss, lr, pre, norm
+
+
+def phase_noam_clip_train(torch, pk, fluid, transformer, amp=False):
+    """NOAM_STEPS steps of the noam-and-clip transformer on one repeated
+    batch at full width (batch 8 x 512), the launch counts zeroed just
+    before the steps and read just after: finite, falling losses, the LR
+    read back each step equal to the closed form, the
+    clipped gradients' global norm at most CLIP_NORM, K1 and K2 launched
+    layers x steps times each in the lane's dtype; steps/s, median step
+    ms and the device's busy share over one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    label = "noam clip train" + (" amp" if amp else "")
+    B, S = 8, 512
+    n_layers, d_model = FULL_WIDTH["n_layers"], FULL_WIDTH["d_model"]
+    main, startup, loss, lr, pre, norm = _noam_clip_program(
+        fluid, transformer, B, S)
+    types_ = [op.type for op in main.global_block().ops]
+    check(types_[0] == "increment" and types_.count("squared_l2_norm")
+          == len(main.all_parameters()),
+          "%s: the program lacks the counter or the clip" % label)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    feed = _batch(np.random.RandomState(TRAIN_SEED), B, S,
+                  FULL_WIDTH["vocab_size"])
+    dtype = torch.bfloat16 if amp else torch.float32
+    fluid.set_amp(amp)
+    try:
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            torch.cuda.synchronize()
+            pk.reset_launch_counts()
+            losses, lrs, pres, norms, step_s = [], [], [], [], []
+            for _ in range(NOAM_STEPS):
+                t0 = time.perf_counter()
+                got = exe.run(main, feed=feed,
+                              fetch_list=[loss, lr, pre, norm])
+                step_s.append(time.perf_counter() - t0)
+                got = [float(np.asarray(g).ravel()[0]) for g in got]
+                for out, g in zip((losses, lrs, pres, norms), got):
+                    out.append(g)
+            counts = dict(pk.launch_counts)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                exe.run(main, feed=feed, fetch_list=[loss])
+                prof_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fluid.set_amp(False)
+    want_lrs = [d_model ** -0.5 * min(t ** -0.5, NOAM_WARMUP ** -1.5 * t)
+                for t in range(1, NOAM_STEPS + 1)]
+    log("%s: losses %s; lr read back %s (closed form %s); gradients' "
+        "global norm %s, clipped %s" % (
+            label, ["%.6f" % x for x in losses], ["%.6g" % x for x in lrs],
+            ["%.6g" % x for x in want_lrs], ["%.6g" % x for x in pres],
+            ["%.6g" % x for x in norms]))
+    check(all(np.isfinite(losses)), "%s: non-finite loss %s"
+          % (label, losses))
+    check(losses[-1] < losses[0], "%s: the loss did not fall over %d "
+          "steps on one batch: %s" % (label, NOAM_STEPS, losses))
+    check(all(abs(a - b) <= 1e-6 * b for a, b in zip(lrs, want_lrs)),
+          "%s: lr %s, closed form %s" % (label, lrs, want_lrs))
+    check(all(n <= CLIP_NORM + 1e-5 for n in norms),
+          "%s: clipped global norm %s above %g" % (label, norms, CLIP_NORM))
+    # the clip scales by CLIP_NORM / max(norm, CLIP_NORM)
+    check(all(abs(n - min(p, CLIP_NORM)) <= 1e-4 * min(p, CLIP_NORM)
+              for p, n in zip(pres, norms)),
+          "%s: clipped norms %s for gradient norms %s" % (label, norms,
+                                                          pres))
+    for name in FLASH_KERNELS:
+        c = counts[pk._count_name(name, dtype)]
+        check(c == n_layers * NOAM_STEPS, "%s: %s launched %d times in %d "
+              "steps x %d layers" % (label, name, c, NOAM_STEPS, n_layers))
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    device_ms, rows = profile_rows(torch, prof, 1)
+    busy = 100.0 * device_ms / step_ms if rows else None
+    log("%s: %d steps of %d tokens: median step %.3f ms (first %.1f ms) -> "
+        "%.3f steps/s; device busy %s of the step (one profiled step, host "
+        "%.3f ms under the profiler); K1/K2 launches %s"
+        % (label, NOAM_STEPS, B * S, step_ms, step_s[0] * 1e3,
+           1e3 / step_ms, "%.1f%%" % busy if rows else "not measured",
+           prof_ms, {pk._count_name(n, dtype): counts[pk._count_name(
+               n, dtype)] for n in FLASH_KERNELS}))
+    log(json.dumps({label.replace(" ", "_"): {
+        "losses": losses, "lr": lrs, "grad_norm": pres,
+        "clipped_norm": norms,
+        "step_ms": [x * 1e3 for x in step_s], "median_step_ms": step_ms,
+        "steps_per_s": 1e3 / step_ms, "device_busy_ms": device_ms,
+        "busy_pct": busy, "launches": {k: v for k, v in counts.items()
+                                       if v}}}))
+    return counts
+
+
+def _bow_program(fluid, make_opt, sparse=True):
+    """A bag-of-words classifier: a SPARSE_VOCAB x SPARSE_DIM table with
+    is_sparse, mean-pooled over SPARSE_T ids, fc to SPARSE_CLASSES,
+    softmax cross entropy, `make_opt(fluid.optimizer)`'s update."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SPARSE_SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        layers = fluid.layers
+        ids = layers.data("ids", shape=[SPARSE_T, 1], dtype="int64")
+        label = layers.data("label", shape=[1], dtype="int64")
+        emb = layers.embedding(ids, size=[SPARSE_VOCAB, SPARSE_DIM],
+                               is_sparse=sparse,
+                               param_attr=fluid.ParamAttr(name="bow_table"))
+        pooled = layers.scale(layers.reduce_sum(emb, dim=1),
+                              scale=1.0 / SPARSE_T)
+        logits = layers.fc(pooled, size=SPARSE_CLASSES)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+        make_opt(fluid.optimizer).minimize(loss)
+    return main, startup, loss
+
+
+def _bow_feeds():
+    rng = np.random.RandomState(SPARSE_SEED)
+    feeds = []
+    for _ in range(SPARSE_STEPS):
+        ids = rng.randint(0, SPARSE_VOCAB,
+                          size=(SPARSE_BATCH, SPARSE_T, 1)).astype(np.int64)
+        ids[0, :16] = 7  # a row looked up many times
+        feeds.append({"ids": ids, "label": rng.randint(
+            0, SPARSE_CLASSES, size=(SPARSE_BATCH, 1)).astype(np.int64)})
+    return feeds
+
+
+def _bow_run(fluid, exe, scope, main, loss, feeds):
+    """The steps on `exe` in `scope` -> (losses, step seconds)."""
+    losses, step_s = [], []
+    with fluid.scope_guard(scope):
+        for feed in feeds:
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss])
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(np.asarray(out).ravel()[0]))
+    return losses, step_s
+
+
+def _worst_scaled(a_scope, b_scope, names):
+    """max over `names` of max |a - b| / max |b| (0 for an all-zero b)."""
+    from paddle_tpu_torch.fluid.executor import as_numpy
+    worst, where = 0.0, None
+    for n in names:
+        a = as_numpy(a_scope.get(n)).astype(np.float64)
+        b = as_numpy(b_scope.get(n)).astype(np.float64)
+        scale = float(np.abs(b).max()) or 1.0
+        err = float(np.abs(a - b).max()) / scale
+        if err > worst:
+            worst, where = err, n
+    return worst, where
+
+
+def phase_sparse_embedding(torch, fluid):
+    """The bag-of-words classifier at the transformer's table width, its
+    table's gradient a SelectedRows value (lookup_table_sparse_grad),
+    SPARSE_STEPS steps under each optimizer of SPARSE_OPTIMIZERS on the
+    card and on the CPU from one startup state: the losses within 1e-5
+    and every persistable within 1e-5 of its array's largest magnitude;
+    and the sparse SGD program's against the dense program's on the
+    card."""
+    feeds = _bow_feeds()
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    results = {}
+    for name, make_opt in SPARSE_OPTIMIZERS:
+        main, startup, loss = _bow_program(fluid, make_opt)
+        types_ = [op.type for op in main.global_block().ops]
+        check("lookup_table_sparse_grad" in types_
+              and "lookup_table_grad" not in types_,
+              "sparse %s: no sparse table grad in the program" % name)
+        gscope = fluid.Scope()
+        with fluid.scope_guard(gscope):
+            gpu.run(startup)
+        cscope = fluid.scope_from_jax(fluid.scope_to_jax(gscope),
+                                      fluid.Scope(), fluid.CPUPlace())
+        names = sorted(n for n, v in main.global_block().vars.items()
+                       if v.persistable and gscope.has(n)
+                       and gscope.get(n).is_floating_point())
+        glosses, gstep = _bow_run(fluid, gpu, gscope, main, loss, feeds)
+        torch.cuda.synchronize()
+        check(gscope.get("bow_table").device.type == "cuda",
+              "sparse %s: the table is not on the card" % name)
+        closses, _ = _bow_run(fluid, cpu, cscope, main, loss, feeds)
+        check(all(np.isfinite(glosses)), "sparse %s: losses %s"
+              % (name, glosses))
+        check(all(abs(a - b) <= 1e-5 * abs(b)
+                  for a, b in zip(glosses, closses)),
+              "sparse %s: card losses %s, CPU %s" % (name, glosses, closses))
+        worst, where = _worst_scaled(gscope, cscope, names)
+        check(worst <= 1e-5, "sparse %s: %s on the card differs from the "
+              "CPU by %.3g of its largest magnitude" % (name, where, worst))
+        results[name] = {"losses": glosses, "step_ms": [
+            x * 1e3 for x in gstep], "worst_vs_cpu": worst}
+        log("sparse %s: losses %s (CPU %s); card vs CPU worst %.3g of the "
+            "largest magnitude (%s, %d persistables); card step ms %s"
+            % (name, ["%.6f" % x for x in glosses],
+               ["%.6f" % x for x in closses], worst, where, len(names),
+               ["%.2f" % (x * 1e3) for x in gstep]))
+        if name == "SGD":
+            sgd = (gscope, names)
+        del gscope, cscope
+    # the sparse SGD step against the dense program's on the card
+    dmain, dstartup, dloss = _bow_program(fluid, SPARSE_OPTIMIZERS[0][1],
+                                          sparse=False)
+    check("lookup_table_sparse_grad" not in
+          [op.type for op in dmain.global_block().ops],
+          "dense SGD: a sparse grad in the dense program")
+    dscope = fluid.Scope()
+    with fluid.scope_guard(dscope):
+        gpu.run(dstartup)
+    dlosses, _ = _bow_run(fluid, gpu, dscope, dmain, dloss, feeds)
+    worst, where = _worst_scaled(sgd[0], dscope, sgd[1])
+    check(worst <= 1e-5, "sparse SGD vs dense SGD on the card: %s differs "
+          "by %.3g of its largest magnitude" % (where, worst))
+    log("sparse SGD vs the dense program on the card: losses %s vs %s, "
+        "worst state %.3g of the largest magnitude (%s)"
+        % (["%.6f" % x for x in results["SGD"]["losses"]],
+           ["%.6f" % x for x in dlosses], worst, where))
+    log(json.dumps({"sparse_embedding": results}))
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -5007,6 +5322,18 @@ def main():
                                               decode, tmp)
     torch.cuda.empty_cache()
     log("coverage paths phase: %.1f s" % (time.time() - t_phase))
+    # 6d. the update region: noam + global-norm clipping at full width
+    # (fp32, AMP), then sparse embedding grads under every optimizer
+    t_phase = time.time()
+    phase_noam_clip_train(torch, pk, fluid, transformer)
+    torch.cuda.empty_cache()
+    phase_noam_clip_train(torch, pk, fluid, transformer, amp=True)
+    torch.cuda.empty_cache()
+    log("noam clip phases: %.1f s" % (time.time() - t_phase))
+    t_phase = time.time()
+    phase_sparse_embedding(torch, fluid)
+    torch.cuda.empty_cache()
+    log("sparse embedding phase: %.1f s" % (time.time() - t_phase))
     t_phase = time.time()
     # 7. ResNet-50 inference: fp32 fused / unfused and int8, 7b. bf16
     # fused / unfused, 8. gpu vs cpu in fp32 and bf16

@@ -31,11 +31,15 @@ fluid/pipeline.py) fed by the device prefetch queue
 (`reader.prefetch_to_device`).
 """
 
-from . import (backward, checkpoint, core, data_feeder, executor, framework,
-               functionalizer, initializer, io, ir_passes, layers, lod, nets,
-               optimizer, parallel_executor, pipeline, regularizer, sentinel,
-               transpiler, unique_name)
+from . import (backward, checkpoint, clip, core, data_feeder, executor,
+               framework, functionalizer, initializer, io, ir_passes, layers,
+               lod, nets, optimizer, parallel_executor, pipeline, regularizer,
+               selected_rows, sentinel, transpiler, unique_name)
 from .backward import append_backward
+from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,
+                   GradientClipByNorm, GradientClipByValue,
+                   set_gradient_clip)
+from .selected_rows import SelectedRowsValue
 from .core import CPUPlace, CUDAPlace
 from .data_feeder import DataFeeder
 from .lod import LoDTensor, create_lod_tensor, create_random_int_lodtensor
@@ -58,10 +62,13 @@ from ..ops.registry import amp_enabled, set_amp
 from . import contrib  # noqa: E402  (the Trainer needs the whole package)
 
 __all__ = [
-    "backward", "checkpoint", "contrib", "core", "data_feeder", "executor",
-    "framework", "functionalizer", "initializer", "io", "ir_passes",
-    "layers", "lod", "nets", "optimizer", "parallel_executor", "pipeline",
-    "regularizer", "sentinel", "transpiler", "unique_name",
+    "backward", "checkpoint", "clip", "contrib", "core", "data_feeder",
+    "executor", "framework", "functionalizer", "initializer", "io",
+    "ir_passes", "layers", "lod", "nets", "optimizer", "parallel_executor",
+    "pipeline", "regularizer", "selected_rows", "sentinel", "transpiler",
+    "unique_name", "ErrorClipByValue", "GradientClipByValue",
+    "GradientClipByNorm", "GradientClipByGlobalNorm", "set_gradient_clip",
+    "SelectedRowsValue",
     "FetchFuture", "StepWatchdogTimeout", "save_checkpoint",
     "load_checkpoint",
     "append_backward", "CPUPlace", "DataFeeder", "LoDTensor",

@@ -11,7 +11,8 @@ grad_maker: the `while`'s, ops/control_flow_ops.py) emits its grad ops
 itself or declines to the generic one; it joins the fan-in protocol
 through `bw_ctx` (the pending consumer counts and the partial grads).
 A `while` carry is read and written by the loop, which is therefore not
-counted as its consumer.  Error clipping is not ported.
+counted as its consumer.  A var with an `error_clip` gets its grad
+clipped right after the op that writes it (clip.error_clip_callback).
 """
 
 from .framework import Variable, grad_var_name
@@ -158,9 +159,12 @@ def _append_grad_ops(block, path_ops, grad_map, no_grad_set):
         finalize_grad(name)
 
 
-def append_backward(loss, parameter_list=None, no_grad_set=None):
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None):
     """Append grad ops for `loss` to its program; return [(param,
-    param_grad)]."""
+    param_grad)].  `callbacks` is taken as the JAX package takes it (and
+    not called there either): error clipping runs as one pass over the
+    block once the grad ops are in."""
     if not isinstance(loss, Variable):
         raise TypeError("append_backward: loss must be a Variable")
     block = loss.block.program.global_block()
@@ -168,10 +172,6 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
     for v in block.vars.values():
         if v.stop_gradient:
             no_grad.add(v.name)
-        if v.error_clip is not None:
-            raise NotImplementedError(
-                "append_backward: error_clip on %s is not ported to "
-                "paddle_tpu_torch yet" % v.name)
 
     if parameter_list is not None:
         params = [p if isinstance(p, str) else p.name
@@ -194,6 +194,9 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
     grad_map = {loss.name: loss_grad}
     path = _op_path(block, [loss.name], params, no_grad)
     _append_grad_ops(block, path, grad_map, no_grad)
+
+    from .clip import error_clip_callback
+    error_clip_callback(block, {})
 
     params_and_grads = []
     for pname in params:

@@ -53,6 +53,7 @@ from .framework import Variable, default_main_program
 from .functionalizer import LOD_LEN_SUFFIX
 from .lod import LoDTensor, pad_lod_feed, unpad_to_lod_tensor
 from .pipeline import FetchFuture
+from .selected_rows import SelectedRowsValue
 # the per-op interpreter and the state set live in functionalizer.py;
 # importable from here as before
 from .functionalizer import persistable_names, run_block  # noqa: F401
@@ -183,9 +184,13 @@ class scope_guard:
 
 def as_numpy(tensor):
     """Host numpy array(s) of a tensor (or a list of them); bf16 comes
-    back as an `ml_dtypes.bfloat16` array (numpy has no bfloat16)."""
+    back as an `ml_dtypes.bfloat16` array (numpy has no bfloat16), a
+    SelectedRows value as one of numpy rows and values."""
     if isinstance(tensor, (list, tuple)):
         return [as_numpy(t) for t in tensor]
+    if isinstance(tensor, SelectedRowsValue):
+        return SelectedRowsValue(as_numpy(tensor.rows),
+                                 as_numpy(tensor.values), tensor.height)
     t = tensor.detach().cpu()
     if t.dtype != torch.bfloat16:
         return t.numpy()

@@ -274,6 +274,16 @@ class Block:
         self.program._bump_version()
         return op
 
+    def _insert_op(self, index, type=None, inputs=None, outputs=None,
+                   attrs=None):
+        """An op at position `index`, with no shape inference (an error
+        clip after the op that writes its grad)."""
+        op = Operator(self, type=type, inputs=inputs, outputs=outputs,
+                      attrs=attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
     def _serialize(self):
         return {
             "idx": self.idx, "parent_idx": self.parent_idx,

@@ -62,6 +62,7 @@ from torch.utils import checkpoint as torch_checkpoint
 from ..ops import registry
 from ..parallel import mesh
 from .framework import GRAD_VAR_SUFFIX as GRAD_SUFFIX, grad_var_name
+from .selected_rows import SelectedRowsValue
 
 __all__ = ["persistable_names", "run_block", "run_sub_block",
            "build_step_fn",
@@ -352,12 +353,24 @@ def all_reduce_grads(grads, group):
 def _reduce_state_grads(env, state_names, group):
     """Average, over the ranks, the grads in env of the replicated state
     (the persistables: parameters); a per-sample grad (of a feed or an
-    activation) stays the rank's own."""
+    activation) stays the rank's own.  A SelectedRows grad (a sparse
+    embedding's) is gathered instead: every rank's rows and values, the
+    values scaled by 1 / world size, so that its merge sums what the
+    dense all-reduce would average."""
     names = [grad_var_name(n) for n in state_names]
     grads = {g: env[g] for g in names
              if g in env and isinstance(env[g], torch.Tensor)
              and env[g].is_floating_point()}
     env.update(all_reduce_grads(grads, group))
+    if not group.active:
+        return
+    for g in names:
+        sr = env.get(g)
+        if isinstance(sr, SelectedRowsValue):
+            env[g] = SelectedRowsValue(
+                group.all_gather_rows(sr.rows),
+                group.all_gather_rows(sr.values) / group.world_size,
+                sr.height)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,10 @@ from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
+from . import math_op_patch
+from .math_op_patch import monkey_patch_variable
+
+monkey_patch_variable()
 
 __all__ = (["data"] + nn.__all__ + tensor.__all__ + control_flow.__all__
            + ops.__all__ + sequence.__all__ + loss.__all__

@@ -12,7 +12,9 @@ __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
     "dropout", "softmax", "relu", "cross_entropy", "square_error_cost",
     "softmax_with_cross_entropy", "accuracy", "topk", "elementwise_add",
-    "elementwise_mul", "elementwise_sub", "elementwise_min", "where", "mean",
+    "elementwise_mul", "elementwise_sub", "elementwise_min", "elementwise_div",
+    "elementwise_max", "elementwise_pow", "pow", "clip", "clip_by_norm",
+    "where", "mean",
     "scale", "reshape", "slice", "cumsum", "remat_checkpoint",
     "flash_attention", "mul", "matmul", "concat", "stack", "gather",
     "expand", "unsqueeze", "squeeze", "reduce_sum", "beam_slot_mask",
@@ -62,12 +64,11 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
-    """lookup_table op; the table's gradient is dense (the sparse,
-    SelectedRows gradient is not ported)."""
-    if is_sparse or is_distributed:
-        raise NotImplementedError(
-            "embedding(is_sparse/is_distributed): sparse table gradients "
-            "are not ported to paddle_tpu_torch yet")
+    """lookup_table op.  With is_sparse the table's gradient is a
+    SelectedRows value (ops/nn_ops.py lookup_table_sparse_grad) where the
+    table has no other consumer; is_distributed is kept as an attribute
+    (its parameter-server use is not ported: ROADMAP.md queue 1 item
+    12)."""
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype, is_bias=False)
@@ -332,6 +333,33 @@ def elementwise_sub(x, y, axis=-1, act=None, name=None):
 
 def elementwise_min(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _single_op_layer(LayerHelper("pow", name=name), "pow", x,
+                            {"factor": factor})
+
+
+def clip(x, min, max, name=None):
+    return _single_op_layer(LayerHelper("clip", name=name), "clip", x,
+                            {"min": min, "max": max})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _single_op_layer(LayerHelper("clip_by_norm", name=name),
+                            "clip_by_norm", x, {"max_norm": max_norm})
 
 
 def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):

@@ -103,7 +103,10 @@
 //     the cluster); it holds m = -inf and l = 0, and weighs 0 in the
 //     merge.  Rank 0 always holds at least one position.
 //
-// Head dims.  The template's D is a power of two (4 ... 128); a head dim
+// Head dims.  The template's D is a power of two (4 ... 256: D <= kThreads,
+// one output element a thread, and D / VEC <= 32, a row's lanes inside one
+// warp — so VEC is 8 at D = 256 where it is 4 below: K3 two float4 loads a
+// lane, K4's narrow path two 4-byte loads); a head dim
 // DR between them runs the next wider template with DR as a runtime
 // argument (`kRagged`): a lane past DR loads nothing and holds zeros (q
 // and K alike, so its share of the dot product is 0), rows are DR
@@ -152,9 +155,18 @@ inline void i8_plan(int S, int D, int& cs, int& share) {
   split_plan(S, D, D < 16 ? D : 16, 1, cs, share);
 }
 
-// K3: fp32 rows read one float4 a lane, kF32Trips round trips a block
+// K3: fp32 rows read one float4 a lane (two at D = 256, so that a row's
+// lanes stay inside a warp), kF32Trips round trips a block
+__host__ __device__ constexpr int f32_vec(int D) { return D > 128 ? 8 : 4; }
+
 inline void f32_plan(int S, int D, int& cs, int& share) {
-  split_plan(S, D, 4, kF32Trips, cs, share);
+  split_plan(S, D, f32_vec(D), kF32Trips, cs, share);
+}
+
+// K4's narrow loads (caches not 16-byte aligned, or a ragged head dim):
+// 4 bytes a lane, 8 at D = 256
+__host__ __device__ constexpr int i8_narrow_vec(int D) {
+  return D > 128 ? 8 : 4;
 }
 
 // VEC cache elements at p (VEC * sizeof(T) bytes, that aligned), as
@@ -163,12 +175,22 @@ template <typename T, int VEC>
 __device__ __forceinline__ void load_vec(
     const T* p, uint32_t (&u)[VEC * sizeof(T) / 4]) {
   constexpr int W = VEC * sizeof(T) / 4;
-  if constexpr (W == 4) {
+  if constexpr (W == 8) {
+    const uint4 r0 = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 r1 = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+    u[0] = r0.x, u[1] = r0.y, u[2] = r0.z, u[3] = r0.w;
+    u[4] = r1.x, u[5] = r1.y, u[6] = r1.z, u[7] = r1.w;
+  } else if constexpr (W == 4) {
     const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
     u[0] = r.x, u[1] = r.y, u[2] = r.z, u[3] = r.w;
-  } else if constexpr (W == 2) {
+  } else if constexpr (W == 2 && sizeof(T) == 4) {
     const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
     u[0] = r.x, u[1] = r.y;
+  } else if constexpr (W == 2) {
+    // 8 int8 elements as two 4-byte loads: K4's narrow path at D = 256
+    // reads caches that are only 4-byte aligned
+    u[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    u[1] = __ldg(reinterpret_cast<const unsigned int*>(p) + 1);
   } else {
     u[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
   }
@@ -423,7 +445,7 @@ cudaError_t launch_kernel(const float* q, const T* k, const T* v,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// the template width a head dim D (1 ... 128) runs at
+// the template width a head dim D (1 ... 256) runs at
 int padded_dim(int D) {
   int w = 4;
   while (w < D) w <<= 1;
@@ -431,7 +453,7 @@ int padded_dim(int D) {
 }
 
 // What no plan takes, and a grid past CUDA's limits
-bool bad_dim(int S, int D) { return S < 1 || D < 1 || D > 128; }
+bool bad_dim(int S, int D) { return S < 1 || D < 1 || D > 256; }
 
 bool bad_shape(int P, int S, int H, int D, int qps, int cs) {
   return bad_dim(S, D) || P <= 0 || H <= 0 || qps <= 0 || P % qps ||
@@ -447,10 +469,10 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   if (bad_shape(P, S, H, D, qps, cs)) return cudaErrorInvalidValue;
 #define PADDLE_F32_CASE(DIM)                                                 \
   case DIM:                                                                  \
-    return D == DIM ? launch_kernel<float, DIM, 4, false>(                   \
+    return D == DIM ? launch_kernel<float, DIM, f32_vec(DIM), false>(        \
                           q, k, v, lengths, nullptr, out, P, S, H, qps, H,   \
                           0, scale, cs, share, D, st)                        \
-                    : launch_kernel<float, DIM, 4, true>(                    \
+                    : launch_kernel<float, DIM, f32_vec(DIM), true>(         \
                           q, k, v, lengths, nullptr, out, P, S, H, qps, H,   \
                           0, scale, cs, share, D, st);
   switch (DP) {
@@ -460,6 +482,7 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
     PADDLE_F32_CASE(32)
     PADDLE_F32_CASE(64)
     PADDLE_F32_CASE(128)
+    PADDLE_F32_CASE(256)
     default:
       break;
   }
@@ -476,21 +499,21 @@ cudaError_t launch_i8(const float* q, const int8_t* k, const int8_t* v,
   if (!bad_dim(S, D)) i8_plan(S, DP, cs, share);
   if (bad_shape(P, S, H, D, qps, cs)) return cudaErrorInvalidValue;
   // 16-byte loads (min(16, D) bytes at small D) where both caches' bases
-  // allow them (every row then starts at a multiple of them), else 4; a
-  // ragged head dim reads 4 bytes a lane
+  // allow them (every row then starts at a multiple of them), else 4 (8 at
+  // D = 256: i8_narrow_vec); a ragged head dim reads that narrow width
   const int widest = DP < 16 ? DP : 16;
   const bool wide =
       (uintptr_t)k % widest == 0 && (uintptr_t)v % widest == 0;
 #define PADDLE_I8_CASE(DIM)                                                   \
   case DIM:                                                                   \
     if (D != DIM)                                                             \
-      return launch_kernel<int8_t, DIM, 4, true>(                             \
+      return launch_kernel<int8_t, DIM, i8_narrow_vec(DIM), true>(            \
           q, k, v, lengths, kv_scales, out, P, S, H, qps, h_total,            \
           head_offset, scale, cs, share, D, st);                              \
     return wide ? launch_kernel<int8_t, DIM, (DIM < 16 ? DIM : 16), false>(   \
                       q, k, v, lengths, kv_scales, out, P, S, H, qps,         \
                       h_total, head_offset, scale, cs, share, D, st)          \
-                : launch_kernel<int8_t, DIM, 4, false>(                       \
+                : launch_kernel<int8_t, DIM, i8_narrow_vec(DIM), false>(      \
                       q, k, v, lengths, kv_scales, out, P, S, H, qps,         \
                       h_total, head_offset, scale, cs, share, D, st);
   switch (DP) {
@@ -500,6 +523,7 @@ cudaError_t launch_i8(const float* q, const int8_t* k, const int8_t* v,
     PADDLE_I8_CASE(32)
     PADDLE_I8_CASE(64)
     PADDLE_I8_CASE(128)
+    PADDLE_I8_CASE(256)
     default:
       break;
   }
@@ -512,8 +536,8 @@ cudaError_t launch_i8(const float* q, const int8_t* k, const int8_t* v,
 // Pointers are device pointers in the layouts above, contiguous; q and
 // out 16-byte aligned, fp32 caches 16-byte and int8 caches 4-byte
 // aligned (16-byte aligned int8 caches take K4's widest loads).  D is 1
-// ... 128 (4, 8, 16, 32, 64 and 128 exactly, any other at the next of
-// them); P a multiple of qps >= 1.
+// ... 256 (4, 8, 16, 32, 64, 128 and 256 exactly, any other at the next
+// of them); P a multiple of qps >= 1.
 // Each launches on `st`, does not synchronise, and returns the launch's
 // cudaError_t (cudaSuccess = 0).
 

@@ -1,7 +1,7 @@
 // The fp32 flash-attention kernels' tile helpers on the TF32 tensor cores
 // at fp32 accuracy (3xTF32, tc_common.cuh), shared by the forward
 // (flash_attention_fwd.cu) and the backward (flash_attention_bwd.cu):
-// fp32 tiles of 64 rows staged with cp.async as rows of D + 4 floats (the
+// fp32 tiles of tile_rows<D>() rows (64, or 32 at D = 256) staged with cp.async as rows of D + 4 floats (the
 // A and B fragment loads — row g, column t; or row 2t, column g — then
 // fall in 32 distinct banks), a stationary tile split in place into big
 // and small tiles, split fragments of a split or a raw tile, an
@@ -23,21 +23,22 @@ constexpr int kF32Threads = 128;  // 4 warps, as the bf16 kernels
 
 template <int D>
 __host__ __device__ constexpr int f32_tile() {
-  return kTile * (D + kPad);
+  return tile_rows<D>() * (D + kPad);
 }
 
-// Stage rows row0 .. row0+63 of head (b, h) of fp32 `t` into `dst` (rows
+// Stage rows row0 .. row0 + tile_rows<D>() - 1 of head (b, h) of fp32 `t` into `dst` (rows
 // of D + kPad floats) with 16-byte cp.async; rows at or past S are zero.
 // The caller commits the group.
 template <int D>
 __device__ __forceinline__ void stage_f32(float* dst, const PaddleT4& t,
                                           int b, int h, int row0, int S) {
   constexpr int NV = D / 4;
+  constexpr int RT = tile_rows<D>();
   const float* base = static_cast<const float*>(t.ptr) + (long long)b * t.sb +
                       (long long)h * t.sh;
-  static_assert(kTile * NV % kF32Threads == 0, "whole passes over the tile");
+  static_assert(RT * NV % kF32Threads == 0, "whole passes over the tile");
 #pragma unroll
-  for (int it = 0; it < kTile * NV / kF32Threads; ++it) {
+  for (int it = 0; it < RT * NV / kF32Threads; ++it) {
     const int idx = threadIdx.x + it * kF32Threads;
     const int r = idx / NV;
     const int c = idx - r * NV;
@@ -119,13 +120,13 @@ __device__ __forceinline__ bool any_nan(const float (&c)[N][4]) {
   return nan;
 }
 
-// Store a warp's 16 x D fp32 accumulator (rows row0 + g and row0 + g + 8
-// of head (b, h) of `t`, n-tile n at columns 8n + 2t); rows at or past S
-// are skipped.
-template <int D>
+// Store a warp's 16 x W fp32 accumulator (rows row0 + g and row0 + g + 8
+// of head (b, h) of `t`, n-tile n at columns col0 + 8n + 2t); rows at or
+// past S are skipped.
+template <int W>
 __device__ __forceinline__ void store_acc_f32(const PaddleT4& t, int b, int h,
-                                              int row0, int S,
-                                              const float (&acc)[D / 8][4]) {
+                                              int row0, int S, int col0,
+                                              const float (&acc)[W / 8][4]) {
   const int lane = threadIdx.x & 31;
   float* base = static_cast<float*>(t.ptr) + (long long)b * t.sb +
                 (long long)h * t.sh;
@@ -133,9 +134,10 @@ __device__ __forceinline__ void store_acc_f32(const PaddleT4& t, int b, int h,
   for (int half = 0; half < 2; ++half) {
     const int s = row0 + (lane >> 2) + 8 * half;
     if (s >= S) continue;
-    float2* row = reinterpret_cast<float2*>(base + (long long)s * t.ss);
+    float2* row =
+        reinterpret_cast<float2*>(base + (long long)s * t.ss + col0);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < W / 8; ++n)
       row[4 * n + (lane & 3)] =
           make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
   }

@@ -48,7 +48,9 @@
 //     promotes its chunks for the same reason);
 //   * shared memory: the split q tile and two K/V stages, six tiles of 64
 //     rows of D + 4 floats — 104 KB at D = 64 (two blocks an SM) and 198
-//     KB at D = 128 (one).
+//     KB at D = 128 (one); at D = 256 the tiles are 32 rows, 195 KB, and
+//     the warps work in pairs, each owning half of o's columns and both
+//     forming the pair's s (flash_attention_common.cuh, tile_rows).
 // What holds it back: the split's instructions (three per streamed
 // element a fragment loads, each element split once per warp), mma.sync
 // rather than wgmma, and the per-tile fold's second accumulator.
@@ -75,27 +77,31 @@ constexpr int fwd_smem_bytes() {
 // share of its sum l, for rows r0 and r0 + 8.  Stages everything it reads;
 // returns with no copy in flight.
 template <int D, bool kClamp>
-__device__ __forceinline__ void fwd_pass(const PaddleFlashFwdArgs& a,
-                                         float* smem, int b, int h, int qt,
-                                         float (&o)[D / 8][4], float (&m)[2],
-                                         float (&l)[2]) {
+__device__ __forceinline__ void fwd_pass(
+    const PaddleFlashFwdArgs& a, float* smem, int b, int h, int qt,
+    float (&o)[D / col_splits<D>() / 8][4], float (&m)[2], float (&l)[2]) {
   constexpr int TE = f32_tile<D>();
-  constexpr int KS = D / 8;  // k-steps over D
-  constexpr int ND = D / 8;  // n-tiles over D
-  // n-tiles of o per pass of p . V: all of them at D = 64; at D = 128 two
+  constexpr int RT = tile_rows<D>();
+  constexpr int CS = col_splits<D>();
+  constexpr int NJ = RT / 8;       // key n-tiles of a kv tile
+  constexpr int KS = D / 8;        // k-steps over D
+  constexpr int ND = D / CS / 8;   // n-tiles of this warp's o columns
+  // n-tiles of o per pass of p . V: all of them at D = 64; at D >= 128 two
   // passes, p split again for the second (bounds the live accumulators)
   constexpr int NC = ND < 8 ? ND : 8;
   float* Qb = smem;
   float* Qsm = Qb + TE;
   float* Ks = Qsm + TE;     // [2][TE]
   float* Vs = Ks + 2 * TE;  // [2][TE]
-  const int q0 = qt * kTile;
+  const int q0 = qt * RT;
   const int warp = threadIdx.x >> 5;
+  const int rw = 16 * (warp / CS);       // this warp's first tile row
+  const int dc = (warp % CS) * (D / CS);  // and first o column
   const int lane = threadIdx.x & 31;
   const int tq = lane & 3;
-  const int r0 = q0 + 16 * warp + (lane >> 2);  // rows r0, r0 + 8
+  const int r0 = q0 + rw + (lane >> 2);  // rows r0, r0 + 8
 
-  int n_kv = (a.S + kTile - 1) / kTile;
+  int n_kv = (a.S + RT - 1) / RT;
   if (a.causal) n_kv = min(n_kv, qt + 1);
 
   stage_f32<D>(Qb, a.q, b, h, q0, a.S);
@@ -110,10 +116,10 @@ __device__ __forceinline__ void fwd_pass(const PaddleFlashFwdArgs& a,
 
   for (int kt = 0; kt < n_kv; ++kt) {
     const int buf = kt & 1;
-    const int k0 = kt * kTile;
+    const int k0 = kt * RT;
     if (kt + 1 < n_kv) {
-      stage_f32<D>(Ks + (buf ^ 1) * TE, a.k, b, h, k0 + kTile, a.S);
-      stage_f32<D>(Vs + (buf ^ 1) * TE, a.v, b, h, k0 + kTile, a.S);
+      stage_f32<D>(Ks + (buf ^ 1) * TE, a.k, b, h, k0 + RT, a.S);
+      stage_f32<D>(Vs + (buf ^ 1) * TE, a.v, b, h, k0 + RT, a.S);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -127,29 +133,29 @@ __device__ __forceinline__ void fwd_pass(const PaddleFlashFwdArgs& a,
     const float* Kt = Ks + buf * TE;
     const float* Vt = Vs + buf * TE;
 
-    // s = q . k^T: 16 rows x 64 keys, n-tile j at keys k0 + 8j
-    float s[8][4];
+    // s = q . k^T: 16 rows x RT keys, n-tile j at keys k0 + 8j
+    float s[NJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       SplitA qa;
-      SplitB kb[8];
-      load_a_split<D>(qa, Qb, Qsm, 16 * warp, 8 * ks);
+      SplitB kb[NJ];
+      load_a_split<D>(qa, Qb, Qsm, rw, 8 * ks);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
         load_b_nk_split<D, kClamp>(kb[j], Kt, 8 * j, 8 * ks);
 #pragma unroll
       for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) mma_3xtf32(s[j], qa, kb[j], pass);
+        for (int j = 0; j < NJ; ++j) mma_3xtf32(s[j], qa, kb[j], pass);
     }
 
     // scale, mask, and fold the tile into each row's online softmax
-    const bool masked = (a.causal && kt == qt) || k0 + kTile > a.S;
+    const bool masked = (a.causal && kt == qt) || k0 + RT > a.S;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float v = s[j][e] * a.scale;
@@ -173,7 +179,7 @@ __device__ __forceinline__ void fwd_pass(const PaddleFlashFwdArgs& a,
       l[i] *= alpha[i];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(s[j][e] - m[e >> 1]);
@@ -192,7 +198,7 @@ __device__ __forceinline__ void fwd_pass(const PaddleFlashFwdArgs& a,
       for (int n = 0; n < NC; ++n)
         pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < NJ; ++kk) {
         SplitA pa;
         acc_to_a_split<false>(pa, s[kk]);
 #pragma unroll
@@ -201,7 +207,7 @@ __device__ __forceinline__ void fwd_pass(const PaddleFlashFwdArgs& a,
 #pragma unroll
           for (int u = 0; u < 4; ++u)
             load_b_kn_split<D, kClamp>(vb[u], Vt, 8 * kk,
-                                       8 * (c0 + d0 + u));
+                                       dc + 8 * (c0 + d0 + u));
 #pragma unroll
           for (int pass = 0; pass < 3; ++pass)
 #pragma unroll
@@ -220,22 +226,25 @@ __device__ __forceinline__ void fwd_pass(const PaddleFlashFwdArgs& a,
   }
 }
 
-// K1 fp32: block (b*h, q tile); warp w owns q rows 16w .. 16w+15.  The
+// K1 fp32: block (b*h, q tile); warp w owns q rows 16w .. 16w+15 (at D =
+// 256, rows 16(w / 2) .. and half of o's columns: col_splits).  The
 // unclamped pass first; a block whose o holds a NaN runs again clamped.
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_kernel(const PaddleFlashFwdArgs a) {
-  constexpr int ND = D / 8;
+  constexpr int CS = col_splits<D>();
+  constexpr int ND = D / CS / 8;
   extern __shared__ float4 smem_f32[];
   float* smem = reinterpret_cast<float*>(smem_f32);
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int q0 = qt * kTile;
+  const int q0 = qt * tile_rows<D>();
   const int warp = threadIdx.x >> 5;
+  const int rw = 16 * (warp / CS);
   const int lane = threadIdx.x & 31;
-  const int r0 = q0 + 16 * warp + (lane >> 2);  // rows r0, r0 + 8
+  const int r0 = q0 + rw + (lane >> 2);  // rows r0, r0 + 8
 
   float o[ND][4], m[2], l[2];
   fwd_pass<D, false>(a, smem, b, h, qt, o, m, l);
@@ -256,8 +265,8 @@ flash_fwd_kernel(const PaddleFlashFwdArgs a) {
     o[n][2] /= lf[1];
     o[n][3] /= lf[1];
   }
-  store_acc_f32<D>(a.o, b, h, q0 + 16 * warp, a.S, o);
-  if ((lane & 3) == 0) {
+  store_acc_f32<D / CS>(a.o, b, h, q0 + rw, a.S, (warp % CS) * (D / CS), o);
+  if ((lane & 3) == 0 && warp % CS == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qi = r0 + 8 * i;
@@ -275,25 +284,29 @@ cudaError_t launch_f32_d(const PaddleFlashFwdArgs& a, cudaStream_t st) {
       (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   return launch_tiles(flash_fwd_kernel<D>, kF32Threads, fwd_smem_bytes<D>(),
-                      a, st);
+                      a, st, tile_rows<D>());
+}
+
+template <int D>
+cudaError_t launch_bf16_d(const PaddleFlashFwdArgs& a, cudaStream_t st) {
+  return launch_tiles(tc::flash_fwd_tc_kernel<D>, tc::kThreads,
+                      tc::fwd_smem_bytes<D>(), a, st, tile_rows<D>());
 }
 
 cudaError_t launch_f32(const PaddleFlashFwdArgs* a, cudaStream_t st) {
   switch (a->D) {
     case 64: return launch_f32_d<64>(*a, st);
     case 128: return launch_f32_d<128>(*a, st);
+    case 256: return launch_f32_d<256>(*a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t launch_bf16(const PaddleFlashFwdArgs* a, cudaStream_t st) {
   switch (a->D) {
-    case 64:
-      return launch_tiles(tc::flash_fwd_tc_kernel<64>, tc::kThreads,
-                          tc::fwd_smem_bytes<64>(), *a, st);
-    case 128:
-      return launch_tiles(tc::flash_fwd_tc_kernel<128>, tc::kThreads,
-                          tc::fwd_smem_bytes<128>(), *a, st);
+    case 64: return launch_bf16_d<64>(*a, st);
+    case 128: return launch_bf16_d<128>(*a, st);
+    case 256: return launch_bf16_d<256>(*a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -302,8 +315,8 @@ cudaError_t launch_bf16(const PaddleFlashFwdArgs* a, cudaStream_t st) {
 }  // namespace paddle_flash
 
 // Pointers are device pointers, each [B, S, H, D] view 16-byte aligned
-// with D contiguous and strides that are multiples of 16 bytes; D is 64
-// or 128.  Launches on `st`, does not synchronise, and returns the
+// with D contiguous and strides that are multiples of 16 bytes; D is 64,
+// 128 or 256.  Launches on `st`, does not synchronise, and returns the
 // launch's cudaError_t (cudaSuccess = 0).
 extern "C" cudaError_t paddle_flash_fwd_f32(const PaddleFlashFwdArgs* a,
                                             cudaStream_t st) {

@@ -1,9 +1,10 @@
 """Math / elementwise / reduction / activation op lowerings, after
-paddle_tpu/ops/math_ops.py: gelu, sigmoid, tanh, floor, log, square,
-logical_not, cast, elementwise_add, _sub, _mul and _min with fluid's
-`axis` broadcasting, less_than and equal, mul (fc's matmul), matmul,
-sum, scale, mean, reduce_sum, cumsum, relu, sign, increment, softmax and
-top_k.  The matmuls are plain torch.matmul (TF32 off; bf16 summed in
+paddle_tpu/ops/math_ops.py: gelu, sigmoid, tanh, floor, ceil, exp, sqrt,
+abs, cos, sin, log, square, logical_not, pow, cast, elementwise_add, _sub,
+_mul, _div, _min, _max, _pow and _mod with fluid's `axis` broadcasting,
+less_than, less_equal, greater_than, greater_equal and equal, clip,
+clip_by_norm, squared_l2_norm, mul (fc's matmul), matmul, sum, scale,
+mean, reduce_sum, cumsum, relu, sign, increment, softmax and top_k.  The matmuls are plain torch.matmul (TF32 off; bf16 summed in
 fp32 and rounded once), as the JAX package leaves them to XLA.
 
 On a ragged (LoD) X, padded [B, T, ...] at run time where the program's
@@ -83,6 +84,11 @@ _register_elementwise("elementwise_add", torch.add)
 _register_elementwise("elementwise_mul", torch.mul)
 _register_elementwise("elementwise_sub", torch.sub)
 _register_elementwise("elementwise_min", torch.minimum)
+_register_elementwise("elementwise_div", torch.div)
+_register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_pow", torch.pow)
+# jnp.mod: the remainder takes the divisor's sign
+_register_elementwise("elementwise_mod", torch.remainder)
 
 
 @register_op("equal")
@@ -98,6 +104,12 @@ def _register_unary(name, fn):
 
 
 _register_unary("floor", torch.floor)
+_register_unary("ceil", torch.ceil)
+_register_unary("exp", torch.exp)
+_register_unary("sqrt", torch.sqrt)
+_register_unary("abs", torch.abs)
+_register_unary("cos", torch.cos)
+_register_unary("sin", torch.sin)
 _register_unary("log", torch.log)
 _register_unary("square", torch.square)
 _register_unary("logical_not", torch.logical_not)
@@ -125,12 +137,48 @@ def _reduce_sum(ctx):
                              dtype=x.dtype)}
 
 
-@register_op("less_than")
-def _less_than(ctx):
-    x, y = _promote(ctx.input("X"), ctx.input("Y"))
-    if x.dim() != y.dim():
-        y = _broadcast_y(x, y, ctx.attr("axis", -1))
-    return {"Out": torch.lt(x, y)}
+def _register_compare(name, fn):
+    def lower(ctx):
+        x, y = _promote(ctx.input("X"), ctx.input("Y"))
+        if x.dim() != y.dim():
+            y = _broadcast_y(x, y, ctx.attr("axis", -1))
+        return {"Out": fn(x, y)}
+    register_op(name)(lower)
+
+
+_register_compare("less_than", torch.lt)
+_register_compare("less_equal", torch.le)
+_register_compare("greater_than", torch.gt)
+_register_compare("greater_equal", torch.ge)
+
+
+@register_op("pow")
+def _pow(ctx):
+    """x ** factor in x's dtype."""
+    x = ctx.input("X")
+    return {"Out": torch.pow(x, ctx.attr("factor", 1.0)).to(x.dtype)}
+
+
+@register_op("clip")
+def _clip(ctx):
+    return {"Out": torch.clamp(ctx.input("X"), ctx.attr("min"),
+                               ctx.attr("max"))}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx):
+    """x * min(max_norm / max(||x||, 1e-12), 1): x whole, scaled to at
+    most max_norm in L2."""
+    x = ctx.input("X")
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.clamp(ctx.attr("max_norm") / torch.clamp(norm, min=1e-12),
+                        max=1.0)
+    return {"Out": x * scale}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx):
+    return {"Out": torch.sum(torch.square(ctx.input("X"))).reshape((1,))}
 
 
 def _flatten2d(x, num_col_dims):

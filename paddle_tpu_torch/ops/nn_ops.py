@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import all_reduce_sum
-from .registry import register_op
+from .registry import register_op, set_grad_maker
 
 
 def _pair(v, n=2):
@@ -290,6 +290,63 @@ def _lookup_table(ctx):
     return {"Out": out}
 
 
+# ---------------------------------------------------------------------------
+# the sparse (SelectedRows) embedding gradient, after the JAX package's
+# lookup_table_sparse_grad and its grad maker (ops/nn_ops.py there)
+# ---------------------------------------------------------------------------
+
+@register_op("lookup_table_sparse_grad")
+def _lookup_table_sparse_grad(ctx):
+    """W's grad as a SelectedRowsValue: rows = the looked-up ids, values =
+    the output cotangent's rows (zero at padding_idx), instead of a dense
+    scatter into the whole table."""
+    from ..fluid.selected_rows import SelectedRowsValue
+    w, ids = ctx.input("W"), ctx.input("Ids")
+    d_out = ctx.input("GRAD:Out")
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])
+    flat_ids = ids.reshape(-1).to(torch.int32)
+    values = d_out.reshape(-1, w.shape[-1])
+    padding_idx = ctx.attr("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        values = values * (flat_ids != padding_idx)[:, None].to(
+            values.dtype)
+    return {"GRAD:W": SelectedRowsValue(flat_ids, values, w.shape[0])}
+
+
+def _lookup_table_grad_maker(op, block, grad_map, no_grad_set, bw_ctx=None):
+    """The sparse grad op where is_sparse is set; None (the generic dense
+    vjp) otherwise, and also where W feeds any other op: a tied head's
+    dense partial grad would overwrite the sparse one, so such a table
+    takes the dense path, whose fan-in sum covers every consumer."""
+    if not op.attrs.get("is_sparse", False):
+        return None
+    from ..fluid.framework import grad_var_name
+    w_name = op.inputs["W"][0]
+    out_name = op.outputs["Out"][0]
+    if w_name in no_grad_set or out_name not in grad_map:
+        return None
+    if any(o is not op and any(w_name in names
+                               for names in o.inputs.values())
+           for o in block.ops):
+        return None
+    gname = grad_var_name(w_name)
+    w_var = block._find_var_recursive(w_name)
+    gvar = block.create_var(name=gname, dtype=w_var.dtype,
+                            shape=w_var.shape, stop_gradient=True)
+    gvar.is_selected_rows = True
+    block.append_op(
+        type="lookup_table_sparse_grad",
+        inputs={"W": [w_name], "Ids": list(op.inputs["Ids"]),
+                "GRAD:Out": [grad_map[out_name]]},
+        outputs={"GRAD:W": [gname]},
+        attrs={"padding_idx": op.attrs.get("padding_idx", -1),
+               "op_role": "Backward"},
+        infer_shape=False)
+    grad_map[w_name] = gname
+    return [gname]
+
+
 def _take_label(x, label):
     """x[..., label] [..., 1] as `jnp.take_along_axis` picks it: a label
     in [-C, 0) wraps, any other label outside [0, C) picks NaN (and its
@@ -364,3 +421,6 @@ def _accuracy(ctx):
             "Correct": num_correct.to(torch.int32).reshape((1,)),
             "Total": torch.full((1,), total, dtype=torch.int32,
                                 device=pred_idx.device)}
+
+
+set_grad_maker("lookup_table", _lookup_table_grad_maker)

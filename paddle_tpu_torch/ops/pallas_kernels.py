@@ -56,11 +56,11 @@ __all__ = ["decode_attention", "decode_attention_reference",
 # finite) underflows to an exact 0 and a fully masked row stays finite.
 _NEG_INF = -1e30
 _TINY = 1e-20
-# head dims the decode kernel's templates are built for (D / 4 lanes per
+# head dims the decode kernel's templates are built for (D / VEC lanes per
 # cached row, a power of two that divides a warp); any D up to the
 # largest runs the next of them with the real D at run time, reading the
 # caches in place (csrc/decode_attention.cu, kRagged)
-_KERNEL_HEAD_DIMS = (4, 8, 16, 32, 64, 128)
+_KERNEL_HEAD_DIMS = (4, 8, 16, 32, 64, 128, 256)
 
 # kernel name -> launches of its CUDA kernel in this process (a call that
 # runs the plain version never counts)
@@ -357,8 +357,10 @@ def decode_attention_head_slice(q, k_cache, v_cache, lengths, head_offset,
 # ---------------------------------------------------------------------------
 
 # head dims the CUDA kernels are built for (fp32 and bf16 alike); a
-# smaller D runs zero-padded to the next of them (`_flash_width`)
-_FLASH_HEAD_DIMS = (64, 128)
+# smaller D runs zero-padded to the next of them (`_flash_width`).  The
+# 256 instantiation holds 32-row tiles, its warps in pairs over the
+# columns (csrc/flash_attention_common.cuh, tile_rows).
+_FLASH_HEAD_DIMS = (64, 128, 256)
 
 
 def _flash_width(D):
@@ -367,10 +369,11 @@ def _flash_width(D):
         if D <= w:
             return w
     raise ValueError(
-        "flash_attention: head dim %d > %d is not taken on the card: the "
-        "kernels hold a 64-row tile of q, k and v, %d columns wide, in one "
-        "block's shared memory (ROADMAP.md queue 2, kernel work item 1)"
-        % (D, _FLASH_HEAD_DIMS[-1], _FLASH_HEAD_DIMS[-1]))
+        "flash_attention: head dim %d > %d is not taken on the card: even "
+        "a 32-row fp32 tile set of q, k and v that wide is past one "
+        "block's shared memory, and needs a loop over D slices "
+        "(ROADMAP.md queue 2, kernel work item 1)"
+        % (D, _FLASH_HEAD_DIMS[-1]))
 
 
 def _pad_last(t, width):

@@ -307,8 +307,9 @@ def test_cuda_autograd_and_torch_func_run_the_kernels():
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take():
     _need_cuda()
     q, k, v = _card_inputs(1, 64, 2, 64, seed=2, fused_qkv=False)
-    # a head dim below 128 runs zero-padded; past 128 it raises
-    wide = torch.randn(1, 64, 2, 160, device="cuda")
+    # a head dim below 256 runs zero-padded to an instantiated width; past
+    # 256 it raises
+    wide = torch.randn(1, 64, 2, 264, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         torch_kernels.flash_attention_fwd(wide, wide, wide)
     with pytest.raises(TypeError, match="float32"):
@@ -383,7 +384,7 @@ def test_cuda_bf16_kernels_run_on_tensor_cores():
                        ("flash_bwd_dkv", "tf32")):
         tc = [c for n, c in counts.items() if kind + "_tc_kernel" in n]
         f32 = [c for n, c in counts.items() if kind + "_kernel" in n]
-        assert len(tc) == len(f32) == 2, kind   # D = 64 and D = 128
+        assert len(tc) == len(f32) == 3, kind   # D = 64, 128 and 256
         for want, found in (("bf16", tc), (fp32, f32)):
             for c in found:
                 others = sum(v for k, v in c.items() if k != want)

@@ -1,8 +1,8 @@
 """Head-dim and channel coverage of the card's kernels: every shape the
 JAX kernel functions take runs a hand kernel on the card.
 
-K1/K2 take any head dim D <= 128 by zero-padding q, k, v (and do) to the
-next instantiated width (64 or 128) with the original D's scale, then
+K1/K2 take any head dim D <= 256 by zero-padding q, k, v (and do) to the
+next instantiated width (64, 128 or 256) with the original D's scale, then
 slicing o, dq, dk and dv back (`pad_head_dim_call`); K6-bf16 takes any C,
 F and C4 by zero-padding the channel edge to a multiple of 8
 (`pad_channels_call`).  On the CPU those paths are held against the
@@ -74,10 +74,14 @@ def test_flash_bwd_pad_and_slice_equals_plain(D, dtype):
 
 
 def test_flash_width_refuses_past_128_naming_the_roadmap():
+    """Up to 128 a head dim runs at 64 or 128; from 129 to 256 at the 256
+    instantiation (32-row tiles); past 256 the width is refused, naming
+    the ROADMAP item that keeps it."""
     assert tkernels._flash_width(1) == 64
     assert tkernels._flash_width(128) == 128
+    assert tkernels._flash_width(160) == 256
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
-        tkernels._flash_width(160)
+        tkernels._flash_width(257)
 
 
 def _bottleneck(rng, C, F, C4, branch, dtype):

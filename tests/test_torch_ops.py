@@ -345,6 +345,86 @@ _CASES = [
     ("beam_search_decode", "beam_search_decode",
      {"Ids": [_i(4, 5, 6)], "Scores": [_f(5, 6)],
       "ParentIdx": [_i(6, 5, 6)]}, {"beam_size": 3, "end_id": 1}),
+    # the math that gradient clipping, the LR schedules and the Variable
+    # operators append
+    ("exp", "exp", {"X": [_f(3, 4)]}, {}),
+    ("cos", "cos", {"X": [_f(3, 4)]}, {}),
+    ("sin", "sin", {"X": [_f(3, 4)]}, {}),
+    ("sqrt", "sqrt", {"X": [("pos", (3, 4))]}, {}),
+    ("ceil", "ceil", {"X": [_f(3, 4)]}, {}),
+    ("abs", "abs", {"X": [_f(3, 4)]}, {}),
+    ("pow", "pow", {"X": [("pos", (3, 4))]}, {"factor": -0.5}),
+    ("elementwise_div", "elementwise_div",
+     {"X": [_f(2, 3, 4)], "Y": [("pos", (4,))]}, {"axis": -1}),
+    ("elementwise_max", "elementwise_max",
+     {"X": [_f(2, 3, 4)], "Y": [_f(2, 3, 4)]}, {"axis": -1}),
+    ("elementwise_pow", "elementwise_pow",
+     {"X": [("pos", (3, 4))], "Y": [_f(3, 4)]}, {"axis": -1}),
+    ("elementwise_mod", "elementwise_mod",
+     {"X": [_f(3, 4)], "Y": [("pos", (3, 4))]}, {"axis": -1}),
+    ("less_equal", "less_equal", {"X": [("ties", (3, 4))],
+                                  "Y": [("ties", (3, 4))]}, {"axis": -1}),
+    ("greater_than", "greater_than", {"X": [("ties", (3, 4))],
+                                      "Y": [("ties", (3, 4))]},
+     {"axis": -1}),
+    ("greater_equal", "greater_equal", {"X": [("ties", (3, 4))],
+                                        "Y": [("ties", (4,))]},
+     {"axis": -1}),
+    ("clip", "clip", {"X": [_f(4, 5)]}, {"min": -0.5, "max": 0.7}),
+    ("clip_by_norm", "clip_by_norm", {"X": [_f(4, 5)]}, {"max_norm": 1.5}),
+    ("clip_by_norm_under", "clip_by_norm", {"X": [_f(4, 5)]},
+     {"max_norm": 100.0}),
+    ("squared_l2_norm", "squared_l2_norm", {"X": [_f(4, 5)]}, {}),
+    # the other optimizers' updates
+    ("lars_momentum", "lars_momentum",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)], "Velocity": [_f(4, 3)],
+      "LearningRate": [("lr", (1,))]},
+     {"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005}),
+    ("adamax", "adamax",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)], "Moment": [_f(4, 3)],
+      "InfNorm": [("pos", (4, 3))], "LearningRate": [("lr", (1,))],
+      "Beta1Pow": [("b1p", (1,))]},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+    ("adagrad", "adagrad",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)], "Moment": [("pos", (4, 3))],
+      "LearningRate": [("lr", (1,))]}, {"epsilon": 1e-6}),
+    ("decayed_adagrad", "decayed_adagrad",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)], "Moment": [("pos", (4, 3))],
+      "LearningRate": [("lr", (1,))]}, {"decay": 0.95, "epsilon": 1e-6}),
+    ("adadelta", "adadelta",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)],
+      "AvgSquaredGrad": [("pos", (4, 3))],
+      "AvgSquaredUpdate": [("pos", (4, 3))]}, {"rho": 0.95,
+                                               "epsilon": 1e-6}),
+    ("rmsprop", "rmsprop",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)],
+      "MeanSquare": [("pos", (4, 3))], "Moment": [_f(4, 3)],
+      "MeanGrad": [_f(4, 3)], "LearningRate": [("lr", (1,))]},
+     {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9, "centered": False}),
+    ("rmsprop_centered", "rmsprop",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)],
+      "MeanSquare": [("pos", (4, 3))], "Moment": [_f(4, 3)],
+      "MeanGrad": [("pos", (4, 3))], "LearningRate": [("lr", (1,))]},
+     {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.0, "centered": True}),
+    ("ftrl", "ftrl",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)],
+      "SquaredAccumulator": [("pos", (4, 3))],
+      "LinearAccumulator": [_f(4, 3)], "LearningRate": [("lr", (1,))]},
+     {"l1": 0.1, "l2": 0.2, "lr_power": -0.5}),
+    ("ftrl_power", "ftrl",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)],
+      "SquaredAccumulator": [("pos", (4, 3))],
+      "LinearAccumulator": [_f(4, 3)], "LearningRate": [("lr", (1,))]},
+     {"l1": 0.0, "l2": 0.1, "lr_power": -0.7}),
+    ("proximal_gd", "proximal_gd",
+     {"Param": [_f(4, 3)], "Grad": [_f(4, 3)],
+      "LearningRate": [("lr", (1,))]}, {"l1": 0.5, "l2": 0.1}),
+    ("average_accumulates", "average_accumulates",
+     {"param": [_f(4, 3)], "in_sum_1": [_f(4, 3)], "in_sum_2": [_f(4, 3)],
+      "in_sum_3": [_f(4, 3)], "in_num_accumulates": [_i(4, 1)],
+      "in_old_num_accumulates": [_i(4, 1)], "in_num_updates": [_i(9, 1)]},
+     {"average_window": 0.5, "min_average_window": 2,
+      "max_average_window": 4}),
 ]
 
 # the cases above again with their float inputs in bf16 ("X" slots), or
@@ -384,7 +464,10 @@ _ELSEWHERE = {"uniform_random", "gaussian_random", "fused_bottleneck",
               # decoder.py and test_torch_machine_translation.py
               "while", "conditional_block", "recurrent", "write_to_array",
               "read_from_array", "array_length", "array_to_lod_tensor",
-              "lod_tensor_to_array", "max_sequence_len"}
+              "lod_tensor_to_array", "max_sequence_len",
+              # a SelectedRows grad, held with the sparse optimizer paths
+              # in test_torch_sparse_embedding.py
+              "lookup_table_sparse_grad"}
 
 
 def _make(spec, rng):

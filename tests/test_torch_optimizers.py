@@ -7,7 +7,9 @@ same inputs agree with the JAX package's to rtol 1e-6; the program that
 parameter's own regularizer wins), is the JAX package's op for op: types,
 var names and attrs; and three steps of a small MLP under each optimizer
 agree (losses and every state to rtol 1e-5 of each array's largest
-magnitude), from one startup scope carried across."""
+magnitude), from one startup scope carried across; `momentum` on a
+SelectedRows grad, and Momentum under a parameter's GradientClipByValue,
+against the JAX package."""
 
 import types
 
@@ -82,13 +84,31 @@ def test_sign_keeps_nan():
 
 
 def test_sparse_grad_raises():
-    op = types.SimpleNamespace(type="momentum", uid=1, attrs={"mu": 0.9},
-                               inputs={}, outputs={})
-    ctx = treg.ExecContext(op, {
-        "Param": [torch.zeros(3)], "Grad": [object()],
-        "Velocity": [torch.zeros(3)], "LearningRate": [torch.ones(1)]})
-    with pytest.raises(NotImplementedError, match="SelectedRows"):
-        treg.get_op_def("momentum").lower(ctx)
+    """momentum on a SelectedRows grad (a sparse embedding's: duplicate
+    rows, a padding id past the table) densifies it, as the JAX lowering
+    does, and agrees with the JAX package to rtol 1e-6."""
+    from paddle_tpu.fluid.selected_rows import SelectedRowsValue as JSR
+    from paddle_tpu_torch.fluid.selected_rows import SelectedRowsValue as TSR
+    rng = np.random.RandomState(4)
+    p, v = _rand(rng, 6, 3), _rand(rng, 6, 3)
+    rows = np.asarray([1, 4, 1, 6], np.int32)  # 6 == height: dropped
+    vals = _rand(rng, 4, 3)
+    lr = np.asarray([0.05], np.float32)
+    op = types.SimpleNamespace(type="momentum", uid=1, outputs={},
+                               attrs={"mu": 0.9, "use_nesterov": False},
+                               inputs={})
+    jout = jreg.get_op_def("momentum").lower(jreg.ExecContext(op, {
+        "Param": [jnp.asarray(p)], "Velocity": [jnp.asarray(v)],
+        "LearningRate": [jnp.asarray(lr)],
+        "Grad": [JSR(jnp.asarray(rows), jnp.asarray(vals), 6)]}))
+    tout = treg.get_op_def("momentum").lower(treg.ExecContext(op, {
+        "Param": [as_tensor(p)], "Velocity": [as_tensor(v)],
+        "LearningRate": [as_tensor(lr)],
+        "Grad": [TSR(as_tensor(rows), as_tensor(vals), 6)]}))
+    for slot in ("ParamOut", "VelocityOut"):
+        np.testing.assert_allclose(as_numpy(tout[slot]),
+                                   np.asarray(jout[slot]), rtol=1e-6,
+                                   atol=1e-7)
 
 
 def _mlp(pkg, opt, reg, per_param):
@@ -179,10 +199,48 @@ def test_minimize_builds_the_jax_program_and_trains_alike(opt, reg,
 
 
 def test_gradient_clip_still_raises():
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tfluid.program_guard(main, startup):
-        x = tfluid.layers.data("x", shape=[3], dtype="float32")
-        w = tfluid.ParamAttr(gradient_clip=object())
-        loss = tfluid.layers.mean(tfluid.layers.fc(x, size=2, param_attr=w))
-        with pytest.raises(NotImplementedError, match="gradient clipping"):
-            tfluid.optimizer.Momentum(0.1, 0.9).minimize(loss)
+    """Momentum with a parameter's GradientClipByValue: the program that
+    minimize builds is the JAX package's op for op (the clip op before
+    the update), and three steps train alike."""
+    def build(pkg):
+        main, startup = pkg.Program(), pkg.Program()
+        main.random_seed = startup.random_seed = 5
+        with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+            x = pkg.layers.data("x", shape=[12], dtype="float32")
+            y = pkg.layers.data("y", shape=[1], dtype="int64")
+            w = pkg.ParamAttr(
+                gradient_clip=pkg.clip.GradientClipByValue(0.01))
+            logits = pkg.layers.fc(x, size=4, param_attr=w)
+            loss = pkg.layers.mean(
+                pkg.layers.softmax_with_cross_entropy(logits, y))
+            pkg.optimizer.Momentum(0.1, 0.9).minimize(loss)
+        return main, startup, loss
+
+    jm, js, jloss = build(jfluid)
+    tm, ts, tloss = build(tfluid)
+    assert _ops(tm) == _ops(jm) and _ops(ts) == _ops(js)
+    types_ = [op.type for op in tm.global_block().ops]
+    assert types_.count("clip") == 1 and \
+        types_.index("clip") < types_.index("momentum")
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    with jfluid.scope_guard(jscope):
+        jexe.run(js)
+    init = {n: np.asarray(jscope.get(n)) for n in jscope.keys()}
+    tscope = tfluid.scope_from_jax(init, tfluid.Scope(), tfluid.CPUPlace())
+    texe = tfluid.Executor(tfluid.CPUPlace())
+    rng = np.random.RandomState(3)
+    feed = {"x": rng.randn(16, 12).astype(np.float32),
+            "y": rng.randint(0, 4, size=(16, 1)).astype(np.int64)}
+    for _ in range(3):
+        with jfluid.scope_guard(jscope):
+            jl, = jexe.run(jm, feed=feed, fetch_list=[jloss])
+        with tfluid.scope_guard(tscope):
+            tl, = texe.run(tm, feed=feed, fetch_list=[tloss])
+        np.testing.assert_allclose(np.asarray(tl).ravel(),
+                                   np.asarray(jl).ravel(), rtol=1e-5)
+    for n in init:
+        want = np.asarray(jscope.get(n))
+        np.testing.assert_allclose(as_numpy(tscope.get(n)), want,
+                                   rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(want).max()),
+                                   err_msg=n)
