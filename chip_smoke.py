@@ -246,6 +246,27 @@ Phases, in order; any failure exits non-zero:
                ranked, each source alone equal to the batched run (or a
                tie of scores within 1e-5); the small model's generation
                on the card equal to the CPU's (ids; scores within 1e-5).
+ 16. text conv — the book's sentiment conv net (06.understand_sentiment
+               convolution_net) through fluid.layers and fluid.nets at its
+               published widths: embedding [5147, 128] (is_sparse), two
+               sequence_conv_pool (512 filters, widths 3 and 4, tanh,
+               sqrt pool), fc(2, softmax), cross entropy, Adagrad(0.002);
+               batch 128, lengths in [8, 120] drawn as the imdb reader
+               draws them (synthesized here).  The first step on the card
+               and on the CPU from one startup state: the loss within
+               1e-5 and every dense gradient within 1e-5 of its largest
+               magnitude; then 10 steps on the card: finite, falling
+               losses; examples/s, median step ms, launches a step, busy
+               share.
+     mha     — nets.scaled_dot_product_attention at the transformer's
+               widths (B 8, T 512, d 512, 8 heads), forward and its
+               gradients to q, k and v: card against CPU (1e-5 of each
+               array's largest magnitude); ms a call.
+     core ops — every op case of tests/torch_op_cases.py's CORE_CASES (
+               the repaired gather, saturating casts and tie gradients,
+               the math, tensor, nn and sequence ops) forward and vjp on
+               the card against the CPU from the same inputs (1e-5), with
+               no device-side assert.
 Phase 2 also holds the coverage cases against their plain versions,
 at the shapes the coverage paths of 6c give the kernels: K1/K2 at head
 dims 32, 96, 192 and 256 (fp32 and bf16, zero-padded along D to 64 /
@@ -5202,6 +5223,238 @@ def phase_mt_generate(torch, fluid, scope):
         "1e-5" % len(res["gpu"]))
 
 
+# ---------------------------------------------------------------------------
+# 16. the book's text conv net, multi-head attention, the core ops
+# ---------------------------------------------------------------------------
+
+# convolution_net at the book's widths (06.understand_sentiment): dict,
+# embedding, filters, classes; batch and the imdb reader's lengths
+TEXT_CONV = dict(dict_dim=5147, emb_dim=128, hid_dim=512, class_dim=2)
+TEXT_BATCH = 128
+TEXT_LENS = (8, 120)
+TEXT_STEPS = 10
+TEXT_LR = 0.002
+TEXT_SEED = 17
+# nets.scaled_dot_product_attention at the transformer's widths
+MHA_SHAPE = (8, 512, 512, 8)   # B, T, d, heads
+MHA_RUNS = 10
+OP_RTOL = OP_ATOL = 1e-5
+
+
+def text_conv_program(fluid):
+    """The book's convolution_net -> (main, startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = TEXT_SEED
+    w = TEXT_CONV
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        words = L.data("words", shape=[1], dtype="int64", lod_level=1)
+        label = L.data("label", shape=[1], dtype="int64")
+        emb = L.embedding(words, size=[w["dict_dim"], w["emb_dim"]],
+                          is_sparse=True)
+        convs = [fluid.nets.sequence_conv_pool(
+            emb, num_filters=w["hid_dim"], filter_size=k, act="tanh",
+            pool_type="sqrt") for k in (3, 4)]
+        prediction = L.fc(input=convs, size=w["class_dim"], act="softmax")
+        loss = L.mean(L.cross_entropy(input=prediction, label=label))
+        fluid.optimizer.Adagrad(learning_rate=TEXT_LR).minimize(loss)
+    return main, startup, loss
+
+
+def text_conv_batches(fluid, n):
+    """`n` batches as the imdb reader draws them: lengths uniform in
+    TEXT_LENS, a label, and 70% of the words from the label's third of
+    the dictionary (the rest from the neutral third)."""
+    rng = np.random.RandomState(TEXT_SEED)
+    V = TEXT_CONV["dict_dim"]
+    out = []
+    for _ in range(n):
+        labels = rng.randint(0, 2, size=(TEXT_BATCH, 1)).astype(np.int64)
+        lens = [int(x) for x in rng.randint(TEXT_LENS[0], TEXT_LENS[1] + 1,
+                                            size=TEXT_BATCH)]
+        rows = []
+        for lab, n_words in zip(labels[:, 0], lens):
+            bank = rng.randint(0, V // 3, n_words) + (0 if lab else V // 3)
+            neutral = rng.randint(2 * V // 3, V, n_words)
+            rows.append(np.where(rng.rand(n_words) < 0.7, bank, neutral))
+        words = np.concatenate(rows).astype(np.int64).reshape(-1, 1)
+        out.append({"words": fluid.create_lod_tensor(words, [lens], None),
+                    "label": labels})
+    return out
+
+
+def phase_text_conv(torch, pk, fluid):
+    """The book's text conv net at its widths: the first step's loss and
+    dense gradients on the card against the CPU from one startup state,
+    then TEXT_STEPS steps on the card (finite, falling losses), their
+    examples/s and median step, and one profiled step (launches, busy
+    share).  No hand kernel is on this path."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.fluid.executor import as_numpy
+    main, startup, loss = text_conv_program(fluid)
+    types_ = [op.type for op in main.global_block().ops]
+    check(types_.count("sequence_conv") == 2
+          and "lookup_table_sparse_grad" in types_,
+          "text conv: the program lacks its sequence convs or sparse grad")
+    grads = [p.name + "@GRAD" for p in main.all_parameters()
+             if not p.name.startswith("embedding")]
+    batches = text_conv_batches(fluid, TEXT_STEPS + 1)
+    scope0 = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope0)
+    init = {n: as_numpy(scope0.get(n)) for n in scope0.keys()}
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    gscope = fluid.scope_from_jax(init, fluid.Scope(), fluid.CUDAPlace(0))
+    cscope = fluid.scope_from_jax(init, fluid.Scope(), fluid.CPUPlace())
+    t0 = time.perf_counter()
+    cout = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=batches[0], fetch_list=[loss] + grads, scope=cscope)
+    cpu_s = time.perf_counter() - t0
+    pk.reset_launch_counts()
+    losses, step_s = [], []
+    for i in range(TEXT_STEPS):
+        t0 = time.perf_counter()
+        out = gpu.run(main, feed=batches[i],
+                      fetch_list=[loss] + (grads if i == 0 else []),
+                      scope=gscope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(np.asarray(out[0]).ravel()[0]))
+        if i == 0:
+            gout = out
+    counts = {k: v for k, v in pk.launch_counts.items() if v}
+    check(not counts, "text conv: hand kernels launched on a path that has "
+          "none: %s" % counts)
+    closs = float(np.asarray(cout[0]).ravel()[0])
+    check(abs(losses[0] - closs) <= 1e-5 * abs(closs),
+          "text conv: first loss card %r, CPU %r" % (losses[0], closs))
+    worst, where = _worst_spread(
+        {n: np.asarray(v, np.float64) for n, v in zip(grads, gout[1:])},
+        {n: np.asarray(v, np.float64) for n, v in zip(grads, cout[1:])})
+    check(worst <= 1e-5, "text conv: %s on the card lies %.3g of its "
+          "largest magnitude from the CPU's" % (where, worst))
+    check(all(np.isfinite(losses)), "text conv: losses %s" % losses)
+    check(np.mean(losses[-3:]) < losses[0],
+          "text conv: the loss did not fall over %d steps: %s"
+          % (TEXT_STEPS, losses))
+    # one profiled step
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gpu.run(main, feed=batches[-1], fetch_list=[loss], scope=gscope)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, rows = profile_rows(torch, prof, 1)
+    med_ms = float(np.median(step_s[1:])) * 1e3
+    out = {"losses": losses, "first_loss_cpu": closs,
+           "grads_worst_vs_cpu": worst, "grads_worst_at": where,
+           "cpu_step_s": cpu_s, "step_ms": [x * 1e3 for x in step_s],
+           "median_step_ms": med_ms,
+           "examples_per_s": TEXT_BATCH / (med_ms / 1e3),
+           "profiled_step_ms": prof_ms}
+    if rows:
+        out.update({"launches_per_step": sum(r[1] for r in rows),
+                    "device_busy_ms": device_ms,
+                    "busy_share": device_ms / med_ms})
+    log("text conv: losses %s (first on the CPU %.6f); first step's dense "
+        "grads card vs CPU worst %.3g of the largest magnitude (%s)"
+        % (["%.4f" % x for x in losses], closs, worst, where))
+    log("text conv: %.1f examples/s, median step %.2f ms over %d steps "
+        "(first %.2f ms), %s launches a step, device busy %s; the CPU step "
+        "%.2f s"
+        % (out["examples_per_s"], med_ms, TEXT_STEPS - 1, step_s[0] * 1e3,
+           "%.0f" % out["launches_per_step"] if rows else "not measured",
+           "%.2f ms = %.1f%% of the step" % (device_ms, 100 * device_ms
+                                             / med_ms)
+           if rows else "not measured", cpu_s))
+    for us, c, k in rows[:6]:
+        log("text conv profile:   %10.1f us  %5d launches  %s"
+            % (us, c, k[:90]))
+    log(json.dumps({"text_conv": out}))
+    return out
+
+
+def _mha_program(fluid):
+    """q, k, v data [B, T, d] (gradients wanted), the attention, and
+    sum(out * cot) with its gradients to q, k and v."""
+    B, T, d, heads = MHA_SHAPE
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        qkv = []
+        for name in ("q", "k", "v"):
+            x = L.data(name, shape=[T, d], dtype="float32")
+            x.stop_gradient = False
+            qkv.append(x)
+        cot = L.data("cot", shape=[T, d], dtype="float32")
+        out = fluid.nets.scaled_dot_product_attention(*qkv, num_heads=heads)
+        total = L.reduce_sum(L.elementwise_mul(out, cot))
+        grads = fluid.gradients([total], qkv)
+    return main, [out] + list(grads)
+
+
+def phase_mha(torch, fluid):
+    """nets.scaled_dot_product_attention forward and backward at MHA_SHAPE
+    on the card against the CPU; the median ms of a call (forward and
+    the three gradients, fetched) over MHA_RUNS."""
+    main, fetch = _mha_program(fluid)
+    B, T, d, _ = MHA_SHAPE
+    rng = np.random.RandomState(23)
+    feed = {n: rng.randn(B, T, d).astype(np.float32)
+            for n in ("q", "k", "v", "cot")}
+    cpu = [np.asarray(a) for a in fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch)]
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    card = [np.asarray(a) for a in gpu.run(main, feed=feed,
+                                           fetch_list=fetch)]
+    names = ["out", "q@GRAD", "k@GRAD", "v@GRAD"]
+    worst, where = _worst_spread(
+        {n: np.asarray(v, np.float64) for n, v in zip(names, card)},
+        {n: np.asarray(v, np.float64) for n, v in zip(names, cpu)})
+    check(worst <= OP_RTOL, "mha: %s on the card lies %.3g of its largest "
+          "magnitude from the CPU's" % (where, worst))
+    staged = gpu._prepare_feeds(main, feed)
+    times = []
+    for _ in range(MHA_RUNS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu.run(main, feed=staged, fetch_list=fetch, return_numpy=False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times[2:]))
+    log("mha (B %d, T %d, d %d, %d heads): forward and gradients card vs "
+        "CPU worst %.3g of the largest magnitude (%s); %.2f ms a call "
+        "(median of %d, the feeds already on the card)"
+        % (B, T, d, MHA_SHAPE[3], worst, where, ms, MHA_RUNS))
+    log(json.dumps({"mha": {"shape": MHA_SHAPE, "worst_vs_cpu": worst,
+                            "ms": ms, "ms_runs": times[2:]}}))
+    return ms
+
+
+def phase_core_ops(torch):
+    """Every op case of tests/torch_op_cases.py's CORE_CASES, forward and
+    vjp, on the card against the CPU from the same inputs, then a sync
+    that a device-side assert would fail."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_op_cases as cases
+    worst, where, n = -np.inf, None, 0
+    for case in cases.CORE_CASES:
+        bad, at = cases.max_mismatch(cases.run_case(case, "cuda"),
+                                     cases.run_case(case, "cpu"),
+                                     OP_RTOL, OP_ATOL)
+        check(bad <= 0, "core ops: %s differs card vs CPU at %s (by %.3g "
+              "past the tolerance)" % (case[0], at, bad))
+        if bad > worst:
+            worst, where = bad, case[0]
+        n += 1
+    torch.cuda.synchronize()
+    log("core ops: %d cases (%d op types) forward and vjp equal card vs CPU "
+        "within %g (closest to the limit: %s, %.3g under it); no "
+        "device-side assert"
+        % (n, len({c[1] for c in cases.CORE_CASES}), OP_RTOL, where,
+           -worst))
+    return n
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5392,7 +5645,19 @@ def main():
     # 13. data-parallel ResNet-50 training, one NCCL rank per card
     t_phase = time.time()
     phase_parallel(torch, fluid)
-    log("parallel phase: %.1f s; the whole script %.1f s"
+    log("parallel phase: %.1f s" % (time.time() - t_phase))
+    # 16. the book's text conv net, multi-head attention, the core ops
+    t_phase = time.time()
+    phase_text_conv(torch, pk, fluid)
+    torch.cuda.empty_cache()
+    log("text conv phase: %.1f s" % (time.time() - t_phase))
+    t_phase = time.time()
+    phase_mha(torch, fluid)
+    torch.cuda.empty_cache()
+    log("mha phase: %.1f s" % (time.time() - t_phase))
+    t_phase = time.time()
+    phase_core_ops(torch)
+    log("core ops phase: %.1f s; the whole script %.1f s"
         % (time.time() - t_phase, time.time() - t_main))
     # the coverage cases' launches: the count of its kernel on the path
     # at its head dim (no path runs K6-bf16 at a ragged channel edge)

@@ -9,7 +9,7 @@ from 1/true/yes/on or 0/false/no/off/"").  Setting `use_bf16_amp` calls
 import os
 import types
 
-__all__ = ["FLAGS", "parse_flag"]
+__all__ = ["FLAGS", "parse_flag", "set_flags", "get_flags"]
 
 _TRUE = frozenset(["1", "true", "yes", "on"])
 _FALSE = frozenset(["0", "false", "no", "off", ""])
@@ -181,3 +181,25 @@ FLAGS = _Flags(**{
 if FLAGS.use_bf16_amp:
     # an environment override takes effect as a set attribute would
     _on_change("use_bf16_amp", True)
+
+
+def set_flags(flags_dict):
+    """Set flags by name (fluid.set_flags): an unknown name raises
+    KeyError, a value is coerced to the default's type."""
+    for name, value in flags_dict.items():
+        if name not in _DEFAULTS:
+            raise KeyError("unknown flag %r; known flags: %s"
+                           % (name, ", ".join(sorted(_DEFAULTS))))
+        default = _DEFAULTS[name]
+        if isinstance(value, str):
+            value = parse_flag(name, value, default)
+        else:
+            value = type(default)(value)
+        setattr(FLAGS, name, value)
+
+
+def get_flags(names):
+    """Flags by name (a str or a list of str) -> {name: value}."""
+    if isinstance(names, str):
+        names = [names]
+    return {n: getattr(FLAGS, n) for n in names}

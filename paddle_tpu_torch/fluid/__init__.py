@@ -35,7 +35,7 @@ from . import (backward, checkpoint, clip, core, data_feeder, executor,
                framework, functionalizer, initializer, io, ir_passes, layers,
                lod, nets, optimizer, parallel_executor, pipeline, regularizer,
                selected_rows, sentinel, transpiler, unique_name)
-from .backward import append_backward
+from .backward import append_backward, gradients
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,
                    GradientClipByNorm, GradientClipByValue,
                    set_gradient_clip)
@@ -47,7 +47,9 @@ from .executor import (Executor, FetchFuture, Scope, StepWatchdogTimeout,
                        as_numpy, global_scope, scope_guard)
 from .framework import (Operator, Parameter, Program, Variable,
                         default_main_program, default_startup_program,
-                        program_guard)
+                        name_scope, program_guard)
+from .initializer import MSRA, Constant, Normal, Uniform, Xavier
+from .pipeline import DispatchPipeline
 from .io import (load_inference_model, load_params, load_persistables,
                  load_vars, load_checkpoint, save_checkpoint,
                  save_inference_model, save_params, save_persistables,
@@ -59,7 +61,10 @@ from .param_attr import ParamAttr
 from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
                          InferenceTranspiler)
 from ..ops.registry import amp_enabled, set_amp
+from .. import flags
+from ..flags import FLAGS, get_flags, set_flags
 from . import contrib  # noqa: E402  (the Trainer needs the whole package)
+from .contrib import Inferencer, Trainer  # noqa: E402
 
 __all__ = [
     "backward", "checkpoint", "clip", "contrib", "core", "data_feeder",
@@ -81,5 +86,8 @@ __all__ = [
     "load_persistables", "save_inference_model", "load_inference_model",
     "InferenceTranspiler", "set_amp", "amp_enabled", "ParallelExecutor",
     "ExecutionStrategy", "BuildStrategy", "DistributeTranspiler",
-    "DistributeTranspilerConfig", "LayerHelper",
+    "DistributeTranspilerConfig", "LayerHelper", "gradients",
+    "name_scope", "Constant", "Normal", "Uniform", "Xavier", "MSRA",
+    "DispatchPipeline", "Trainer", "Inferencer", "flags", "FLAGS",
+    "set_flags", "get_flags",
 ]

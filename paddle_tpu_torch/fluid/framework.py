@@ -31,7 +31,7 @@ from .core import VarDesc, convert_np_dtype_to_dtype_
 __all__ = [
     "Program", "Block", "Variable", "Operator", "Parameter",
     "default_startup_program", "default_main_program", "program_guard",
-    "grad_var_name",
+    "grad_var_name", "name_scope",
 ]
 
 GRAD_VAR_SUFFIX = "@GRAD"
@@ -117,6 +117,22 @@ class Parameter(Variable):
         self.do_model_average = kwargs.get("do_model_average", None)
 
 
+_name_scope_stack = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """Ops appended inside carry the '/'-joined prefixes of the open
+    scopes in their `op_namescope` attr (a debugging label)."""
+    if prefix:
+        _name_scope_stack.append(prefix)
+    try:
+        yield
+    finally:
+        if prefix:
+            _name_scope_stack.pop()
+
+
 class Operator:
     """One node in a Block: slot name -> list of variable names for inputs
     and outputs, plus plain-python attributes."""
@@ -127,6 +143,8 @@ class Operator:
         self.inputs = {}   # slot -> [var names]
         self.outputs = {}  # slot -> [var names]
         self.attrs = dict(attrs) if attrs else {}
+        if _name_scope_stack:
+            self.attrs.setdefault("op_namescope", "/".join(_name_scope_stack))
         # uid is per-program creation order: the per-op RNG stream folds
         # it in, so two identically built programs draw identical values
         self.uid = block.program._next_op_uid()

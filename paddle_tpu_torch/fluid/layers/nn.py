@@ -1,6 +1,6 @@
 """NN layer functions building ops into the current program, after
 paddle_tpu/fluid/layers/nn.py: the same signatures, parameter names, op
-types and attrs for the layers the port's models call."""
+types and attrs, for the layers whose ops the port registers."""
 
 import numpy as np
 
@@ -18,11 +18,23 @@ __all__ = [
     "scale", "reshape", "slice", "cumsum", "remat_checkpoint",
     "flash_attention", "mul", "matmul", "concat", "stack", "gather",
     "expand", "unsqueeze", "squeeze", "reduce_sum", "beam_slot_mask",
+    "conv2d_transpose", "group_norm", "sigmoid_cross_entropy_with_logits",
+    "one_hot", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
+    "sign", "leaky_relu", "soft_relu", "brelu", "elu", "relu6",
+    "hard_sigmoid", "swish", "stanh", "l2_normalize", "transpose",
+    "flatten", "split", "unstack", "gather_nd", "scatter", "pad", "pad2d",
+    "argmax", "argmin", "argsort", "shape", "smooth_l1", "huber_loss",
+    "log_loss", "hinge_loss", "margin_rank_loss", "image_resize",
+    "resize_bilinear", "resize_nearest", "uniform_random",
+    "gaussian_random", "uniform_random_batch_size_like",
+    "gaussian_random_batch_size_like", "logical_and", "logical_or",
+    "logical_xor",
 ]
 
 
-def _single_op_layer(helper, op_type, x, attrs=None):
-    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+def _single_op_layer(helper, op_type, x, attrs=None, out_dtype=None):
+    out = helper.create_variable_for_type_inference(
+        dtype=x.dtype if out_dtype is None else out_dtype)
     helper.append_op(type=op_type, inputs={"X": x}, outputs={"Out": out},
                      attrs=attrs or {})
     return out
@@ -435,17 +447,37 @@ def unsqueeze(input, axes, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
     if dim is not None and not isinstance(dim, (list, tuple)):
         dim = [dim]
     out = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op(type="reduce_sum", inputs={"X": input},
+    helper.append_op(type=op_type, inputs={"X": input},
                      outputs={"Out": out},
                      attrs={"dim": dim if dim is not None else [0],
                             "keep_dim": keep_dim,
                             "reduce_all": dim is None})
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
 
 
 def beam_slot_mask(context, beam_size):
@@ -485,7 +517,10 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
     return helper.append_activation(out)
 
 
-def reshape(x, shape, act=None, name=None):
+def reshape(x, shape, actual_shape=None, act=None, inplace=False,
+            name=None):
+    """`actual_shape` and `inplace` are taken for the JAX package's
+    signature, which ignores them too."""
     helper = LayerHelper("reshape2", act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     xshape = helper.create_variable_for_type_inference(x.dtype, True)
@@ -544,3 +579,410 @@ def flash_attention(q, k, v, num_heads=1, causal=False, name=None):
                      attrs={"num_heads": int(num_heads),
                             "causal": bool(causal)})
     return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """NCHW; the filter [in_c, num_filters / groups, kh, kw], its size
+    given or derived from `output_size`."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size or filter_size required")
+        if isinstance(output_size, int):
+            output_size = [output_size, output_size]
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0] - 1)
+            // dilation[0] + 1,
+            (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1] - 1)
+            // dilation[1] + 1]
+    elif isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if input.shape[1] % groups or num_filters % groups:
+        raise ValueError(
+            "conv2d_transpose: in_channels (%d) and num_filters (%d) must "
+            "both be divisible by groups (%d)"
+            % (input.shape[1], num_filters, groups))
+    filter_shape = [input.shape[1], num_filters // groups] + list(filter_size)
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose", inputs={"Input": input, "Filter": w},
+        outputs={"Output": pre_bias},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    channels = input.shape[1]
+    inputs = {"X": input}
+    if helper.param_attr is not False:
+        inputs["Scale"] = helper.create_parameter(
+            attr=helper.param_attr, shape=[channels], dtype=dtype,
+            default_initializer=Constant(1.0))
+    if helper.bias_attr is not False:
+        inputs["Bias"] = helper.create_parameter(
+            attr=helper.bias_attr, shape=[channels], dtype=dtype,
+            is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype, True)
+    var = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op(type="group_norm", inputs=inputs,
+                     outputs={"Y": out, "Mean": mean, "Variance": var},
+                     attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": x, "Label": label},
+                     outputs={"Out": out},
+                     attrs={"ignore_index": ignore_index})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"depth": depth})
+    return out
+
+
+def sign(x):
+    return _single_op_layer(LayerHelper("sign"), "sign", x)
+
+
+def _op_layer(op_type, x, name, **attrs):
+    """One `op_type` op from X to Out with `attrs`."""
+    return _single_op_layer(LayerHelper(op_type, name=name), op_type, x,
+                            attrs)
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _op_layer("leaky_relu", x, name, alpha=alpha)
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    return _op_layer("soft_relu", x, name, threshold=threshold)
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _op_layer("brelu", x, name, t_min=t_min, t_max=t_max)
+
+
+def elu(x, alpha=1.0, name=None):
+    return _op_layer("elu", x, name, alpha=alpha)
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _op_layer("relu6", x, name, threshold=threshold)
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _op_layer("hard_sigmoid", x, name, slope=slope, offset=offset)
+
+
+def swish(x, beta=1.0, name=None):
+    return _op_layer("swish", x, name, beta=beta)
+
+
+def stanh(x, scale_a=2.0 / 3.0, scale_b=1.7159, name=None):
+    return _op_layer("stanh", x, name, scale_a=float(scale_a),
+                       scale_b=float(scale_b))
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type="l2_normalize", inputs={"X": x},
+                     outputs={"Out": out, "Norm": norm},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def _with_xshape(layer, op_type, x, attrs, name=None):
+    helper = LayerHelper(layer, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type=op_type, inputs={"X": x},
+                     outputs={"Out": out, "XShape": xshape}, attrs=attrs)
+    return out
+
+
+def transpose(x, perm, name=None):
+    return _with_xshape("transpose", "transpose2", x, {"axis": list(perm)},
+                        name)
+
+
+def flatten(x, axis=1, name=None):
+    return _with_xshape("flatten2", "flatten2", x, {"axis": axis}, name)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """`num_or_sections` equal parts (an int) or parts of the listed
+    sizes, along `dim`: a list of Variables."""
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+    else:
+        num, sections = 0, list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(num if num else len(sections))]
+    helper.append_op(type="split", inputs={"X": input},
+                     outputs={"Out": outs},
+                     attrs={"num": num, "sections": sections, "axis": dim})
+    return outs
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unstack", inputs={"X": x}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather_nd", inputs={"X": input, "Index": index},
+                     outputs={"Out": out})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="scatter",
+                     inputs={"X": input, "Ids": index, "Updates": updates},
+                     outputs={"Out": out}, attrs={"overwrite": overwrite})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _op_layer("pad", x, name, paddings=paddings,
+                       pad_value=pad_value)
+
+
+def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    """`data_format` is not passed to the op, as in the JAX layer (the op
+    reads NCHW)."""
+    return _op_layer("pad2d", input, name, paddings=paddings, mode=mode,
+                       pad_value=pad_value)
+
+
+def argmax(x, axis=0, name=None):
+    return _single_op_layer(LayerHelper("arg_max", name=name), "arg_max",
+                            x, {"axis": axis},
+                            out_dtype=core.VarDesc.VarType.INT64)
+
+
+def argmin(x, axis=0, name=None):
+    return _single_op_layer(LayerHelper("arg_min", name=name), "arg_min",
+                            x, {"axis": axis},
+                            out_dtype=core.VarDesc.VarType.INT64)
+
+
+def argsort(input, axis=-1, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ids = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT64, stop_gradient=True)
+    helper.append_op(type="argsort", inputs={"X": input},
+                     outputs={"Out": out, "Indices": ids},
+                     attrs={"axis": axis})
+    return out, ids
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference(
+        core.VarDesc.VarType.INT32, stop_gradient=True)
+    helper.append_op(type="shape", inputs={"Input": input},
+                     outputs={"Out": out})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    diff = helper.create_variable_for_type_inference(x.dtype, True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": x, "Y": y}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = inside_weight
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = outside_weight
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": diff, "Out": out},
+                     attrs={"sigma": sigma if sigma is not None else 1.0})
+    return out
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    residual = helper.create_variable_for_type_inference(input.dtype, True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="huber_loss", inputs={"X": input, "Y": label},
+                     outputs={"Out": out, "Residual": residual},
+                     attrs={"delta": delta})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": input, "Labels": label},
+                     outputs={"Loss": out}, attrs={"epsilon": epsilon})
+    return out
+
+
+def hinge_loss(input, label, name=None):
+    helper = LayerHelper("hinge_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="hinge_loss",
+                     inputs={"Logits": input, "Labels": label},
+                     outputs={"Loss": out})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    act = helper.create_variable_for_type_inference(left.dtype, True)
+    helper.append_op(type="margin_rank_loss",
+                     inputs={"Label": label, "X1": left, "X2": right},
+                     outputs={"Out": out, "Activated": act},
+                     attrs={"margin": margin})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1):
+    """bilinear_interp or nearest_interp of an NCHW input to `out_shape`
+    (or its H, W times `scale`); `actual_shape` is taken for the
+    signature."""
+    helper = LayerHelper("interp", name=name)
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale),
+                     int(input.shape[3] * scale)]
+    op_type = "bilinear_interp" if resample == "BILINEAR" \
+        else "nearest_interp"
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type=op_type, inputs={"X": input},
+                     outputs={"Out": out},
+                     attrs={"out_h": int(out_shape[0]),
+                            "out_w": int(out_shape[1]),
+                            "align_corners": align_corners,
+                            "align_mode": align_mode})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None):
+    return image_resize(input, out_shape, scale, name, "BILINEAR")
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None):
+    return image_resize(input, out_shape, scale, name, "NEAREST")
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="uniform_random", outputs={"Out": out},
+                     attrs={"shape": shape, "dtype": out.dtype, "min": min,
+                            "max": max, "seed": seed})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="gaussian_random", outputs={"Out": out},
+                     attrs={"shape": shape, "mean": mean, "std": std,
+                            "seed": seed, "dtype": out.dtype})
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="uniform_random_batch_size_like",
+                     inputs={"Input": input}, outputs={"Out": out},
+                     attrs={"shape": shape, "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx, "min": min,
+                            "max": max, "seed": seed, "dtype": out.dtype})
+    return out
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype="float32"):
+    """The op the JAX layer appends: uniform_random_batch_size_like with
+    `mean` and `std` attrs, which that op does not read, so it draws
+    U[-1, 1) (kept as the JAX package's program has it)."""
+    helper = LayerHelper("gaussian_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="uniform_random_batch_size_like",
+                     inputs={"Input": input}, outputs={"Out": out},
+                     attrs={"shape": shape, "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx,
+                            "mean": mean, "std": std, "seed": seed,
+                            "dtype": out.dtype})
+    return out
+
+
+def _logical_binary(op_type, x, y, out=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            core.VarDesc.VarType.BOOL)
+    helper.append_op(type=op_type, inputs={"X": x, "Y": y},
+                     outputs={"Out": out})
+    return out
+
+
+def logical_and(x, y, out=None, name=None):
+    return _logical_binary("logical_and", x, y, out, name)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _logical_binary("logical_or", x, y, out, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _logical_binary("logical_xor", x, y, out, name)

@@ -1,13 +1,17 @@
 """Unary activation layers, after paddle_tpu/fluid/layers/ops.py, which
-generates one layer function per unary op type: sigmoid, exp, tanh,
-sqrt, abs, ceil, floor, cos, sin, log, square and logical_not."""
+generates one layer function per unary op type (attrs as keywords),
+plus thresholded_relu and cumsum."""
 
 from ..layer_helper import LayerHelper
 
-_UNARY_OPS = ["sigmoid", "exp", "tanh", "sqrt", "abs", "ceil", "floor",
-              "cos", "sin", "log", "square", "logical_not"]
+_UNARY_OPS = [
+    "sigmoid", "logsigmoid", "exp", "tanh", "tanh_shrink", "softshrink",
+    "sqrt", "rsqrt", "abs", "ceil", "floor", "cos", "sin", "round",
+    "reciprocal", "log", "square", "softplus", "softsign", "hard_shrink",
+    "gelu", "erf", "logical_not",
+]
 
-__all__ = list(_UNARY_OPS)
+__all__ = list(_UNARY_OPS) + ["cumsum", "thresholded_relu"]
 
 
 def _make_unary(op_type):
@@ -24,3 +28,15 @@ def _make_unary(op_type):
 
 for _op in _UNARY_OPS:
     globals()[_op] = _make_unary(_op)
+
+
+_thresholded_relu = _make_unary("thresholded_relu")
+
+
+def thresholded_relu(x, threshold=1.0):
+    return _thresholded_relu(x, threshold=threshold)
+
+
+def cumsum(x, axis=None, exclusive=None, reverse=None):
+    from . import nn
+    return nn.cumsum(x, axis, exclusive, reverse)

@@ -1,13 +1,14 @@
 """Sequence layer functions, after paddle_tpu/fluid/layers/sequence.py:
-dynamic_lstm, sequence_pool, sequence_first_step, sequence_last_step,
-sequence_softmax, sequence_expand and sequence_pad, with the JAX
+dynamic_lstm, sequence_conv, sequence_pool, sequence_first_step,
+sequence_last_step, sequence_softmax, sequence_expand and sequence_pad,
+with the JAX
 package's parameter names, shapes and initializers, so a startup scope
 carries across by name."""
 
 from .. import core
 from ..layer_helper import LayerHelper
 
-__all__ = ["dynamic_lstm", "sequence_pool", "sequence_first_step",
+__all__ = ["dynamic_lstm", "sequence_conv", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "sequence_softmax", "sequence_expand",
            "sequence_pad"]
 
@@ -50,6 +51,33 @@ def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
                "cell_activation": cell_activation,
                "candidate_activation": candidate_activation})
     return hidden, cell
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  name=None):
+    """The context-window projection over a ragged input: a
+    [filter_size * D, num_filters] filter over windows centred on each
+    position (contextStart -filter_size // 2), then the bias over the
+    last axis and `act`.  `padding` is taken for the signature, as the
+    JAX layer takes it."""
+    helper = LayerHelper("sequence_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=[filter_size * input.shape[-1],
+                                       num_filters], dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.lod_level = max(input.lod_level, 1)
+    helper.append_op(
+        type="sequence_conv",
+        inputs={"X": [input], "Filter": [filter_param]},
+        outputs={"Out": [out]},
+        attrs={"contextStride": filter_stride,
+               "contextStart": -int(filter_size // 2),
+               "contextLength": filter_size})
+    pre_act = helper.append_bias_op(out, dim_start=2)
+    return helper.append_activation(pre_act)
 
 
 def sequence_pool(input, pool_type, is_test=False):

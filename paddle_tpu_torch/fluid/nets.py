@@ -1,11 +1,11 @@
-"""Composed nets, a copy of paddle_tpu/fluid/nets.py's image helpers:
-simple_img_conv_pool and img_conv_group.  The sequence helpers
-(sequence_conv_pool, glu, scaled_dot_product_attention) wait for the
-sequence ops."""
+"""Composed nets, after paddle_tpu/fluid/nets.py: simple_img_conv_pool,
+img_conv_group, sequence_conv_pool, glu and
+scaled_dot_product_attention."""
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -61,3 +61,59 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride,
                          use_cudnn=use_cudnn)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    """sequence_conv then sequence_pool (`pool_type`) over each
+    sequence."""
+    conv_out = layers.sequence_conv(
+        input=input, num_filters=num_filters, filter_size=filter_size,
+        param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    """The gated linear unit: input split in two halves a, b along `dim`,
+    a * sigmoid(b)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(x=a, y=layers.sigmoid(b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Multi-head attention over [B, T, D] queries, keys and values:
+    heads split from D, softmax(q k^T / sqrt(D / num_heads)) v per head
+    (matmul, softmax and, with `dropout_rate`, dropout ops), the heads
+    joined back to [B, T, D]."""
+    if queries.shape[-1] % num_heads != 0:
+        raise ValueError("hidden size must divide num_heads")
+
+    def split_heads(x):
+        if num_heads == 1:
+            return x
+        b, t = x.shape[0], x.shape[1]
+        reshaped = layers.reshape(
+            x, shape=[b if b > 0 else -1, t, num_heads,
+                      x.shape[-1] // num_heads])
+        return layers.transpose(reshaped, perm=[0, 2, 1, 3])
+
+    def combine_heads(x):
+        if num_heads == 1:
+            return x
+        trans = layers.transpose(x, perm=[0, 2, 1, 3])
+        return layers.reshape(
+            trans, shape=[trans.shape[0] if trans.shape[0] > 0 else -1,
+                          trans.shape[1],
+                          trans.shape[2] * trans.shape[3]])
+
+    q, k, v = split_heads(queries), split_heads(keys), split_heads(values)
+    key_dim = float(queries.shape[-1] // num_heads)
+    scaled_q = layers.scale(x=q, scale=key_dim ** -0.5)
+    product = layers.matmul(x=scaled_q, y=k, transpose_y=True)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate,
+                                 is_test=False)
+    ctx_multiheads = layers.matmul(weights, v)
+    return combine_heads(ctx_multiheads)

@@ -1,11 +1,22 @@
 """Math / elementwise / reduction / activation op lowerings, after
-paddle_tpu/ops/math_ops.py: gelu, sigmoid, tanh, floor, ceil, exp, sqrt,
-abs, cos, sin, log, square, logical_not, pow, cast, elementwise_add, _sub,
-_mul, _div, _min, _max, _pow and _mod with fluid's `axis` broadcasting,
-less_than, less_equal, greater_than, greater_equal and equal, clip,
-clip_by_norm, squared_l2_norm, mul (fc's matmul), matmul, sum, scale,
-mean, reduce_sum, cumsum, relu, sign, increment, softmax and top_k.  The matmuls are plain torch.matmul (TF32 off; bf16 summed in
-fp32 and rounded once), as the JAX package leaves them to XLA.
+paddle_tpu/ops/math_ops.py: every op type registered there.  The
+activations (gelu, sigmoid, logsigmoid, tanh, tanh_shrink, relu, relu6,
+leaky_relu, elu, softplus, softsign, softshrink, hard_shrink, brelu,
+soft_relu, stanh, hard_sigmoid, swish, thresholded_relu, erf and the
+unary math), cast, the elementwise binary ops with fluid's `axis`
+broadcasting, the compares and logical ops, clip, clip_by_norm,
+squared_l2_norm, mul (fc's matmul), matmul, sum, scale, mean, the
+reduce_* family, arg_max, arg_min, argsort, top_k, cumsum, softmax,
+log_softmax, isfinite / isinf / isnan, l2_normalize and increment.  The
+matmuls are plain torch.matmul (TF32 off; bf16 summed in fp32 and
+rounded once), as the JAX package leaves them to XLA.
+
+Where torch's gradient rule differs from JAX's at a tie, a zero or a
+NaN, the lowering keeps JAX's: `abs` passes the cotangent at +-0 (its
+sign is taken as x >= 0), `maximum` / `minimum` (so `clip`, relu6,
+brelu, hard_sigmoid and soft_relu, built from them as jnp.clip is) give
+each operand half at a tie and neither anything where an operand is
+NaN, and `sign` passes nothing at a NaN.
 
 On a ragged (LoD) X, padded [B, T, ...] at run time where the program's
 shapes are the packed [rows, ...] ones, `mul` flattens one more leading
@@ -17,9 +28,76 @@ batch-sharded axis 0 adds the lower ranks' totals."""
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..parallel.mesh import all_reduce_sum, gather_rows
 from .registry import register_op
+
+
+class _JaxMaxMin(torch.autograd.Function):
+    """torch.maximum / torch.minimum's value with jnp.maximum's gradient:
+    the cotangent to the operand that wins, half to each at a tie, and
+    none to either where one is NaN (no comparison holds there).  x and
+    y have one shape."""
+
+    @staticmethod
+    def forward(ctx, x, y, take_max):
+        ctx.save_for_backward(x, y)
+        ctx.take_max = take_max
+        return torch.maximum(x, y) if take_max else torch.minimum(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        wins_x = x > y if ctx.take_max else x < y
+        wins_y = y > x if ctx.take_max else y < x
+        half = (x == y).to(g.dtype) * 0.5
+        gx = g * (wins_x.to(g.dtype) + half) \
+            if ctx.needs_input_grad[0] else None
+        gy = g * (wins_y.to(g.dtype) + half) \
+            if ctx.needs_input_grad[1] else None
+        return gx, gy, None
+
+
+def _operands(x, y):
+    if not isinstance(y, torch.Tensor):
+        y = torch.full((), y, dtype=x.dtype, device=x.device)
+    return torch.broadcast_tensors(x, y)
+
+
+def jmax(x, y):
+    """jnp.maximum (y a tensor or a number)."""
+    return _JaxMaxMin.apply(*_operands(x, y), True)
+
+
+def jmin(x, y):
+    """jnp.minimum (y a tensor or a number)."""
+    return _JaxMaxMin.apply(*_operands(x, y), False)
+
+
+def jclip(x, lo, hi):
+    """jnp.clip: minimum(maximum(x, lo), hi), so x at a bound gets half
+    the cotangent."""
+    return jmin(jmax(x, lo), hi)
+
+
+class _JaxAbs(torch.autograd.Function):
+    """torch.abs's value with lax.abs's gradient: sign taken as x >= 0,
+    so +-0 pass the cotangent (torch.abs gives 0) and NaN negates it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def jabs(x):
+    return _JaxAbs.apply(x) if x.is_floating_point() else torch.abs(x)
 
 
 @register_op("gelu")
@@ -83,12 +161,31 @@ def _register_elementwise(name, fn):
 _register_elementwise("elementwise_add", torch.add)
 _register_elementwise("elementwise_mul", torch.mul)
 _register_elementwise("elementwise_sub", torch.sub)
-_register_elementwise("elementwise_min", torch.minimum)
+_register_elementwise("elementwise_min", jmin)
 _register_elementwise("elementwise_div", torch.div)
-_register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_max", jmax)
 _register_elementwise("elementwise_pow", torch.pow)
 # jnp.mod: the remainder takes the divisor's sign
 _register_elementwise("elementwise_mod", torch.remainder)
+
+
+def _floor_divide(x, y):
+    """jnp.floor_divide: an integer quotient rounded down; for floats
+    JAX's divmod, (x - fmod(x, y)) / y stepped down by one where the
+    remainder's sign is not the divisor's, then rounded (a zero divisor
+    gives NaN, where torch.floor_divide gives +-inf).  No gradient, as
+    in JAX (whose zero tangent of the rounding is structural: through
+    autograd, 0 / 0 at a zero divisor would be NaN)."""
+    x, y = x.detach(), y.detach()
+    if not x.is_floating_point():
+        return torch.div(x, y, rounding_mode="floor")
+    mod = torch.fmod(x, y)
+    div = (x - mod) / y
+    fix = (mod != 0) & (torch.sign(y) != torch.sign(mod))
+    return torch.round(torch.where(fix, div - 1, div))
+
+
+_register_elementwise("elementwise_floordiv", _floor_divide)
 
 
 @register_op("equal")
@@ -107,34 +204,137 @@ _register_unary("floor", torch.floor)
 _register_unary("ceil", torch.ceil)
 _register_unary("exp", torch.exp)
 _register_unary("sqrt", torch.sqrt)
-_register_unary("abs", torch.abs)
+_register_unary("abs", jabs)
 _register_unary("cos", torch.cos)
 _register_unary("sin", torch.sin)
 _register_unary("log", torch.log)
 _register_unary("square", torch.square)
 _register_unary("logical_not", torch.logical_not)
+_register_unary("round", torch.round)       # half to even, as jnp.round
+_register_unary("erf", torch.erf)
+_register_unary("reciprocal", lambda x: 1.0 / x)
+_register_unary("rsqrt", lambda x: 1.0 / torch.sqrt(x))
+_register_unary("logsigmoid", lambda x: -F.softplus(-x))
+_register_unary("tanh_shrink", lambda x: x - torch.tanh(x))
+# jax.nn.softplus's value and its gradient, sigmoid(x)
+_register_unary("softplus", F.softplus)
+_register_unary("softsign", lambda x: x / (torch.abs(x) + 1))
+
+
+def _register_activation(name, fn):
+    """An activation with attrs: `fn(x, attr)` as the JAX lowering's
+    formula, in x's dtype."""
+    register_op(name)(lambda ctx: {"Out": fn(ctx.input("X"), ctx.attr)})
+
+
+_register_activation("relu6", lambda x, a: jclip(
+    x, 0.0, a("threshold", 6.0)))
+_register_activation("brelu", lambda x, a: jclip(
+    x, a("t_min", 0.0), a("t_max", 24.0)))
+_register_activation("hard_sigmoid", lambda x, a: jclip(
+    a("slope", 0.2) * x + a("offset", 0.5), 0.0, 1.0))
+_register_activation("soft_relu", lambda x, a: torch.log1p(torch.exp(jclip(
+    x, -a("threshold", 40.0), a("threshold", 40.0)))))
+# jax.nn.leaky_relu: the identity's gradient at 0
+_register_activation("leaky_relu", lambda x, a: torch.where(
+    x >= 0, x, a("alpha", 0.02) * x))
+_register_activation("elu", lambda x, a: torch.where(
+    x > 0, x, a("alpha", 1.0) * torch.expm1(torch.where(
+        x > 0, torch.zeros_like(x), x))))
+_register_activation("stanh", lambda x, a: a("scale_b", 1.7159) * torch.tanh(
+    a("scale_a", 2.0 / 3.0) * x))
+_register_activation("swish", lambda x, a: x * torch.sigmoid(
+    a("beta", 1.0) * x))
+_register_activation("thresholded_relu", lambda x, a: torch.where(
+    x > a("threshold", 1.0), x, torch.zeros_like(x)))
+_register_activation("hard_shrink", lambda x, a: torch.where(
+    torch.abs(x) > a("threshold", 0.5), x, torch.zeros_like(x)))
+
+
+def _softshrink(x, a):
+    lam = a("lambda", 0.5)
+    return torch.where(x > lam, x - lam, torch.where(
+        x < -lam, x + lam, torch.zeros_like(x)))
+
+
+_register_activation("softshrink", _softshrink)
+
+
+_INT_TYPES = (torch.int8, torch.uint8, torch.int16, torch.int32,
+              torch.int64)
+
+
+def float_to_int(x, dtype):
+    """A float tensor converted to integer `dtype` as XLA converts it:
+    truncated toward zero, saturated at the type's limits (+-inf too),
+    NaN to 0.  Decided in float64, where every limit of these types is
+    exact (2^31 in fp32 would round and overflow again); the conversion
+    itself only sees values in range."""
+    info = torch.iinfo(dtype)
+    xf = torch.nan_to_num(x.to(torch.float64))  # +-inf to +-DBL_MAX
+    big = xf >= float(info.max) + 1.0
+    small = xf < float(info.min)
+    safe = torch.where(big | small, torch.zeros_like(xf), xf).to(dtype)
+    return torch.where(big, torch.full_like(safe, info.max),
+                       torch.where(small, torch.full_like(safe, info.min),
+                                   safe))
 
 
 @register_op("cast")
 def _cast(ctx):
+    """Float to an integer type saturates as JAX does (float_to_int); an
+    int64 target keeps the port's int64 (the JAX package's x64-off
+    int32 saturates at int32's limits)."""
     from ..fluid import core as fcore
-    return {"Out": ctx.input("X").to(
-        fcore.convert_dtype_to_torch(ctx.attr("out_dtype")))}
-
-
-@register_op("reduce_sum")
-def _reduce_sum(ctx):
-    """Over `dim` (every axis with `reduce_all`), in x's dtype as
-    jnp.sum (an int32 sum stays int32)."""
     x = ctx.input("X")
+    dtype = fcore.convert_dtype_to_torch(ctx.attr("out_dtype"))
+    if x.is_floating_point() and dtype in _INT_TYPES:
+        return {"Out": float_to_int(x, dtype)}
+    return {"Out": x.to(dtype)}
+
+
+def _reduce_dims(ctx, x):
+    """The reduced axes: `dim` (every axis with `reduce_all`)."""
     if ctx.attr("reduce_all", False):
-        dim = tuple(range(x.dim()))
-    else:
-        dim = ctx.attr("dim", [0])
-        dim = tuple(d % x.dim() for d in
-                    ([dim] if isinstance(dim, int) else dim))
-    return {"Out": torch.sum(x, dim=dim, keepdim=ctx.attr("keep_dim", False),
-                             dtype=x.dtype)}
+        return tuple(range(x.dim()))
+    dim = ctx.attr("dim", [0])
+    return tuple(sorted({d % x.dim() for d in
+                         ([dim] if isinstance(dim, int) else dim)}))
+
+
+def _reduce_each(fn, x, dims, keep):
+    """fn(x, dim, keepdim) applied over `dims` one axis at a time, the
+    last first (for torch reductions that take a single axis)."""
+    for d in reversed(dims):
+        x = fn(x, d, keepdim=keep)
+    return x
+
+
+def _register_reduce(name, fn):
+    def lower(ctx):
+        x = ctx.input("X")
+        return {"Out": fn(x, _reduce_dims(ctx, x),
+                          ctx.attr("keep_dim", False))}
+    register_op(name)(lower)
+
+
+# reduce_sum in x's dtype as jnp.sum (an int32 sum stays int32);
+# reduce_max / _min through amax / amin, whose gradient splits evenly
+# among tied maxima as jnp.max's does
+_register_reduce("reduce_sum", lambda x, d, k: torch.sum(
+    x, dim=d, keepdim=k, dtype=x.dtype))
+_register_reduce("reduce_mean", lambda x, d, k: torch.mean(
+    x, dim=d, keepdim=k))
+_register_reduce("reduce_max", lambda x, d, k: torch.amax(
+    x, dim=d, keepdim=k))
+_register_reduce("reduce_min", lambda x, d, k: torch.amin(
+    x, dim=d, keepdim=k))
+_register_reduce("reduce_prod", lambda x, d, k: _reduce_each(
+    torch.prod, x, d, k))
+_register_reduce("reduce_all", lambda x, d, k: _reduce_each(
+    torch.all, x.bool(), d, k))
+_register_reduce("reduce_any", lambda x, d, k: _reduce_each(
+    torch.any, x.bool(), d, k))
 
 
 def _register_compare(name, fn):
@@ -150,6 +350,10 @@ _register_compare("less_than", torch.lt)
 _register_compare("less_equal", torch.le)
 _register_compare("greater_than", torch.gt)
 _register_compare("greater_equal", torch.ge)
+_register_compare("not_equal", torch.ne)
+_register_compare("logical_and", torch.logical_and)
+_register_compare("logical_or", torch.logical_or)
+_register_compare("logical_xor", torch.logical_xor)
 
 
 @register_op("pow")
@@ -161,8 +365,7 @@ def _pow(ctx):
 
 @register_op("clip")
 def _clip(ctx):
-    return {"Out": torch.clamp(ctx.input("X"), ctx.attr("min"),
-                               ctx.attr("max"))}
+    return {"Out": jclip(ctx.input("X"), ctx.attr("min"), ctx.attr("max"))}
 
 
 @register_op("clip_by_norm")
@@ -299,9 +502,11 @@ def _relu(ctx):
 @register_op("sign")
 def _sign(ctx):
     """-1, 0 or 1, and a NaN stays NaN (torch.sign gives 0), as
-    jnp.sign; L1Decay's op."""
+    jnp.sign, with no gradient anywhere (a NaN's too); L1Decay's op."""
     x = ctx.input("X")
-    return {"Out": torch.where(torch.isnan(x), x, torch.sign(x))}
+    return {"Out": torch.where(torch.isnan(x),
+                               torch.full_like(x, float("nan")),
+                               torch.sign(x))}
 
 
 @register_op("increment")
@@ -349,3 +554,89 @@ def _top_k(ctx):
     idx = torch.sort(_order_key(x), dim=-1, descending=True,
                      stable=True).indices[..., :k]
     return {"Out": x.gather(-1, idx), "Indices": idx.to(torch.int64)}
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx):
+    """Over the last axis, as the JAX lowering."""
+    return {"Out": torch.log_softmax(ctx.input("X"), dim=-1)}
+
+
+def _first_index(hit, axis):
+    """The first index along `axis` where `hit` holds (int64)."""
+    n = hit.shape[axis]
+    shape = [1] * hit.dim()
+    shape[axis] = n
+    pos = torch.arange(n, device=hit.device).reshape(shape)
+    return torch.where(hit, pos, torch.full_like(pos, n)).amin(dim=axis)
+
+
+def _arg_extreme(x, axis, largest):
+    """jnp.argmax / argmin: the first index of the extreme value, or of
+    the first NaN where the axis holds one; int64 (the port's rule for
+    ids), decided on the device."""
+    axis = axis % x.dim()
+    ext = x.amax(dim=axis, keepdim=True) if largest \
+        else x.amin(dim=axis, keepdim=True)
+    hit = x == ext
+    if x.is_floating_point():
+        nan = torch.isnan(x)
+        hit = torch.where(nan.any(dim=axis, keepdim=True), nan, hit)
+    return _first_index(hit, axis)
+
+
+@register_op("arg_max")
+def _arg_max(ctx):
+    return {"Out": _arg_extreme(ctx.input("X"), ctx.attr("axis", -1),
+                                True)}
+
+
+@register_op("arg_min")
+def _arg_min(ctx):
+    return {"Out": _arg_extreme(ctx.input("X"), ctx.attr("axis", -1),
+                                False)}
+
+
+@register_op("argsort")
+def _argsort(ctx):
+    """Ascending and stable as jnp.sort / jnp.argsort: -0 and +0 equal,
+    NaNs of either sign last; Indices int64.  Sorted on integer keys of
+    the canonicalized values (on the card torch.sort of floats puts a
+    negative NaN first), the values gathered back from X."""
+    x = ctx.input("X")
+    axis = ctx.attr("axis", -1)
+    if x.is_floating_point():
+        canon = torch.where(torch.isnan(x), torch.full_like(x, float("nan")),
+                            torch.where(x == 0, torch.zeros_like(x), x))
+        key = _order_key(canon)
+    else:
+        key = x
+    idx = torch.sort(key, dim=axis, stable=True).indices
+    return {"Out": torch.gather(x, axis, idx), "Indices": idx}
+
+
+@register_op("isfinite")
+def _isfinite(ctx):
+    """One [1] bool: every element finite (the reference reduces)."""
+    return {"Out": torch.isfinite(ctx.input("X")).all().reshape((1,))}
+
+
+@register_op("isinf")
+def _isinf(ctx):
+    return {"Out": torch.isinf(ctx.input("X")).any().reshape((1,))}
+
+
+@register_op("isnan")
+def _isnan(ctx):
+    return {"Out": torch.isnan(ctx.input("X")).any().reshape((1,))}
+
+
+@register_op("l2_normalize")
+def _l2_normalize(ctx):
+    """x / max(||x||, epsilon) along `axis`, the norm clamped after the
+    sqrt; Norm is the unclamped norm."""
+    x = ctx.input("X")
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=ctx.attr("axis", -1),
+                                keepdim=True))
+    return {"Out": x / jmax(norm, ctx.attr("epsilon", 1e-10)),
+            "Norm": norm}

@@ -1,7 +1,11 @@
-"""NN op lowerings, after paddle_tpu/ops/nn_ops.py: conv2d, pool2d,
-batch_norm, layer_norm, dropout, lookup_table (embedding),
-softmax_with_cross_entropy, cross_entropy, square_error_cost and
-accuracy.
+"""NN op lowerings, after paddle_tpu/ops/nn_ops.py: conv2d,
+depthwise_conv2d, conv2d_transpose, pool2d, batch_norm, layer_norm,
+group_norm, dropout, lookup_table (embedding), one_hot, pad, pad2d,
+bilinear_interp, nearest_interp, the losses (softmax_with_cross_entropy,
+cross_entropy, sigmoid_cross_entropy_with_logits, square_error_cost,
+smooth_l1_loss, huber_loss, log_loss, hinge_loss, margin_rank_loss) and
+accuracy.  The convolutions are cuDNN's through torch (the JAX package
+runs them through lax.conv_*, outside any Pallas call).
 
 Image ops take NCHW or NHWC activations (the `data_format` /
 `data_layout` attr) with OIHW filters in either layout, as the JAX
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.mesh import all_reduce_sum
+from .math_ops import jabs, jmax
 from .registry import register_op, set_grad_maker
 
 
@@ -68,6 +73,25 @@ def _conv2d(ctx):
         bshape = (1, 1, 1, -1) if layout == "NHWC" else (1, -1, 1, 1)
         out = out + ctx.input("Bias").reshape(bshape)
     return {"Output": out}
+
+
+register_op("depthwise_conv2d")(_conv2d)
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx):
+    """The transposed convolution of an NCHW input with a [in_c, out_c /
+    groups, kh, kw] filter: output extent (H - 1) s - 2 p + d (k - 1) + 1,
+    as the JAX lowering's lax.conv_transpose with padding d (k - 1) - p."""
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    groups = int(ctx.attr("groups", 1) or 1)
+    if x.shape[1] % groups:
+        raise ValueError("conv2d_transpose: input channels (%d) must be "
+                         "divisible by groups (%d)" % (x.shape[1], groups))
+    return {"Output": F.conv_transpose2d(
+        x, w.to(x.dtype), None, _pair(ctx.attr("strides", [1, 1])),
+        _pads(ctx), 0, groups,
+        _pair(ctx.attr("dilations", [1, 1])))}
 
 
 def _ceil_extra_pad(extent, k, s, p):
@@ -246,6 +270,28 @@ def _layer_norm(ctx):
             "Variance": var.reshape(rows)}
 
 
+@register_op("group_norm")
+def _group_norm(ctx):
+    """NCHW normalized per (sample, group of C / groups channels) with
+    the biased variance; Mean and Variance are [N, groups]."""
+    x = ctx.input("X")
+    groups = ctx.attr("groups", 32)
+    eps = ctx.attr("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    mean = torch.mean(xg, dim=axes, keepdim=True)
+    var = torch.var(xg, dim=axes, unbiased=False, keepdim=True)
+    y = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    if ctx.has_input("Scale"):
+        y = y * ctx.input("Scale").reshape(bshape)
+    if ctx.has_input("Bias"):
+        y = y + ctx.input("Bias").reshape(bshape)
+    return {"Y": y, "Mean": mean.reshape((n, groups)),
+            "Variance": var.reshape((n, groups))}
+
+
 @register_op("dropout")
 def _dropout(ctx):
     """Keep mask drawn from the op's torch.Generator (ExecContext.
@@ -421,6 +467,160 @@ def _accuracy(ctx):
             "Correct": num_correct.to(torch.int32).reshape((1,)),
             "Total": torch.full((1,), total, dtype=torch.int32,
                                 device=pred_idx.device)}
+
+
+@register_op("one_hot")
+def _one_hot(ctx):
+    """fp32 [..., depth] (a trailing size-1 dim of X squeezed); an id
+    outside [0, depth) gives an all-zero row, as jax.nn.one_hot (where
+    F.one_hot raises)."""
+    x = ctx.input("X")
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    depth = int(ctx.attr("depth"))
+    return {"Out": (x.long()[..., None] == torch.arange(
+        depth, device=x.device)).to(torch.float32)}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ctx):
+    """max(x, 0) - x z + log(1 + exp(-|x|)), zero where the label is
+    ignore_index (when that is >= 0)."""
+    x, label = ctx.input("X"), ctx.input("Label")
+    loss = jmax(x, 0.0) - x * label + torch.log1p(torch.exp(-jabs(x)))
+    ignore = ctx.attr("ignore_index", -100)
+    if ignore >= 0:
+        loss = torch.where(label == ignore, torch.zeros_like(loss), loss)
+    return {"Out": loss}
+
+
+@register_op("huber_loss")
+def _huber_loss(ctx):
+    x, y = ctx.input("X"), ctx.input("Y")
+    delta = ctx.attr("delta", 1.0)
+    r = y - x
+    ar = jabs(r)
+    return {"Out": torch.where(ar <= delta, 0.5 * r * r,
+                               delta * (ar - 0.5 * delta)),
+            "Residual": r}
+
+
+@register_op("smooth_l1_loss")
+def _smooth_l1(ctx):
+    """Per row, the sum of the smooth-L1 of (X - Y) weighted inside by
+    InsideWeight and outside by OutsideWeight, sigma^2 at the knee."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    s2 = ctx.attr("sigma", 1.0) ** 2
+    diff = x - y
+    if ctx.has_input("InsideWeight"):
+        diff = diff * ctx.input("InsideWeight")
+    ad = jabs(diff)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    if ctx.has_input("OutsideWeight"):
+        loss = loss * ctx.input("OutsideWeight")
+    return {"Out": torch.sum(loss.reshape(loss.shape[0], -1), dim=1,
+                             keepdim=True),
+            "Diff": diff}
+
+
+@register_op("log_loss")
+def _log_loss(ctx):
+    p, label = ctx.input("Predicted"), ctx.input("Labels")
+    eps = ctx.attr("epsilon", 1e-4)
+    return {"Loss": -label * torch.log(p + eps)
+            - (1 - label) * torch.log(1 - p + eps)}
+
+
+@register_op("hinge_loss")
+def _hinge_loss(ctx):
+    logits, labels = ctx.input("Logits"), ctx.input("Labels")
+    return {"Loss": jmax(1.0 - (2 * labels - 1) * logits, 0.0)}
+
+
+@register_op("margin_rank_loss")
+def _margin_rank_loss(ctx):
+    x1, x2, label = ctx.input("X1"), ctx.input("X2"), ctx.input("Label")
+    out = jmax(-label * (x1 - x2) + ctx.attr("margin", 0.0), 0.0)
+    return {"Out": out, "Activated": (out > 0).to(x1.dtype)}
+
+
+def _interp_grid(ctx, in_sz, out_sz, device):
+    """The interpolations' fp32 source coordinates, as the JAX
+    lowering's _interp_grid: align-corners by default (ratio (in - 1) /
+    (out - 1), src = ratio dst); without it, align_mode 0 is half-pixel
+    (src = max(ratio (dst + 0.5) - 0.5, 0)) and 1 is src = ratio dst,
+    ratio in / out."""
+    dst = torch.arange(out_sz, dtype=torch.float32, device=device)
+    if ctx.attr("align_corners", True):
+        ratio = (in_sz - 1) / (out_sz - 1) if out_sz > 1 else 0.0
+        return dst * ratio
+    ratio = in_sz / out_sz
+    if ctx.attr("align_mode", 1) == 0:
+        return torch.clamp_min(dst * ratio + (0.5 * ratio - 0.5), 0.0)
+    return dst * ratio
+
+
+@register_op("bilinear_interp")
+def _bilinear_interp(ctx):
+    """NCHW to [out_h, out_w] by the four-corner blend on _interp_grid's
+    coordinates, in x's dtype."""
+    x = ctx.input("X")
+    H, W = x.shape[2], x.shape[3]
+    y = _interp_grid(ctx, H, ctx.attr("out_h"), x.device)
+    xw = _interp_grid(ctx, W, ctx.attr("out_w"), x.device)
+    y0 = torch.clamp_max(torch.floor(y).long(), H - 1)
+    x0 = torch.clamp_max(torch.floor(xw).long(), W - 1)
+    y1 = torch.clamp_max(y0 + 1, H - 1)
+    x1 = torch.clamp_max(x0 + 1, W - 1)
+    dy = (y - y0).to(x.dtype)[:, None]
+    dx = (xw - x0).to(x.dtype)[None, :]
+    yg0, yg1, xg0, xg1 = y0[:, None], y1[:, None], x0[None, :], x1[None, :]
+    top = x[:, :, yg0, xg0] * (1 - dx) + x[:, :, yg0, xg1] * dx
+    bot = x[:, :, yg1, xg0] * (1 - dx) + x[:, :, yg1, xg1] * dx
+    return {"Out": (top * (1 - dy) + bot * dy).to(x.dtype)}
+
+
+@register_op("nearest_interp")
+def _nearest_interp(ctx):
+    """NCHW to [out_h, out_w] at the rounded source coordinates
+    (truncation of grid + 0.5, clamped), as the JAX lowering."""
+    x = ctx.input("X")
+    H, W = x.shape[2], x.shape[3]
+    yi = torch.clamp((_interp_grid(ctx, H, ctx.attr("out_h"), x.device)
+                      + 0.5).to(torch.int32), 0, H - 1).long()
+    xi = torch.clamp((_interp_grid(ctx, W, ctx.attr("out_w"), x.device)
+                      + 0.5).to(torch.int32), 0, W - 1).long()
+    return {"Out": x[:, :, yi][..., xi]}
+
+
+@register_op("pad")
+def _pad(ctx):
+    """`paddings` as (before, after) pairs, one per axis, filled with
+    pad_value."""
+    x = ctx.input("X")
+    p = ctx.attr("paddings")
+    spec = []
+    for i in reversed(range(x.dim())):
+        spec += [int(p[2 * i]), int(p[2 * i + 1])]
+    return {"Out": F.pad(x, spec, value=ctx.attr("pad_value", 0.0))}
+
+
+@register_op("pad2d")
+def _pad2d(ctx):
+    """[top, bottom, left, right] spatial padding, constant, reflect or
+    edge, on NCHW or (data_format) NHWC."""
+    x = ctx.input("X")
+    p = [int(v) for v in ctx.attr("paddings", [0, 0, 0, 0])]
+    layout = ctx.attr("data_format", "NCHW")
+    mode = ctx.attr("mode", "constant")
+    xc = _to_nchw(x, layout)
+    spec = [p[2], p[3], p[0], p[1]]
+    if mode == "constant":
+        out = F.pad(xc, spec, value=ctx.attr("pad_value", 0.0))
+    else:
+        out = F.pad(xc, spec, mode={"reflect": "reflect",
+                                    "edge": "replicate"}[mode])
+    return {"Out": _from_nchw(out, layout)}
 
 
 set_grad_maker("lookup_table", _lookup_table_grad_maker)

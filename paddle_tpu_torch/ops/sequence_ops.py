@@ -1,6 +1,7 @@
 """Sequence (LoD) op lowerings, after paddle_tpu/ops/sequence_ops.py:
 sequence_pool (and its first/last-step forms), sequence_softmax,
-sequence_expand, sequence_pad and the dynamic LSTM (`lstm`).
+sequence_expand, sequence_pad, sequence_conv and the dynamic LSTM
+(`lstm`).
 
 A ragged var is a padded [B, T, ...] tensor plus its int32 [B] lengths
 (`ctx.lod_len`, fluid/functionalizer.py).  The JAX package runs the LSTM
@@ -268,3 +269,44 @@ def _sequence_pad(ctx):
         out = out * m + (1 - m) * pad_value.reshape(
             (1, 1) + (1,) * (out.dim() - 2))
     return {"Out": out, "Length": lens.to(torch.int64)}
+
+
+def _infer_sequence_conv(op, block):
+    """Out is X's packed shape with Filter's width last."""
+    s, w = _in_shape(block, op, "X"), _in_shape(block, op, "Filter")
+    if s and w:
+        _set_out_shape(block, op, "Out", tuple(s[:-1]) + (w[1],))
+
+
+def context_matrix(x, lens, ctx_len, ctx_start):
+    """The context windows of a padded [B, T, D] sequence: [B, T, ctx_len
+    * D], position t holding rows t + ctx_start ... t + ctx_start +
+    ctx_len - 1 side by side, a row outside [0, T) or past the length as
+    zeros; and the [B, T] mask of real positions."""
+    B, T, D = x.shape
+    m = seq_mask(lens, T, x.dtype)
+    xm = x * m[..., None]
+    t = torch.arange(T, device=x.device)
+    shifted = []
+    for k in range(ctx_len):
+        src = t + ctx_start + k
+        valid = ((src >= 0) & (src < T))[None, :, None]
+        g = torch.index_select(xm, 1, src.clamp(0, T - 1))
+        shifted.append(torch.where(valid, g, torch.zeros_like(g)))
+    return torch.cat(shifted, dim=-1), m
+
+
+@register_op("sequence_conv", infer_shape=_infer_sequence_conv)
+def _sequence_conv(ctx):
+    """The context-window projection: each position's `contextLength`
+    rows from `contextStart` on (zeros outside the sequence) times Filter
+    [contextLength * D, M], zero past each length; Out carries X's
+    lengths."""
+    x, w = ctx.input("X"), ctx.input("Filter")
+    B, T = x.shape[0], x.shape[1]
+    lens = _lens_or_full(ctx.lod_len("X"), B, T, x.device)
+    stacked, m = context_matrix(x, lens, ctx.attr("contextLength", 3),
+                                ctx.attr("contextStart", 0))
+    dt = torch.promote_types(stacked.dtype, w.dtype)
+    out = torch.matmul(stacked.to(dt), w.to(dt))
+    return {"Out": out * m[..., None], "Out@LOD_LEN": lens}

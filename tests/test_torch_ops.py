@@ -13,28 +13,18 @@ import jax
 import jax.numpy as jnp
 
 import paddle_tpu.ops  # noqa: F401  (registers the JAX lowerings)
+import torch_op_cases
 from paddle_tpu.ops import registry as jreg
 from paddle_tpu_torch.fluid import core as tcore
 from paddle_tpu_torch.ops import registry as treg
+from torch_op_cases import _f, _i, _len
+from torch_op_cases import make_input as _make
 
 # fp32 on both sides, summed in other orders (matmuls, reductions)
 RTOL, ATOL = 1e-5, 1e-5
 
 FP32 = tcore.VarDesc.VarType.FP32
 INT64 = tcore.VarDesc.VarType.INT64
-
-
-def _f(*shape):
-    return ("f", shape)
-
-
-def _i(high, *shape):
-    return ("i", high, shape)
-
-
-def _len(*lengths):
-    """A ragged input's `<slot>@LOD_LEN` companion: int32 [B]."""
-    return ("len", lengths)
 
 
 # (case id, op type, {slot: [input spec]}, attrs)
@@ -425,7 +415,9 @@ _CASES = [
       "in_old_num_accumulates": [_i(4, 1)], "in_num_updates": [_i(9, 1)]},
      {"average_window": 0.5, "min_average_window": 2,
       "max_average_window": 4}),
-]
+    # the repairs of queue 3's faults: gather outside [0, N), casts that
+    # saturate, and JAX's gradients at ties, zeros and NaNs
+] + torch_op_cases.REPAIR_CASES
 
 # the cases above again with their float inputs in bf16 ("X" slots), or
 # only the listed slots (the LSTM under AMP: its gates arrive in bf16 from
@@ -468,32 +460,6 @@ _ELSEWHERE = {"uniform_random", "gaussian_random", "fused_bottleneck",
               # a SelectedRows grad, held with the sparse optimizer paths
               # in test_torch_sparse_embedding.py
               "lookup_table_sparse_grad"}
-
-
-def _make(spec, rng):
-    kind = spec[0]
-    if kind == "f":
-        return rng.randn(*spec[1]).astype(np.float32)
-    if kind == "i":
-        return rng.randint(0, spec[1], size=spec[2]).astype(np.int64)
-    if kind == "pos":
-        return rng.rand(*spec[1]).astype(np.float32) + 0.1
-    if kind == "len":
-        return np.asarray(spec[1], np.int32)
-    if kind == "bool":
-        return rng.rand(*spec[1]) < 0.5
-    if kind == "ties":   # few distinct values, zeros of both signs
-        x = rng.randint(-2, 3, size=spec[1]).astype(np.float32)
-        return np.where(x == 0, np.copysign(x, rng.randn(*spec[1])), x)
-    if kind == "nans":   # NaNs and infinities of both signs, signed zeros
-        x = rng.randn(*spec[1]).astype(np.float32)
-        pick = rng.randint(0, 8, size=spec[1])
-        sign = np.sign(rng.randn(*spec[1])).astype(np.float32)
-        for code, val in ((0, np.nan), (1, np.inf), (2, 0.0)):
-            x = np.where(pick == code, np.copysign(np.float32(val), sign), x)
-        return x.astype(np.float32)
-    return np.full(spec[1], {"lr": 1e-2, "b1p": 0.9 ** 3,
-                             "b2p": 0.999 ** 3}[kind], np.float32)
 
 
 def _op(op_type, attrs, inputs):
@@ -804,8 +770,13 @@ def test_padding_labels_train_through_the_executor_as_in_jax():
 
 
 def test_every_registered_op_has_a_parity_case():
+    """Each registered op has a case here, in a family file
+    (tests/torch_op_cases.py: test_torch_ops_{math,tensor,nn}.py and
+    test_torch_nets.py) or a parity test elsewhere."""
+    cases = _CASES + torch_op_cases.CORE_CASES
     assert sorted(treg.registered_ops()) == sorted(
-        {c[1] for c in _CASES} | _ELSEWHERE)
+        {c[1] for c in cases} | _ELSEWHERE
+        | set(torch_op_cases.RANDOM_OPS))
 
 
 def _rng_op(op_type, attrs, inputs, seed=0, step=0, uid=3):
