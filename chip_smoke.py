@@ -264,9 +264,29 @@ Phases, in order; any failure exits non-zero:
                array's largest magnitude); ms a call.
      core ops — every op case of tests/torch_op_cases.py's CORE_CASES (
                the repaired gather, saturating casts and tie gradients,
-               the math, tensor, nn and sequence ops) forward and vjp on
-               the card against the CPU from the same inputs (1e-5), with
-               no device-side assert.
+               the math, tensor, nn and sequence_conv ops; the families
+               of 17 run there) forward and vjp on the card against the
+               CPU from the same inputs (1e-5), with no device-side
+               assert.
+ 17. text gru — the text-classification GRU net (PaddlePaddle/models
+               text_classification nets.py gru_net) through fluid.layers
+               at its widths: embedding [5147, 128] at 30x the rate, fc to
+               384, dynamic_gru(128), max pool, tanh, fc(96, tanh),
+               fc(2, softmax), cross entropy, Adagrad(0.002); text conv's
+               batches (128, lengths in [8, 120]).  The first step on the
+               card and on the CPU from one startup state (the loss within
+               1e-5, every dense gradient, the table's too, within 1e-5 of
+               its largest magnitude), then 10 steps on the card: finite,
+               falling losses, no hand-kernel launch; examples/s, median
+               step ms, launches a step, busy share.
+     seq ops — every case of tests/torch_op_cases.py's SEQ_OP_CASES (the
+               flat sequence ops, sequence_scatter, sequence_expand_as,
+               row_conv, lod_reset, lrn, the recurrent family and the
+               fused recurrent ops) forward and vjp on the card against
+               the CPU (1e-5); then a mid-size lstmp (B 32, T 64, D 1024,
+               P 512) and a reverse gru (B 64, T 128, H 128), ragged,
+               forward and vjp within 1e-5 of each array's largest
+               magnitude, and their ms a call on the card.
 Phase 2 also holds the coverage cases against their plain versions,
 at the shapes the coverage paths of 6c give the kernels: K1/K2 at head
 dims 32, 96, 192 and 256 (fp32 and bf16, zero-padded along D to 64 /
@@ -5284,20 +5304,30 @@ def text_conv_batches(fluid, n):
 
 
 def phase_text_conv(torch, pk, fluid):
-    """The book's text conv net at its widths: the first step's loss and
-    dense gradients on the card against the CPU from one startup state,
-    then TEXT_STEPS steps on the card (finite, falling losses), their
-    examples/s and median step, and one profiled step (launches, busy
-    share).  No hand kernel is on this path."""
-    from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.fluid.executor import as_numpy
+    """The book's text conv net at its widths (_text_train).  No hand
+    kernel is on this path."""
     main, startup, loss = text_conv_program(fluid)
     types_ = [op.type for op in main.global_block().ops]
     check(types_.count("sequence_conv") == 2
           and "lookup_table_sparse_grad" in types_,
           "text conv: the program lacks its sequence convs or sparse grad")
+    # the table's gradient is a SelectedRows value, held by its update
     grads = [p.name + "@GRAD" for p in main.all_parameters()
              if not p.name.startswith("embedding")]
+    return _text_train(torch, pk, fluid, "text conv", main, startup, loss,
+                       grads)
+
+
+def _text_train(torch, pk, fluid, tag, main, startup, loss, grads):
+    """A text classifier at its widths on TEXT_STEPS + 1 of
+    text_conv_batches: the first step's loss and dense gradients
+    (`grads`) on the card against the CPU from one startup state, then
+    TEXT_STEPS steps on the card (finite, falling losses, no hand-kernel
+    launch), their examples/s and median step, and one profiled step
+    (launches, busy share).  `tag` names the log lines and the JSON
+    key."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.fluid.executor import as_numpy
     batches = text_conv_batches(fluid, TEXT_STEPS + 1)
     scope0 = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope0)
@@ -5321,19 +5351,19 @@ def phase_text_conv(torch, pk, fluid):
         if i == 0:
             gout = out
     counts = {k: v for k, v in pk.launch_counts.items() if v}
-    check(not counts, "text conv: hand kernels launched on a path that has "
+    check(not counts, tag + ": hand kernels launched on a path that has "
           "none: %s" % counts)
     closs = float(np.asarray(cout[0]).ravel()[0])
     check(abs(losses[0] - closs) <= 1e-5 * abs(closs),
-          "text conv: first loss card %r, CPU %r" % (losses[0], closs))
+          tag + ": first loss card %r, CPU %r" % (losses[0], closs))
     worst, where = _worst_spread(
         {n: np.asarray(v, np.float64) for n, v in zip(grads, gout[1:])},
         {n: np.asarray(v, np.float64) for n, v in zip(grads, cout[1:])})
-    check(worst <= 1e-5, "text conv: %s on the card lies %.3g of its "
+    check(worst <= 1e-5, tag + ": %s on the card lies %.3g of its "
           "largest magnitude from the CPU's" % (where, worst))
-    check(all(np.isfinite(losses)), "text conv: losses %s" % losses)
+    check(all(np.isfinite(losses)), tag + ": losses %s" % losses)
     check(np.mean(losses[-3:]) < losses[0],
-          "text conv: the loss did not fall over %d steps: %s"
+          tag + ": the loss did not fall over %d steps: %s"
           % (TEXT_STEPS, losses))
     # one profiled step
     with profile(activities=[ProfilerActivity.CPU,
@@ -5354,10 +5384,10 @@ def phase_text_conv(torch, pk, fluid):
         out.update({"launches_per_step": sum(r[1] for r in rows),
                     "device_busy_ms": device_ms,
                     "busy_share": device_ms / med_ms})
-    log("text conv: losses %s (first on the CPU %.6f); first step's dense "
+    log(tag + ": losses %s (first on the CPU %.6f); first step's dense "
         "grads card vs CPU worst %.3g of the largest magnitude (%s)"
         % (["%.4f" % x for x in losses], closs, worst, where))
-    log("text conv: %.1f examples/s, median step %.2f ms over %d steps "
+    log(tag + ": %.1f examples/s, median step %.2f ms over %d steps "
         "(first %.2f ms), %s launches a step, device busy %s; the CPU step "
         "%.2f s"
         % (out["examples_per_s"], med_ms, TEXT_STEPS - 1, step_s[0] * 1e3,
@@ -5366,9 +5396,9 @@ def phase_text_conv(torch, pk, fluid):
                                              / med_ms)
            if rows else "not measured", cpu_s))
     for us, c, k in rows[:6]:
-        log("text conv profile:   %10.1f us  %5d launches  %s"
+        log(tag + " profile:   %10.1f us  %5d launches  %s"
             % (us, c, k[:90]))
-    log(json.dumps({"text_conv": out}))
+    log(json.dumps({tag.replace(" ", "_"): out}))
     return out
 
 
@@ -5430,14 +5460,18 @@ def phase_mha(torch, fluid):
 
 
 def phase_core_ops(torch):
-    """Every op case of tests/torch_op_cases.py's CORE_CASES, forward and
-    vjp, on the card against the CPU from the same inputs, then a sync
-    that a device-side assert would fail."""
+    """Every op case of tests/torch_op_cases.py's CORE_CASES but the
+    sequence and recurrent families (phase_seq_ops runs those), forward
+    and vjp, on the card against the CPU from the same inputs, then a
+    sync that a device-side assert would fail."""
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "tests"))
     import torch_op_cases as cases
     worst, where, n = -np.inf, None, 0
-    for case in cases.CORE_CASES:
+    # the sequence and recurrent families are phase_seq_ops'
+    seq = {c[0] for c in cases.SEQ_OP_CASES}
+    core = [c for c in cases.CORE_CASES if c[0] not in seq]
+    for case in core:
         bad, at = cases.max_mismatch(cases.run_case(case, "cuda"),
                                      cases.run_case(case, "cpu"),
                                      OP_RTOL, OP_ATOL)
@@ -5450,9 +5484,162 @@ def phase_core_ops(torch):
     log("core ops: %d cases (%d op types) forward and vjp equal card vs CPU "
         "within %g (closest to the limit: %s, %.3g under it); no "
         "device-side assert"
-        % (n, len({c[1] for c in cases.CORE_CASES}), OP_RTOL, where,
-           -worst))
+        % (n, len({c[1] for c in core}), OP_RTOL, where, -worst))
     return n
+
+
+# ---------------------------------------------------------------------------
+# 17. the text-classification GRU net, the sequence and recurrent ops
+# ---------------------------------------------------------------------------
+
+# gru_net at its widths (PaddlePaddle/models fluid/PaddleNLP/
+# text_classification nets.py): dict, embedding, GRU hidden, second fc,
+# classes; text conv's batches
+TEXT_GRU = dict(dict_dim=5147, emb_dim=128, hid_dim=128, hid_dim2=96,
+                class_dim=2)
+TEXT_GRU_EMB_LR = 30.0
+# the mid-size recurrent calls: lstmp (B, T, D, P), reverse gru (B, T, H)
+SEQ_LSTMP = (32, 64, 1024, 512)
+SEQ_GRU = (64, 128, 128)
+SEQ_RUNS = 5
+
+
+def text_gru_program(fluid):
+    """gru_net -> (main, startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = TEXT_SEED
+    w = TEXT_GRU
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        words = L.data("words", shape=[1], dtype="int64", lod_level=1)
+        label = L.data("label", shape=[1], dtype="int64")
+        emb = L.embedding(input=words, size=[w["dict_dim"], w["emb_dim"]],
+                          param_attr=fluid.ParamAttr(
+                              learning_rate=TEXT_GRU_EMB_LR))
+        fc0 = L.fc(input=emb, size=w["hid_dim"] * 3)
+        gru_h = L.dynamic_gru(input=fc0, size=w["hid_dim"])
+        gru_max = L.sequence_pool(input=gru_h, pool_type="max")
+        fc1 = L.fc(input=L.tanh(gru_max), size=w["hid_dim2"], act="tanh")
+        prediction = L.fc(input=fc1, size=w["class_dim"], act="softmax")
+        loss = L.mean(L.cross_entropy(input=prediction, label=label))
+        fluid.optimizer.Adagrad(learning_rate=TEXT_LR).minimize(loss)
+    return main, startup, loss
+
+
+def phase_text_gru(torch, pk, fluid):
+    """The GRU net at its widths (_text_train), every gradient dense (the
+    table's too).  No hand kernel is on this path."""
+    main, startup, loss = text_gru_program(fluid)
+    types_ = [op.type for op in main.global_block().ops]
+    check("gru" in types_ and "gru_grad" in types_,
+          "text gru: the program lacks its gru or the gru's gradient")
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    return _text_train(torch, pk, fluid, "text gru", main, startup, loss,
+                       grads)
+
+
+def _seq_mid_cases():
+    """The mid-size lstmp and reverse gru as op cases of
+    tests/torch_op_cases.py, their inputs fixed arrays from a seed:
+    weights at 1/sqrt(fan in), ragged lengths with one full row."""
+    rng = np.random.RandomState(29)
+
+    def arr(*shape, scale=1.0):
+        return ("arr", (rng.randn(*shape) * scale).astype(np.float32))
+
+    def lens(B, T):
+        ln = rng.randint(1, T + 1, size=B).astype(np.int32)
+        ln[0] = T
+        return ("arr", ln)
+    B, T, D, P = SEQ_LSTMP
+    lstmp = ("lstmp_mid", "lstmp",
+             {"Input": [arr(B, T, 4 * D)],
+              "Weight": [arr(P, 4 * D, scale=P ** -0.5)],
+              "ProjWeight": [arr(D, P, scale=D ** -0.5)],
+              "Bias": [arr(1, 7 * D, scale=0.1)],
+              "Input@LOD_LEN": [lens(B, T)]},
+             {"use_peepholes": True, "is_reverse": False,
+              "proj_activation": "tanh"})
+    B, T, H = SEQ_GRU
+    gru = ("gru_reverse_mid", "gru",
+           {"Input": [arr(B, T, 3 * H)],
+            "Weight": [arr(H, 3 * H, scale=H ** -0.5)],
+            "Bias": [arr(1, 3 * H, scale=0.1)],
+            "Input@LOD_LEN": [lens(B, T)]},
+           {"is_reverse": True})
+    return [lstmp, gru]
+
+
+def _seq_call_ms(torch, cases, case, reps=SEQ_RUNS):
+    """The median ms of the case's forward and vjp on the card (inputs
+    already there, cotangents of ones), over `reps` calls."""
+    from paddle_tpu_torch.ops import registry
+    _, op_type, _, attrs = case
+    inputs, _ = cases.case_inputs(case)
+    op = cases.case_op(op_type, attrs, inputs)
+    od = registry.get_op_def(op_type)
+    dev = {s: [torch.from_numpy(a).cuda() for a in v]
+           for s, v in inputs.items()}
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, vjp = registry.make_forward_and_vjp(
+            op, od, registry.ExecContext(op, dev, device="cuda"))
+        vjp({s: [torch.ones_like(v) if v.is_floating_point() else None
+                 for v in vals] for s, vals in outs.items()})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def phase_seq_ops(torch):
+    """Every case of SEQ_OP_CASES, forward and vjp, on the card against
+    the CPU from the same inputs; then the mid-size lstmp and reverse
+    gru within 1e-5 of each array's largest magnitude, and their ms a
+    call."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_op_cases as cases
+    worst, where = -np.inf, None
+    for case in cases.SEQ_OP_CASES:
+        bad, at = cases.max_mismatch(cases.run_case(case, "cuda"),
+                                     cases.run_case(case, "cpu"),
+                                     OP_RTOL, OP_ATOL)
+        check(bad <= 0, "seq ops: %s differs card vs CPU at %s (by %.3g "
+              "past the tolerance)" % (case[0], at, bad))
+        if bad > worst:
+            worst, where = bad, case[0]
+    torch.cuda.synchronize()
+    log("seq ops: %d cases (%d op types) forward and vjp equal card vs CPU "
+        "within %g (closest to the limit: %s, %.3g under it)"
+        % (len(cases.SEQ_OP_CASES),
+           len({c[1] for c in cases.SEQ_OP_CASES}), OP_RTOL, where, -worst))
+    out = {}
+    for case in _seq_mid_cases():
+        card, cpu = cases.run_case(case, "cuda"), cases.run_case(case, "cpu")
+        spread, at = 0.0, None
+        for part in (0, 1):
+            for slot, vals in cpu[part].items():
+                for i, want in enumerate(vals):
+                    if want is None or want.dtype.kind != "f":
+                        continue
+                    got = np.asarray(card[part][slot][i], np.float64)
+                    sp, _ = _worst_spread({"a": got},
+                                          {"a": np.asarray(want,
+                                                           np.float64)})
+                    if at is None or sp > spread:
+                        spread, at = sp, ("grad " if part else "") + slot
+        check(spread <= OP_RTOL, "seq ops: %s's %s on the card lies %.3g of "
+              "its largest magnitude from the CPU's" % (case[0], at, spread))
+        ms = _seq_call_ms(torch, cases, case)
+        out[case[0]] = {"worst_vs_cpu": spread, "worst_at": at, "ms": ms}
+        log("seq ops: %s forward and vjp card vs CPU worst %.3g of the "
+            "largest magnitude (%s); %.2f ms a call on the card (median of "
+            "%d, the inputs already there)"
+            % (case[0], spread, at, ms, SEQ_RUNS))
+    log(json.dumps({"seq_ops": out}))
+    return out
 
 
 def main():
@@ -5657,7 +5844,16 @@ def main():
     log("mha phase: %.1f s" % (time.time() - t_phase))
     t_phase = time.time()
     phase_core_ops(torch)
-    log("core ops phase: %.1f s; the whole script %.1f s"
+    log("core ops phase: %.1f s" % (time.time() - t_phase))
+    # 17. the text-classification GRU net, the sequence and recurrent ops
+    t_phase = time.time()
+    phase_text_gru(torch, pk, fluid)
+    torch.cuda.empty_cache()
+    log("text gru phase: %.1f s" % (time.time() - t_phase))
+    t_phase = time.time()
+    phase_seq_ops(torch)
+    torch.cuda.empty_cache()
+    log("seq ops phase: %.1f s; the whole script %.1f s"
         % (time.time() - t_phase, time.time() - t_main))
     # the coverage cases' launches: the count of its kernel on the path
     # at its head dim (no path runs K6-bf16 at a ragged channel edge)

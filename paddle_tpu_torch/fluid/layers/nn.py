@@ -28,7 +28,7 @@ __all__ = [
     "resize_bilinear", "resize_nearest", "uniform_random",
     "gaussian_random", "uniform_random_batch_size_like",
     "gaussian_random_batch_size_like", "logical_and", "logical_or",
-    "logical_xor",
+    "logical_xor", "lrn", "row_conv", "lod_reset", "lstm_unit",
 ]
 
 
@@ -986,3 +986,64 @@ def logical_or(x, y, out=None, name=None):
 
 def logical_xor(x, y, out=None, name=None):
     return _logical_binary("logical_xor", x, y, out, name)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="lrn", inputs={"X": input},
+                     outputs={"Out": out, "MidOut": mid},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """The lookahead convolution over a ragged [*, D] input with a
+    [future_context_size + 1, D] filter."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[future_context_size + 1,
+                                       input.shape[-1]], dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="row_conv", inputs={"X": input, "Filter": w},
+                     outputs={"Out": out})
+    return helper.append_activation(out)
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """`x`'s rows regrouped by `y`'s sequences (or by the offsets
+    `target_lod`); Out keeps x's build-time shape."""
+    helper = LayerHelper("lod_reset")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.lod_level = 1
+    inputs = {"X": x}
+    if y is not None:
+        inputs["Y"] = y
+    helper.append_op(type="lod_reset", inputs=inputs, outputs={"Out": out},
+                     attrs={"target_lod": target_lod or []},
+                     infer_shape=False)
+    out.shape = tuple(x.shape)
+    return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step: an fc of [x_t, hidden_t_prev] to the 4D gates, then
+    the lstm_unit op's cell update.  Returns (h, c)."""
+    helper = LayerHelper("lstm_unit_layer", name=name,
+                         param_attr=param_attr, bias_attr=bias_attr)
+    size = int(cell_t_prev.shape[-1])
+    fc_out = fc(concat([x_t, hidden_t_prev], axis=1), size=4 * size,
+                param_attr=helper.param_attr, bias_attr=helper.bias_attr,
+                num_flatten_dims=1)
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op(type="lstm_unit",
+                     inputs={"X": fc_out, "C_prev": cell_t_prev},
+                     outputs={"H": h, "C": c},
+                     attrs={"forget_bias": float(forget_bias)},
+                     infer_shape=False)
+    h.shape = tuple(cell_t_prev.shape)
+    c.shape = tuple(cell_t_prev.shape)
+    return h, c

@@ -210,9 +210,24 @@ def _known_prod(dims):
 def _row_mixing(op, block):
     """The batch-axis var `op` mixes rows of, or None.  A reshape2 whose
     target does not keep the batch axis leading, or that merges rows
-    into one; a matmul or mul that contracts over the batch axis.
-    cumsum, slice, mean, batch_norm and accuracy are global lowerings
-    and never come here."""
+    into one; a matmul or mul that contracts over the batch axis; a
+    lod_reset that regroups the rows of the batch's sequences (by Y or
+    by target_lod); a sequence_mask whose width is max(X) over the batch
+    (maxlen -1).  The other sequence and recurrent ops compute each
+    sequence on its own row.  cumsum, slice, mean, batch_norm and
+    accuracy are global lowerings and never come here."""
+    if op.type == "lod_reset":
+        v = _batch_var(block, op.input("X")[0])
+        if v is not None and (op.input("Y")
+                              or op.attrs.get("target_lod")):
+            return v.name
+        return None
+    if op.type == "sequence_mask":
+        v = _batch_var(block, op.input("X")[0])
+        maxlen = op.attrs.get("maxlen", -1)
+        if v is not None and (maxlen is None or maxlen < 0):
+            return v.name
+        return None
     if op.type == "reshape2":
         v = _batch_var(block, op.input("X")[0])
         if v is None:

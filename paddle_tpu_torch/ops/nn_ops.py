@@ -1,6 +1,6 @@
 """NN op lowerings, after paddle_tpu/ops/nn_ops.py: conv2d,
 depthwise_conv2d, conv2d_transpose, pool2d, batch_norm, layer_norm,
-group_norm, dropout, lookup_table (embedding), one_hot, pad, pad2d,
+group_norm, lrn, dropout, lookup_table (embedding), one_hot, pad, pad2d,
 bilinear_interp, nearest_interp, the losses (softmax_with_cross_entropy,
 cross_entropy, sigmoid_cross_entropy_with_logits, square_error_cost,
 smooth_l1_loss, huber_loss, log_loss, hinge_loss, margin_rank_loss) and
@@ -290,6 +290,25 @@ def _group_norm(ctx):
         y = y + ctx.input("Bias").reshape(bshape)
     return {"Y": y, "Mean": mean.reshape((n, groups)),
             "Variance": var.reshape((n, groups))}
+
+
+@register_op("lrn")
+def _lrn(ctx):
+    """Local response normalization across the channels of an NCHW X:
+    MidOut = k + alpha * (the sum of x^2 over the channel window [c -
+    (n-1)//2, c + n-1 - (n-1)//2], asymmetric for an even n), Out = X *
+    MidOut^-beta (MidOut before the power, as the reference's grad
+    kernel reads it)."""
+    x = ctx.input("X")
+    n = ctx.attr("n", 5)
+    pre = (n - 1) // 2
+    sq = F.pad(torch.square(x), (0, 0, 0, 0, pre, n - 1 - pre))
+    C = x.shape[1]
+    acc = sq[:, 0:C]
+    for j in range(1, n):
+        acc = acc + sq[:, j:j + C]
+    mid = ctx.attr("k", 2.0) + ctx.attr("alpha", 1e-4) * acc
+    return {"Out": x * mid ** (-ctx.attr("beta", 0.75)), "MidOut": mid}
 
 
 @register_op("dropout")

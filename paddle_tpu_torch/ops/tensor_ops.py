@@ -6,7 +6,7 @@ uniform_random_batch_size_like, gaussian_random,
 truncated_gaussian_random, randint), reshape(2), transpose(2),
 flatten(2), slice, strided_slice, where, concat, split, stack, unstack,
 gather, gather_nd, scatter, unsqueeze(2), squeeze(2), expand,
-expand_as, tile, reverse, is_empty and print.
+expand_as, tile, reverse, is_empty, print and lod_reset.
 
 The indexed reads and writes take JAX's out-of-range semantics on the
 device, with no host check and no out-of-bounds access (an index that
@@ -514,3 +514,51 @@ def _reverse(ctx):
     axes = ctx.attr("axis")
     return {"Out": torch.flip(ctx.input("X"), tuple(
         [axes] if isinstance(axes, int) else axes))}
+
+
+@register_op("lod_reset")
+def _lod_reset(ctx):
+    """X's rows regrouped by Y's lengths (or by the offsets `target_lod`):
+    X's valid rows compacted into one flat run in row-major order (a
+    cumsum of the mask numbers them, and each is written to its number,
+    the padding to a spare row that is cut off), then laid out in Y's
+    padded [B_y, T_y, ...] (T_y Y's padded width, or the flat row count
+    for a Y of rank 2 or less), zero past each length.  Without Y or
+    target_lod, X passes through."""
+    x = ctx.input("X")
+    xlens, ylens = ctx.lod_len("X"), ctx.lod_len("Y")
+    if ylens is None:
+        target = ctx.attr("target_lod", [])
+        if not target:
+            return {"Out": x}
+        offsets = np.asarray(target, np.int64)
+        ylens = torch.as_tensor(offsets[1:] - offsets[:-1],
+                                dtype=torch.int32, device=x.device)
+    if x.dim() >= 3 or xlens is not None:
+        B_x, T_x = x.shape[0], x.shape[1]
+        if xlens is None:
+            xlens = torch.full((B_x,), T_x, dtype=torch.int32,
+                               device=x.device)
+        n = B_x * T_x
+        mask = (torch.arange(T_x, device=x.device)[None, :]
+                < xlens[:, None]).reshape(-1)
+        rows = x.reshape((n,) + tuple(x.shape[2:]))
+        pos = torch.cumsum(mask.to(torch.int64), dim=0) - 1
+        dest = torch.where(mask, pos, torch.full_like(pos, n))
+        flat = rows.new_zeros((n + 1,) + tuple(rows.shape[1:])).index_put(
+            (dest,), rows)[:n]
+    else:
+        flat = x
+    B_y = ylens.shape[0]
+    y = ctx.input("Y")
+    T_y = y.shape[1] if (y is not None and y.dim() >= 3) \
+        else int(flat.shape[0])
+    ylens64 = ylens.to(torch.int64)
+    off = torch.cumsum(ylens64, dim=0) - ylens64
+    t = torch.arange(T_y, device=x.device)[None, :]
+    idx = torch.clamp(off[:, None] + t, 0, flat.shape[0] - 1)
+    out = torch.index_select(flat, 0, idx.reshape(-1)).reshape(
+        (B_y, T_y) + tuple(flat.shape[1:]))
+    m = (t < ylens64[:, None]).reshape(
+        (B_y, T_y) + (1,) * (flat.dim() - 1)).to(out.dtype)
+    return {"Out": out * m, "Out@LOD_LEN": ylens}

@@ -403,11 +403,199 @@ SEQUENCE_CASES = [
      {"contextLength": 2, "contextStart": 0, "contextStride": 1}),
 ]
 
+# the flat sequence ops and misc_ops' sequence ops, lod_reset and lrn:
+# ragged inputs with lengths 0 and T, ids out of range, dense forms
+SEQ_FLAT_CASES = [
+    ("sequence_mask_maxlen", "sequence_mask",
+     {"X": [_arr([3, 1, 6, 0], np.int64)]},
+     {"maxlen": 6, "out_dtype": INT64}),
+    ("sequence_mask_dynamic_fp32", "sequence_mask",
+     {"X": [_arr([[2, 5], [3, 0]], np.int64)]},
+     {"maxlen": -1, "out_dtype": FP32}),
+    ("sequence_length", "sequence_length",
+     {"X": [_f(3, 5, 2)], "X@LOD_LEN": [_len(2, 5, 0)]}, {}),
+    ("sequence_length_dense", "sequence_length", {"X": [_f(2, 4)]}, {}),
+    ("sequence_reverse", "sequence_reverse",
+     {"X": [_f(3, 5, 2)], "X@LOD_LEN": [_len(2, 5, 1)]}, {}),
+    ("sequence_reverse_ids_dense", "sequence_reverse",
+     {"X": [_i(9, 2, 4, 1)]}, {}),
+    ("sequence_concat", "sequence_concat",
+     {"X": [_f(3, 4, 2), _f(3, 5, 2)],
+      "X@LOD_LEN": [_len(2, 4, 0), _len(5, 1, 3)]}, {}),
+    ("sequence_unpad", "sequence_unpad",
+     {"X": [_f(3, 5, 2)], "Length": [_arr([[2], [5], [0]], np.int64)]},
+     {}),
+    ("sequence_enumerate", "sequence_enumerate",
+     {"X": [_i(20, 3, 5, 1)], "X@LOD_LEN": [_len(5, 2, 3)]},
+     {"win_size": 3, "pad_value": 0}),
+    ("sequence_enumerate_2d_pad", "sequence_enumerate",
+     {"X": [_i(20, 2, 4)], "X@LOD_LEN": [_len(4, 1)]},
+     {"win_size": 2, "pad_value": 7}),
+    ("sequence_slice", "sequence_slice",
+     {"X": [_f(3, 6, 2)], "Offset": [_arr([[1], [0], [3]], np.int64)],
+      "Length": [_arr([[3], [2], [2]], np.int64)],
+      "X@LOD_LEN": [_len(5, 6, 5)]}, {}),
+    ("sequence_erase", "sequence_erase",
+     {"X": [_i(5, 3, 7, 1)], "X@LOD_LEN": [_len(7, 4, 6)]},
+     {"tokens": [2, 0]}),
+    ("sequence_erase_dense_repeats", "sequence_erase",
+     {"X": [_arr([[3, 3, 1, 3, 2, 3], [1, 1, 1, 1, 1, 1],
+                  [2, 2, 0, 4, 4, 2]], np.int64)]}, {"tokens": [3, 1]}),
+    ("sequence_reshape_ragged", "sequence_reshape",
+     {"X": [_f(3, 4, 6)], "X@LOD_LEN": [_len(4, 2, 0)]}, {"new_dim": 4}),
+    ("sequence_reshape_dense", "sequence_reshape",
+     {"X": [_f(2, 3, 4)]}, {"new_dim": 6}),
+    ("sequence_reshape_same_width", "sequence_reshape",
+     {"X": [_f(2, 3, 4)], "X@LOD_LEN": [_len(3, 1)]}, {"new_dim": 4}),
+    # a negative id wraps once; one past the width and beyond are dropped
+    ("sequence_scatter", "sequence_scatter",
+     {"X": [_f(3, 6)],
+      "Ids": [_arr([[0, 5, -1, 2], [6, 1, 1, -7], [3, 3, 9, 0]],
+                   np.int64)],
+      "Updates": [_f(3, 4)], "Ids@LOD_LEN": [_len(4, 2, 3)]}, {}),
+    ("sequence_expand_as", "sequence_expand_as",
+     {"X": [_f(3, 4)], "Y": [_f(3, 5, 2)], "Y@LOD_LEN": [_len(2, 5, 0)]},
+     {}),
+    ("sequence_expand_as_dense", "sequence_expand_as",
+     {"X": [_f(2, 3)], "Y": [_f(2, 4)]}, {}),
+    ("row_conv", "row_conv",
+     {"X": [_f(3, 6, 4)], "Filter": [_f(3, 4)],
+      "X@LOD_LEN": [_len(6, 2, 4)]}, {}),
+    ("row_conv_dense", "row_conv", {"X": [_f(2, 5, 3)], "Filter": [_f(2, 3)]},
+     {}),
+    ("lod_reset_by_y", "lod_reset",
+     {"X": [_f(3, 4, 2)], "Y": [_f(2, 5, 1)],
+      "X@LOD_LEN": [_len(4, 1, 3)], "Y@LOD_LEN": [_len(5, 3)]}, {}),
+    ("lod_reset_target_lod", "lod_reset",
+     {"X": [_f(2, 3, 2)], "X@LOD_LEN": [_len(3, 2)]},
+     {"target_lod": [0, 2, 5]}),
+    ("lod_reset_flat_x", "lod_reset",
+     {"X": [_f(6, 3)], "Y": [_f(2, 4, 1)], "Y@LOD_LEN": [_len(4, 2)]}, {}),
+    ("lrn", "lrn", {"X": [_f(2, 6, 3, 3)]},
+     {"n": 5, "k": 2.0, "alpha": 0.1, "beta": 0.75}),
+    ("lrn_even_window", "lrn", {"X": [_f(2, 5, 2, 3)]},
+     {"n": 4, "k": 1.0, "alpha": 0.2, "beta": 0.5}),
+]
+
+# the recurrent family: ragged and dense, is_reverse, peepholes on and
+# off, initial states given and absent, lengths 0 and T
+RECURRENT_CASES = [
+    ("gru", "gru",
+     {"Input": [_f(3, 5, 12)], "Weight": [_f(4, 12)], "Bias": [_f(1, 12)],
+      "Input@LOD_LEN": [_len(5, 2, 3)]},
+     {"is_reverse": False, "gate_activation": "sigmoid",
+      "activation": "tanh"}),
+    ("gru_reverse_h0", "gru",
+     {"Input": [_f(3, 5, 12)], "Weight": [_f(4, 12)], "Bias": [_f(1, 12)],
+      "H0": [_f(3, 4)], "Input@LOD_LEN": [_len(4, 5, 0)]},
+     {"is_reverse": True}),
+    ("gru_dense_no_bias", "gru",
+     {"Input": [_f(2, 4, 6)], "Weight": [_f(2, 6)]}, {}),
+    # the JAX lowering reads neither activation attr: always sigmoid, tanh
+    ("gru_activation_attrs_ignored", "gru",
+     {"Input": [_f(3, 5, 12)], "Weight": [_f(4, 12)], "Bias": [_f(1, 12)],
+      "Input@LOD_LEN": [_len(5, 2, 3)]},
+     {"gate_activation": "relu", "activation": "identity"}),
+    ("gru_unit", "gru_unit",
+     {"Input": [_f(3, 9)], "HiddenPrev": [_f(3, 3)], "Weight": [_f(3, 9)],
+      "Bias": [_f(1, 9)]}, {"activation": "tanh",
+                            "gate_activation": "sigmoid"}),
+    ("gru_unit_relu_identity", "gru_unit",
+     {"Input": [_f(2, 6)], "HiddenPrev": [_f(2, 2)], "Weight": [_f(2, 6)]},
+     {"activation": "relu", "gate_activation": "identity"}),
+    ("lstm_unit", "lstm_unit", {"X": [_f(3, 12)], "C_prev": [_f(3, 3)]},
+     {"forget_bias": 0.0}),
+    ("lstm_unit_forget_bias", "lstm_unit",
+     {"X": [_f(2, 8)], "C_prev": [_f(2, 2)]}, {"forget_bias": 1.0}),
+    ("lstmp_peepholes", "lstmp",
+     {"Input": [_f(3, 5, 12)], "Weight": [_f(2, 12)],
+      "ProjWeight": [_f(3, 2)], "Bias": [_f(1, 21)],
+      "Input@LOD_LEN": [_len(5, 1, 3)]},
+     {"use_peepholes": True, "is_reverse": False,
+      "proj_activation": "tanh"}),
+    ("lstmp_reverse_h0_c0", "lstmp",
+     {"Input": [_f(3, 5, 12)], "Weight": [_f(2, 12)],
+      "ProjWeight": [_f(3, 2)], "Bias": [_f(1, 12)], "H0": [_f(3, 2)],
+      "C0": [_f(3, 3)], "Input@LOD_LEN": [_len(3, 5, 0)]},
+     {"use_peepholes": False, "is_reverse": True,
+      "proj_activation": "identity"}),
+    ("lstmp_sigmoid_dense", "lstmp",
+     {"Input": [_f(2, 4, 8)], "Weight": [_f(3, 8)],
+      "ProjWeight": [_f(2, 3)], "Bias": [_f(1, 14)]},
+     {"use_peepholes": True, "proj_activation": "sigmoid"}),
+    ("simple_rnn", "simple_rnn",
+     {"Input": [_f(3, 5, 4)], "Weight": [_f(4, 4)], "Bias": [_f(1, 4)],
+      "Input@LOD_LEN": [_len(5, 3, 1)]}, {"activation": "tanh"}),
+    ("simple_rnn_relu_reverse", "simple_rnn",
+     {"Input": [_f(3, 5, 4)], "Weight": [_f(4, 4)],
+      "Input@LOD_LEN": [_len(2, 5, 0)]},
+     {"activation": "relu", "is_reverse": True}),
+    ("simple_rnn_softsign_dense", "simple_rnn",
+     {"Input": [_f(2, 4, 3)], "Weight": [_f(3, 3)]},
+     {"activation": "softsign"}),
+    ("attention_lstm", "attention_lstm",
+     {"X": [_f(3, 5, 4)], "C0": [_f(3, 3)], "AttentionWeight": [_f(7, 1)],
+      "AttentionBias": [_f(1, 1)], "AttentionScalar": [_f(1, 1)],
+      "AttentionScalarBias": [_f(1, 1)], "LSTMWeight": [_f(7, 12)],
+      "LSTMBias": [_f(1, 12)], "X@LOD_LEN": [_len(5, 2, 3)]}, {}),
+    ("attention_lstm_h0_plain", "attention_lstm",
+     {"X": [_f(3, 4, 2)], "C0": [_f(3, 2)], "H0": [_f(3, 2)],
+      "AttentionWeight": [_f(4, 1)], "LSTMWeight": [_f(4, 8)],
+      "LSTMBias": [_f(1, 8)], "X@LOD_LEN": [_len(4, 0, 2)]}, {}),
+]
+
+# the fused recurrent ops
+FUSED_CASES = [
+    ("fusion_lstm", "fusion_lstm",
+     {"X": [_f(3, 5, 4)], "WeightX": [_f(4, 12)], "WeightH": [_f(3, 12)],
+      "Bias": [_f(1, 21)], "X@LOD_LEN": [_len(5, 2, 4)]},
+     {"use_peepholes": True, "is_reverse": False}),
+    ("fusion_lstm_bias_x_reverse", "fusion_lstm",
+     {"X": [_f(3, 5, 4)], "WeightX": [_f(4, 12)], "WeightH": [_f(3, 12)],
+      "Bias": [_f(1, 12)], "BiasX": [_f(1, 12)], "H0": [_f(3, 3)],
+      "C0": [_f(3, 3)], "X@LOD_LEN": [_len(1, 5, 3)]},
+     {"use_peepholes": False, "is_reverse": True}),
+    ("fusion_gru", "fusion_gru",
+     {"X": [_f(3, 5, 4)], "WeightX": [_f(4, 9)], "WeightH": [_f(3, 9)],
+      "Bias": [_f(1, 9)], "X@LOD_LEN": [_len(5, 2, 4)]},
+     {"is_reverse": False}),
+    ("fusion_gru_reverse_h0", "fusion_gru",
+     {"X": [_f(2, 4, 3)], "WeightX": [_f(3, 6)], "WeightH": [_f(2, 6)],
+      "H0": [_f(2, 2)], "X@LOD_LEN": [_len(4, 2)]}, {"is_reverse": True}),
+    ("fusion_seqconv_eltadd_relu", "fusion_seqconv_eltadd_relu",
+     {"X": [_f(3, 6, 4)], "Filter": [_f(12, 5)], "Bias": [_f(1, 5)],
+      "X@LOD_LEN": [_len(6, 3, 1)]},
+     {"contextLength": 3, "contextStart": -1, "contextStride": 1}),
+    ("fusion_seqexpand_concat_fc", "fusion_seqexpand_concat_fc",
+     {"X": [_f(3, 5, 4), _f(3, 2), _f(3, 3)], "FCWeight": [_f(9, 6)],
+      "FCBias": [_f(1, 6)], "X@LOD_LEN": [_len(5, 2, 3)]},
+     {"fc_activation": "tanh"}),
+    ("fusion_seqexpand_concat_fc_relu", "fusion_seqexpand_concat_fc",
+     {"X": [_f(2, 4, 3), _f(2, 2)], "FCWeight": [_f(5, 4)],
+      "X@LOD_LEN": [_len(4, 1)]}, {"fc_activation": "relu"}),
+    # ids below 0 and past the table clip into it
+    ("fused_embedding_fc_lstm", "fused_embedding_fc_lstm",
+     {"Ids": [_arr([[[0], [6], [-1], [7], [3]], [[9], [2], [2], [1], [0]],
+                    [[5], [4], [-3], [0], [0]]], np.int64)],
+      "Embeddings": [_f(7, 12)], "WeightH": [_f(3, 12)],
+      "Bias": [_f(1, 21)], "Ids@LOD_LEN": [_len(5, 3, 2)]},
+     {"use_peepholes": True, "is_reverse": False}),
+    ("fused_embedding_fc_lstm_reverse", "fused_embedding_fc_lstm",
+     {"Ids": [_i(7, 2, 4, 1)], "Embeddings": [_f(7, 8)],
+      "WeightH": [_f(2, 8)], "Bias": [_f(1, 8)], "H0": [_f(2, 2)],
+      "Ids@LOD_LEN": [_len(4, 2)]},
+     {"use_peepholes": False, "is_reverse": True}),
+]
+
+# every case of the sequence and recurrent families
+SEQ_OP_CASES = SEQ_FLAT_CASES + RECURRENT_CASES + FUSED_CASES
+
 # the random ops of these families, held on shape, dtype, range and
 # moments
 RANDOM_OPS = ("randint", "truncated_gaussian_random",
               "uniform_random_batch_size_like")
 
-# every case above, for chip_smoke.py's phase_core_ops
+# every case above: chip_smoke.py's phase_core_ops runs those of the
+# families before SEQ_OP_CASES, its phase_seq_ops those
 CORE_CASES = (REPAIR_CASES + MATH_CASES + TENSOR_CASES + NN_CASES
-               + SEQUENCE_CASES)
+              + SEQUENCE_CASES + SEQ_OP_CASES)
