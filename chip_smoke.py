@@ -287,6 +287,34 @@ Phases, in order; any failure exits non-zero:
                P 512) and a reverse gru (B 64, T 128, H 128), ragged,
                forward and vjp within 1e-5 of each array's largest
                magnitude, and their ms a call on the card.
+     reader  — ResNet-50 training (bench.build, batch 256, NHWC,
+               whole-graph AMP, deterministic cuDNN) from one startup
+               state over bench.staged_batches' 4 seeded batches in four
+               passes, through four feed lanes: (a) host feeds to
+               exe.run, twice, (b) create_py_reader_by_data with the
+               double buffer staging on the card, (c) open_files over a
+               RecordIO file of the same batches (the model built on
+               read_file's vars), (d) the batches staged on the card
+               beforehand; images/s, median step, busy share a lane; the
+               losses of (b), (c), (d) within (a)'s own run-to-run
+               spread.  Every persistable through an in-graph
+               save_combine and back through load_combine, bit for bit,
+               the file read by numpy.load too.  The fused fp32
+               Predictor on 64 images read back through
+               reader.creator.recordio: K6 launches, probabilities equal
+               to the in-memory feed's.
+     nested  — a hierarchical document encoder (32000 words at width
+               256, fc, nested_to_outer, a DynamicRNN over the sentences,
+               fc(2)) trains a few steps on 32 documents of 2-16
+               sentences of 4-40 words; its first step card vs CPU (loss
+               and every gradient within 1e-6 of its largest magnitude,
+               the embedding's through nested_to_outer_grad); then the
+               kmax_seq_score -> sub_nested_seq selection and
+               sequence_expand with a nested Y, card vs CPU.
+     profiler— `python -m paddle_tpu_torch.fluid_benchmark --model resnet
+               --profile` in a temporary directory: the printed table
+               holds the host events and CUDA kernel rows, and the
+               exported trace is JSON with traceEvents.
 Phase 2 also holds the coverage cases against their plain versions,
 at the shapes the coverage paths of 6c give the kernels: K1/K2 at head
 dims 32, 96, 192 and 256 (fp32 and bf16, zero-padded along D to 64 /
@@ -5642,6 +5670,468 @@ def phase_seq_ops(torch):
     return out
 
 
+# the Fluid input and I/O surface: ResNet-50 training fed through the
+# reader (bench.build's model at RT_BATCH), the nested encoder, the
+# profiler
+# passes over the 4 batches: a warm-up, then timed passes whose last
+# step runs under torch.profiler
+RR_PASSES = 3
+RR_SPREAD_FACTOR = 4.0
+RR_PREDICT_IMAGES = 64
+NL_WIDTH = dict(vocab=32000, emb_dim=256, hid=256)
+NL_BATCH = 32
+NL_SENTS = (2, 16)
+NL_WORDS = (4, 40)
+NL_STEPS = 3
+NL_LR = 0.01
+NL_SEED = 19
+NL_BEAM = 3
+NL_TOL = 1e-6
+PROF_ARGV = ["--model", "resnet", "--profile", "--batch_size", "32",
+             "--layout", "NHWC", "--iterations", "2", "--skip_batch_num",
+             "1"]
+PROF_TIMEOUT_S = 300
+
+
+def _rel_spread(a, b):
+    """max |a - b| / |a| over two loss trajectories."""
+    return max(abs(x - y) / abs(x) for x, y in zip(a, b))
+
+
+def _resnet_on_reader(fluid, bench, resnet, path):
+    """bench.build's ResNet-50 (get_model at RT_BATCH, NHWC, lr 0.1,
+    Momentum 0.9, L2Decay 1e-4) built on the vars of an open_files
+    reader over the RecordIO file `path`, with the double buffer on the
+    card: (main, loss, reader).  Built under a fresh unique_name guard,
+    so its parameters and optimizer state have the names of a guarded
+    bench.build."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        hw = bench.IMAGE_HW
+        reader = fluid.layers.double_buffer(fluid.layers.open_files(
+            [path], shapes=[[-1, hw, hw, 3], [-1, 1]], lod_levels=[0, 0],
+            dtypes=["float32", "int64"]), place=fluid.CUDAPlace(0))
+        image, label = fluid.layers.read_file(reader)
+        predict = resnet.resnet_imagenet(image, class_dim=1000, depth=50,
+                                         is_train=True, layout="NHWC")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            input=predict, label=label))
+        fluid.layers.accuracy(input=predict, label=label)
+        fluid.optimizer.Momentum(
+            learning_rate=0.1, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(1e-4)).minimize(loss)
+    return main, loss, reader
+
+
+def _rr_lane(torch, fluid, exe, main, loss, init, label, passes,
+             n_batches):
+    """RR_PASSES passes of `passes(p)` (n_batches feeds each) through
+    exe.run on a copy of the startup state: losses, images/s and the
+    median step over the passes after the first but for the last step,
+    which runs under torch.profiler and gives the device busy share (its
+    kernels' device time over its wall time), and the final scope."""
+    from torch.profiler import ProfilerActivity, profile
+    scope = fluid.Scope()
+    for n, v in init.items():
+        scope.set(n, v.clone())
+    losses, gaps = [], []
+    busy = None
+    t_lane = time.time()
+    torch.cuda.synchronize()
+    for p in range(RR_PASSES):
+        feeds = passes(p)
+        t = time.perf_counter()
+        for i in range(n_batches):
+            prof = None
+            if p == RR_PASSES - 1 and i == n_batches - 1:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+                t = time.perf_counter()
+            feed = next(feeds)
+            out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            losses.append(float(np.asarray(out).ravel()[0]))
+            now = time.perf_counter()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                device_ms, rows = profile_rows(torch, prof, 1)
+                busy = device_ms / ((now - t) * 1e3) if rows else None
+            elif p > 0:
+                gaps.append(now - t)
+            t = time.perf_counter()
+        feeds.close()
+    seconds = sum(gaps)
+    out = {"label": label, "losses": losses,
+           "images_per_s": RT_BATCH * len(gaps) / seconds,
+           "median_step_ms": float(np.median(gaps)) * 1e3,
+           "busy_share": busy, "seconds": time.time() - t_lane}
+    log("reader resnet %s: %.1f images/s, median step %.2f ms (%d timed "
+        "steps), device busy %s; %.1f s; losses %s" % (
+            label, out["images_per_s"], out["median_step_ms"], len(gaps),
+            "not measured (no device time seen)" if busy is None
+            else "%.1f%% of the last step" % (100 * busy), out["seconds"],
+            ["%.5f" % x for x in losses]))
+    check(all(np.isfinite(losses)), "reader resnet %s: non-finite loss"
+          % label)
+    return out, scope
+
+
+def _reader_pass(reader):
+    """One pass of a PyReader as a Fluid user runs it."""
+    def passes(_):
+        reader.start()
+        try:
+            yield from reader
+        finally:
+            reader.reset()
+    return passes
+
+
+def _host_pass(batches):
+    def passes(_):
+        yield from batches
+    return passes
+
+
+def _rr_save_load(torch, fluid, exe, main, scope, tmp):
+    """Every persistable of `main` from `scope` through an in-graph
+    save_combine program, then back through load_combine into a fresh
+    scope: bit for bit, and the file through numpy.load."""
+    from paddle_tpu_torch.fluid.functionalizer import persistable_names
+    names = sorted(n for n in persistable_names(main)
+                   if scope.get(n) is not None)
+    path = os.path.join(tmp, "persistables.npz")
+    progs = []
+    for op_type in ("save_combine", "load_combine"):
+        prog = fluid.Program()
+        gb = prog.global_block()
+        for n in names:
+            v = main.global_block().var(n)
+            gb.create_var(name=n, shape=v.shape, dtype=v.dtype,
+                          persistable=True)
+        slots = ({"inputs": {"X": names}, "outputs": {}}
+                 if op_type == "save_combine" else
+                 {"inputs": {}, "outputs": {"Out": names}})
+        gb.append_op(type=op_type, attrs={"file_path": path}, **slots)
+        progs.append(prog)
+    t0 = time.time()
+    exe.run(progs[0], scope=scope)
+    save_s = time.time() - t0
+    fresh = fluid.Scope()
+    t0 = time.time()
+    exe.run(progs[1], scope=fresh)
+    load_s = time.time() - t0
+    nbytes = os.path.getsize(path)
+    with np.load(path) as z:
+        check(sorted(z.files) == sorted(n.replace("/", "__")
+                                        for n in names),
+              "save_combine: the file's keys are not the persistables")
+        for n in names:
+            a, b = scope.get(n), fresh.get(n)
+            check(b is not None and b.device == a.device
+                  and torch.equal(a, b),
+                  "load_combine: %s differs from the saved value" % n)
+            check(np.array_equal(z[n.replace("/", "__")],
+                                 a.detach().cpu().numpy()),
+                  "numpy.load: %s differs from the saved value" % n)
+    log("reader resnet: save_combine of %d persistables (%.1f MB) in %.2f "
+        "s, load_combine into a fresh scope in %.2f s: equal bit for bit, "
+        "and through numpy.load" % (len(names), nbytes / 1e6, save_s,
+                                    load_s))
+    return len(names)
+
+
+def _rr_predictor(torch, pk, fluid, tmp):
+    """The fused fp32 Predictor (FUSE_GATE) on RR_PREDICT_IMAGES images
+    written to a RecordIO file and read back through
+    reader.creator.recordio, against the same images fed from memory:
+    equal; K6's launches on the recordio-fed run."""
+    from paddle_tpu_torch import inference, native, reader
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.models import resnet
+    art = os.path.join(tmp, "resnet50")
+    t0 = time.time()
+    build_resnet_artifact(torch, fluid, resnet, art, fluid.CUDAPlace(0))
+    build_s = time.time() - t0
+    images = _images(RR_PREDICT_IMAGES, RESNET_SEED + 1)
+    path = os.path.join(tmp, "images.rio")
+    with native.RecordIOWriter(path) as w:
+        for im in images:
+            w.write(native.serialize_tensor(im))
+    t0 = time.time()
+    batch = np.stack([native.deserialize_tensor(r)[0]
+                      for r in reader.creator.recordio(path)()])
+    read_s = time.time() - t0
+    check(batch.shape == images.shape and np.array_equal(batch, images),
+          "recordio: the images read back differ")
+    t0 = time.time()
+    FLAGS.fuse_bottleneck_max_width = FUSE_GATE
+    try:
+        pred = inference.create_paddle_predictor(
+            inference.AnalysisConfig(model_dir=art))
+    finally:
+        FLAGS.fuse_bottleneck_max_width = 0
+    want = pred.run([images])[0]
+    first_s = time.time() - t0
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    got = pred.run([batch])[0]
+    torch.cuda.synchronize()
+    launches = pk.launch_counts["fused_bottleneck"]
+    check(launches > 0, "reader predictor: K6 did not launch")
+    check(np.isfinite(got).all() and got.shape == (RR_PREDICT_IMAGES, 1000),
+          "reader predictor: bad probabilities %s" % (got.shape,))
+    check(np.array_equal(got, want), "reader predictor: the recordio-fed "
+          "probabilities differ from the in-memory feed's by %.3g"
+          % np.abs(got - want).max())
+    log("reader predictor: the artifact saved in %.1f s, the Predictor "
+        "made and run on the in-memory feed in %.1f s; %d images read back "
+        "through reader.creator.recordio in %.2f s (%.1f MB); the fused "
+        "fp32 Predictor launched K6 %d times and equals the in-memory feed "
+        "bit for bit" % (build_s, first_s, RR_PREDICT_IMAGES, read_s,
+                         os.path.getsize(path) / 1e6, launches))
+    del pred
+    return launches
+
+
+def phase_reader_resnet(torch, pk, fluid):
+    """ResNet-50 training fed through the reader lanes (module docstring,
+    `reader`), the save/load round trip and the recordio-fed Predictor.
+    Returns K6's launches on the recordio-fed Predictor."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.flags import FLAGS
+    from paddle_tpu_torch.fluid import functionalizer
+    from paddle_tpu_torch.models import resnet
+    t0 = time.time()
+    with fluid.unique_name.guard():
+        main, loss, exe, scope0 = bench.build(RT_BATCH, "NHWC", "cuda",
+                                              seed=RT_SEED)
+    init = {n: scope0.get(n) for n in scope0.keys()}
+    host = bench.staged_batches(RT_BATCH, "NHWC", "cpu")
+    host = [{k: v.numpy() for k, v in b.items()} for b in host]
+    staged = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+              for b in host]
+    log("reader resnet: built ResNet-50 and ran startup, %d batches of %d "
+        "in %.1f s" % (len(host), RT_BATCH, time.time() - t0))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "batches.rio")
+        t0 = time.time()
+        n = fluid.recordio_writer.convert_reader_to_recordio_file(
+            path, lambda: ((b["data"], b["label"]) for b in host))
+        write_s = time.time() - t0
+        log("reader resnet: %d batches written to RecordIO in %.2f s (%.1f "
+            "MB)" % (n, write_s, os.path.getsize(path) / 1e6))
+        t0 = time.time()
+        main_c, loss_c, reader_c = _resnet_on_reader(fluid, bench, resnet,
+                                                     path)
+        log("reader resnet: built the model on open_files' vars in %.1f s"
+            % (time.time() - t0))
+        check(set(functionalizer.persistable_names(main_c))
+              == set(functionalizer.persistable_names(main)),
+              "reader resnet: the open_files program's state differs from "
+              "bench.build's")
+        reader_b = fluid.layers.double_buffer(
+            fluid.layers.create_py_reader_by_data(
+                capacity=4, feed_list=[main.global_block().var("data"),
+                                       main.global_block().var("label")]),
+            place=fluid.CUDAPlace(0))
+        reader_b.decorate_paddle_reader(
+            lambda: ((b["data"], b["label"]) for b in host))
+        lanes = [("(a) host feeds", main, loss, _host_pass(host)),
+                 ("(a) host feeds again", main, loss, _host_pass(host)),
+                 ("(b) py_reader double buffer", main, loss,
+                  _reader_pass(reader_b)),
+                 ("(c) open_files recordio", main_c, loss_c,
+                  _reader_pass(reader_c)),
+                 ("(d) staged on the card", main, loss,
+                  _host_pass(staged))]
+        fluid.set_amp(True)
+        FLAGS.whole_graph_ad = True
+        torch.backends.cudnn.deterministic = True
+        try:
+            for label, prog, lss, passes in lanes:
+                out[label], scope = _rr_lane(torch, fluid, exe, prog, lss,
+                                             init, label, passes, len(host))
+                if label.startswith("(a) host feeds again"):
+                    n_saved = _rr_save_load(torch, fluid, exe, main, scope,
+                                            tmp)
+                del scope
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = False
+            FLAGS.whole_graph_ad = False
+            fluid.set_amp(False)
+        a1 = out["(a) host feeds"]["losses"]
+        spread_aa = _rel_spread(a1, out["(a) host feeds again"]["losses"])
+        spreads = {k: _rel_spread(a1, v["losses"]) for k, v in out.items()
+                   if not k.startswith("(a)")}
+        for k, sp in spreads.items():
+            check(sp <= RR_SPREAD_FACTOR * spread_aa,
+                  "reader resnet %s: losses %.3g from (a)'s, beyond %g x "
+                  "(a)'s own run-to-run spread %.3g"
+                  % (k, sp, RR_SPREAD_FACTOR, spread_aa))
+        timings = {"(b)": reader_b.timings, "(c)": reader_c.timings}
+        for k, tm in timings.items():
+            log("reader resnet %s: the reader thread read (decode, convert) "
+                "a batch in %.2f ms and staged it in %.2f ms (medians of the "
+                "last pass's %d batches)"
+                % (k, float(np.median([r for r, _ in tm])),
+                   float(np.median([s for _, s in tm])), len(tm)))
+        log("reader resnet: (a)'s run-to-run loss spread %.3g; (b), (c), "
+            "(d) against (a): %s" % (spread_aa, {k: "%.3g" % v for k, v
+                                                 in spreads.items()}))
+        del init, staged, scope0
+        torch.cuda.empty_cache()
+        k6 = _rr_predictor(torch, pk, fluid, tmp)
+    log(json.dumps({"reader_resnet": {
+        "lanes": {k: {kk: v[kk] for kk in ("images_per_s", "median_step_ms",
+                                           "busy_share", "seconds")}
+                  for k, v in out.items()},
+        "spread_aa": spread_aa, "spreads": spreads,
+        "reader_ms": {k: [float(np.median([r for r, _ in tm])),
+                          float(np.median([s for _, s in tm]))]
+                      for k, tm in timings.items()},
+        "persistables_saved": n_saved, "k6_launches": k6}}))
+    torch.cuda.empty_cache()
+    return k6
+
+
+def _nested_run(fluid, main, fetch, init, feeds, place):
+    """The fetches of each feed on `place` from the startup state."""
+    scope = fluid.scope_from_jax(init, fluid.Scope(), place)
+    exe = fluid.Executor(place)
+    return [exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+            for f in feeds]
+
+
+def _nested_agree(what, cpu, card):
+    """The worst spread of the card's fetches from the CPU's, as a share
+    of each array's largest magnitude; a LoDTensor's LoD must be
+    equal."""
+    worst, at = 0.0, None
+    for name, (a, b) in enumerate(zip(cpu, card)):
+        if hasattr(a, "lod"):
+            check(hasattr(b, "lod") and a.lod() == b.lod(),
+                  "%s: fetch %d's LoD differs card vs CPU" % (what, name))
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        check(a.shape == b.shape, "%s: fetch %d's shape differs"
+              % (what, name))
+        sp = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30)) \
+            if a.size else 0.0
+        check(sp <= NL_TOL, "%s: fetch %d on the card lies %.3g of its "
+              "largest magnitude from the CPU's" % (what, name, sp))
+        if sp >= worst:
+            worst, at = sp, name
+    return worst, at
+
+
+def phase_nested_lod(torch, fluid):
+    """The hierarchical document encoder and the nested selection at
+    NL_WIDTH (module docstring, `nested`)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_nested_cases as nc
+    main, startup, loss = nc.doc_encoder_program(fluid, lr=NL_LR,
+                                                 **NL_WIDTH)
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    init_scope = fluid.Scope()
+    with fluid.scope_guard(init_scope):
+        fluid.Executor(fluid.CPUPlace()).run(startup)
+    init = {n: init_scope.get(n).numpy() for n in init_scope.keys()}
+    rng = np.random.RandomState(NL_SEED)
+    feeds = [nc.doc_batch(fluid, rng, NL_BATCH, NL_SENTS, NL_WORDS,
+                          NL_WIDTH["vocab"]) for _ in range(NL_STEPS)]
+    lod = feeds[0]["words"].recursive_sequence_lengths()
+    t0 = time.time()
+    cpu = _nested_run(fluid, main, [loss] + grads, init, feeds[:1],
+                      fluid.CPUPlace())[0]
+    cpu_s = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    card = _nested_run(fluid, main, [loss] + grads, init, feeds,
+                       fluid.CUDAPlace(0))
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    worst, at = _nested_agree("nested encoder", cpu, card[0])
+    losses = [float(np.asarray(c[0]).ravel()[0]) for c in card]
+    check(all(np.isfinite(losses)), "nested encoder: non-finite loss %s"
+          % losses)
+    emb = np.asarray(card[0][1 + grads.index("embedding_0.w_0@GRAD")])
+    check(np.abs(emb).max() > 0, "nested encoder: no embedding gradient")
+    log("nested encoder: %d documents, %d sentences of %d-%d words; %d "
+        "steps on the card in %.2f s (the first step on the CPU %.2f s), "
+        "losses %s; first step card vs CPU: the loss and %d gradients (the "
+        "embedding's through nested_to_outer_grad) within %.3g of each "
+        "one's largest magnitude (tolerance %g; the closest: %s)"
+        % (NL_BATCH, len(lod[1]), min(lod[1]), max(lod[1]), NL_STEPS,
+           card_s, cpu_s, ["%.5f" % x for x in losses], len(grads), worst,
+           NL_TOL, (["loss"] + grads)[at]))
+    main, startup, fetch = nc.selection_program(
+        fluid, NL_WIDTH["vocab"], NL_WIDTH["emb_dim"], NL_BEAM)
+    init_scope = fluid.Scope()
+    with fluid.scope_guard(init_scope):
+        fluid.Executor(fluid.CPUPlace()).run(startup)
+    init = {n: init_scope.get(n).numpy() for n in init_scope.keys()}
+    feed = nc.doc_batch(fluid, np.random.RandomState(NL_SEED + 1),
+                        NL_BATCH, NL_SENTS, NL_WORDS, NL_WIDTH["vocab"],
+                        titled=True)
+    feed.pop("label")
+    n_sents = len(feed["words"].recursive_sequence_lengths()[1])
+    cpu = _nested_run(fluid, main, fetch, init, [feed], fluid.CPUPlace())[0]
+    card = _nested_run(fluid, main, fetch, init, [feed],
+                       fluid.CUDAPlace(0))[0]
+    worst_sel, _ = _nested_agree("nested selection", cpu, card)
+    sel, exp = card
+    log("nested selection: kmax_seq_score (beam %d) -> sub_nested_seq kept "
+        "%d of %d sentences, sequence_expand repeated %d titles to %d rows "
+        "by the nested counts; card = CPU (LoDs equal, values within "
+        "%.3g)" % (NL_BEAM, len(sel.recursive_sequence_lengths()[1]),
+                   n_sents, NL_BATCH,
+                   len(exp.recursive_sequence_lengths()[0]), worst_sel))
+    log(json.dumps({"nested_lod": {"losses": losses, "worst_vs_cpu": worst,
+                                   "selection_worst_vs_cpu": worst_sel,
+                                   "card_s": card_s}}))
+
+
+def phase_profiler(torch):
+    """`fluid_benchmark --model resnet --profile` in a temporary
+    directory (module docstring, `profiler`)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.fluid_benchmark"]
+            + PROF_ARGV, cwd=tmp, env=env, capture_output=True, text=True,
+            timeout=PROF_TIMEOUT_S)
+        secs = time.time() - t0
+        check(proc.returncode == 0, "profiler: fluid_benchmark --profile "
+              "failed:\n%s" % proc.stderr[-3000:])
+        lines = proc.stdout.strip().splitlines()
+        record = json.loads(lines[-1])
+        prof = record["profile"]
+        table = open(os.path.join(tmp, prof["table"])).read().splitlines()
+        host = [ln for ln in table if ln.startswith("fluid_benchmark/")]
+        kernels = [ln for ln in table if ln.startswith("cuda::")]
+        check(len(host) == 2 and kernels,
+              "profiler: the table lacks the host events or the CUDA "
+              "kernel rows:\n%s" % "\n".join(table[:20]))
+        with open(os.path.join(tmp, prof["trace"])) as f:
+            trace = json.load(f)
+        check(isinstance(trace.get("traceEvents"), list)
+              and trace["traceEvents"],
+              "profiler: the exported trace has no traceEvents")
+    log("profiler: fluid_benchmark %s ran in %.1f s: %.1f images/s; the "
+        "table has %d host and %d CUDA rows, the trace %d events; top "
+        "rows:\n%s" % (" ".join(PROF_ARGV), secs,
+                       record["examples_per_sec"], len(host),
+                       len(kernels), len(trace["traceEvents"]),
+                       "\n".join(table[3:10])))
+    return record
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5853,7 +6343,20 @@ def main():
     t_phase = time.time()
     phase_seq_ops(torch)
     torch.cuda.empty_cache()
-    log("seq ops phase: %.1f s; the whole script %.1f s"
+    log("seq ops phase: %.1f s" % (time.time() - t_phase))
+    # 18. the Fluid input and I/O surface: ResNet-50 through the reader,
+    # the nested encoder, the profiler
+    t_phase = time.time()
+    k6_entry["reader_launches"] = phase_reader_resnet(torch, pk, fluid)
+    k6_entry["launches"] += k6_entry["reader_launches"]
+    log("reader resnet phase: %.1f s" % (time.time() - t_phase))
+    t_phase = time.time()
+    phase_nested_lod(torch, fluid)
+    torch.cuda.empty_cache()
+    log("nested lod phase: %.1f s" % (time.time() - t_phase))
+    t_phase = time.time()
+    phase_profiler(torch)
+    log("profiler phase: %.1f s; the whole script %.1f s"
         % (time.time() - t_phase, time.time() - t_main))
     # the coverage cases' launches: the count of its kernel on the path
     # at its head dim (no path runs K6-bf16 at a ragged channel edge)

@@ -19,7 +19,12 @@ with one `torch.autograd.grad` over the forward region
 if one is set.  `fluid.set_amp(True)` runs the following programs in
 bf16 mixed precision (ops/registry.py's AMP lists), as the JAX
 package's does.  Ragged sequences go in as `fluid.LoDTensor` feeds
-(`fluid.create_lod_tensor`) of `layers.data(..., lod_level=1)` vars.
+(`fluid.create_lod_tensor`) of `layers.data(..., lod_level=1)` vars, and
+nested ones (two LoD levels) of `lod_level=2` vars.  `layers.py_reader`
+and `create_py_reader_by_data` feed a program from a thread, the double
+buffer staging each batch on the card; `layers.open_files` reads the
+RecordIO files `fluid.recordio_writer` writes; `fluid.profiler` prints
+host and CUDA kernel tables and exports a chrome trace.
 `fluid.ParallelExecutor` trains data-parallel over torch.distributed,
 one process per card, computing the single-device step of the global
 batch (fluid/parallel_executor.py; the collective-mode
@@ -33,8 +38,9 @@ fluid/pipeline.py) fed by the device prefetch queue
 
 from . import (backward, checkpoint, clip, core, data_feeder, executor,
                framework, functionalizer, initializer, io, ir_passes, layers,
-               lod, nets, optimizer, parallel_executor, pipeline, regularizer,
-               selected_rows, sentinel, transpiler, unique_name)
+               lod, nets, optimizer, parallel_executor, pipeline, profiler,
+               reader, recordio_writer, regularizer, selected_rows,
+               sentinel, transpiler, unique_name)
 from .backward import append_backward, gradients
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,
                    GradientClipByNorm, GradientClipByValue,
@@ -70,7 +76,8 @@ __all__ = [
     "backward", "checkpoint", "clip", "contrib", "core", "data_feeder",
     "executor", "framework", "functionalizer", "initializer", "io",
     "ir_passes", "layers", "lod", "nets", "optimizer", "parallel_executor",
-    "pipeline", "regularizer", "selected_rows", "sentinel", "transpiler",
+    "pipeline", "profiler", "reader", "recordio_writer", "regularizer",
+    "selected_rows", "sentinel", "transpiler",
     "unique_name", "ErrorClipByValue", "GradientClipByValue",
     "GradientClipByNorm", "GradientClipByGlobalNorm", "set_gradient_clip",
     "SelectedRowsValue",

@@ -1,13 +1,14 @@
 """DataFeeder, after paddle_tpu/fluid/data_feeder.py: turns a batch of
 reader samples (tuples in feed_list order) into a feed dict, a dense
-array per lod_level-0 var and a LoDTensor per ragged (lod_level-1) var.
-Nested (lod_level-2) feeds and the multi-device split are not ported."""
+array per lod_level-0 var, a LoDTensor per ragged (lod_level-1) var and
+a 2-level LoDTensor per nested (lod_level-2) var, whose samples are
+lists of inner sequences.  The multi-device split is not ported."""
 
 import numpy as np
 
 from . import core
 from .framework import Variable, default_main_program
-from .lod import LoDTensor
+from .lod import LoDTensor, nested_samples_to_lod_tensor
 
 __all__ = ["DataFeeder"]
 
@@ -24,11 +25,11 @@ class DataFeeder:
                             ).global_block().var(each_var)
             if not isinstance(each_var, Variable):
                 raise TypeError("feed_list should be a list of Variable")
-            if each_var.lod_level > 1:
+            if each_var.lod_level > 2:
                 raise NotImplementedError(
-                    "DataFeeder: %r has lod_level %d; nested LoD feeds are "
-                    "not ported to paddle_tpu_torch yet (ROADMAP.md, queue "
-                    "1 item 13)" % (each_var.name, each_var.lod_level))
+                    "DataFeeder: %r has lod_level %d; the runtime carries "
+                    "two LoD levels (inner lengths and outer counts)"
+                    % (each_var.name, each_var.lod_level))
             self.feed_names.append(each_var.name)
             self.feed_lod_level.append(each_var.lod_level)
             self.feed_shapes.append(each_var.shape)
@@ -58,6 +59,8 @@ class DataFeeder:
                         int(np.prod(static))):
                     arr = arr.reshape((-1,) + tuple(static))
                 ret[name] = arr
+            elif lod_level == 2:
+                ret[name] = nested_samples_to_lod_tensor(col, dtype)
             else:
                 seq_lens = [len(s) for s in col]
                 flat = np.concatenate(

@@ -20,9 +20,11 @@ as in the JAX package: a feed may be one (or a torch bf16 tensor), and a
 bf16 fetch comes back as one.
 
 A `LoDTensor` feed (fluid/lod.py) becomes the padded [B, T, ...] tensor
-on the Executor's device plus its `<name>@LOD_LEN` int32 lengths; a
-fetched var with lengths comes back as a packed `LoDTensor`, whatever
-`return_numpy` says, as the JAX Executor returns it.  `prepare_feeds`
+on the Executor's device plus its `<name>@LOD_LEN` int32 lengths (and,
+for a 2-level LoD, its `<name>@LOD_SEG` int32 counts of inner sequences
+per outer group); a fetched var with lengths comes back as a packed
+`LoDTensor` with both levels, whatever `return_numpy` says, as the JAX
+Executor returns it.  `prepare_feeds`
 is that conversion as a function, so a prefetch thread can run it; a
 feed already on the Executor's device (a prefetched batch) is taken as
 it is.
@@ -50,7 +52,7 @@ from .. import resolve_device
 from ..ops import registry
 from . import core, functionalizer
 from .framework import Variable, default_main_program
-from .functionalizer import LOD_LEN_SUFFIX
+from .functionalizer import LOD_LEN_SUFFIX, LOD_SEG_SUFFIX
 from .lod import LoDTensor, pad_lod_feed, unpad_to_lod_tensor
 from .pipeline import FetchFuture
 from .selected_rows import SelectedRowsValue
@@ -213,23 +215,27 @@ def as_tensor(value):
 def prepare_feeds(program, feed, device=None):
     """A feed dict as the step takes it: every value a torch tensor in
     its var's dtype (ints keep their width), a ragged LoDTensor padded to
-    [B, T, ...] with its `<name>@LOD_LEN` lengths beside it; on `device`
-    when given (a tensor already there is taken as it is), else left on
-    the host for a prefetch thread to copy."""
+    [B, T, ...] with its `<name>@LOD_LEN` lengths beside it (and a
+    nested one's `<name>@LOD_SEG` outer counts); on `device` when given
+    (a tensor already there is taken as it is), else left on the host
+    for a prefetch thread to copy."""
     gb = program.global_block()
     feeds = {}
     for name, value in feed.items():
         v = gb._find_var_recursive(name)
         if isinstance(value, LoDTensor) and value.lod():
-            value, lens, seg = pad_lod_feed(value)
-            if seg is not None:
+            if len(value.lod()) > 2:
                 raise NotImplementedError(
-                    "feed %r: nested (lod_level 2) LoD feeds are not "
-                    "ported to paddle_tpu_torch yet (ROADMAP.md, queue "
-                    "1 item 13)" % name)
-            lens = torch.from_numpy(lens)
-            feeds[name + LOD_LEN_SUFFIX] = lens if device is None \
-                else lens.to(device)
+                    "feed %r has %d LoD levels: the runtime carries two "
+                    "LoD levels (inner lengths and outer counts)"
+                    % (name, len(value.lod())))
+            value, lens, seg = pad_lod_feed(value)
+            for suffix, comp in ((LOD_LEN_SUFFIX, lens),
+                                 (LOD_SEG_SUFFIX, seg)):
+                if comp is not None:
+                    comp = torch.from_numpy(comp)
+                    feeds[name + suffix] = comp if device is None \
+                        else comp.to(device)
         t = value if isinstance(value, torch.Tensor) \
             else as_tensor(value)
         if v is not None and v.dtype is not None:
@@ -296,9 +302,11 @@ class Executor:
 
     def _prepare_step(self, program, feed, fetch_list, scope):
         """(step fn, state, feeds, fetch names); the step fn also fetches
-        each fetch's lengths companion (None for a dense var)."""
+        each fetch's lengths and outer-counts companions (None for a
+        dense or a one-level var)."""
         fetch_names = tuple(_fetch_name(f) for f in (fetch_list or []))
-        fetch_ext = fetch_names + tuple(n + LOD_LEN_SUFFIX
+        fetch_ext = fetch_names + tuple(n + s for s in (LOD_LEN_SUFFIX,
+                                                        LOD_SEG_SUFFIX)
                                         for n in fetch_names)
         feeds = self._prepare_feeds(program, feed or {})
         state_names = tuple(persistable_names(program))
@@ -320,22 +328,28 @@ class Executor:
 
     def _finish_fetches(self, fetch_names, fetches, return_numpy):
         """The caller's fetches (`_fetch_out` each) from the step's
-        values and their lengths companions."""
-        n_names = len(fetch_names)
+        values and their companions."""
+        n = len(fetch_names)
         out = []
-        for n, val, lens in zip(fetch_names, fetches[:n_names],
-                                fetches[n_names:]):
+        for name, val, lens, seg in zip(fetch_names, fetches[:n],
+                                        fetches[n:2 * n], fetches[2 * n:]):
             if val is None:
                 raise KeyError("fetch %r: no op of the program wrote it"
-                               % n)
-            out.append(self._fetch_out(n, val, lens, return_numpy))
+                               % name)
+            out.append(self._fetch_out(name, val, lens, seg, return_numpy))
         return out
 
-    def _fetch_out(self, name, val, lens, return_numpy):
+    def _fetch_out(self, name, val, lens, seg, return_numpy):
         """One fetch as the caller gets it: a ragged one as a packed
-        LoDTensor of its real rows."""
+        LoDTensor of its real rows, a nested one with its outer level
+        (the counts companion) in front."""
         if lens is not None:
-            return unpad_to_lod_tensor(as_numpy(val), as_numpy(lens))
+            t = unpad_to_lod_tensor(as_numpy(val), as_numpy(lens))
+            if seg is not None:
+                t.set_recursive_sequence_lengths(
+                    [[int(c) for c in as_numpy(seg)]]
+                    + t.recursive_sequence_lengths())
+            return t
         return as_numpy(val) if return_numpy else val
 
     def _call_step(self, fn, state, feeds, step, what, scale=1):

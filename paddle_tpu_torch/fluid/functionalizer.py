@@ -49,8 +49,11 @@ the companions of its inputs as `<slot>@LOD_LEN` input slots
 (ExecContext.lod_len); a lowering may write `<slot>@LOD_LEN` outputs,
 and every other op's outputs inherit its first ragged input's lengths
 (`_propagate_lod`), except the ops of `_LOD_DROP_OPS`, which reduce over
-time.  A companion lives as long as its var, and is an integer input
-that autograd never differentiates.
+time.  A nested (lod_level-2) var also carries `<name>@LOD_SEG`, the
+int32 [B_outer] counts of its inner sequences per outer group
+(ExecContext.lod_seg), which rides beside `@LOD_LEN` everywhere.  A
+companion lives as long as its var, and is an integer input that
+autograd never differentiates.
 """
 
 import functools
@@ -67,10 +70,18 @@ from .selected_rows import SelectedRowsValue
 __all__ = ["persistable_names", "run_block", "run_sub_block",
            "build_step_fn",
            "build_whole_graph_step_fn", "run_loop", "flags_ad_config",
-           "all_reduce_grads", "LOD_LEN_SUFFIX", "GRAD_BUCKET_BYTES"]
+           "all_reduce_grads", "LOD_LEN_SUFFIX", "LOD_SEG_SUFFIX",
+           "GRAD_BUCKET_BYTES"]
 
 # the companion of a ragged var: its int32 [B] sequence lengths
 LOD_LEN_SUFFIX = "@LOD_LEN"
+# the second companion of a nested (lod_level-2) var: the int32 [B_outer]
+# COUNT of inner sequences in each outer group (counts, not ids, so a
+# trailing empty outer group survives).  Inner-level ops ignore it; the
+# outer-level ops (sub_nested_seq, nested kmax_seq_score,
+# nested_to_outer, sequence_expand with a nested Y) read it.
+LOD_SEG_SUFFIX = "@LOD_SEG"
+_COMPANIONS = (LOD_LEN_SUFFIX, LOD_SEG_SUFFIX)
 
 # ops whose outputs leave the ragged domain (they reduce over time, or
 # are not row views of their inputs): their outputs inherit no lengths.
@@ -119,24 +130,25 @@ def _is_generic_grad(op):
 
 
 def _gather_inputs(op, env):
-    """{slot: [values]}, plus `<slot>@LOD_LEN` for a slot with a ragged
-    input."""
+    """{slot: [values]}, plus `<slot>@LOD_LEN` (and `<slot>@LOD_SEG`) for
+    a slot with a ragged (nested) input."""
     vals = {}
     for slot, names in op.inputs.items():
         vals[slot] = [env.get(n) if n else None for n in names]
-        lens = [env.get(n + LOD_LEN_SUFFIX) if n else None for n in names]
-        if any(n is not None for n in lens):
-            vals[slot + LOD_LEN_SUFFIX] = lens
+        for suf in _COMPANIONS:
+            comp = [env.get(n + suf) if n else None for n in names]
+            if any(c is not None for c in comp):
+                vals[slot + suf] = comp
     return vals
 
 
 def _write_outputs(op, outs, env):
-    """Write a lowering's outputs; an `<slot>@LOD_LEN` output is the
-    companion of that slot's vars."""
+    """Write a lowering's outputs; an `<slot>@LOD_LEN` or
+    `<slot>@LOD_SEG` output is the companion of that slot's vars."""
     for slot, vals in outs.items():
         if not isinstance(vals, (list, tuple)):
             vals = [vals]
-        suffix = LOD_LEN_SUFFIX if slot.endswith(LOD_LEN_SUFFIX) else ""
+        suffix = next((s for s in _COMPANIONS if slot.endswith(s)), "")
         names = op.outputs.get(slot[:len(slot) - len(suffix)], [])
         for name, val in zip(names, vals):
             if name and val is not None:
@@ -145,23 +157,30 @@ def _write_outputs(op, outs, env):
 
 def _propagate_lod(op, env):
     """A LoD-oblivious op (elementwise, fc, activations, ...) keeps the
-    ragged structure: its outputs that got no companion from the
-    lowering take the first ragged input's lengths."""
+    ragged structure: its outputs that got no lengths from the lowering
+    take the first ragged input's lengths, and its outer counts when
+    that input is nested."""
     if op.type in _LOD_DROP_OPS:
         return
-    src = next((env[n + LOD_LEN_SUFFIX] for names in op.inputs.values()
-                for n in names if n and n + LOD_LEN_SUFFIX in env), None)
+    src = next((n for names in op.inputs.values() for n in names
+                if n and n + LOD_LEN_SUFFIX in env), None)
     if src is None:
         return
+    lens = env[src + LOD_LEN_SUFFIX]
+    seg = env.get(src + LOD_SEG_SUFFIX)
     for names in op.outputs.values():
         for n in names:
             if n and n + LOD_LEN_SUFFIX not in env:
-                env[n + LOD_LEN_SUFFIX] = src
+                env[n + LOD_LEN_SUFFIX] = lens
+                if seg is not None and n + LOD_SEG_SUFFIX not in env:
+                    env[n + LOD_SEG_SUFFIX] = seg
 
 
 def _with_companions(names, env):
     """`names` and the companions that env holds for them."""
-    return [m for n in names for m in (n, n + LOD_LEN_SUFFIX) if m in env]
+    return [m for n in names for m in (n,) + tuple(n + s for s in
+                                                   _COMPANIONS)
+            if m in env]
 
 
 def _run_grad_op(op, env, vjp_cache):
@@ -238,7 +257,7 @@ def _drop_plan(ops, keep):
     plan = [[] for _ in ops]
     for n, i in last.items():
         if n not in keep:
-            plan[i] += [n, n + LOD_LEN_SUFFIX]
+            plan[i] += [n] + [n + s for s in _COMPANIONS]
     return plan
 
 
@@ -672,7 +691,7 @@ def build_whole_graph_step_fn(program, feed_names, fetch_names, state_names,
         downstream |= _reads(op)
     aux_names = tuple(sorted(
         m for n in (downstream & forward_writes) | {loss_name}
-        for m in (n, n + LOD_LEN_SUFFIX)))
+        for m in (n,) + tuple(n + s for s in _COMPANIONS)))
 
     segments = [forward_ops] if policy is None else \
         _segments(forward_ops, policy.segment_tags)

@@ -7,15 +7,19 @@ the JAX package.  The Executor turns one into a padded [B, T, ...]
 tensor on its device plus a `<name>@LOD_LEN` int32 [B] lengths
 companion (`pad_lod_feed`, T bucketed to a power of two of at least 16),
 and a ragged fetch back into a packed LoDTensor
-(`unpad_to_lod_tensor`).  Lowerings read the lengths through
-`ExecContext.lod_len` (ops/registry.py).
+(`unpad_to_lod_tensor`).  A 2-level (nested) LoDTensor pads its INNER
+sequences the same way and adds a `<name>@LOD_SEG` int32 [B_outer]
+companion, the count of inner sequences in each outer group.
+Lowerings read the companions through `ExecContext.lod_len` and
+`ExecContext.lod_seg` (ops/registry.py).
 """
 
 import numpy as np
 
 __all__ = ["LoDTensor", "create_lod_tensor", "create_random_int_lodtensor",
            "recursive_seq_lens_to_lod", "lod_to_recursive_seq_lens",
-           "pad_lod_feed", "unpad_to_lod_tensor"]
+           "pad_lod_feed", "unpad_to_lod_tensor",
+           "nested_samples_to_lod_tensor"]
 
 
 def recursive_seq_lens_to_lod(recursive_seq_lens):
@@ -151,6 +155,16 @@ def create_lod_tensor(data, recursive_seq_lens, place=None):
                          "the %d rows" % (recursive_seq_lens,
                                           t.shape()[0]))
     return t
+
+
+def nested_samples_to_lod_tensor(col, dtype):
+    """A batch of nested samples (each a list of inner sequences, each a
+    list or array of rows) -> a 2-level LoDTensor, as DataFeeder feeds a
+    lod_level-2 var."""
+    outer = [len(s) for s in col]
+    inners = [np.asarray(inner, dtype=dtype).reshape(len(inner), -1)
+              for s in col for inner in s]
+    return create_lod_tensor(inners, [outer, [len(i) for i in inners]])
 
 
 def create_random_int_lodtensor(recursive_seq_lens, base_shape, place,

@@ -161,19 +161,21 @@ class _RankExecutor(Executor):
         v = self._var(name[:name.index(GRAD_VAR_SUFFIX)])
         return v is not None and not v.persistable
 
-    def _fetch_out(self, name, val, lens, return_numpy):
+    def _fetch_out(self, name, val, lens, seg, return_numpy):
         g = self._group
         if g.world_size == 1:
-            return super()._fetch_out(name, val, lens, return_numpy)
+            return super()._fetch_out(name, val, lens, seg, return_numpy)
+        # a nested var never reaches a world of several ranks
+        # (_check_nested raises when the executor is built)
         if self._is_activation_grad(name):
             val = val / g.world_size
         if lens is not None:
             return self._gather_lod(
-                super()._fetch_out(name, val, lens, return_numpy))
+                super()._fetch_out(name, val, lens, None, return_numpy))
         if self._has_batch_axis(name):
             # a resolved future hands the host copy: gather on the card
             val = g.all_gather_rows(val.to(g.device))
-        return super()._fetch_out(name, val, None, return_numpy)
+        return super()._fetch_out(name, val, None, None, return_numpy)
 
     def _gather_lod(self, t):
         """Every rank's sequences of a ragged fetch, in rank order."""
@@ -278,6 +280,44 @@ def _check_row_mixing(program):
                     "or run the program on one Executor" % (op.type, name))
 
 
+# the ops that read a nested var's outer groups (the @LOD_SEG counts):
+# their results depend on which outer groups, and which of a group's
+# inner sequences, a rank holds
+_NESTED_OPS = frozenset(["nested_to_outer", "nested_to_outer_grad",
+                         "sub_nested_seq"])
+
+
+def _check_nested(program):
+    """Raise for a nested (lod_level-2) feed or a nested op in a world of
+    several ranks.  The JAX ParallelExecutor shards the @LOD_LEN and
+    @LOD_SEG companions with their payload along the batch axis, which
+    for a nested var is the axis of INNER sequences: an outer group can
+    straddle two ranks, and a rank's counts then no longer sum to its
+    rows.  The port does not split the batch that way, so it raises."""
+    for block in program.blocks:
+        for v in block.vars.values():
+            if v.is_data and (v.lod_level or 0) >= 2:
+                raise NotImplementedError(
+                    "ParallelExecutor: feed %r is nested (lod_level %d): "
+                    "its outer groups would be split across the ranks "
+                    "with their inner sequences, and the per-group "
+                    "counts (@LOD_SEG) would not hold on any rank; run "
+                    "nested programs on one Executor"
+                    % (v.name, v.lod_level))
+        for op in block.ops:
+            # sequence_expand reads Y's outer counts, kmax_seq_score X's
+            slot = {"sequence_expand": "Y", "kmax_seq_score": "X"}.get(
+                op.type)
+            levels = [(getattr(block._find_var_recursive(n), "lod_level",
+                               0) or 0) for n in op.input(slot)] \
+                if slot else []
+            if op.type in _NESTED_OPS or any(lv >= 2 for lv in levels):
+                raise NotImplementedError(
+                    "ParallelExecutor: op %r reads the outer groups of a "
+                    "nested var, which the ranks' shares of the batch "
+                    "split; run nested programs on one Executor" % op.type)
+
+
 class ParallelExecutor:
     """reference parallel_executor.py:32.  `use_cuda` runs on the rank's
     card (CUDAPlace(0) in the rank), else on the CPU; a host without
@@ -340,6 +380,7 @@ class ParallelExecutor:
                                 "FLAGS_selected_gpus=<card>" if use_cuda
                                 else "CPU_NUM=1"))
         if self._group.world_size > 1:
+            _check_nested(self._main_program)
             _check_row_mixing(self._main_program)
         self._apply_gradient_scale_strategy()
         self._broadcast_state()

@@ -23,8 +23,16 @@ a LoDTensor with lengths drawn from randint(3, 12), or from
 randint(S // 4, S + 1) with `--seq_len S`; machine_translation's
 target and label sequences share one draw of lengths (the label is the
 target shifted by one token in the reference's wmt14 reader), where the
-JAX tool draws them apart.  The flags that need parts not ported yet
-(--update_method pserver, --profile) raise NotImplementedError.
+JAX tool draws them apart.  The flag that needs parts not ported yet
+(--update_method pserver) raises NotImplementedError.
+
+`--profile` runs the timed steps under fluid.profiler (trainer 0 of a
+data-parallel run): each step and each batch's synthesis are
+RecordEvents, torch.profiler traces the card, and at the end the sorted
+table (host events and `cuda::` kernel rows) is printed and written to
+`<--profile_dir>/profile.txt`, and the chrome trace, the obs spans
+merged in, to `<--profile_dir>/timeline.json`; the record's `profile`
+names both.
 
 The training pipeline (the JAX tool's flags and semantics):
 `--prefetch_depth N` feeds the loop through `reader.prefetch_to_device`
@@ -68,6 +76,7 @@ bus bandwidth).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -84,7 +93,6 @@ MODELS = ["mnist", "resnet", "vgg", "stacked_dynamic_lstm",
 _WAITS = {
     "update_method": "pserver mode and the RPC layer (ROADMAP.md, queue 1 "
                      "item 12)",
-    "profile": "fluid.profiler (ROADMAP.md, queue 1 item 13)",
 }
 
 # ragged feeds that take another feed's lengths: (var, the var it
@@ -142,7 +150,10 @@ def parse_args(argv=None):
                    help="stage K batches on the card before the timed "
                         "loop and cycle through them (exclusive with "
                         "--prefetch_depth)")
-    p.add_argument("--profile", action="store_true")
+    p.add_argument("--profile", action="store_true",
+                   help="profile the timed steps with fluid.profiler")
+    p.add_argument("--profile_dir", default="fluid_benchmark_profile",
+                   help="--profile's table and trace go here")
     p.add_argument("--use_fake_data", action="store_true", default=True)
     p.add_argument("--trace_steps", type=int, default=0,
                    help="profile this many more steps on trainer 0 "
@@ -159,8 +170,7 @@ def parse_args(argv=None):
 def check_ported(args):
     """Raise NotImplementedError for an option or model that needs parts
     not ported yet: none is ignored quietly."""
-    unported = [("update_method", args.update_method == "pserver"),
-                ("profile", args.profile)]
+    unported = [("update_method", args.update_method == "pserver")]
     for name, used in unported:
         if used:
             raise NotImplementedError(
@@ -358,6 +368,18 @@ def _trace(torch, run_step, steps, on_card):
             "groups_ms": groups, "host_ms": host}
 
 
+def _stop_profile(prof, profile_dir):
+    """Close the --profile session: the table to <dir>/profile.txt (and
+    stdout), the chrome trace with the obs spans to <dir>/timeline.json;
+    {"table": path, "trace": path}."""
+    os.makedirs(profile_dir, exist_ok=True)
+    table = os.path.join(profile_dir, "profile.txt")
+    trace_dir = prof.stop_profiler("total", table)
+    timeline = prof.export_chrome_tracing(
+        trace_dir, os.path.join(profile_dir, "timeline.json"))
+    return {"table": table, "trace": timeline}
+
+
 def benchmark(args, after=None):
     """Train args.model for skip_batch_num + pass_num * iterations steps,
     each on a fresh synthetic batch with its loss fetched, and return
@@ -378,8 +400,14 @@ def benchmark(args, after=None):
     from . import fluid
     from . import reader as reader_mod
     from .flags import FLAGS
+    from .fluid import profiler as prof
     from .fluid.executor import prepare_feeds
     dp = _trainer(args) if data_parallel(args) else None
+    profiling = args.profile and (dp is None or dp[0] == 0)
+
+    def event(name):
+        return prof.RecordEvent(name) if profiling \
+            else contextlib.nullcontext()
     on_card = args.device == "GPU"
     place = fluid.CUDAPlace(0) if on_card else fluid.CPUPlace()
     amp = on_card and not args.no_amp
@@ -500,29 +528,34 @@ def benchmark(args, after=None):
                         torch.cuda.synchronize()
                     if pe is not None:
                         pe.group.reset_counts()
+                    if profiling:
+                        prof.start_profiler("All", output_dir=os.path.join(
+                            args.profile_dir, "trace"))
                     t0 = time.perf_counter()
                 t_step = time.perf_counter()
-                feed = (staged[i % len(staged)] if staged
-                        else next(feeds_it) if feeds_it is not None
-                        else stalled_batch())
-                if args.async_depth > 0 and args.device_loop <= 0:
-                    pending.append(run_step(feed, as_future=True))
-                    while len(pending) > args.async_depth:
-                        last = drain_oldest()
-                else:
-                    # --fetch_every N: the first warm step takes the
-                    # no-fetch step function, so both are built before
-                    # the clock starts
-                    if args.fetch_every <= 1 or args.device_loop > 0:
-                        do_fetch = True
-                    elif i < n_warm:
-                        do_fetch = not (i == 0 and n_warm >= 2)
+                with event("fluid_benchmark/feed"):
+                    feed = (staged[i % len(staged)] if staged
+                            else next(feeds_it) if feeds_it is not None
+                            else stalled_batch())
+                with event("fluid_benchmark/step"):
+                    if args.async_depth > 0 and args.device_loop <= 0:
+                        pending.append(run_step(feed, as_future=True))
+                        while len(pending) > args.async_depth:
+                            last = drain_oldest()
                     else:
-                        do_fetch = ((i + 1) % args.fetch_every == 0
-                                    or i == n_warm + n_timed - 1)
-                    outs = run_step(feed, fetch if do_fetch else [])
-                    if do_fetch:
-                        last = read_loss(outs)
+                        # --fetch_every N: the first warm step takes the
+                        # no-fetch step function, so both are built before
+                        # the clock starts
+                        if args.fetch_every <= 1 or args.device_loop > 0:
+                            do_fetch = True
+                        elif i < n_warm:
+                            do_fetch = not (i == 0 and n_warm >= 2)
+                        else:
+                            do_fetch = ((i + 1) % args.fetch_every == 0
+                                        or i == n_warm + n_timed - 1)
+                        outs = run_step(feed, fetch if do_fetch else [])
+                        if do_fetch:
+                            last = read_loss(outs)
                 if i >= n_warm:
                     examples += batch * per_call
                     step_s.append(time.perf_counter() - t_step)
@@ -536,6 +569,8 @@ def benchmark(args, after=None):
         dt = time.perf_counter() - t0
         collectives = None
         extra = {}
+        if profiling:
+            extra["profile"] = _stop_profile(prof, args.profile_dir)
         if pe is not None:
             g = pe.group
             collectives = {k: {"calls": g.counts[k] / (n_timed * per_call),

@@ -25,7 +25,7 @@ import random
 import threading
 import time
 
-__all__ = ["Span", "trace", "new_trace_id", "enabled",
+__all__ = ["Span", "trace", "new_trace_id", "enabled", "chrome_events",
            "set_enabled", "configure", "recent_spans", "spans_for_trace",
            "clear", "stats", "add_span"]
 
@@ -235,3 +235,31 @@ def spans_for_trace(trace_id):
     """Every buffered span of one trace, oldest first — the span tree a
     reply-visible trace_id resolves to."""
     return [s.to_dict() for s in list(_ring) if s.trace_id == trace_id]
+
+
+def chrome_events(spans=None, pid=None):
+    """Span dicts as chrome-trace ``X`` events, one thread row per span
+    kind, so they merge into the torch.profiler timeline
+    (fluid/profiler.py export_chrome_tracing)."""
+    import os
+    if spans is None:
+        spans = recent_spans()
+    pid = os.getpid() if pid is None else pid
+    out = [{"ph": "M", "pid": pid, "name": "process_name",
+            "args": {"name": "paddle_tpu_torch obs spans"}}]
+    tids = {}
+    for s in spans:
+        kind = s.get("kind") or "obs"
+        tid = tids.get(kind)
+        if tid is None:
+            tid = tids[kind] = len(tids) + 1
+            out.append({"ph": "M", "pid": pid, "tid": tid,
+                        "name": "thread_name",
+                        "args": {"name": "obs:%s" % kind}})
+        args = dict(s.get("attrs") or {})
+        if s.get("trace_id"):
+            args["trace_id"] = s["trace_id"]
+        out.append({"ph": "X", "pid": pid, "tid": tid,
+                    "name": s["name"], "ts": s["ts"] * 1e6,
+                    "dur": s["dur_ms"] * 1e3, "args": args})
+    return out

@@ -130,6 +130,13 @@ class ExecContext:
         vs = self._inputs.get(slot + "@LOD_LEN")
         return vs if vs else [None] * len(self._inputs.get(slot, []))
 
+    def lod_seg(self, slot):
+        """The int32 [B_outer] counts of inner sequences per outer group
+        of a nested (lod_level-2) input, or None
+        (fluid/functionalizer.py LOD_SEG_SUFFIX)."""
+        vs = self._inputs.get(slot + "@LOD_SEG")
+        return vs[0] if vs else None
+
     def generator(self):
         """A torch.Generator on the context's device, seeded from the
         op's `seed` attr, the program's random seed, the op's uid and the
@@ -380,8 +387,8 @@ def _amp_cast(vals, to_dtype):
 
 def _amp_context(od, ctx):
     """The context the lowering sees: under AMP, a white op's float
-    inputs in bf16 and a black op's in fp32 (`@LOD_LEN` length companions
-    are never cast); otherwise `ctx` itself."""
+    inputs in bf16 and a black op's in fp32 (the `@LOD_LEN` and `@LOD_SEG`
+    companions are never cast); otherwise `ctx` itself."""
     if not _AMP["enabled"]:
         return ctx
     if od.type in AMP_WHITE:
@@ -390,7 +397,7 @@ def _amp_context(od, ctx):
         to = torch.float32
     else:
         return ctx
-    inputs = {slot: vals if slot.endswith("@LOD_LEN")
+    inputs = {slot: vals if slot.endswith(("@LOD_LEN", "@LOD_SEG"))
               else _amp_cast(vals, to)
               for slot, vals in ctx._inputs.items()}
     return ExecContext(ctx.op, inputs, step=ctx.step, seed=ctx.seed,

@@ -5,7 +5,9 @@ sequence_expand, sequence_pad, sequence_conv, the flat sequence ops
 reshape), the recurrent family (lstm, lstmp, gru, gru_unit, lstm_unit,
 simple_rnn, attention_lstm) and the fused recurrent ops (fusion_lstm,
 fusion_gru, fusion_seqconv_eltadd_relu, fusion_seqexpand_concat_fc,
-fused_embedding_fc_lstm).
+fused_embedding_fc_lstm) and the nested (2-level LoD) ops
+(nested_to_outer and its gradient, attach_lod, kmax_seq_score,
+sub_nested_seq).
 
 A ragged var is a padded [B, T, ...] tensor plus its int32 [B] lengths
 (`ctx.lod_len`, fluid/functionalizer.py).  The JAX package runs each
@@ -14,7 +16,14 @@ masks; the port runs the same step in a Python loop over T, each step a
 handful of torch ops on [B, H] tensors, differentiated by autograd
 through the registry's make_forward_and_vjp like every other op.
 Outputs at padded positions are zero.
+
+A nested var's inner sequences are the rows of that encoding; its
+`@LOD_SEG` companion (`ctx.lod_seg`) counts them per outer group.  The
+sizes that depend on the counts (the most sentences in a group, the
+rows a selection keeps) are read on the host once per op, as
+sequence_mask(maxlen=-1) reads max(x); the data stays on the device.
 """
+import numpy as np
 import torch
 
 from .math_ops import _promote, jabs, jmax, seq_mask
@@ -252,10 +261,13 @@ def _conform(out, out_lens, Ty):
 @register_op("sequence_expand")
 def _sequence_expand(ctx):
     """A dense X [B, D...] tiled along ragged Y's time axis ([B, Ty, D...],
-    masked to Y's lengths, carrying them); a ragged X repeated k = By / Bx
-    times a row (Y's rows a static multiple of X's: the beam-style
-    case), keeping its own lengths, laid out at Y's padded width.  Y's
-    nested per-group counts (the @LOD_SEG path) are not ported."""
+    masked to Y's lengths, carrying them); a ragged X repeated per
+    sequence, keeping its own lengths, laid out at Y's padded width.
+    With a nested Y (its @LOD_SEG counts) X's sequence i repeats
+    counts[i] times, the reference's ref_level expansion
+    (sequence_expand_op.h); the counts are read on the host, as the
+    output's row count depends on them.  Otherwise Y's rows must be a
+    static multiple k of X's (the beam-style case: each row k times)."""
     x, y = ctx.input("X"), ctx.input("Y")
     ylens = _lens_or_full(ctx.lod_len("Y"), y.shape[0], y.shape[1],
                           y.device)
@@ -265,18 +277,27 @@ def _sequence_expand(ctx):
         m = _expand_mask(seq_mask(ylens, T, x.dtype), out)
         return {"Out": out * m, "Out@LOD_LEN": ylens}
     Bx, By = x.shape[0], y.shape[0]
-    if By % Bx:
+    xlens = _lens_or_full(ctx.lod_len("X"), Bx, x.shape[1], x.device)
+    seg = ctx.lod_seg("Y")
+    if seg is not None:
+        counts = [int(c) for c in seg.tolist()]
+        if len(counts) != Bx or sum(counts) != By:
+            raise ValueError(
+                "sequence_expand: Y's outer counts %r do not match X's %d "
+                "sequences / Y's %d rows" % (counts, Bx, By))
+        reps = torch.tensor(counts, dtype=torch.int64, device=x.device)
+        out = torch.repeat_interleave(x, reps, dim=0, output_size=By)
+        out_lens = torch.repeat_interleave(xlens, reps, dim=0,
+                                           output_size=By)
+    elif By % Bx:
         raise NotImplementedError(
             "sequence_expand of a ragged X needs Y's rows to be a multiple "
-            "of X's (got %d and %d); nested Y counts (@LOD_SEG) are not "
-            "ported to paddle_tpu_torch yet (ROADMAP.md, queue 1 item 13)"
-            % (Bx, By))
-    k = By // Bx
-    xlens = ctx.lod_len("X")
-    out = torch.repeat_interleave(x, k, dim=0)
-    out_lens = torch.repeat_interleave(xlens, k, dim=0) \
-        if xlens is not None else torch.full(
-            (By,), x.shape[1], dtype=torch.int32, device=x.device)
+            "of X's (got %d and %d), or a nested Y carrying per-sequence "
+            "repeat counts" % (Bx, By))
+    else:
+        k = By // Bx
+        out = torch.repeat_interleave(x, k, dim=0)
+        out_lens = torch.repeat_interleave(xlens, k, dim=0)
     out, out_lens = _conform(out, out_lens, y.shape[1])
     m = _expand_mask(seq_mask(out_lens, out.shape[1], out.dtype), out)
     return {"Out": out * m, "Out@LOD_LEN": out_lens}
@@ -839,3 +860,138 @@ def _fused_embedding_fc_lstm(ctx):
                                  ctx.attr("is_reverse", False))
     return {"Hidden": hidden, "Cell": cell, "XX": xx,
             "Hidden@LOD_LEN": lens, "Cell@LOD_LEN": lens}
+
+
+# ---------------------------------------------------------------------------
+# nested (2-level) LoD
+# ---------------------------------------------------------------------------
+
+def _group_slots(counts, device):
+    """(group, slot) int64 index vectors over the inner sequences of
+    outer groups with `counts` (host ints): inner sequence j of group g
+    sits at (g, j)."""
+    g = [gi for gi, c in enumerate(counts) for _ in range(c)]
+    j = [ji for c in counts for ji in range(c)]
+    return (torch.tensor(g, dtype=torch.int64, device=device),
+            torch.tensor(j, dtype=torch.int64, device=device))
+
+
+def _nested_counts(ctx, slot, what):
+    seg = ctx.lod_seg(slot)
+    if seg is None:
+        raise ValueError("%s needs a nested (lod_level-2) input" % what)
+    return seg, [int(c) for c in seg.tolist()]
+
+
+@register_op("nested_to_outer")
+def _nested_to_outer(ctx):
+    """Re-batch a nested var for iteration over its OUTER level: the
+    inner sequences [N, T, ...], grouped by the counts [B_outer], become
+    [B_outer, S_max, T, ...] (zero-padded slots) with the inner-length
+    matrix [B_outer, S_max]; both carry the counts as their lengths, so
+    a DynamicRNN over them steps through the sentences of each group
+    (the v2 SubsequenceInput).  The gradient is nested_to_outer_grad."""
+    x = ctx.input("X")
+    seg, counts = _nested_counts(ctx, "X", "nested_to_outer")
+    lens = _lens_or_full(ctx.lod_len("X"), x.shape[0], x.shape[1], x.device)
+    B, S = len(counts), max(counts, default=0)
+    g, j = _group_slots(counts, x.device)
+    out = x.new_zeros((B, S) + tuple(x.shape[1:]))
+    out[g, j] = x
+    lmat = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    lmat[g, j] = lens.to(torch.int32)
+    seg = seg.to(torch.int32)
+    return {"Out": out, "Out@LOD_LEN": seg, "OutLens": lmat,
+            "OutLens@LOD_LEN": seg}
+
+
+@register_op("nested_to_outer_grad")
+def _nested_to_outer_grad(ctx):
+    """The explicit gradient of nested_to_outer: the outer-major
+    cotangent [B_outer, S_max, T, ...] back to the inner rows [N, T,
+    ...]."""
+    x, d_out = ctx.input("X"), ctx.input("GRAD:Out")
+    _, counts = _nested_counts(ctx, "X", "nested_to_outer_grad")
+    if d_out is None:
+        return {"GRAD:X": torch.zeros_like(x)}
+    g, j = _group_slots(counts, d_out.device)
+    return {"GRAD:X": d_out[g, j].to(x.dtype)}
+
+
+@register_op("attach_lod")
+def _attach_lod(ctx):
+    """Out = X with Lens attached as its lengths: a dense per-step slice
+    of a recurrent block becomes a ragged var again (the inner-sequence
+    view of a SubsequenceInput step)."""
+    return {"Out": ctx.input("X"),
+            "Out@LOD_LEN": ctx.input("Lens").to(torch.int32)}
+
+
+@register_op("kmax_seq_score")
+def _kmax_seq_score(ctx):
+    """The indices of the beam_size highest scores in each sequence's
+    real prefix, [B, beam_size] int64, unfilled slots -1 (the reference's
+    KmaxSeqScoreLayer).  For a nested input (a score per inner sequence,
+    its first element) each outer group's top inner sequences, indices
+    local to the group, ranked on the host with numpy's argsort as the
+    JAX package ranks them (the reference layer is host-side too)."""
+    x = ctx.input("X")
+    if x.dim() == 3:
+        x = x[..., 0]
+    k = int(ctx.attr("beam_size", 1))
+    if ctx.lod_seg("X") is not None:
+        _, counts = _nested_counts(ctx, "X", "kmax_seq_score")
+        scores = x[:, 0].detach().cpu().numpy()
+        out = np.full((len(counts), k), -1, np.int64)
+        start = 0
+        for gi, c in enumerate(counts):
+            order = np.argsort(-scores[start:start + c])[:k]
+            out[gi, :len(order)] = order
+            start += c
+        return {"Out": torch.from_numpy(out).to(x.device)}
+    B, T = x.shape
+    lens = _lens_or_full(ctx.lod_len("X"), B, T, x.device)
+    valid = torch.arange(T, device=x.device)[None, :] < lens[:, None]
+    masked = torch.where(valid, x, torch.full_like(x, -float("inf")))
+    idx = torch.argsort(-masked, dim=1, stable=True)[:, :k]
+    slot = torch.arange(idx.shape[1], device=x.device)[None, :]
+    idx = torch.where(slot < lens[:, None], idx, torch.full_like(idx, -1))
+    if idx.shape[1] < k:
+        idx = torch.cat([idx, torch.full((B, k - idx.shape[1]), -1,
+                                         dtype=idx.dtype, device=x.device)],
+                        dim=1)
+    return {"Out": idx.to(torch.int64)}
+
+
+@register_op("sub_nested_seq")
+def _sub_nested_seq(ctx):
+    """Select inner sequences of a nested X per outer group by LOCAL
+    indices [B_outer, K] (-1 skipped; the reference's
+    SubNestedSequenceLayer after kmax_seq_score): the selected rows,
+    their lengths, and per group the count selected as Out@LOD_SEG.  The
+    indices and counts are read on the host; the rows are gathered on
+    X's device."""
+    x = ctx.input("X")
+    _, counts = _nested_counts(ctx, "X", "sub_nested_seq")
+    idx = ctx.input("Indices").detach().cpu().numpy().astype(np.int64)
+    lens = _lens_or_full(ctx.lod_len("X"), x.shape[0], x.shape[1], x.device)
+    if len(idx) != len(counts):
+        raise ValueError("sub_nested_seq: Indices rows (%d) != outer "
+                         "groups (%d)" % (len(idx), len(counts)))
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    rows, out_counts = [], []
+    for gi in range(len(idx)):
+        picked = [int(i) for i in idx[gi] if i >= 0]
+        bad = [i for i in picked if i >= counts[gi]]
+        if bad:
+            raise ValueError(
+                "sub_nested_seq: index %d out of range for outer group %d "
+                "with %d inner sequences" % (bad[0], gi, counts[gi]))
+        rows += [int(starts[gi]) + i for i in picked]
+        out_counts.append(len(picked))
+    rows = torch.tensor(rows, dtype=torch.int64, device=x.device)
+    return {"Out": torch.index_select(x, 0, rows),
+            "Out@LOD_LEN": torch.index_select(lens, 0, rows).to(
+                torch.int32),
+            "Out@LOD_SEG": torch.tensor(out_counts, dtype=torch.int32,
+                                        device=x.device)}

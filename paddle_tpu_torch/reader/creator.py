@@ -1,7 +1,6 @@
 """Reader creators, after paddle_tpu/reader/creator.py (reference
-python/paddle/reader/creator.py): readers over a numpy array and over a
-text file.  The recordio creator needs the recordio scanner, which is
-not ported (ROADMAP.md, queue 1 item 13), and raises."""
+python/paddle/reader/creator.py): readers over a numpy array, a text
+file and RecordIO files."""
 
 __all__ = ["np_array", "text_file", "recordio"]
 
@@ -30,9 +29,17 @@ def text_file(path):
 
 
 def recordio(paths, buf_size=100):
-    """A reader over recordio files (reference creator.py:60): needs the
-    recordio scanner, not ported to paddle_tpu_torch yet."""
-    raise NotImplementedError(
-        "reader.creator.recordio: the recordio scanner and "
-        "fluid.recordio_writer are not ported to paddle_tpu_torch yet "
-        "(ROADMAP.md, queue 1 item 13)")
+    """A reader over RecordIO file(s) (reference creator.py:60): each
+    record as the bytes written, e.g. by fluid.recordio_writer.  `paths`
+    is a list or a comma-separated string."""
+    if isinstance(paths, str):
+        paths = paths.split(",")
+
+    def reader():
+        from ..native import RecordIOScanner
+        for path in paths:
+            with RecordIOScanner(path) as s:
+                for record in s:
+                    yield record
+
+    return reader

@@ -154,8 +154,8 @@ def _check_lengths(batch, seq_len):
     # --parallel, nccl2 and the pipeline flags are ported: what still
     # raises beside them
     ("--parallel", "--update_method", "pserver"),
-    ("--update_method", "pserver"), ("--profile",)],
-    ids=["parallel", "pserver", "profile"])
+    ("--update_method", "pserver")],
+    ids=["parallel", "pserver"])
 def test_unported_flags_and_models_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fb.benchmark(fb.parse_args(_cpu("mnist") + list(extra)))

@@ -193,13 +193,16 @@ def test_executor_defaults_to_the_card_and_never_falls_back(monkeypatch):
 
 
 def test_unported_features_raise():
-    """The nested (lod_level 2) feed path still raises.  Sparse embedding
-    grads and gradient clipping are ported: they are held against the
-    JAX package in test_torch_sparse_embedding.py and test_torch_clip.py."""
+    """A feed of more than two LoD levels still raises (the runtime
+    carries inner lengths and outer counts).  Nested (lod_level 2) feeds,
+    sparse embedding grads and gradient clipping are ported: they are
+    held against the JAX package in test_torch_nested_lod.py,
+    test_torch_sparse_embedding.py and test_torch_clip.py."""
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
+        seq = tfluid.layers.data("seq", shape=[1], lod_level=3)
         with pytest.raises(NotImplementedError):
-            tfluid.layers.data("seq", shape=[1], lod_level=2)
+            tfluid.DataFeeder([seq])
 
 
 def test_fetch_of_an_unwritten_var_raises():

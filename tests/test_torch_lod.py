@@ -138,17 +138,18 @@ def test_data_feeder_matches_jax():
 
 
 def test_nested_lod_is_not_ported():
+    """Two LoD levels are ported (tests/test_torch_nested_lod.py); a feed
+    of three is not: the runtime carries inner lengths and outer counts
+    only, so it raises rather than drop a level."""
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tfluid.layers.data("x", shape=[1], lod_level=2)
-        x = tfluid.layers.data("x", shape=[1], lod_level=1)
+        x = tfluid.layers.data("x", shape=[1], lod_level=2)
         out = tfluid.layers.scale(x, 2.0)
-    nested = tfluid.create_lod_tensor(np.ones((3, 1), np.float32),
-                                      [[1, 1], [2, 1]], None)
-    with pytest.raises(NotImplementedError, match="nested"):
+    deep = tfluid.create_lod_tensor(np.ones((3, 1), np.float32),
+                                    [[1], [1, 1], [2, 1]], None)
+    with pytest.raises(NotImplementedError, match="two LoD levels"):
         tfluid.Executor(tfluid.CPUPlace()).run(
-            main, feed={"x": nested}, fetch_list=[out],
+            main, feed={"x": deep}, fetch_list=[out],
             scope=tfluid.Scope())
 
 
